@@ -1,0 +1,141 @@
+"""Build, load and launch the package's hand-written CUDA kernels.
+
+The sources in ``../csrc/*.cu`` compile with ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes``.  The build runs at the first
+launch, never at import, into ``_build/<hash of sources and flags>/`` inside
+the package (listed in ``.gitignore``), so a checkout builds everything it
+runs from its own sources.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and counts
+the launches that went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libirsde_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> tuple:
+    """Compile the library if the current sources have none yet.
+
+    Returns ``(path, seconds spent compiling)``; the compiler's register and
+    shared-memory report goes to ``ptxas.log`` beside the library.
+    """
+    lib = library_path()
+    if lib.is_file():
+        return lib, 0.0
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    (lib.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    lib = ctypes.CDLL(str(build()[0]))
+    lib.irsde_error_string.argtypes = [ctypes.c_int]
+    lib.irsde_error_string.restype = ctypes.c_char_p
+    lib.irsde_la_ctx_workspace.argtypes = [ctypes.c_int] * 3
+    lib.irsde_la_ctx_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count.
+
+    ``launches`` goes up by one for each launch that the CUDA runtime
+    accepted, and nowhere else.  ``source`` is the file in the repository,
+    ``replaces`` the TPU kernel it ports (``file:line``).
+    """
+
+    def __init__(self, symbol: str, argtypes: list, source: str, replaces: str):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(load_library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> None:
+        err = self._fn(*args)
+        if err != 0:
+            msg = load_library().irsde_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def current_stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# C dtype codes shared with csrc/common.cuh
+DTYPE_F32 = 0
+DTYPE_BF16 = 1
+
+
+def dtype_code(dtype) -> int:
+    if dtype == torch.float32:
+        return DTYPE_F32
+    if dtype == torch.bfloat16:
+        return DTYPE_BF16
+    raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")

@@ -1,0 +1,106 @@
+"""High-level restoration sampling API (PyTorch).
+
+Counterpart of ``image_restoration_sde_tpu/sampling.py``: start from the
+noised LQ image (``noise_state``) and run the chosen reverse sampler.  Any
+image size runs as it is; ``pad_to_bucket`` / ``unpad`` reflect-pad to a
+bucket multiple and crop back, as the JAX package does for its compiled
+shapes.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from .sde import IRSDE, samplers
+from .sde.rng import GeneratorLike, is_generator_batch
+
+SAMPLING_MODES = ("sde", "posterior", "ode")
+
+
+def cast_f32_leaves(tensors: Mapping[str, torch.Tensor], dtype) -> dict:
+    """Cast every float32 tensor of a parameter mapping to ``dtype``; other
+    tensors pass through."""
+    return {k: v.to(dtype) if v.dtype == torch.float32 else v for k, v in tensors.items()}
+
+
+def _sample_chunk(batch: int, chunk: Optional[int]) -> int:
+    """Sub-batch size the sampler loops over.  None or <= 0: the whole batch.
+
+    Otherwise the largest divisor of ``batch`` not above ``chunk``, unless
+    that is below half of ``chunk`` (a batch coprime to it): then the whole
+    batch."""
+    if chunk is None or chunk <= 0:
+        return batch
+    want = chunk
+    while chunk > 1 and batch % chunk:
+        chunk -= 1
+    if chunk < max(1, want // 2):
+        return batch
+    return min(chunk, batch)
+
+
+def make_restoration_sampler(
+    sde: IRSDE,
+    net: nn.Module,  # net(xt, cond, tvec) -> noise, NHWC
+    mode: str = "posterior",
+    steps: Optional[int] = None,
+    chunk: Optional[int] = None,
+    cast_params=None,
+) -> Callable:
+    """Returns ``sample(lq, gen) -> restored`` (NHWC float32).
+
+    ``gen`` is one ``torch.Generator`` for the batch, or one per sample (then
+    sample i's noise depends only on generator i).  ``chunk`` splits the
+    batch into sub-batches run one after the other; the default runs the
+    whole batch at once.  ``cast_params`` runs the net with its float32
+    parameters cast to that dtype, once per call."""
+    if mode not in SAMPLING_MODES:
+        raise ValueError(f"sampling mode {mode!r}; options: {SAMPLING_MODES}")
+
+    def sample_one(noise_fn, lq, gen):
+        noisy = sde.noise_state(gen, lq)
+        if mode == "sde":
+            return samplers.reverse_sde(sde, noise_fn, noisy, lq, gen, steps=steps)
+        if mode == "posterior":
+            return samplers.reverse_posterior(sde, noise_fn, noisy, lq, gen, steps=steps)
+        return samplers.reverse_ode(sde, noise_fn, noisy, lq, steps=steps)
+
+    @torch.inference_mode()
+    def sample(lq: torch.Tensor, gen: GeneratorLike) -> torch.Tensor:
+        noise_fn = net
+        if cast_params is not None:
+            params = cast_f32_leaves({**dict(net.named_parameters()), **dict(net.named_buffers())}, cast_params)
+
+            def noise_fn(x, mu, tvec):
+                return functional_call(net, params, (x, mu, tvec))
+
+        B = lq.shape[0]
+        c = _sample_chunk(B, chunk)
+        outs = [
+            sample_one(noise_fn, lq[i : i + c], gen[i : i + c] if is_generator_batch(gen) else gen)
+            for i in range(0, B, c)
+        ]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    return sample
+
+
+def pad_to_bucket(img: np.ndarray, multiple: int = 64) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Reflect-pad NHWC (bottom/right) to a bucket multiple; returns the
+    original (H, W) for cropping back."""
+    H, W = img.shape[1:3]
+    ph = (multiple - H % multiple) % multiple
+    pw = (multiple - W % multiple) % multiple
+    if ph or pw:
+        img = np.pad(img, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
+    return img, (H, W)
+
+
+def unpad(img, hw: Tuple[int, int]):
+    H, W = hw
+    return img[:, :H, :W, :]
