@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Where the time of one sampler step goes, on one NVIDIA GPU.
+
+    python3 chip_profile.py
+
+For each of the port's two paths (the configurations of ``chip_smoke.py``:
+IR-SDE deraining, ConditionalUNet at batch 8, 128 px; Refusion latent
+dehazing, ConditionalNAFNet on the 64x64x8 latents of batch 4 at 512 px),
+with random weights made from a seed, bf16 score net:
+
+- wall time per step: host clock around ``STEPS`` reverse steps that end
+  in ``torch.cuda.synchronize()``, after a warm run of the same length;
+- host enqueue time per net forward: host clock around one forward with
+  no synchronisation (the card runs behind);
+- device time per step by kernel, and the device's busy share (summed
+  kernel time over wall time), from ``torch.profiler`` over the same
+  steps;
+- the latent path's compressor encode and decode times, and the host time
+  to enqueue the NAFNet's fused 28-block level.
+
+Without CUDA it exits at once.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SEED, STEPS = 0, 10
+
+
+def profile_steps(name, net, xt, mu, sde, steps):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_restoration_sde_tpu_torch.sde import samplers
+
+    def run():
+        return samplers.reverse_posterior(sde, net, xt, mu, None, steps=steps,
+                                          noise_seq=torch.zeros(steps, *xt.shape, device=xt.device))
+
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        tvec = torch.full((xt.shape[0],), 50, device=xt.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net(xt, mu, tvec)
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / steps  # ms per step
+    busy = sum(kernels.values())
+    print(f"[{name}] wall {wall:.3f} ms/step; host enqueue {enqueue:.3f} ms/forward; device busy "
+          f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall, idle {100 - 100 * busy / wall:.1f}%)")
+    for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"[{name}]   {v:8.4f} ms/step {100 * v / busy:5.1f}%  {k[:110]}")
+
+
+def fused_site_enqueue(net, batch, dev, reps=20):
+    """Host time to enqueue the NAFNet's fused level (weight gathering,
+    pointer table, time modulation and the K3 launch), median of ``reps``,
+    with the card idle before each."""
+    import statistics
+
+    import torch
+
+    from image_restoration_sde_tpu_torch.models.nafnet import FUSE_MIN_BLOCKS
+
+    level = max(range(len(net.encoders)), key=lambda i: len(net.encoders[i]))
+    blocks = net.encoders[level]
+    assert len(blocks) >= FUSE_MIN_BLOCKS
+    C = blocks[0].conv3.out_channels
+    x = torch.zeros(batch, 8, 8, C, dtype=net.dtype, device=dev).permute(0, 3, 1, 2)
+    times = []
+    with torch.inference_mode():
+        t = net.time_mlp(torch.full((batch,), 50.0, device=dev))
+        for _ in range(reps + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net._block_run(blocks, x, t)
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    print(f"[latent] fused level ({len(blocks)} blocks, C={C}) host enqueue {statistics.median(times[3:]):.3f} ms "
+          f"per forward (median of {reps})")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import yaml
+
+    sys.path.insert(0, REPO)
+    from image_restoration_sde_tpu_torch.models import ConditionalNAFNet, ConditionalUNet, UNet, init_params_
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+
+    dev = torch.device("cuda", 0)
+
+    def load(*path):
+        with open(os.path.join(REPO, "configs", *path)) as f:
+            return yaml.safe_load(f)
+
+    def seeded(net):
+        return init_params_(net, torch.Generator().manual_seed(SEED)).to(dev).eval()
+
+    def make_sde(opt):
+        s = opt["sde"]
+        return IRSDE.create(s["max_sigma"], s["T"], s["schedule"], s["eps"], device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    opt = load("deraining", "test", "ir-sde.yml")
+    unet = seeded(ConditionalUNet(**opt["network_G"]["setting"], dtype=torch.bfloat16))
+    lq = torch.rand(8, 128, 128, 3, generator=gen, device=dev)
+    profile_steps("deraining", unet, lq + 0.1, lq, make_sde(opt), STEPS)
+    del unet
+
+    opt = load("latent-dehazing", "test", "nasde.yml")
+    naf = seeded(ConditionalNAFNet(**opt["network_G"]["setting"], dtype=torch.bfloat16))
+    compressor = seeded(UNet(**opt["network_L"]["setting"]))
+    img = torch.rand(4, 512, 512, 3, generator=gen, device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latent, hidden = compressor.encode(img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        compressor.decode(latent, hidden)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        compressor.decode(latent, hidden)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    print(f"[latent] compressor at batch 4, 512 px, f32: encode {1e3 * (t1 - t0):.2f} ms (cold), "
+          f"decode {1e3 * (t2 - t1):.2f} ms (cold), {1e3 * (t3 - t2):.2f} ms (warm)")
+    profile_steps("latent", naf, latent + 0.1, latent, make_sde(opt), STEPS)
+    fused_site_enqueue(naf, latent.shape[0], dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,26 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is IR-SDE deraining with ConditionalUNet(nf=64, depth=4) in
-bf16 with float32 parameters, 128 px images at batch 8, the cosine T=100
-schedule and 100-step reverse sampling (configs/deraining/test/ir-sde.yml).
-Weights are random, made from a seed.  Phases, each printing its lines:
+Two paths, each at full width with random weights made from a seed:
+
+- IR-SDE deraining (configs/deraining/test/ir-sde.yml): ConditionalUNet
+  (nf=64, depth=4) in bf16 with float32 parameters, 128 px images at
+  batch 8, cosine T=100 schedule, 100-step reverse sampling;
+- Refusion latent dehazing (configs/latent-dehazing/test/nasde.yml): the
+  compressor UNet (ch 8, ch_mult [4, 8, 8, 16], embed_dim 8, float32)
+  encodes 512 px images to 64x64x8 latents; ConditionalNAFNet (width 64,
+  enc [1, 1, 1, 28], mid 1, dec [1, 1, 1, 1], bf16 with float32 parameters)
+  runs 100 reverse steps on them, its 28-block level fused (kernel K3);
+  the compressor decodes with the LQ skips.
+
+Phases, each printing its lines:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
-3. kernels: each kernel against its plain PyTorch version at the path's
-   shapes, float32 and bfloat16, with both times (CUDA events);
-4. net: one forward of the full-width net, kernel path against plain path;
-   and a 100-step float32 chain on a small input, kernel against plain;
-5. main path: the sampler serves two posterior batches of 8, one sde batch
-   of 8 and one odd-size single image; the kernel launch counts must be
-   exactly 18 (K1) and 9 (K2a, K2b) per net call.
+3. kernels: each kernel against its plain PyTorch version at the paths'
+   shapes, float32 and bfloat16, with both times (CUDA events), the time
+   of one PyTorch call computing the same function where there is one, and
+   the least time the card could take (bytes or operations at the H100's
+   published peaks); K3 also block by block, as chained one-block
+   launches that must end bit-equal to the one launch;
+4. net: one forward of the full-width UNet, kernel path against plain
+   path; and a 100-step float32 chain on a small input, kernel against plain;
+5. main path: the deraining sampler serves two posterior batches of 8, one
+   sde batch of 8 and one odd-size single image; per net call exactly 18
+   K1 and 9 K2a, K2b launches, and no K3;
+6. latent net: one forward of the full-width latent NAFNet and one of the
+   deraining Refusion NAFNet (configs/deraining/test/refusion.yml, 128 px,
+   batch 8), and the compressor's encode and decode at batch 4, 512 px and
+   at 704x1024, each kernel path against plain path;
+7. latent main path: the latent sampler serves two posterior batches of 4
+   at 512 px, one sde batch of 4 and one 700x1000 image (padded to
+   704x1024); per 100-step request exactly 100 K3, 16 x 100 + 4 K1, 2 K2a
+   and 2 K2b launches.
 
-Then one JSON line with each kernel's launches, error and times, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises: the script
-exits non-zero and prints no result.  Without CUDA it exits at once.
+Launch counts are set to 0 just before each main path and read just after.
+Then one JSON line with each kernel's launches, error, times and bound, and
+last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
+script exits non-zero and prints no result.  Without CUDA it exits at once.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False), so float32 comparisons
@@ -40,9 +62,20 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "deraining", "test", "ir-sde.yml")
+LATENT_CONFIG = os.path.join(REPO, "configs", "latent-dehazing", "test", "nasde.yml")
+REFUSION_CONFIG = os.path.join(REPO, "configs", "deraining", "test", "refusion.yml")
 BATCH, SIZE, SEED = 8, 128, 0
 ODD_HW = (100, 140)
 LN_PER_FORWARD, ATTN_PER_FORWARD = 18, 9
+LATENT_BATCH, LATENT_SIZE, LATENT_ODD_HW = 4, 512, (700, 1000)
+# per latent request: K1 at the 8 unfused NAFBlocks (2 each) per step plus
+# the compressor's 4 (deepest level, encode and decode); K2 twice; K3 once
+# per step
+NAF_LN_PER_FORWARD, COMPRESSOR_LN, COMPRESSOR_ATTN = 16, 4, 2
+# NVIDIA H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s for
+# bfloat16 on the tensor cores and float32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -77,6 +110,53 @@ def bf16_bound(ref):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * mag.max()
 
 
+def bound(nbytes: float, flops: float, dtype: str):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the operations over the peak rate for ``dtype``."""
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def naf_blocks(K, C, T, dev, seed):
+    """K NAFBlocks' tensors in the reference key space, on the card: kernels
+    with variance 1/fan_in, biases and residual scales ~0.1-0.2, gains ~1."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    return [{
+        "conv1.weight": randn(2 * C, C, 1, 1, scale=C**-0.5), "conv1.bias": randn(2 * C, scale=0.1),
+        "conv2.weight": randn(2 * C, 1, 3, 3, scale=1 / 3), "conv2.bias": randn(2 * C, scale=0.1),
+        "sca.1.weight": randn(C, C, 1, 1, scale=C**-0.5), "sca.1.bias": randn(C, scale=0.1, shift=1.0),
+        "conv3.weight": randn(C, C, 1, 1, scale=C**-0.5), "conv3.bias": randn(C, scale=0.1),
+        "conv4.weight": randn(2 * C, C, 1, 1, scale=C**-0.5), "conv4.bias": randn(2 * C, scale=0.1),
+        "conv5.weight": randn(C, C, 1, 1, scale=C**-0.5), "conv5.bias": randn(C, scale=0.1),
+        "norm1.g": randn(1, C, 1, 1, scale=0.2, shift=1.0), "norm2.g": randn(1, C, 1, 1, scale=0.2, shift=1.0),
+        "beta": randn(1, C, 1, 1, scale=0.2), "gamma": randn(1, C, 1, 1, scale=0.2),
+        "mlp.1.weight": randn(4 * C, T // 2, scale=(T // 2) ** -0.5), "mlp.1.bias": randn(4 * C, scale=0.1),
+    } for _ in range(K)]
+
+
+def naf_stack_work(x, blocks):
+    """(bytes, FLOP) that K3 must move and do on x (B, H, W, C): each weight
+    it reads, x, tmod and the output once; per pixel and block the four 1x1
+    products (12 C^2), the depthwise conv (36 C), norms, gates and
+    residuals (~30 C), and per sample the SCA product (2 C^2)."""
+    from image_restoration_sde_tpu_torch.ops.naf_stack import PARAM_ORDER
+
+    B, H, W, C = x.shape
+    K = len(blocks)
+    weights = sum(blk[k].numel() for blk in blocks for k in PARAM_ORDER) * 4
+    nbytes = weights + 2 * x.numel() * x.element_size() + K * B * 4 * C * 4
+    flops = K * (B * H * W * (12 * C * C + 36 * C + 30 * C) + B * 2 * C * C)
+    return nbytes, flops
+
+
 def path_shapes():
     """(C, rows) of the 18 LayerNorm sites and N of the 9 attention sites
     of one ConditionalUNet(nf=64, depth=4) forward at batch 8, 128 px."""
@@ -90,6 +170,31 @@ def path_shapes():
     ln += [(1024, BATCH * mid * mid)] * 2
     attn += [mid * mid]
     return ln, attn
+
+
+def latent_path_shapes(latent_opt):
+    """(C, rows) of the K1 sites and (batch, N) of the K2 sites that the
+    latent path gives its kernels, for both request shapes (batch 4 at
+    512 px, and one 700x1000 image padded to 704x1024): the compressor's
+    deepest level at H/8 (K1 at its two widths, K2 once per width), and the
+    NAFNet's levels that run an unfused block, on the latent zero-padded to
+    a multiple of 2^depth (a run of 4 or more blocks runs K3 instead)."""
+    comp = latent_opt["network_L"]["setting"]
+    naf = latent_opt["network_G"]["setting"]
+    enc, dec = naf["enc_blk_nums"], naf["dec_blk_nums"]
+    runs = [(enc[i], dec[len(dec) - 1 - i]) for i in range(len(enc))] + [(naf["middle_blk_num"],)]
+    ln, attn = set(), set()
+    for batch, h, w in ((LATENT_BATCH, LATENT_SIZE, LATENT_SIZE),
+                        (1, *(-(-n // 64) * 64 for n in LATENT_ODD_HW))):
+        lh, lw = h // 8, w // 8
+        ln |= {(comp["ch"] * m, batch * lh * lw) for m in comp["ch_mult"][-2:]}
+        attn.add((batch, lh * lw))
+        pad = 2 ** len(enc)
+        ph, pw = -(-lh // pad) * pad, -(-lw // pad) * pad
+        for i, nums in enumerate(runs):
+            if any(0 < n < 4 for n in nums):
+                ln.add((naf["width"] << i, batch * (ph >> i) * (pw >> i)))
+    return sorted(ln), sorted(attn)
 
 
 # ---------------------------------------------------------------- phases
@@ -117,8 +222,9 @@ def phase_build():
             print(f"[build]   {line.strip()}")
 
 
-def phase_kernels(dev, stats):
+def phase_kernels(dev, stats, latent_opt):
     import torch
+    import torch.nn.functional as F
 
     from image_restoration_sde_tpu_torch.ops import layernorm as LN
     from image_restoration_sde_tpu_torch.ops import linear_attention as LA
@@ -126,10 +232,14 @@ def phase_kernels(dev, stats):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     ln_sites, attn_sites = path_shapes()
+    latent_ln, latent_attn = latent_path_shapes(latent_opt)
 
-    # K1: bf16 (eps 1e-3) and f32 (eps 1e-5); bound: f32 1e-5 of max|y|,
-    # bf16 bf16_bound
-    shapes = sorted(set(ln_sites)) + [(64, 1001), (1024, 999)]
+    # K1 at the deraining path's sites (the ones its stats sum), two ragged
+    # shapes and the latent path's sites: bf16 (eps 1e-3) and f32 (eps
+    # 1e-5); bound: f32 1e-5 of max|y|, bf16 bf16_bound.  Library call:
+    # F.layer_norm on the same rows (its bias-free affine with g in x's dtype)
+    shapes = sorted(set(ln_sites))
+    shapes += sorted({(64, 1001), (1024, 999), *latent_ln} - set(shapes))
     for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
         for C, rows in shapes:
             x = (torch.randn(rows, C, generator=gen, device=dev) * 2 + 0.5).to(dtype)
@@ -145,22 +255,32 @@ def phase_kernels(dev, stats):
             check(ok, f"K1 {dtype} C={C} rows={rows}: max|dy|={err.max().item():.3g}")
             ms = cuda_ms(lambda: LN.channel_layernorm_cuda(x, g, eps))
             pms = cuda_ms(lambda: LN.channel_layernorm_plain(x, g, eps))
+            g_lib = g.to(dtype)
+            lms = cuda_ms(lambda: F.layer_norm(x, (C,), g_lib, None, eps))
             print(f"[kernels] K1 {str(dtype)[6:]:8s} C={C:5d} rows={rows:6d} max|dy|={err.max().item():.3g} "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms F.layer_norm {lms:.4f} ms")
             if dtype == torch.bfloat16 and (C, rows) in ln_sites:
                 n = ln_sites.count((C, rows))
                 stats[LN.LAYERNORM]["ms"] += n * ms
                 stats[LN.LAYERNORM]["plain_ms"] += n * pms
+                stats[LN.LAYERNORM]["library_ms"] += n * lms
+    # bound over one forward's 18 sites, bf16: read x, write y, read g
+    ln_bytes = sum(2 * rows * C * 2 + C * 4 for C, rows in ln_sites)
+    ln_flops = sum(8 * rows * C for C, rows in ln_sites)
+    stats[LN.LAYERNORM]["bound_ms"], stats[LN.LAYERNORM]["bound_by"] = bound(ln_bytes, ln_flops, "bfloat16")
 
-    # K2a / K2b at the path's N, plus a ragged N; bound: ctx (f32) and f32
-    # outputs 1e-5 of max|ref|; bf16 outputs bf16_bound
+    # K2a / K2b at the deraining path's N (batch 8), a ragged N and the
+    # latent path's (batch, N); bound: ctx (f32) and f32 outputs 1e-5 of
+    # max|ref|; bf16 outputs bf16_bound
+    pairs = [(BATCH, N) for N in sorted(set(attn_sites), reverse=True)]
+    pairs += sorted({(BATCH, 36), *latent_attn} - set(pairs))
     for dtype in (torch.bfloat16, torch.float32):
-        for N in sorted(set(attn_sites), reverse=True) + [36]:
-            qkv = (torch.randn(BATCH, N, 384, generator=gen, device=dev) * 1.5).to(dtype)
+        for batch, N in pairs:
+            qkv = (torch.randn(batch, N, 384, generator=gen, device=dev) * 1.5).to(dtype)
             ctx = LA.linear_attention_ctx_cuda(qkv)
             ctx_ref = LA.linear_attention_ctx_plain(qkv)
             cerr = (ctx - ctx_ref).abs().max().item()
-            check(cerr <= 1e-5 * ctx_ref.abs().max().item(), f"K2a {dtype} N={N}: max|dctx|={cerr:.3g}")
+            check(cerr <= 1e-5 * ctx_ref.abs().max().item(), f"K2a {dtype} B={batch} N={N}: max|dctx|={cerr:.3g}")
             out = LA.linear_attention_apply_cuda(qkv, ctx_ref)
             ref = LA.linear_attention_apply_plain(qkv, ctx_ref)
             err = (out.float() - ref.float()).abs()
@@ -168,29 +288,104 @@ def phase_kernels(dev, stats):
                 ok = err.max().item() <= 1e-5 * ref.abs().max().item()
             else:
                 ok = bool((err <= bf16_bound(ref)).all())
-            check(ok, f"K2b {dtype} N={N}: max|dout|={err.max().item():.3g}")
+            check(ok, f"K2b {dtype} B={batch} N={N}: max|dout|={err.max().item():.3g}")
             stats[LA.LA_CTX]["err"] = max(stats[LA.LA_CTX]["err"], cerr)
             stats[LA.LA_APPLY]["err"] = max(stats[LA.LA_APPLY]["err"], err.max().item())
             ms_c = cuda_ms(lambda: LA.linear_attention_ctx_cuda(qkv))
             pms_c = cuda_ms(lambda: LA.linear_attention_ctx_plain(qkv))
             ms_a = cuda_ms(lambda: LA.linear_attention_apply_cuda(qkv, ctx_ref))
             pms_a = cuda_ms(lambda: LA.linear_attention_apply_plain(qkv, ctx_ref))
-            print(f"[kernels] K2 {str(dtype)[6:]:8s} N={N:5d} max|dctx|={cerr:.3g} max|dout|={err.max().item():.3g} "
+            print(f"[kernels] K2 {str(dtype)[6:]:8s} B={batch} N={N:5d} max|dctx|={cerr:.3g} "
+                  f"max|dout|={err.max().item():.3g} "
                   f"K2a {ms_c:.4f} ms plain {pms_c:.4f} ms | K2b {ms_a:.4f} ms plain {pms_a:.4f} ms")
-            if dtype == torch.bfloat16 and N in attn_sites:
+            if dtype == torch.bfloat16 and batch == BATCH and N in attn_sites:
                 n = attn_sites.count(N)
                 stats[LA.LA_CTX]["ms"] += n * ms_c
                 stats[LA.LA_CTX]["plain_ms"] += n * pms_c
                 stats[LA.LA_APPLY]["ms"] += n * ms_a
                 stats[LA.LA_APPLY]["plain_ms"] += n * pms_a
+    # bounds over one forward's 9 sites, bf16: K2a reads k and v (256 of the
+    # 384 channels) and writes ctx; K2b reads q and ctx and writes out
+    ctx_bytes = BATCH * 4 * 32 * 32 * 4
+    ctx_flops = sum(2 * BATCH * N * 4 * 32 * 32 + 4 * BATCH * N * 128 for N in attn_sites)
+    stats[LA.LA_CTX]["bound_ms"], stats[LA.LA_CTX]["bound_by"] = bound(
+        sum(BATCH * N * 256 * 2 + ctx_bytes for N in attn_sites), ctx_flops, "bfloat16")
+    stats[LA.LA_APPLY]["bound_ms"], stats[LA.LA_APPLY]["bound_by"] = bound(
+        sum(BATCH * N * 256 * 2 + ctx_bytes for N in attn_sites), ctx_flops, "bfloat16")
+
+    phase_naf_stack(dev, stats)
 
 
-def make_net(setting, dtype, plain, dev, state=None):
+def phase_naf_stack(dev, stats):
+    """K3 against its plain version at the latent path's shapes (28 blocks,
+    C = 512): batch 4 at 512 px, the 700x1000 request's 12x16 map, the
+    deraining Refusion net's 16x16 map at batch 8; and a ragged 3x5x7x64
+    stack of 4.  Bound: f32 1e-4 of max|ref|; bf16 twice the plain bf16
+    result's distance from the plain float32 result on the same input.
+
+    Each block's rounding is held block by block: the K blocks run again as
+    K chained one-block launches, each against the one-block plain version
+    on the same input (f32 1e-5 of max|ref|, bf16 bf16_bound: one ulp), and
+    the chain's end must equal the K-block launch bit for bit (every sum
+    runs in a fixed order and the grid is sized without K, so a kernel that
+    kept the activation in float32 across blocks would differ)."""
     import torch
 
-    from image_restoration_sde_tpu_torch.models import ConditionalUNet, init_params_
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
 
-    net = ConditionalUNet(**setting, dtype=dtype, plain=plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    main_shape = (LATENT_BATCH, 8, 8, 512)
+    cases = [(main_shape, 28), ((1, 12, 16, 512), 28), ((8, 16, 16, 512), 28), ((3, 5, 7, 64), 4)]
+    for shape, K in cases:
+        C = shape[-1]
+        blocks = naf_blocks(K, C, 4 * C // 8, dev, SEED + K)
+        x32 = torch.randn(shape, generator=gen, device=dev)
+        temb = torch.randn(shape[0], 4 * C // 8, generator=gen, device=dev)
+        stacked = NS.stack_middle_params(blocks, temb)
+        tmod = NS.time_modulation(blocks, temb)
+        for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
+            x = x32.to(dtype)
+            y = NS.naf_stack_cuda(x, blocks, tmod, eps)
+            ref = NS.naf_stack_plain(x, stacked, eps)
+            err = (y.float() - ref.float()).abs().max().item()
+            check(bool(torch.isfinite(y).all()), f"K3 {dtype} {shape}: output not finite")
+            if dtype == torch.float32:
+                limit = 1e-4 * ref.abs().max().item()
+            else:
+                limit = 2 * (ref.float() - NS.naf_stack_plain(x.float(), stacked, eps)).abs().max().item()
+            check(err <= limit, f"K3 {dtype} {shape} K={K}: max|dy|={err:.3g} (bound {limit:.3g})")
+            z, one_err = x, 0.0
+            for i in range(K):
+                zi = NS.naf_stack_cuda(z, blocks[i : i + 1], tmod[i : i + 1], eps)
+                one = NS.naf_stack_plain(z, {k: v[i : i + 1] for k, v in stacked.items()}, eps)
+                e = (zi.float() - one.float()).abs()
+                if dtype == torch.float32:
+                    ok = e.max().item() <= 1e-5 * one.abs().max().item()
+                else:
+                    ok = bool((e <= bf16_bound(one)).all())
+                check(ok, f"K3 {dtype} {shape} block {i} alone: max|dy|={e.max().item():.3g}")
+                one_err, z = max(one_err, e.max().item()), zi
+            check(torch.equal(z, y), f"K3 {dtype} {shape}: K={K} in one launch differs from {K} chained launches")
+            stats[NS.NAF_STACK]["err"] = max(stats[NS.NAF_STACK]["err"], err)
+            ms = cuda_ms(lambda: NS.naf_stack_cuda(x, blocks, tmod, eps), reps=10)
+            pms = cuda_ms(lambda: NS.naf_stack_plain(x, stacked, eps), reps=10)
+            nbytes, flops = naf_stack_work(x, blocks)
+            bms, by = bound(nbytes, flops, str(dtype)[6:])
+            print(f"[kernels] K3 {str(dtype)[6:]:8s} {shape} K={K}: max|dy|={err:.3g} (bound {limit:.3g}), "
+                  f"one block at a time max|dy|={one_err:.3g}, chained launches bit-equal; "
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
+                  f"least {bms:.4f} ms ({by}), {nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.2f} TFLOP/s")
+            if dtype == torch.bfloat16 and shape == main_shape:
+                stats[NS.NAF_STACK].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+
+
+def make_net(cls, setting, dtype, plain, dev, state=None):
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import init_params_
+
+    net = cls(**setting, dtype=dtype, plain=plain)
     if state is None:
         gen = torch.Generator()
         gen.manual_seed(SEED)
@@ -200,9 +395,45 @@ def make_net(setting, dtype, plain, dev, state=None):
     return net.to(dev).eval()
 
 
+def make_nets(cls, setting, dev):
+    """The same seeded weights in the four (dtype, plain) variants."""
+    import torch
+
+    nets, state = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        for plain in (False, True):
+            nets[dtype, plain] = make_net(cls, setting, dtype, plain, dev, state)
+            state = nets[dtype, plain].state_dict()
+    return nets
+
+
+def compare_nets(tag, name, nets, inputs):
+    """One forward of each variant: kernel path against plain path.  f32:
+    the two agree to float32 rounding through the net, 1e-4 of max|ref|;
+    bf16: the kernel path may differ from the plain bf16 path by at most
+    twice the plain bf16 path's own distance from float32."""
+    import torch
+
+    with torch.inference_mode():
+        outs = {key: net(*inputs) for key, net in nets.items()}
+    torch.cuda.synchronize()
+    for o in outs.values():
+        check(o.shape == inputs[0].shape and bool(torch.isfinite(o).all()), f"{name}: output shape/finite")
+    f32_ref = outs[torch.float32, True]
+    f32_err = (outs[torch.float32, False] - f32_ref).abs().max().item()
+    f32_bound = 1e-4 * f32_ref.abs().max().item()
+    bf_err = (outs[torch.bfloat16, False] - outs[torch.bfloat16, True]).abs().max().item()
+    bf_floor = (outs[torch.bfloat16, True] - f32_ref).abs().max().item()
+    print(f"[{tag}] {name}: f32 kernel-vs-plain max|d|={f32_err:.3g} (bound {f32_bound:.3g}); "
+          f"bf16 kernel-vs-plain max|d|={bf_err:.3g} (bound 2 x bf16-vs-f32 {bf_floor:.3g})")
+    check(f32_err <= f32_bound, f"f32 {name}: kernel path differs from plain path")
+    check(bf_err <= 2 * bf_floor, f"bf16 {name}: kernel path differs from plain path")
+
+
 def phase_net(dev, setting, sde_opt):
     import torch
 
+    from image_restoration_sde_tpu_torch.models import ConditionalUNet
     from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
@@ -212,29 +443,8 @@ def phase_net(dev, setting, sde_opt):
     xt = lq + 10 / 255 * torch.randn(lq.shape, generator=gen, device=dev)
     t = torch.randint(1, 101, (BATCH,), generator=gen, device=dev)
 
-    nets, state = {}, None
-    for dtype in (torch.bfloat16, torch.float32):
-        for plain in (False, True):
-            nets[dtype, plain] = make_net(setting, dtype, plain, dev, state)
-            state = nets[dtype, plain].state_dict()
-    with torch.inference_mode():
-        outs = {key: net(xt, lq, t) for key, net in nets.items()}
-    torch.cuda.synchronize()
-    for o in outs.values():
-        check(o.shape == (BATCH, SIZE, SIZE, 3) and bool(torch.isfinite(o).all()), "net output shape/finite")
-    f32_ref = outs[torch.float32, True]
-    # f32: kernel and plain path agree to float32 rounding through the net
-    f32_err = (outs[torch.float32, False] - f32_ref).abs().max().item()
-    f32_bound = 1e-4 * f32_ref.abs().max().item()
-    # bf16: the kernel path may differ from the plain bf16 path by at most
-    # twice the plain bf16 path's own distance from float32
-    bf_err = (outs[torch.bfloat16, False] - outs[torch.bfloat16, True]).abs().max().item()
-    bf_floor = (outs[torch.bfloat16, True] - f32_ref).abs().max().item()
-    print(f"[net] nf={setting['nf']} depth={setting['depth']} batch {BATCH} {SIZE}px: "
-          f"f32 kernel-vs-plain max|d|={f32_err:.3g} (bound {f32_bound:.3g}); "
-          f"bf16 kernel-vs-plain max|d|={bf_err:.3g} (bound 2 x bf16-vs-f32 {bf_floor:.3g})")
-    check(f32_err <= f32_bound, "f32 net: kernel path differs from plain path")
-    check(bf_err <= 2 * bf_floor, "bf16 net: kernel path differs from plain path")
+    nets = make_nets(ConditionalUNet, setting, dev)
+    compare_nets("net", f"nf={setting['nf']} depth={setting['depth']} batch {BATCH} {SIZE}px", nets, (xt, lq, t))
 
     # 100-step f32 posterior chain, kernel vs plain, on a small input with
     # the same seeded noise; bound 1e-3 of max|ref|
@@ -255,7 +465,7 @@ def phase_net(dev, setting, sde_opt):
 def phase_main_path(dev, net, sde_opt, smi):
     import torch
 
-    from image_restoration_sde_tpu_torch.ops import KERNELS, LA_APPLY, LA_CTX, LAYERNORM
+    from image_restoration_sde_tpu_torch.ops import KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
     from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler, pad_to_bucket, unpad
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
@@ -286,7 +496,7 @@ def phase_main_path(dev, net, sde_opt, smi):
         steps = sde.T  # one chunk: the default runs the whole batch at once
         grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
         want = {LAYERNORM.symbol: LN_PER_FORWARD * steps, LA_CTX.symbol: ATTN_PER_FORWARD * steps,
-                LA_APPLY.symbol: ATTN_PER_FORWARD * steps}
+                LA_APPLY.symbol: ATTN_PER_FORWARD * steps, NAF_STACK.symbol: 0}
         check(grew == want, f"launch counts {grew}, expected {want}")
         if img.shape[0] == BATCH:
             rates[mode] = BATCH / seconds
@@ -296,6 +506,132 @@ def phase_main_path(dev, net, sde_opt, smi):
     launches = {k.symbol: k.launches for k in KERNELS}
     print(f"[main] img/s at batch {BATCH}, {SIZE}px, {sde.T} steps, bf16: posterior {rates['posterior']:.4f}, "
           f"sde {rates['sde']:.4f} (host clock, warm; card: {smi})")
+    return launches
+
+
+def compare_compressor(compressor, plain, img):
+    """The float32 compressor's kernel path against its plain path on one
+    image batch: encode (the latent and every skip), then decode of the
+    plain path's latent and skips; each within 1e-4 of max|ref|.  Encode
+    and decode together launch K1 4 times and K2a, K2b twice each."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import LA_APPLY, LA_CTX, LAYERNORM
+
+    counted = (LAYERNORM, LA_CTX, LA_APPLY)
+    before = [k.launches for k in counted]
+    with torch.inference_mode():
+        latent, hs = compressor.encode(img)
+        latent_ref, hs_ref = plain.encode(img)
+        out = compressor.decode(latent_ref, hs_ref, img.shape[1:3])
+        ref = plain.decode(latent_ref, hs_ref, img.shape[1:3])
+    grew = [k.launches - b for k, b in zip(counted, before)]
+    check(grew == [COMPRESSOR_LN, COMPRESSOR_ATTN, COMPRESSOR_ATTN], f"compressor launches {grew}")
+    worst = 0.0
+    for name, got, want in [("latent", latent, latent_ref), *((f"skip {i}", a, b) for i, (a, b) in
+                                                              enumerate(zip(hs, hs_ref))), ("decode", out, ref)]:
+        err = (got - want).abs().max().item()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"compressor {name}: shape/finite")
+        check(err <= 1e-4 * want.abs().max().item(), f"compressor {name}: kernel path differs from plain path")
+        worst = max(worst, err / want.abs().max().item())
+    check(out.shape == img.shape, f"compressor output shape {tuple(out.shape)}")
+    print(f"[latent-net] compressor f32 {tuple(img.shape)}: latent, {len(hs)} skips and decode kernel-vs-plain "
+          f"max|d| / max|ref| = {worst:.3g} (bound 1e-4); launches K1, K2a, K2b {grew}")
+
+
+def phase_latent_net(dev, latent_opt, refusion_setting):
+    """One forward of each full-width NAFNet, kernel path against plain
+    path: the latent net at batch 4 on 64x64x8 latents (K3 at 8x8), and the
+    deraining Refusion net at batch 8, 128 px (K3 at 16x16).  The kernel
+    forward of the latent net launches K3 once and K1 16 times.  Then the
+    compressor, kernel path against plain path, at batch 4, 512 px and on
+    the 704x1024 request."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import ConditionalNAFNet, UNet, init_params_
+    from image_restoration_sde_tpu_torch.ops import LAYERNORM, NAF_STACK
+
+    latent_setting = latent_opt["network_G"]["setting"]
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    kept = None
+    for name, setting, batch, size in (("latent NAFNet", latent_setting, LATENT_BATCH, LATENT_SIZE // 8),
+                                       ("deraining NAFNet", refusion_setting, BATCH, SIZE)):
+        nets = make_nets(ConditionalNAFNet, setting, dev)
+        ch = setting.get("img_channel", 3)
+        cond = torch.randn(batch, size, size, ch, generator=gen, device=dev)
+        xt = cond + torch.randn(cond.shape, generator=gen, device=dev)
+        t = torch.randint(1, 101, (batch,), generator=gen, device=dev)
+        if kept is None:
+            before = (LAYERNORM.launches, NAF_STACK.launches)
+            with torch.inference_mode():
+                nets[torch.bfloat16, False](xt, cond, t)
+            grew = (LAYERNORM.launches - before[0], NAF_STACK.launches - before[1])
+            check(grew == (NAF_LN_PER_FORWARD, 1), f"{name}: K1, K3 launches {grew} per forward")
+            kept = nets[torch.bfloat16, False]
+        compare_nets("latent-net", f"{name} batch {batch} {size}x{size}x{ch}", nets, (xt, cond, t))
+        del nets
+
+    comp_setting = latent_opt["network_L"]["setting"]
+    compressor = init_params_(UNet(**comp_setting), torch.Generator().manual_seed(SEED + 7)).to(dev).eval()
+    plain = UNet(**comp_setting, plain=True)
+    plain.load_state_dict(compressor.state_dict())
+    plain.to(dev).eval()
+    odd = tuple(-(-n // 64) * 64 for n in LATENT_ODD_HW)
+    for shape in ((LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3), (1, *odd, 3)):
+        compare_compressor(compressor, plain, torch.rand(shape, generator=gen, device=dev))
+    return kept, compressor
+
+
+def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
+    from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+    from image_restoration_sde_tpu_torch.training import make_latent_sampler
+
+    sde_opt = latent_opt["sde"]
+    sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+    steps = sde_opt["sample_T"]
+    samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps) for m in ("posterior", "sde")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    full = (LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3)
+    requests = [(sde_opt["sampling_mode"], rng.random(full, np.float32)),
+                (sde_opt["sampling_mode"], rng.random(full, np.float32)),
+                ("sde", rng.random(full, np.float32)),
+                (sde_opt["sampling_mode"], rng.random((1, *LATENT_ODD_HW, 3), np.float32))]
+
+    for k in KERNELS:
+        k.launches = 0
+    rates = {}
+    for mode, img in requests:
+        before = {k.symbol: k.launches for k in KERNELS}
+        padded, hw = pad_to_bucket(img, 64)
+        lq = torch.from_numpy(padded).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = unpad(samplers[mode](lq, gen), hw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(out.shape == img.shape and out.dtype == torch.float32, f"latent {mode} output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"latent {mode} output not finite")
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        want = {LAYERNORM.symbol: NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX.symbol: COMPRESSOR_ATTN,
+                LA_APPLY.symbol: COMPRESSOR_ATTN, NAF_STACK.symbol: steps}
+        check(grew == want, f"latent launch counts {grew}, expected {want}")
+        if img.shape[0] == LATENT_BATCH:
+            rates.setdefault(mode, []).append(LATENT_BATCH / seconds)
+        print(f"[latent-main] {mode:9s} {img.shape[0]}x{img.shape[1]}x{img.shape[2]} "
+              f"(padded {tuple(padded.shape[1:3])}): {seconds:.3f} s, {img.shape[0] / seconds:.4f} img/s, "
+              f"launches {grew}")
+    launches = {k.symbol: k.launches for k in KERNELS}
+    print(f"[latent-main] img/s at batch {LATENT_BATCH}, {LATENT_SIZE}px, {steps} steps, bf16 score net: "
+          f"posterior {rates[sde_opt['sampling_mode']][-1]:.4f} (warm), sde {rates['sde'][-1]:.4f} "
+          f"(host clock; card: {smi})")
     return launches
 
 
@@ -315,25 +651,39 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with open(CONFIG) as f:
         opt = yaml.safe_load(f)
+    with open(LATENT_CONFIG) as f:
+        latent_opt = yaml.safe_load(f)
+    with open(REFUSION_CONFIG) as f:
+        refusion_setting = yaml.safe_load(f)["network_G"]["setting"]
     sde_opt = opt["sde"]
     setting = opt["network_G"]["setting"]
 
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
-    phase_kernels(dev, stats)
+    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+                 "library_ms": None} for k in KERNELS}
+    stats[KERNELS[0]]["library_ms"] = 0.0  # K1: F.layer_norm
+    phase_kernels(dev, stats, latent_opt)
     net = phase_net(dev, setting, sde_opt)
-    launches = phase_main_path(dev, net, sde_opt, smi)
+    launches = {"deraining": phase_main_path(dev, net, sde_opt, smi)}
+    del net
+    latent_net, compressor = phase_latent_net(dev, latent_opt, refusion_setting)
+    launches["latent_dehazing"] = phase_latent_main_path(dev, latent_net, compressor, latent_opt, smi)
 
-    report = [
-        {"name": k.symbol, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": launches[k.symbol], "max_abs_err": stats[k]["err"],
-         "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"]}
-        for k in KERNELS
-    ]
-    print(f"[done] {time.perf_counter() - t_start:.1f} s; kernel ms / plain_ms: summed over one "
-          f"forward's sites at batch {BATCH}, {SIZE}px, bf16")
+    report = []
+    for k in KERNELS:
+        by_path = {path: counts[k.symbol] for path, counts in launches.items()}
+        report.append({
+            "name": k.symbol, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": stats[k]["err"], "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
+            "bound_ms": stats[k]["bound_ms"], "bound_by": stats[k]["bound_by"],
+            "library_ms": stats[k]["library_ms"],
+        })
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
+          f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16; K3 one call at "
+          f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px)")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

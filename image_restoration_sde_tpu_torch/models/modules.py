@@ -172,12 +172,40 @@ class PreNormResidual(nn.Module):
         return self.fn(x) + x
 
 
-def check_image_size(x: torch.Tensor, multiple: int) -> torch.Tensor:
-    """Reflect-pad NHWC ``x`` at the bottom/right to a multiple of ``multiple``."""
+def check_image_size(x: torch.Tensor, multiple: int, mode: str = "reflect") -> torch.Tensor:
+    """Pad NHWC ``x`` at the bottom/right to a multiple of ``multiple``:
+    ``mode`` "reflect" (the UNets) or "zeros" (the NAFNet)."""
+    if mode not in ("reflect", "zeros"):
+        raise ValueError(f"check_image_size: mode {mode!r}; options: reflect, zeros")
     _, H, W, _ = x.shape
     pad_h = (multiple - H % multiple) % multiple
     pad_w = (multiple - W % multiple) % multiple
     if pad_h == 0 and pad_w == 0:
         return x
+    if mode == "zeros":
+        return F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
     y = F.pad(x.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode="reflect")
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def simple_gate(x: torch.Tensor) -> torch.Tensor:
+    """Split the channels (axis 1) in half and multiply the halves."""
+    x1, x2 = x.chunk(2, dim=1)
+    return x1 * x2
+
+
+class SimpleGate(nn.Module):
+    def forward(self, x):
+        return simple_gate(x)
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Depth-to-space as ``nn.PixelShuffle``, returned in channels_last
+    memory: PixelShuffle's own output is NCHW-contiguous, and the kernels
+    take contiguous (pixels, C) rows."""
+    return F.pixel_shuffle(x, factor).contiguous(memory_format=torch.channels_last)
+
+
+class PixelShuffle(nn.PixelShuffle):
+    def forward(self, x):
+        return pixel_shuffle(x, self.upscale_factor)

@@ -38,7 +38,6 @@ class ConditionalUNet(nn.Module):
         out_nc: int = 3,
         nf: int = 64,
         depth: int = 4,
-        upscale: int = 1,  # kept for config parity; unused
         dtype: torch.dtype = torch.float32,
         plain: bool = False,
     ):

@@ -5,16 +5,22 @@ from .linear_attention import (
     linear_attention_packed,
     linear_attention_packed_plain,
 )
+# the module ops.naf_stack keeps its name: its entry point naf_stack is
+# not re-exported here
+from .naf_stack import NAF_STACK, naf_stack_plain, stack_middle_params
 
-KERNELS = (LAYERNORM, LA_CTX, LA_APPLY)
+KERNELS = (LAYERNORM, LA_CTX, LA_APPLY, NAF_STACK)
 
 __all__ = [
     "KERNELS",
     "LAYERNORM",
     "LA_APPLY",
     "LA_CTX",
+    "NAF_STACK",
     "channel_layernorm",
     "channel_layernorm_plain",
     "linear_attention_packed",
     "linear_attention_packed_plain",
+    "naf_stack_plain",
+    "stack_middle_params",
 ]

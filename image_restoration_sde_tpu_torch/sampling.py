@@ -44,6 +44,48 @@ def _sample_chunk(batch: int, chunk: Optional[int]) -> int:
     return min(chunk, batch)
 
 
+def check_mode(mode: str) -> None:
+    if mode not in SAMPLING_MODES:
+        raise ValueError(f"sampling mode {mode!r}; options: {SAMPLING_MODES}")
+
+
+def reverse(sde: IRSDE, noise_fn, noisy, mu, gen, mode: str, steps: Optional[int]):
+    """The reverse chain of ``mode`` from ``noisy`` towards ``mu``."""
+    if mode == "sde":
+        return samplers.reverse_sde(sde, noise_fn, noisy, mu, gen, steps=steps)
+    if mode == "posterior":
+        return samplers.reverse_posterior(sde, noise_fn, noisy, mu, gen, steps=steps)
+    return samplers.reverse_ode(sde, noise_fn, noisy, mu, steps=steps)
+
+
+def make_noise_fn(net: nn.Module, cast_params) -> Callable:
+    """``net``, or ``net`` with its float32 parameters and buffers cast to
+    ``cast_params`` (cast once, here).  Parameters the net names in
+    ``fused_param_names()`` take the cast's values in float32 storage, as
+    its fused levels read them."""
+    if cast_params is None:
+        return net
+    params = cast_f32_leaves({**dict(net.named_parameters()), **dict(net.named_buffers())}, cast_params)
+    for k in getattr(net, "fused_param_names", list)():
+        params[k] = params[k].float()
+
+    def noise_fn(x, mu, tvec):
+        return functional_call(net, params, (x, mu, tvec))
+
+    return noise_fn
+
+
+def run_chunks(sample_one: Callable, lq: torch.Tensor, gen: GeneratorLike, chunk: Optional[int]):
+    """``sample_one(lq_chunk, gen_chunk)`` over the batch's sub-batches."""
+    B = lq.shape[0]
+    c = _sample_chunk(B, chunk)
+    outs = [
+        sample_one(lq[i : i + c], gen[i : i + c] if is_generator_batch(gen) else gen)
+        for i in range(0, B, c)
+    ]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def make_restoration_sampler(
     sde: IRSDE,
     net: nn.Module,  # net(xt, cond, tvec) -> noise, NHWC
@@ -59,33 +101,16 @@ def make_restoration_sampler(
     batch into sub-batches run one after the other; the default runs the
     whole batch at once.  ``cast_params`` runs the net with its float32
     parameters cast to that dtype, once per call."""
-    if mode not in SAMPLING_MODES:
-        raise ValueError(f"sampling mode {mode!r}; options: {SAMPLING_MODES}")
-
-    def sample_one(noise_fn, lq, gen):
-        noisy = sde.noise_state(gen, lq)
-        if mode == "sde":
-            return samplers.reverse_sde(sde, noise_fn, noisy, lq, gen, steps=steps)
-        if mode == "posterior":
-            return samplers.reverse_posterior(sde, noise_fn, noisy, lq, gen, steps=steps)
-        return samplers.reverse_ode(sde, noise_fn, noisy, lq, steps=steps)
+    check_mode(mode)
 
     @torch.inference_mode()
     def sample(lq: torch.Tensor, gen: GeneratorLike) -> torch.Tensor:
-        noise_fn = net
-        if cast_params is not None:
-            params = cast_f32_leaves({**dict(net.named_parameters()), **dict(net.named_buffers())}, cast_params)
+        noise_fn = make_noise_fn(net, cast_params)
 
-            def noise_fn(x, mu, tvec):
-                return functional_call(net, params, (x, mu, tvec))
+        def sample_one(x, g):
+            return reverse(sde, noise_fn, sde.noise_state(g, x), x, g, mode, steps)
 
-        B = lq.shape[0]
-        c = _sample_chunk(B, chunk)
-        outs = [
-            sample_one(noise_fn, lq[i : i + c], gen[i : i + c] if is_generator_batch(gen) else gen)
-            for i in range(0, B, c)
-        ]
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+        return run_chunks(sample_one, lq, gen, chunk)
 
     return sample
 

@@ -33,7 +33,7 @@ class IRSDE:
         T: int = 100,
         schedule: str = "cosine",
         eps: float = 0.01,
-        device="cpu",
+        device="cuda",
     ) -> "IRSDE":
         return cls(tables=build_tables(max_sigma, T, schedule, eps, device=device))
 

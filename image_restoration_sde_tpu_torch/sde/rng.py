@@ -38,12 +38,12 @@ def normal_like(gen: GeneratorLike, x: torch.Tensor) -> torch.Tensor:
     return torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
 
 
-def generator(seed: int, device="cpu") -> torch.Generator:
+def generator(seed: int, device="cuda") -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     return g
 
 
-def generators_for_seeds(seeds: Sequence[int], device="cpu") -> list:
+def generators_for_seeds(seeds: Sequence[int], device="cuda") -> list:
     """One seeded generator per sample."""
     return [generator(s, device) for s in seeds]

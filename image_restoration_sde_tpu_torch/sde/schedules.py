@@ -76,7 +76,7 @@ def build_tables(
     T: int,
     schedule: str = "cosine",
     eps: float = 0.01,
-    device="cpu",
+    device="cuda",
 ) -> ScheduleTables:
     """Build :class:`ScheduleTables`: float64 math, stored float32.
 

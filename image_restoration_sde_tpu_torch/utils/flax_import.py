@@ -1,4 +1,5 @@
-"""Load flax ``ConditionalUNet`` parameters into the PyTorch module.
+"""Load flax parameters into the PyTorch modules: ``ConditionalUNet``,
+``ConditionalNAFNet`` and the latent compressor ``UNet``.
 
 The reverse direction of ``image_restoration_sde_tpu/utils/torch_import.py``:
 a flax parameter tree, flattened to ``{"a/b/kernel": array}`` (without the
@@ -7,15 +8,16 @@ space, with each layout transform inverted:
 
 - conv kernels HWIO -> OIHW,
 - dense kernels (in, out) -> (out, in),
-- norm gains (C,) -> (1, C, 1, 1).
+- norm gains and NAFBlock beta/gamma (C,) -> (1, C, 1, 1);
+  depthwise kernels (3, 3, 1, D) take the conv transform to (D, 1, 3, 3).
 
-The key map is this package's own copy; the tests hold it against
-``unet_key_rules``.
+The key maps are this package's own copies; the tests hold them against
+``unet_key_rules``, ``nafnet_key_rules`` and ``latent_unet_key_rules``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,13 +32,14 @@ _INVERSE = {
 Entry = Tuple[str, str]  # (flax path, transform kind)
 
 
-def _resblock(tp: str, fp: str, res_conv: bool) -> Dict[str, Entry]:
+def _resblock(tp: str, fp: str, res_conv: bool, mlp: bool = True) -> Dict[str, Entry]:
     keys = {
-        f"{tp}.mlp.1.weight": (f"{fp}/Dense_0/kernel", "dense"),
-        f"{tp}.mlp.1.bias": (f"{fp}/Dense_0/bias", "ident"),
         f"{tp}.block1.proj.weight": (f"{fp}/Block_0/Conv_0/kernel", "conv"),
         f"{tp}.block2.proj.weight": (f"{fp}/Block_1/Conv_0/kernel", "conv"),
     }
+    if mlp:
+        keys[f"{tp}.mlp.1.weight"] = (f"{fp}/Dense_0/kernel", "dense")
+        keys[f"{tp}.mlp.1.bias"] = (f"{fp}/Dense_0/bias", "ident")
     if res_conv:
         keys[f"{tp}.res_conv.weight"] = (f"{fp}/Conv_0/kernel", "conv")
     return keys
@@ -90,16 +93,95 @@ def unet_flax_keys(depth: int = 4) -> Dict[str, Entry]:
     return keys
 
 
-def state_dict_from_flax(flat: Mapping[str, np.ndarray], depth: int) -> Dict[str, torch.Tensor]:
-    """Flattened flax ``ConditionalUNet`` params -> torch ``state_dict``.
+def _conv_bias(keys: Dict[str, Entry], tp: str, fp: str, bias: bool = True) -> None:
+    keys[f"{tp}.weight"] = (f"{fp}/kernel", "conv")
+    if bias:
+        keys[f"{tp}.bias"] = (f"{fp}/bias", "ident")
+
+
+def _naf_block(tp: str, fp: str) -> Dict[str, Entry]:
+    keys: Dict[str, Entry] = {
+        f"{tp}.beta": (f"{fp}/beta", "norm"),
+        f"{tp}.gamma": (f"{fp}/gamma", "norm"),
+        f"{tp}.norm1.g": (f"{fp}/norm1/g", "norm"),
+        f"{tp}.norm2.g": (f"{fp}/norm2/g", "norm"),
+        f"{tp}.mlp.1.weight": (f"{fp}/Dense_0/kernel", "dense"),
+        f"{tp}.mlp.1.bias": (f"{fp}/Dense_0/bias", "ident"),
+    }
+    for name in ("conv1", "conv2", "conv3", "conv4", "conv5"):
+        _conv_bias(keys, f"{tp}.{name}", f"{fp}/{name}")
+    _conv_bias(keys, f"{tp}.sca.1", f"{fp}/sca_conv")
+    return keys
+
+
+def nafnet_flax_keys(enc_blk_nums: Sequence[int], middle_blk_num: int,
+                     dec_blk_nums: Sequence[int]) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for
+    ``ConditionalNAFNet``."""
+    keys: Dict[str, Entry] = {
+        "time_mlp.1.weight": ("time_mlp_1/kernel", "dense"),
+        "time_mlp.1.bias": ("time_mlp_1/bias", "ident"),
+        "time_mlp.3.weight": ("time_mlp_2/kernel", "dense"),
+        "time_mlp.3.bias": ("time_mlp_2/bias", "ident"),
+    }
+    _conv_bias(keys, "intro", "intro")
+    _conv_bias(keys, "ending", "ending")
+    for i, num in enumerate(enc_blk_nums):
+        for b in range(num):
+            keys.update(_naf_block(f"encoders.{i}.{b}", f"enc{i}_block{b}"))
+        _conv_bias(keys, f"downs.{i}", f"down{i}")
+    for b in range(middle_blk_num):
+        keys.update(_naf_block(f"middle_blks.{b}", f"mid_block{b}"))
+    for i, num in enumerate(dec_blk_nums):
+        _conv_bias(keys, f"ups.{i}.0", f"up{i}", bias=False)
+        for b in range(num):
+            keys.update(_naf_block(f"decoders.{i}.{b}", f"dec{i}_block{b}"))
+    return keys
+
+
+def latent_unet_flax_keys(depth: int = 4) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for the
+    latent compressor ``UNet``; torch ``decoder.{k}`` is level depth-1-k."""
+    keys: Dict[str, Entry] = {
+        "init_conv.weight": ("init_conv/kernel", "conv"),
+        "latent_conv.weight": ("latent_conv/kernel", "conv"),
+        "post_latent_conv.weight": ("post_latent_conv/kernel", "conv"),
+    }
+    _conv_bias(keys, "final_conv", "final_conv")
+    for i in range(depth):
+        last = i == depth - 1
+        k = depth - 1 - i
+        keys.update(_resblock(f"encoder.{i}.0", f"enc{i}_block1", False, mlp=False))
+        keys.update(_resblock(f"encoder.{i}.1", f"enc{i}_block2", False, mlp=False))
+        keys.update(_resblock(f"decoder.{k}.0", f"dec{i}_block1", True, mlp=False))
+        keys.update(_resblock(f"decoder.{k}.1", f"dec{i}_block2", True, mlp=False))
+        if last:
+            keys.update(_linear_attn(f"encoder.{i}.2", f"enc{i}_attn", f"enc{i}_attn_wrap"))
+            keys.update(_linear_attn(f"decoder.{k}.2", f"dec{i}_attn", f"dec{i}_attn_wrap"))
+            _conv_bias(keys, f"encoder.{i}.3", f"enc{i}_down", bias=False)
+        else:
+            _conv_bias(keys, f"encoder.{i}.3", f"enc{i}_down/Conv_0")
+        if i == 0:
+            _conv_bias(keys, f"decoder.{k}.3", f"dec{i}_up", bias=False)
+        else:
+            _conv_bias(keys, f"decoder.{k}.3.1", f"dec{i}_up/Conv_0")
+    return keys
+
+
+def state_dict_from_flax(
+    flat: Mapping[str, np.ndarray], depth: int = 4, keys: Optional[Mapping[str, Entry]] = None
+) -> Dict[str, torch.Tensor]:
+    """Flattened flax params -> torch ``state_dict``, through ``keys`` (a
+    key map of this module; default: ``unet_flax_keys(depth)``).
 
     Every flax leaf must be used exactly once: a leftover or missing path
     raises, as a strict ``load_state_dict`` would."""
-    keys = unet_flax_keys(depth)
+    if keys is None:
+        keys = unet_flax_keys(depth)
     missing = sorted({fp for fp, _ in keys.values()} - set(flat))
     unused = sorted(set(flat) - {fp for fp, _ in keys.values()})
     if missing or unused:
-        raise ValueError(f"flax params do not match depth={depth}: missing {missing[:5]}, unused {unused[:5]}")
+        raise ValueError(f"flax params do not match the key map: missing {missing[:5]}, unused {unused[:5]}")
     return {
         tk: torch.from_numpy(np.ascontiguousarray(_INVERSE[kind](np.asarray(flat[fp], np.float32))))
         for tk, (fp, kind) in keys.items()

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_restoration_sde_tpu_torch.ops import layernorm, linear_attention
+from image_restoration_sde_tpu_torch.ops import layernorm, linear_attention, naf_stack
 
 
 def _bf16_bound(ref: np.ndarray) -> np.ndarray:
@@ -108,6 +108,136 @@ def test_net_kernel_path_matches_plain_path(cuda_device, dtype):
     grew = [k.launches - c for k, c in zip((layernorm.LAYERNORM, linear_attention.LA_CTX, linear_attention.LA_APPLY), counts)]
     assert grew == [18, 9, 9]
     assert got.shape == (2, 40, 36, 3) and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        assert err <= 2 * (ref - f32).abs().max().item()
+
+
+def _naf_blocks(K, C, T, device, seed=0):
+    """K NAFBlocks' tensors in the reference key space: kernels with
+    variance 1/fan_in, biases and residual scales ~0.1-0.2, gains ~1."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(device)
+
+    blocks = []
+    for _ in range(K):
+        blocks.append({
+            "conv1.weight": randn(2 * C, C, 1, 1, scale=C**-0.5), "conv1.bias": randn(2 * C, scale=0.1),
+            "conv2.weight": randn(2 * C, 1, 3, 3, scale=1 / 3), "conv2.bias": randn(2 * C, scale=0.1),
+            "sca.1.weight": randn(C, C, 1, 1, scale=C**-0.5), "sca.1.bias": randn(C, scale=0.1, shift=1.0),
+            "conv3.weight": randn(C, C, 1, 1, scale=C**-0.5), "conv3.bias": randn(C, scale=0.1),
+            "conv4.weight": randn(2 * C, C, 1, 1, scale=C**-0.5), "conv4.bias": randn(2 * C, scale=0.1),
+            "conv5.weight": randn(C, C, 1, 1, scale=C**-0.5), "conv5.bias": randn(C, scale=0.1),
+            "norm1.g": randn(1, C, 1, 1, scale=0.2, shift=1.0), "norm2.g": randn(1, C, 1, 1, scale=0.2, shift=1.0),
+            "beta": randn(1, C, 1, 1, scale=0.2), "gamma": randn(1, C, 1, 1, scale=0.2),
+            "mlp.1.weight": randn(4 * C, T // 2, scale=(T // 2) ** -0.5), "mlp.1.bias": randn(4 * C, scale=0.1),
+        })
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,K", [(3, 5, 7, 64, 4), (2, 8, 8, 512, 3), (1, 12, 16, 128, 2)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_naf_stack_kernel_matches_plain(cuda_device, B, H, W, C, K, dtype):
+    """One launch per call.  TF32 off.  Bound: float32 1e-4 of max|ref|
+    (sums in another order through K blocks); bfloat16 twice the plain bf16
+    result's distance from the plain float32 result (each block's output
+    rounds to bf16, and a rounding that flips carries through the blocks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks = _naf_blocks(K, C, 64, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device)
+    temb = torch.randn(B, 64, generator=gen, device=cuda_device)
+    eps = 1e-5 if dtype == torch.float32 else 1e-3
+    launches = naf_stack.NAF_STACK.launches
+    got = naf_stack.naf_stack(x.to(dtype), blocks, temb, eps)
+    assert naf_stack.NAF_STACK.launches == launches + 1
+    stacked = naf_stack.stack_middle_params(blocks, temb)
+    ref = naf_stack.naf_stack_plain(x.to(dtype), stacked, eps)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape and torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        f32 = naf_stack.naf_stack_plain(x.to(dtype).float(), stacked, eps)
+        assert err <= 2 * (ref.float() - f32).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,K", [(3, 5, 7, 64, 4), (2, 8, 8, 512, 3)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_naf_stack_kernel_rounds_each_block(cuda_device, B, H, W, C, K, dtype):
+    """K blocks in one launch equal K chained one-block launches bit for
+    bit (sums in a fixed order, grid sized without K), and each one-block
+    launch is its plain version within float32 1e-5 of max|ref|, bfloat16
+    ``_bf16_bound`` (one ulp): each block's output rounds to x's dtype."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks = _naf_blocks(K, C, 64, cuda_device, seed=3)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device).to(dtype)
+    temb = torch.randn(B, 64, generator=gen, device=cuda_device)
+    eps = 1e-5 if dtype == torch.float32 else 1e-3
+    tmod = naf_stack.time_modulation(blocks, temb)
+    stacked = naf_stack.stack_middle_params(blocks, temb)
+    whole = naf_stack.naf_stack_cuda(x, blocks, tmod, eps)
+    z = x
+    for i in range(K):
+        got = naf_stack.naf_stack_cuda(z, blocks[i : i + 1], tmod[i : i + 1], eps)
+        ref = naf_stack.naf_stack_plain(z, {k: v[i : i + 1] for k, v in stacked.items()}, eps)
+        err = (got.float() - ref.float()).abs().cpu().numpy()
+        if dtype == torch.float32:
+            assert err.max() <= 1e-5 * ref.abs().max().item()
+        else:
+            assert (err <= _bf16_bound(ref.float().cpu().numpy())).all()
+        z = got
+    assert torch.equal(z, whole)
+
+
+@pytest.mark.cuda
+def test_naf_stack_kernel_refuses_what_it_does_not_take(cuda_device):
+    blocks = _naf_blocks(2, 64, 64, cuda_device)
+    x = torch.randn(2, 4, 4, 64, device=cuda_device)
+    tmod = naf_stack.time_modulation(blocks, torch.randn(2, 64, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        naf_stack.naf_stack_cuda(x.transpose(1, 2), blocks, tmod, 1e-5)
+    with pytest.raises(ValueError, match="tmod"):
+        naf_stack.naf_stack_cuda(x, blocks, tmod[:, :1], 1e-5)
+    with pytest.raises(ValueError, match="float32"):
+        naf_stack.naf_stack_cuda(x, [{**b, "conv1.weight": b["conv1.weight"].half()} for b in blocks], tmod, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_nafnet_kernel_path_matches_plain_path(cuda_device, dtype):
+    """ConditionalNAFNet(width 16, enc (1, 4), mid 1, dec (1, 1)) on a
+    ragged 22x30 input: the 4-block level launches K3 once, the 4 unfused
+    blocks launch K1 twice each.  TF32 off.  Bounds as the UNet's."""
+    from image_restoration_sde_tpu_torch.models import ConditionalNAFNet, init_params_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(img_channel=4, width=16, enc_blk_nums=(1, 4), middle_blk_num=1, dec_blk_nums=(1, 1))
+    nets = {}
+    for key in ((dtype, False), (dtype, True), (torch.float32, True)):
+        nets[key] = ConditionalNAFNet(**cfg, dtype=key[0], plain=key[1])
+        init_params_(nets[key], torch.Generator().manual_seed(0))
+        nets[key].to(cuda_device).eval()
+    x = torch.rand(2, 22, 30, 4, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    t = torch.tensor([5, 80], device=cuda_device)
+    counted = (layernorm.LAYERNORM, naf_stack.NAF_STACK)
+    counts = [k.launches for k in counted]
+    with torch.inference_mode():
+        got = nets[dtype, False](x, x * 0.5, t)
+        grew = [k.launches - c for k, c in zip(counted, counts)]
+        ref = nets[dtype, True](x, x * 0.5, t)
+        f32 = nets[torch.float32, True](x, x * 0.5, t)
+    assert grew == [8, 1]
+    assert got.shape == (2, 22, 30, 4) and torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-4 * ref.abs().max().item()

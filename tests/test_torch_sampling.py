@@ -38,7 +38,7 @@ def test_chain_with_net_matches_jax(pair, mode):
     Bound 1e-4 of max|ref|: the net's float32 rounding differences (1e-6
     of its output) pass through 10 steps whose coefficients stay O(1)."""
     net, fnet, params = pair
-    port, ref = IRSDE.create(**SDE_ARGS), JIRSDE.create(**SDE_ARGS)
+    port, ref = IRSDE.create(**SDE_ARGS, device="cpu"), JIRSDE.create(**SDE_ARGS)
     r = np.random.default_rng(4)
     lq = r.random(SHAPE, np.float32)
     noisy = (lq + float(port.max_sigma) * r.standard_normal(SHAPE)).astype(np.float32)
@@ -60,26 +60,26 @@ def test_chain_with_net_matches_jax(pair, mode):
 @pytest.mark.parametrize("mode", ["posterior", "sde", "ode"])
 def test_sampler_is_deterministic_for_a_fixed_generator(pair, mode):
     net = pair[0]
-    sample = sampling.make_restoration_sampler(IRSDE.create(**SDE_ARGS), net, mode=mode, steps=3)
-    lq = torch.rand(2, 20, 20, 3, generator=rng.generator(0))
-    a = sample(lq, rng.generator(7))
-    b = sample(lq, rng.generator(7))
+    sample = sampling.make_restoration_sampler(IRSDE.create(**SDE_ARGS, device="cpu"), net, mode=mode, steps=3)
+    lq = torch.rand(2, 20, 20, 3, generator=rng.generator(0, "cpu"))
+    a = sample(lq, rng.generator(7, "cpu"))
+    b = sample(lq, rng.generator(7, "cpu"))
     assert a.shape == lq.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
     assert torch.equal(a, b)
     if mode != "ode":
-        assert not torch.equal(a, sample(lq, rng.generator(8)))
+        assert not torch.equal(a, sample(lq, rng.generator(8, "cpu")))
 
 
 def test_per_sample_generators_make_chunking_invisible(pair):
     net = pair[0]
-    sde = IRSDE.create(**SDE_ARGS)
-    lq = torch.rand(4, 16, 16, 3, generator=rng.generator(1))
+    sde = IRSDE.create(**SDE_ARGS, device="cpu")
+    lq = torch.rand(4, 16, 16, 3, generator=rng.generator(1, "cpu"))
     whole = sampling.make_restoration_sampler(sde, net, mode="posterior", steps=2)
     chunked = sampling.make_restoration_sampler(sde, net, mode="posterior", steps=2, chunk=2)
-    a = whole(lq, rng.generators_for_seeds([1, 2, 3, 4]))
-    b = chunked(lq, rng.generators_for_seeds([1, 2, 3, 4]))
+    a = whole(lq, rng.generators_for_seeds([1, 2, 3, 4], "cpu"))
+    b = chunked(lq, rng.generators_for_seeds([1, 2, 3, 4], "cpu"))
     # one sample alone, with its own generator, gets the same result
-    c = whole(lq[2:3], rng.generators_for_seeds([3]))
+    c = whole(lq[2:3], rng.generators_for_seeds([3], "cpu"))
     assert torch.allclose(a, b, rtol=0, atol=1e-6) and torch.allclose(a[2:3], c, rtol=0, atol=1e-6)
 
 
@@ -89,8 +89,8 @@ def test_cast_params_runs_the_net_with_cast_weights(pair):
     cast = sampling.cast_f32_leaves({**params, "steps": torch.tensor(3)}, torch.bfloat16)
     assert all(v.dtype == torch.bfloat16 for k, v in cast.items() if k != "steps")
     assert cast["steps"].dtype == torch.int64
-    sde = IRSDE.create(**SDE_ARGS)
-    lq = torch.rand(1, 16, 16, 3, generator=rng.generator(2))
+    sde = IRSDE.create(**SDE_ARGS, device="cpu")
+    lq = torch.rand(1, 16, 16, 3, generator=rng.generator(2, "cpu"))
     out = sampling.make_restoration_sampler(sde, net, mode="ode", steps=2, cast_params=torch.bfloat16)(lq, None)
     ref = sampling.make_restoration_sampler(sde, net, mode="ode", steps=2)(lq, None)
     assert torch.isfinite(out).all() and not torch.equal(out, ref)
@@ -104,7 +104,7 @@ def test_sample_chunk(batch, chunk, want):
 
 def test_bad_mode_raises(pair):
     with pytest.raises(ValueError, match="sampling mode"):
-        sampling.make_restoration_sampler(IRSDE.create(**SDE_ARGS), pair[0], mode="euler")
+        sampling.make_restoration_sampler(IRSDE.create(**SDE_ARGS, device="cpu"), pair[0], mode="euler")
 
 
 @pytest.mark.parametrize("hw", [(100, 140), (64, 64), (65, 1)], ids=str)

@@ -34,7 +34,7 @@ def test_theta_schedules_equal_jax(name, T):
     [SDE_ARGS, dict(max_sigma=50, T=100, schedule="linear", eps=0.01), dict(max_sigma=0.5, T=30, schedule="constant", eps=0.01)],
 )
 def test_tables_bitwise_equal_jax(args):
-    port = IRSDE.create(**args).tables
+    port = IRSDE.create(**args, device="cpu").tables
     ref = jsched.build_tables(**args)
     assert port.T == ref.T
     for f in ("thetas", "sigmas", "thetas_cumsum", "sigma_bars", "dt", "max_sigma"):
@@ -77,7 +77,7 @@ METHODS_NOISE_LAST = {
 @pytest.mark.parametrize("name", sorted(METHODS) + sorted(METHODS_NOISE_LAST))
 @pytest.mark.parametrize("t", [1, 37, 100, "per-sample"])
 def test_irsde_methods_match_jax(name, t):
-    port, ref = IRSDE.create(**SDE_ARGS), JIRSDE.create(**SDE_ARGS)
+    port, ref = IRSDE.create(**SDE_ARGS, device="cpu"), JIRSDE.create(**SDE_ARGS)
     inp = _inputs()
     if t == "per-sample":
         t_np = np.array([3, 91], np.int32).reshape(2, 1, 1, 1)
@@ -99,25 +99,25 @@ def test_irsde_methods_match_jax(name, t):
 def test_generate_random_states_law():
     """Different RNGs by design: check t's range and that the returned state
     is mu_bar + sigma_bar * (standard normal noise), per sample."""
-    sde = IRSDE.create(**SDE_ARGS)
+    sde = IRSDE.create(**SDE_ARGS, device="cpu")
     r = np.random.default_rng(1)
     x0 = _t(r.random((64, 8, 8, 3), np.float32))
     mu = _t(r.random((64, 8, 8, 3), np.float32))
-    t, xt = sde.generate_random_states(rng.generator(0), x0, mu)
+    t, xt = sde.generate_random_states(rng.generator(0, "cpu"), x0, mu)
     assert t.shape == (64, 1, 1, 1) and xt.shape == x0.shape and xt.dtype == torch.float32
     assert int(t.min()) >= 1 and int(t.max()) <= sde.T
     z = (xt - sde.mu_bar(x0, mu, t)) / sde.sigma_bar(t)
     assert abs(float(z.mean())) < 0.05 and abs(float(z.std()) - 1) < 0.05
-    t2, xt2 = sde.generate_random_states(rng.generator(0), x0, mu)
+    t2, xt2 = sde.generate_random_states(rng.generator(0, "cpu"), x0, mu)
     assert torch.equal(t, t2) and torch.equal(xt, xt2)
 
 
 def test_noise_state_per_sample_generators():
     """Sample i's noise depends only on generator i."""
-    sde = IRSDE.create(**SDE_ARGS)
+    sde = IRSDE.create(**SDE_ARGS, device="cpu")
     x = torch.zeros(3, 16, 16, 3)
-    batch = sde.noise_state(rng.generators_for_seeds([5, 6, 7]), x)
-    alone = sde.noise_state(rng.generators_for_seeds([6]), x[:1])
+    batch = sde.noise_state(rng.generators_for_seeds([5, 6, 7], "cpu"), x)
+    alone = sde.noise_state(rng.generators_for_seeds([6], "cpu"), x[:1])
     assert torch.equal(batch[1:2], alone)
     z = batch / sde.max_sigma
     assert abs(float(z.mean())) < 0.1 and abs(float(z.std()) - 1) < 0.1
@@ -145,7 +145,7 @@ def test_samplers_full_chain_match_jax(mode):
     noise_seq.  Bound: float32, 100 steps of elementwise math whose
     per-step rounding differences (a few ulp) the chain carries along; the
     state stays O(1), so 2e-5 absolute."""
-    port, ref = IRSDE.create(**SDE_ARGS), JIRSDE.create(**SDE_ARGS)
+    port, ref = IRSDE.create(**SDE_ARGS, device="cpu"), JIRSDE.create(**SDE_ARGS)
     r = np.random.default_rng(2)
     mu = r.random(SHAPE, np.float32)
     xt = (mu + float(port.max_sigma) * r.standard_normal(SHAPE)).astype(np.float32)
@@ -164,7 +164,7 @@ def test_samplers_full_chain_match_jax(mode):
 
 
 def test_sampler_return_all_and_steps():
-    port, ref = IRSDE.create(**SDE_ARGS), JIRSDE.create(**SDE_ARGS)
+    port, ref = IRSDE.create(**SDE_ARGS, device="cpu"), JIRSDE.create(**SDE_ARGS)
     r = np.random.default_rng(3)
     mu = r.random(SHAPE, np.float32)
     xt = (mu + 0.04 * r.standard_normal(SHAPE)).astype(np.float32)
@@ -181,10 +181,24 @@ def test_sampler_return_all_and_steps():
 
 
 def test_sampler_generator_path_is_deterministic():
-    sde = IRSDE.create(**SDE_ARGS)
+    sde = IRSDE.create(**SDE_ARGS, device="cpu")
     port_fn, _ = _stub_pair(sde, None)
-    mu = torch.rand(2, 8, 8, 3, generator=rng.generator(9))
-    a = samplers.reverse_sde(sde, port_fn, mu.clone(), mu, rng.generator(1), steps=20)
-    b = samplers.reverse_sde(sde, port_fn, mu.clone(), mu, rng.generator(1), steps=20)
-    c = samplers.reverse_sde(sde, port_fn, mu.clone(), mu, rng.generator(2), steps=20)
+    mu = torch.rand(2, 8, 8, 3, generator=rng.generator(9, "cpu"))
+    a = samplers.reverse_sde(sde, port_fn, mu.clone(), mu, rng.generator(1, "cpu"), steps=20)
+    b = samplers.reverse_sde(sde, port_fn, mu.clone(), mu, rng.generator(1, "cpu"), steps=20)
+    c = samplers.reverse_sde(sde, port_fn, mu.clone(), mu, rng.generator(2, "cpu"), steps=20)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_entry_points_default_to_the_card():
+    """IRSDE.create, build_tables and the generators run on the card unless
+    the caller asks for the CPU; with no CUDA they raise, never fall back."""
+    import inspect
+
+    for fn in (IRSDE.create, schedules.build_tables, rng.generator, rng.generators_for_seeds):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            IRSDE.create(**SDE_ARGS)
+        with pytest.raises(RuntimeError):
+            rng.generators_for_seeds([1, 2])
