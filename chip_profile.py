@@ -3,10 +3,12 @@
 
     python3 chip_profile.py
 
-For each of the port's two paths (the configurations of ``chip_smoke.py``:
-IR-SDE deraining, ConditionalUNet at batch 8, 128 px; Refusion latent
-dehazing, ConditionalNAFNet on the 64x64x8 latents of batch 4 at 512 px),
-with random weights made from a seed, bf16 score net:
+For each of the port's three sampler paths (the configurations of
+``chip_smoke.py``: IR-SDE deraining, ConditionalUNet at batch 8, 128 px;
+Refusion latent dehazing, ConditionalNAFNet on the 64x64x8 latents of
+batch 4 at 512 px; Refusion DiT, DiT-L/2 on the 128x128x8 latents of batch
+2 at 1024 px, its parameters cast to bf16 as the sampler casts them), with
+random weights made from a seed, bf16 score net:
 
 - wall time per step: host clock around ``STEPS`` reverse steps that end
   in ``torch.cuda.synchronize()``, after a warm run of the same length;
@@ -15,6 +17,8 @@ with random weights made from a seed, bf16 score net:
 - device time per step by kernel, and the device's busy share (summed
   kernel time over wall time), from ``torch.profiler`` over the same
   steps;
+- the share of device time in the port's own kernels (K4 on the DiT
+  path);
 - the latent path's compressor encode and decode times, and the host time
   to enqueue the NAFNet's fused 28-block level.
 
@@ -30,6 +34,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED, STEPS = 0, 10
+# the port's kernels by the stem of their device function names (csrc/*.cu)
+PORT_KERNELS = {"K1": "channel_layernorm_kernel", "K2a": "la_ctx", "K2b": "la_apply", "K3": "naf_stack",
+                "K4": "flash_fwd"}
 
 
 def profile_steps(name, net, xt, mu, sde, steps):
@@ -67,6 +74,10 @@ def profile_steps(name, net, xt, mu, sde, steps):
           f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall, idle {100 - 100 * busy / wall:.1f}%)")
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"[{name}]   {v:8.4f} ms/step {100 * v / busy:5.1f}%  {k[:110]}")
+    for tag, stem in PORT_KERNELS.items():
+        v = sum(t for k, t in kernels.items() if stem in k)
+        if v:
+            print(f"[{name}] {tag} ({stem}) {v:.4f} ms/step, {100 * v / busy:.1f}% of device time")
 
 
 def fused_site_enqueue(net, batch, dev, reps=20):
@@ -106,7 +117,10 @@ def main() -> int:
     import yaml
 
     sys.path.insert(0, REPO)
-    from image_restoration_sde_tpu_torch.models import ConditionalNAFNet, ConditionalUNet, UNet, init_params_
+    from image_restoration_sde_tpu_torch.models import (
+        ConditionalNAFNet, ConditionalUNet, UNet, build_network, init_params_,
+    )
+    from image_restoration_sde_tpu_torch.sampling import make_noise_fn
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
     dev = torch.device("cuda", 0)
@@ -150,6 +164,14 @@ def main() -> int:
           f"decode {1e3 * (t2 - t1):.2f} ms (cold), {1e3 * (t3 - t2):.2f} ms (warm)")
     profile_steps("latent", naf, latent + 0.1, latent, make_sde(opt), STEPS)
     fused_site_enqueue(naf, latent.shape[0], dev)
+    del naf
+
+    opt = load("latent-dehazing", "train", "dit.yml")
+    dit = seeded(build_network(opt["network_G"]["which_model"], opt["network_G"]["setting"], dtype=torch.bfloat16))
+    img = torch.rand(2, 1024, 1024, 3, generator=gen, device=dev)
+    with torch.inference_mode():
+        latent, _ = compressor.encode(img)
+    profile_steps("dit", make_noise_fn(dit, torch.bfloat16), latent + 0.1, latent, make_sde(opt), STEPS)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")

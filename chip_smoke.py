@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two paths, each at full width with random weights made from a seed:
+Four paths, each at full width with random weights made from a seed:
 
 - IR-SDE deraining (configs/deraining/test/ir-sde.yml): ConditionalUNet
   (nf=64, depth=4) in bf16 with float32 parameters, 128 px images at
@@ -13,9 +13,17 @@ Two paths, each at full width with random weights made from a seed:
   encodes 512 px images to 64x64x8 latents; ConditionalNAFNet (width 64,
   enc [1, 1, 1, 28], mid 1, dec [1, 1, 1, 1], bf16 with float32 parameters)
   runs 100 reverse steps on them, its 28-block level fused (kernel K3);
-  the compressor decodes with the LQ skips.
+  the compressor decodes with the LQ skips;
+- Refusion DiT latent dehazing (configs/latent-dehazing/train/dit.yml for
+  the network, compressor and SDE; posterior mode and 1024 px are this
+  script's serving constants): the same compressor encodes 1024 px images
+  to 128x128x8 latents; DiT-L/2 (hidden 1024, 24 blocks, 16 heads of 64:
+  4096 tokens, bf16 compute, parameters cast to bf16 once per request)
+  runs 100 reverse steps, its attention through kernel K4;
+- tiled large images: a 1536x1536 uint8 image as four 1024 px tiles in one
+  call of the DiT sampler, blended on the card.
 
-Phases, each printing its lines:
+Phases, each printing its lines and its seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
@@ -37,7 +45,22 @@ Phases, each printing its lines:
 7. latent main path: the latent sampler serves two posterior batches of 4
    at 512 px, one sde batch of 4 and one 700x1000 image (padded to
    704x1024); per 100-step request exactly 100 K3, 16 x 100 + 4 K1, 2 K2a
-   and 2 K2b launches.
+   and 2 K2b launches;
+8. DiT kernels: K4 against its plain version in float32 and bfloat16 at
+   (B, N, H, D) = (2, 4096, 16, 64) (the slice), (1, 2816, 16, 64) (the
+   odd request), (2, 1024, 16, 64) (512 px), (1, 4096, 16, 72) (DiT-XL's
+   head), (1, 1000, 16, 64) and (3, 35, 4, 64) (ragged), and on strided
+   views of a packed qkv; beside F.scaled_dot_product_attention and the
+   bound;
+9. DiT net: one forward of DiT-L/2 at batch 2 on 128x128x8 latents, kernel
+   path against plain path, float32 and bfloat16;
+10. DiT main path: the latent sampler serves two posterior batches of 2 at
+   1024 px, one sde batch of 2 and one 1000x700 image (padded to
+   1024x704: 2816 tokens); per 100-step request exactly 2400 K4, 4 K1,
+   2 K2a, 2 K2b and no K3 launches;
+11. tiled path: ``tiling.tiled_restore_device`` on a 1x1536x1536 uint8
+   image, tile 1024, overlap 64, tile_batch 4 (four tiles, one sampler
+   call: 2400 K4 launches).
 
 Launch counts are set to 0 just before each main path and read just after.
 Then one JSON line with each kernel's launches, error, times and bound, and
@@ -64,6 +87,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "deraining", "test", "ir-sde.yml")
 LATENT_CONFIG = os.path.join(REPO, "configs", "latent-dehazing", "test", "nasde.yml")
 REFUSION_CONFIG = os.path.join(REPO, "configs", "deraining", "test", "refusion.yml")
+DIT_CONFIG = os.path.join(REPO, "configs", "latent-dehazing", "train", "dit.yml")
 BATCH, SIZE, SEED = 8, 128, 0
 ODD_HW = (100, 140)
 LN_PER_FORWARD, ATTN_PER_FORWARD = 18, 9
@@ -72,6 +96,12 @@ LATENT_BATCH, LATENT_SIZE, LATENT_ODD_HW = 4, 512, (700, 1000)
 # the compressor's 4 (deepest level, encode and decode); K2 twice; K3 once
 # per step
 NAF_LN_PER_FORWARD, COMPRESSOR_LN, COMPRESSOR_ATTN = 16, 4, 2
+# the DiT path's serving constants: posterior sampling at 1024 px, batch 2
+DIT_MODE, DIT_BATCH, DIT_SIZE, DIT_ODD_HW = "posterior", 2, 1024, (1000, 700)
+TILED_HW, TILE, TILE_OVERLAP, TILE_BATCH = (1536, 1536), 1024, 64, 4
+# K4's (B, N, H, D): the slice first
+FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
+                (1, 1000, 16, 64), (3, 35, 4, 64)]
 # NVIDIA H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s for
 # bfloat16 on the tensor cores and float32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -465,7 +495,7 @@ def phase_net(dev, setting, sde_opt):
 def phase_main_path(dev, net, sde_opt, smi):
     import torch
 
-    from image_restoration_sde_tpu_torch.ops import KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
     from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler, pad_to_bucket, unpad
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
@@ -496,7 +526,7 @@ def phase_main_path(dev, net, sde_opt, smi):
         steps = sde.T  # one chunk: the default runs the whole batch at once
         grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
         want = {LAYERNORM.symbol: LN_PER_FORWARD * steps, LA_CTX.symbol: ATTN_PER_FORWARD * steps,
-                LA_APPLY.symbol: ATTN_PER_FORWARD * steps, NAF_STACK.symbol: 0}
+                LA_APPLY.symbol: ATTN_PER_FORWARD * steps, NAF_STACK.symbol: 0, FLASH_ATTN.symbol: 0}
         check(grew == want, f"launch counts {grew}, expected {want}")
         if img.shape[0] == BATCH:
             rates[mode] = BATCH / seconds
@@ -587,7 +617,7 @@ def phase_latent_net(dev, latent_opt, refusion_setting):
 def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
     import torch
 
-    from image_restoration_sde_tpu_torch.ops import KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
     from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
     from image_restoration_sde_tpu_torch.sde import IRSDE
     from image_restoration_sde_tpu_torch.training import make_latent_sampler
@@ -621,7 +651,7 @@ def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
         check(bool(torch.isfinite(out).all()), f"latent {mode} output not finite")
         grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
         want = {LAYERNORM.symbol: NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX.symbol: COMPRESSOR_ATTN,
-                LA_APPLY.symbol: COMPRESSOR_ATTN, NAF_STACK.symbol: steps}
+                LA_APPLY.symbol: COMPRESSOR_ATTN, NAF_STACK.symbol: steps, FLASH_ATTN.symbol: 0}
         check(grew == want, f"latent launch counts {grew}, expected {want}")
         if img.shape[0] == LATENT_BATCH:
             rates.setdefault(mode, []).append(LATENT_BATCH / seconds)
@@ -632,6 +662,195 @@ def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
     print(f"[latent-main] img/s at batch {LATENT_BATCH}, {LATENT_SIZE}px, {steps} steps, bf16 score net: "
           f"posterior {rates[sde_opt['sampling_mode']][-1]:.4f} (warm), sde {rates['sde'][-1]:.4f} "
           f"(host clock; card: {smi})")
+    return launches
+
+
+def flash_work(shape, itemsize):
+    """(bytes, FLOP, exponentials) of attention on (B, N, H, D): q, k, v read
+    and the output written once; q k^T and p v; one exp per score."""
+    B, N, H, D = shape
+    return 4 * B * N * H * D * itemsize, 4 * B * H * N * N * D, B * H * N * N
+
+
+def phase_flash(dev, stats):
+    """K4 against its plain version at FLASH_SHAPES, and on strided views of
+    a packed qkv product.  Bound: float32 1e-5 of max|ref|; bfloat16 twice
+    the plain bf16 result's distance from the plain float32 result on the
+    same inputs (kernel and plain version round p at other maxima).
+    Library call: F.scaled_dot_product_attention on the same tensors as
+    (B, H, N, D), transposed beforehand (bfloat16 only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in FLASH_SHAPES:
+            D = shape[-1]
+            scale = D**-0.5
+            q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 1.5).to(dtype) for _ in range(3))
+            out = FA.flash_mha_cuda(q, k, v, scale)
+            ref = FA.flash_mha_plain(q, k, v, scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            check(out.shape == shape and bool(torch.isfinite(out).all()), f"K4 {dtype} {shape}: shape/finite")
+            if dtype == torch.float32:
+                limit = 1e-5 * ref.abs().max().item()
+            else:
+                f32 = FA.flash_mha_plain(q.float(), k.float(), v.float(), scale)
+                limit = 2 * (ref.float() - f32).abs().max().item()
+                del f32
+            check(err <= limit, f"K4 {dtype} {shape}: max|dy|={err:.3g} (bound {limit:.3g})")
+            stats[FLASH_ATTN]["err"] = max(stats[FLASH_ATTN]["err"], err)
+            reps = 10 if shape[1] >= 2048 else 20
+            ms = cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=reps)
+            pms = cuda_ms(lambda: FA.flash_mha_plain(q, k, v, scale), reps=reps)
+            lib = "-"
+            if dtype == torch.bfloat16:
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=reps)
+                lib = f"{lms:.4f} ms"
+                del qt, kt, vt
+            nbytes, flops, exps = flash_work(shape, q.element_size())
+            bms, by = bound(nbytes, flops, str(dtype)[6:])
+            print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} {shape}: max|dy|={err:.3g} (bound {limit:.3g}); "
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms sdpa {lib}; {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.0f} M exp, least {bms:.4f} ms ({by}), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s")
+            if dtype == torch.bfloat16 and shape == FLASH_SHAPES[0]:
+                stats[FLASH_ATTN].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
+            del q, k, v, out, ref
+
+        # strided views of a packed (B, N, 3, H, D) product, as the DiT gives them
+        B, N, H, D = FLASH_SHAPES[0]
+        qkv = (torch.randn(B, N, 3, H, D, generator=gen, device=dev) * 1.5).to(dtype)
+        q, k, v = qkv.unbind(2)
+        out = FA.flash_mha_cuda(q, k, v, D**-0.5)
+        same = torch.equal(out, FA.flash_mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(), D**-0.5))
+        err = (out.float() - FA.flash_mha_plain(q, k, v, D**-0.5).float()).abs().max().item()
+        check(same, f"K4 {dtype}: strided q/k/v views differ from contiguous copies")
+        print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} strided views of a packed ({B}, {N}, 3, {H}, {D}) qkv: "
+              f"bit-equal to contiguous copies, max|dy| vs plain {err:.3g}")
+        del qkv, q, k, v, out
+
+
+def phase_dit_net(dev, dit_opt):
+    """One forward of the full-width DiT-L/2 at batch 2 on 128x128x8
+    latents, kernel path against plain path, float32 and bfloat16 (bounds
+    of compare_nets).  Seeded weights with flax's default initialisers on
+    every layer: flax zeroes adaLN and the final layer, and a net whose
+    output is exactly 0 would agree with anything.  The bf16 kernel forward
+    launches K4 once per block."""
+    import functools
+
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import build_network
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
+
+    which, setting = dit_opt["network_G"]["which_model"], dit_opt["network_G"]["setting"]
+    nets = make_nets(functools.partial(build_network, which), setting, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    lat = DIT_SIZE // 8
+    cond = torch.randn(DIT_BATCH, lat, lat, setting["in_channels"], generator=gen, device=dev)
+    xt = cond + torch.randn(cond.shape, generator=gen, device=dev)
+    t = torch.randint(1, 101, (DIT_BATCH,), generator=gen, device=dev)
+    before = FLASH_ATTN.launches
+    with torch.inference_mode():
+        nets[torch.bfloat16, False](xt, cond, t)
+    depth = len(nets[torch.bfloat16, False].blocks)
+    check(FLASH_ATTN.launches - before == depth, f"DiT forward: {FLASH_ATTN.launches - before} K4 launches")
+    compare_nets("dit-net", f"{which} batch {DIT_BATCH} {lat}x{lat}x{setting['in_channels']}", nets, (xt, cond, t))
+    return nets[torch.bfloat16, False]
+
+
+def dit_want(steps, depth):
+    """Launches per 100-step DiT request: K4 once per block and step, the
+    compressor's K1 and K2 once per request, no K3."""
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
+
+    return {LAYERNORM.symbol: COMPRESSOR_LN, LA_CTX.symbol: COMPRESSOR_ATTN, LA_APPLY.symbol: COMPRESSOR_ATTN,
+            NAF_STACK.symbol: 0, FLASH_ATTN.symbol: depth * steps}
+
+
+def phase_dit_main_path(dev, net, dit_opt, smi):
+    """The DiT latent sampler (compressor float32; DiT bf16 compute with its
+    parameters cast to bf16 once per request) serves two posterior batches
+    of 2 at 1024 px, one sde batch of 2 and the odd 1000x700 image."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import build_network, init_params_
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+    from image_restoration_sde_tpu_torch.training import make_latent_sampler
+
+    sde_opt = dit_opt["sde"]
+    sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+    steps = sde_opt["sample_T"]
+    comp_opt = dit_opt["network_L"]
+    compressor = build_network(comp_opt["which_model"], comp_opt["setting"])
+    compressor = init_params_(compressor, torch.Generator().manual_seed(SEED + 11)).to(dev).eval()
+    samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps, cast_params=torch.bfloat16)
+                for m in (DIT_MODE, "sde")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    full = (DIT_BATCH, DIT_SIZE, DIT_SIZE, 3)
+    requests = [(DIT_MODE, rng.random(full, np.float32)), (DIT_MODE, rng.random(full, np.float32)),
+                ("sde", rng.random(full, np.float32)), (DIT_MODE, rng.random((1, *DIT_ODD_HW, 3), np.float32))]
+    want = dit_want(steps, len(net.blocks))
+
+    for k in KERNELS:
+        k.launches = 0
+    rates = {}
+    for mode, img in requests:
+        before = {k.symbol: k.launches for k in KERNELS}
+        padded, hw = pad_to_bucket(img, 64)
+        lq = torch.from_numpy(padded).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = unpad(samplers[mode](lq, gen), hw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(out.shape == img.shape and out.dtype == torch.float32, f"dit {mode} output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"dit {mode} output not finite")
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        check(grew == want, f"dit launch counts {grew}, expected {want}")
+        if img.shape[0] == DIT_BATCH:
+            rates.setdefault(mode, []).append(DIT_BATCH / seconds)
+        print(f"[dit-main] {mode:9s} {img.shape[0]}x{img.shape[1]}x{img.shape[2]} "
+              f"(padded {tuple(padded.shape[1:3])}, {(padded.shape[1] // 16) * (padded.shape[2] // 16)} tokens): "
+              f"{seconds:.3f} s, {img.shape[0] / seconds:.4f} img/s, launches {grew}")
+    launches = {k.symbol: k.launches for k in KERNELS}
+    print(f"[dit-main] img/s at batch {DIT_BATCH}, {DIT_SIZE}px, {steps} steps, bf16 DiT-L/2: {DIT_MODE} "
+          f"{rates[DIT_MODE][-1]:.4f} (warm), {rates[DIT_MODE][0]:.4f} (first), sde {rates['sde'][-1]:.4f} "
+          f"(host clock; card: {smi})")
+    return launches, samplers[DIT_MODE]
+
+
+def phase_tiled(dev, sampler, steps, depth, smi):
+    """tiled_restore_device on a 1x1536x1536 uint8 image through the DiT
+    posterior sampler: four 1024 px tiles in one call of tile_batch 4."""
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.tiling import tiled_restore_device
+
+    img = np.random.default_rng(SEED + 13).integers(0, 256, (1, *TILED_HW, 3)).astype(np.uint8)
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = tiled_restore_device(sampler, img, SEED, tile=TILE, overlap=TILE_OVERLAP, tile_batch=TILE_BATCH,
+                               device=dev)
+    seconds = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in KERNELS}
+    check(out.shape == img.shape and out.dtype == np.uint8, f"tiled output {out.shape} {out.dtype}")
+    check(launches == dit_want(steps, depth), f"tiled launch counts {launches}")
+    print(f"[tiled] 1x{TILED_HW[0]}x{TILED_HW[1]} uint8, tile {TILE}, overlap {TILE_OVERLAP}, tile_batch "
+          f"{TILE_BATCH}: {seconds:.3f} s per image, output {out.dtype} {out.shape} (mean {out.mean():.2f}), "
+          f"launches {launches} (host clock; card: {smi})")
     return launches
 
 
@@ -658,18 +877,36 @@ def main() -> int:
     sde_opt = opt["sde"]
     setting = opt["network_G"]["setting"]
 
+    with open(DIT_CONFIG) as f:
+        dit_opt = yaml.safe_load(f)
+
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return result
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
     stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
                  "library_ms": None} for k in KERNELS}
     stats[KERNELS[0]]["library_ms"] = 0.0  # K1: F.layer_norm
-    phase_kernels(dev, stats, latent_opt)
-    net = phase_net(dev, setting, sde_opt)
-    launches = {"deraining": phase_main_path(dev, net, sde_opt, smi)}
+    timed("kernels", phase_kernels, dev, stats, latent_opt)
+    net = timed("net", phase_net, dev, setting, sde_opt)
+    launches = {"deraining": timed("main path", phase_main_path, dev, net, sde_opt, smi)}
     del net
-    latent_net, compressor = phase_latent_net(dev, latent_opt, refusion_setting)
-    launches["latent_dehazing"] = phase_latent_main_path(dev, latent_net, compressor, latent_opt, smi)
+    latent_net, compressor = timed("latent net", phase_latent_net, dev, latent_opt, refusion_setting)
+    launches["latent_dehazing"] = timed("latent main path", phase_latent_main_path, dev, latent_net, compressor,
+                                        latent_opt, smi)
+    del latent_net, compressor
+    timed("dit kernels", phase_flash, dev, stats)
+    dit_net = timed("dit net", phase_dit_net, dev, dit_opt)
+    launches["dit"], dit_sampler = timed("dit main path", phase_dit_main_path, dev, dit_net, dit_opt, smi)
+    launches["tiled"] = timed("tiled", phase_tiled, dev, dit_sampler, dit_opt["sde"]["sample_T"],
+                              len(dit_net.blocks), smi)
 
     report = []
     for k in KERNELS:
@@ -683,7 +920,9 @@ def main() -> int:
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16; K3 one call at "
-          f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px)")
+          f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px); K4 one "
+          f"call at {FLASH_SHAPES[0]} bf16 (one attention site of a DiT-L/2 forward at batch {DIT_BATCH}, "
+          f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,6 +4,6 @@ Imports torch and numpy only.  The hand-written CUDA kernels build at their
 first launch (``kernels``), never at import.
 """
 
-from . import models, ops, sampling, sde, training
+from . import models, ops, sampling, sde, tiling, training
 
-__all__ = ["models", "ops", "sampling", "sde", "training"]
+__all__ = ["models", "ops", "sampling", "sde", "tiling", "training"]

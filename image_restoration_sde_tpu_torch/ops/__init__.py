@@ -1,3 +1,4 @@
+from .flash_attention import FLASH_ATTN, flash_mha, flash_mha_plain
 from .layernorm import LAYERNORM, channel_layernorm, channel_layernorm_plain
 from .linear_attention import (
     LA_APPLY,
@@ -9,9 +10,10 @@ from .linear_attention import (
 # not re-exported here
 from .naf_stack import NAF_STACK, naf_stack_plain, stack_middle_params
 
-KERNELS = (LAYERNORM, LA_CTX, LA_APPLY, NAF_STACK)
+KERNELS = (LAYERNORM, LA_CTX, LA_APPLY, NAF_STACK, FLASH_ATTN)
 
 __all__ = [
+    "FLASH_ATTN",
     "KERNELS",
     "LAYERNORM",
     "LA_APPLY",
@@ -19,6 +21,8 @@ __all__ = [
     "NAF_STACK",
     "channel_layernorm",
     "channel_layernorm_plain",
+    "flash_mha",
+    "flash_mha_plain",
     "linear_attention_packed",
     "linear_attention_packed_plain",
     "naf_stack_plain",

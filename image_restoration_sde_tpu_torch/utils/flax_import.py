@@ -1,5 +1,5 @@
 """Load flax parameters into the PyTorch modules: ``ConditionalUNet``,
-``ConditionalNAFNet`` and the latent compressor ``UNet``.
+``ConditionalNAFNet``, the latent compressor ``UNet`` and ``DiT``.
 
 The reverse direction of ``image_restoration_sde_tpu/utils/torch_import.py``:
 a flax parameter tree, flattened to ``{"a/b/kernel": array}`` (without the
@@ -12,7 +12,8 @@ space, with each layout transform inverted:
   depthwise kernels (3, 3, 1, D) take the conv transform to (D, 1, 3, 3).
 
 The key maps are this package's own copies; the tests hold them against
-``unet_key_rules``, ``nafnet_key_rules`` and ``latent_unet_key_rules``.
+``unet_key_rules``, ``nafnet_key_rules``, ``latent_unet_key_rules`` and
+``dit_key_rules``.
 """
 
 from __future__ import annotations
@@ -165,6 +166,30 @@ def latent_unet_flax_keys(depth: int = 4) -> Dict[str, Entry]:
             _conv_bias(keys, f"decoder.{k}.3", f"dec{i}_up", bias=False)
         else:
             _conv_bias(keys, f"decoder.{k}.3.1", f"dec{i}_up/Conv_0")
+    return keys
+
+
+def _dense(keys: Dict[str, Entry], tp: str, fp: str) -> None:
+    keys[f"{tp}.weight"] = (f"{fp}/kernel", "dense")
+    keys[f"{tp}.bias"] = (f"{fp}/bias", "ident")
+
+
+def dit_flax_keys(depth: int = 28) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for ``DiT``;
+    its LayerNorms have no parameters on either side."""
+    keys: Dict[str, Entry] = {}
+    _conv_bias(keys, "patch_embed.proj", "patch_embed")
+    _dense(keys, "t_embedder.mlp.0", "t_mlp_1")
+    _dense(keys, "t_embedder.mlp.2", "t_mlp_2")
+    _dense(keys, "final_layer.adaLN_modulation.1", "final_adaLN")
+    _dense(keys, "final_layer.linear", "final_linear")
+    for i in range(depth):
+        tp, fp = f"blocks.{i}", f"block{i}"
+        _dense(keys, f"{tp}.adaLN_modulation.1", f"{fp}/adaLN")
+        _dense(keys, f"{tp}.attn.qkv", f"{fp}/MHA_0/qkv")
+        _dense(keys, f"{tp}.attn.proj", f"{fp}/MHA_0/proj")
+        _dense(keys, f"{tp}.mlp.fc1", f"{fp}/Dense_0")
+        _dense(keys, f"{tp}.mlp.fc2", f"{fp}/Dense_1")
     return keys
 
 

@@ -243,3 +243,112 @@ def test_nafnet_kernel_path_matches_plain_path(cuda_device, dtype):
         assert err <= 1e-4 * ref.abs().max().item()
     else:
         assert err <= 2 * (ref - f32).abs().max().item()
+
+
+# ------------------------------------------------------------------ K4
+FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
+                (1, 1000, 16, 64), (3, 35, 4, 64)]
+
+
+def _flash_inputs(shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device) * 1.5 for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
+    """One launch per call.  TF32 off.  Bound: float32 1e-5 of max|ref|;
+    bfloat16 twice the plain bf16 result's distance from the plain float32
+    result on the same inputs (kernel and plain version round p at other
+    maxima: the running one, the row's)."""
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (t.to(dtype) for t in _flash_inputs(shape, cuda_device, sum(shape)))
+    scale = shape[-1] ** -0.5
+    launches = FA.FLASH_ATTN.launches
+    got = FA.flash_mha(q, k, v, scale)
+    assert FA.FLASH_ATTN.launches == launches + 1
+    ref = FA.flash_mha_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == shape and torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * ref.abs().max().item()
+    else:
+        f32 = FA.flash_mha_plain(q.float(), k.float(), v.float(), scale)
+        assert err <= 2 * (ref.float() - f32).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kernel_takes_strided_qkv_views(cuda_device, D, dtype):
+    """q, k, v as views of a packed (B, N, 3, H, D) product give the same
+    bits as contiguous copies of them."""
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    B, N, H = 2, 300, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = (torch.randn(B, N, 3, H, D, generator=gen, device=cuda_device) * 1.5).to(dtype)
+    q, k, v = qkv.unbind(2)
+    assert q.stride(1) == 3 * H * D
+    got = FA.flash_mha(q, k, v, D**-0.5)
+    want = FA.flash_mha(q.contiguous(), k.contiguous(), v.contiguous(), D**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    q = torch.randn(1, 64, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_mha(q.half(), q.half(), q.half(), 0.125)
+    small = torch.randn(1, 64, 2, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_mha(small, small, small, 0.125)
+    swapped = q.transpose(1, 2).contiguous().transpose(1, 2)  # (B, N, H, D) with H outermost
+    with pytest.raises(ValueError, match=r"contiguous over \(H, D\)"):
+        FA.flash_mha(swapped, q, q, 0.125)
+    odd = torch.randn(64 * 2 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_mha(odd, odd, odd, 0.125)
+    with pytest.raises(ValueError, match="must be"):
+        FA.flash_mha(q, q[:, :32], q, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_dit_kernel_path_matches_plain_path(cuda_device, dtype):
+    """DiT(hidden 128, depth 2, heads 2: head dim 64) on a ragged 22x30
+    latent (N = 165): one K4 launch per block.  Bounds as the UNet's."""
+    from image_restoration_sde_tpu_torch.models import DiT, init_params_
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(hidden_size=128, depth=2, num_heads=2, patch_size=2, in_channels=4)
+    nets = {}
+    for key in ((dtype, False), (dtype, True), (torch.float32, True)):
+        nets[key] = DiT(**cfg, dtype=key[0], plain=key[1])
+        init_params_(nets[key], torch.Generator().manual_seed(0))
+        nets[key].to(cuda_device).eval()
+    x = torch.randn(2, 22, 30, 4, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    t = torch.tensor([5, 80], device=cuda_device)
+    launches = FLASH_ATTN.launches
+    with torch.inference_mode():
+        got = nets[dtype, False](x, x * 0.5, t)
+        grew = FLASH_ATTN.launches - launches
+        ref = nets[dtype, True](x, x * 0.5, t)
+        f32 = nets[torch.float32, True](x, x * 0.5, t)
+    assert grew == 2
+    assert got.shape == (2, 22, 30, 4) and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        assert err <= 2 * (ref - f32).abs().max().item()
