@@ -28,7 +28,8 @@ Phases, each printing its lines and its seconds:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
 3. kernels: each kernel against its plain PyTorch version at the paths'
-   shapes, float32 and bfloat16, with both times (CUDA events), the time
+   shapes (K1 and K2 at every path's, the DiT and tiled requests'
+   compressor included), float32 and bfloat16, with both times (CUDA events), the time
    of one PyTorch call computing the same function where there is one, and
    the least time the card could take (bytes or operations at the H100's
    published peaks); K3 also block by block, as chained one-block
@@ -49,11 +50,14 @@ Phases, each printing its lines and its seconds:
 8. DiT kernels: K4 against its plain version in float32 and bfloat16 at
    (B, N, H, D) = (2, 4096, 16, 64) (the slice), (1, 2816, 16, 64) (the
    odd request), (2, 1024, 16, 64) (512 px), (1, 4096, 16, 72) (DiT-XL's
-   head), (1, 1000, 16, 64) and (3, 35, 4, 64) (ragged), and on strided
-   views of a packed qkv; beside F.scaled_dot_product_attention and the
-   bound;
+   head), (1, 1000, 16, 64) and (3, 35, 4, 64) (ragged), (4, 4096, 16, 64)
+   (the tiled call), and on strided views of a packed qkv; bfloat16 also
+   against a plain version that rounds p where the kernel does; beside
+   F.scaled_dot_product_attention and the bound;
 9. DiT net: one forward of DiT-L/2 at batch 2 on 128x128x8 latents, kernel
-   path against plain path, float32 and bfloat16;
+   path against plain path, float32 and bfloat16; the path's compressor,
+   kernel path against plain path, at each DiT request's shape and at the
+   tiled call's (batch 4, 1024 px);
 10. DiT main path: the latent sampler serves two posterior batches of 2 at
    1024 px, one sde batch of 2 and one 1000x700 image (padded to
    1024x704: 2816 tokens); per 100-step request exactly 2400 K4, 4 K1,
@@ -99,9 +103,13 @@ NAF_LN_PER_FORWARD, COMPRESSOR_LN, COMPRESSOR_ATTN = 16, 4, 2
 # the DiT path's serving constants: posterior sampling at 1024 px, batch 2
 DIT_MODE, DIT_BATCH, DIT_SIZE, DIT_ODD_HW = "posterior", 2, 1024, (1000, 700)
 TILED_HW, TILE, TILE_OVERLAP, TILE_BATCH = (1536, 1536), 1024, 64, 4
-# K4's (B, N, H, D): the slice first
+# K4's (B, N, H, D): the slice first; phase 8 adds the shapes of every DiT
+# and tiled request (dit_path_shapes) that are not among these
 FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
                 (1, 1000, 16, 64), (3, 35, 4, 64)]
+# bf16 K4 against flash_mha_tiled_plain: the share of elements that may lie
+# past two ulps (a p whose rounding a float32 difference in s flips)
+FLASH_FLIP_SHARE = 5e-4
 # NVIDIA H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s for
 # bfloat16 on the tensor cores and float32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -130,14 +138,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bf16_bound(ref):
-    """Per element: one bfloat16 ulp at its magnitude (both sides round a
-    float32 value, either way) plus the float32 bound, 1e-5 of max|ref|
-    (near-zero outputs are sums that cancel)."""
+def bf16_bound(ref, ulps: int = 1):
+    """Per element: ``ulps`` bfloat16 ulps at its magnitude (both sides
+    round a float32 value, either way) plus the float32 bound, 1e-5 of
+    max|ref| (near-zero outputs are sums that cancel)."""
     import torch
 
     mag = ref.float().abs().clamp_min(2.0**-126)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * mag.max()
+    return ulps * torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * mag.max()
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -202,23 +210,62 @@ def path_shapes():
     return ln, attn
 
 
+def pad64(hw):
+    return tuple(-(-n // 64) * 64 for n in hw)
+
+
+def latent_requests():
+    """(batch, H, W) of the latent path's requests after padding."""
+    return [(LATENT_BATCH, LATENT_SIZE, LATENT_SIZE), (1, *pad64(LATENT_ODD_HW))]
+
+
+def dit_requests():
+    """(batch, H, W) of the DiT path's requests after padding, and of the
+    tiled path's one sampler call (TILE_BATCH tiles of TILE px)."""
+    return [(DIT_BATCH, DIT_SIZE, DIT_SIZE), (1, *pad64(DIT_ODD_HW)), (TILE_BATCH, TILE, TILE)]
+
+
+def compressor_shapes(comp, requests):
+    """(C, rows) of the K1 sites and (batch, N) of the K2 sites of the
+    compressor's deepest level at H/8 (K1 at its two widths, K2 once per
+    width) for each (batch, H, W) request."""
+    ln, attn = set(), set()
+    for batch, h, w in requests:
+        lh, lw = h // 8, w // 8
+        ln |= {(comp["ch"] * m, batch * lh * lw) for m in comp["ch_mult"][-2:]}
+        attn.add((batch, lh * lw))
+    return ln, attn
+
+
+def dit_path_shapes(dit_opt):
+    """The DiT and tiled paths' kernel shapes: the compressor's K1 (C, rows)
+    and K2 (batch, N), and K4's (B, N, H, D) on the latent's patch grid."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import build_network
+
+    with torch.device("meta"):
+        net = build_network(dit_opt["network_G"]["which_model"], dit_opt["network_G"]["setting"])
+    p, heads = net.patch_size, net.blocks[0].attn.heads
+    dh = net.blocks[0].attn.proj.in_features // heads
+    ln, attn = compressor_shapes(dit_opt["network_L"]["setting"], dit_requests())
+    flash = [(batch, (h // 8 // p) * (w // 8 // p), heads, dh) for batch, h, w in dit_requests()]
+    return sorted(ln), sorted(attn), flash
+
+
 def latent_path_shapes(latent_opt):
     """(C, rows) of the K1 sites and (batch, N) of the K2 sites that the
     latent path gives its kernels, for both request shapes (batch 4 at
     512 px, and one 700x1000 image padded to 704x1024): the compressor's
-    deepest level at H/8 (K1 at its two widths, K2 once per width), and the
-    NAFNet's levels that run an unfused block, on the latent zero-padded to
-    a multiple of 2^depth (a run of 4 or more blocks runs K3 instead)."""
-    comp = latent_opt["network_L"]["setting"]
+    (compressor_shapes), and the NAFNet's levels that run an unfused block,
+    on the latent zero-padded to a multiple of 2^depth (a run of 4 or more
+    blocks runs K3 instead)."""
     naf = latent_opt["network_G"]["setting"]
     enc, dec = naf["enc_blk_nums"], naf["dec_blk_nums"]
     runs = [(enc[i], dec[len(dec) - 1 - i]) for i in range(len(enc))] + [(naf["middle_blk_num"],)]
-    ln, attn = set(), set()
-    for batch, h, w in ((LATENT_BATCH, LATENT_SIZE, LATENT_SIZE),
-                        (1, *(-(-n // 64) * 64 for n in LATENT_ODD_HW))):
+    ln, attn = compressor_shapes(latent_opt["network_L"]["setting"], latent_requests())
+    for batch, h, w in latent_requests():
         lh, lw = h // 8, w // 8
-        ln |= {(comp["ch"] * m, batch * lh * lw) for m in comp["ch_mult"][-2:]}
-        attn.add((batch, lh * lw))
         pad = 2 ** len(enc)
         ph, pw = -(-lh // pad) * pad, -(-lw // pad) * pad
         for i, nums in enumerate(runs):
@@ -252,7 +299,7 @@ def phase_build():
             print(f"[build]   {line.strip()}")
 
 
-def phase_kernels(dev, stats, latent_opt):
+def phase_kernels(dev, stats, latent_opt, dit_opt):
     import torch
     import torch.nn.functional as F
 
@@ -263,13 +310,15 @@ def phase_kernels(dev, stats, latent_opt):
     gen.manual_seed(SEED)
     ln_sites, attn_sites = path_shapes()
     latent_ln, latent_attn = latent_path_shapes(latent_opt)
+    dit_ln, dit_attn, _ = dit_path_shapes(dit_opt)
 
     # K1 at the deraining path's sites (the ones its stats sum), two ragged
-    # shapes and the latent path's sites: bf16 (eps 1e-3) and f32 (eps
-    # 1e-5); bound: f32 1e-5 of max|y|, bf16 bf16_bound.  Library call:
-    # F.layer_norm on the same rows (its bias-free affine with g in x's dtype)
+    # shapes and the latent, DiT and tiled paths' sites: bf16 (eps 1e-3) and
+    # f32 (eps 1e-5); bound: f32 1e-5 of max|y|, bf16 bf16_bound.  Library
+    # call: F.layer_norm on the same rows (its bias-free affine with g in
+    # x's dtype)
     shapes = sorted(set(ln_sites))
-    shapes += sorted({(64, 1001), (1024, 999), *latent_ln} - set(shapes))
+    shapes += sorted({(64, 1001), (1024, 999), *latent_ln, *dit_ln} - set(shapes))
     for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
         for C, rows in shapes:
             x = (torch.randn(rows, C, generator=gen, device=dev) * 2 + 0.5).to(dtype)
@@ -300,10 +349,10 @@ def phase_kernels(dev, stats, latent_opt):
     stats[LN.LAYERNORM]["bound_ms"], stats[LN.LAYERNORM]["bound_by"] = bound(ln_bytes, ln_flops, "bfloat16")
 
     # K2a / K2b at the deraining path's N (batch 8), a ragged N and the
-    # latent path's (batch, N); bound: ctx (f32) and f32 outputs 1e-5 of
-    # max|ref|; bf16 outputs bf16_bound
+    # latent, DiT and tiled paths' (batch, N); bound: ctx (f32) and f32
+    # outputs 1e-5 of max|ref|; bf16 outputs bf16_bound
     pairs = [(BATCH, N) for N in sorted(set(attn_sites), reverse=True)]
-    pairs += sorted({(BATCH, 36), *latent_attn} - set(pairs))
+    pairs += sorted({(BATCH, 36), *latent_attn, *dit_attn} - set(pairs))
     for dtype in (torch.bfloat16, torch.float32):
         for batch, N in pairs:
             qkv = (torch.randn(batch, N, 384, generator=gen, device=dev) * 1.5).to(dtype)
@@ -539,7 +588,7 @@ def phase_main_path(dev, net, sde_opt, smi):
     return launches
 
 
-def compare_compressor(compressor, plain, img):
+def compare_compressor(tag, compressor, plain, img):
     """The float32 compressor's kernel path against its plain path on one
     image batch: encode (the latent and every skip), then decode of the
     plain path's latent and skips; each within 1e-4 of max|ref|.  Encode
@@ -565,7 +614,7 @@ def compare_compressor(compressor, plain, img):
         check(err <= 1e-4 * want.abs().max().item(), f"compressor {name}: kernel path differs from plain path")
         worst = max(worst, err / want.abs().max().item())
     check(out.shape == img.shape, f"compressor output shape {tuple(out.shape)}")
-    print(f"[latent-net] compressor f32 {tuple(img.shape)}: latent, {len(hs)} skips and decode kernel-vs-plain "
+    print(f"[{tag}] compressor f32 {tuple(img.shape)}: latent, {len(hs)} skips and decode kernel-vs-plain "
           f"max|d| / max|ref| = {worst:.3g} (bound 1e-4); launches K1, K2a, K2b {grew}")
 
 
@@ -608,9 +657,8 @@ def phase_latent_net(dev, latent_opt, refusion_setting):
     plain = UNet(**comp_setting, plain=True)
     plain.load_state_dict(compressor.state_dict())
     plain.to(dev).eval()
-    odd = tuple(-(-n // 64) * 64 for n in LATENT_ODD_HW)
-    for shape in ((LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3), (1, *odd, 3)):
-        compare_compressor(compressor, plain, torch.rand(shape, generator=gen, device=dev))
+    for request in latent_requests():
+        compare_compressor("latent-net", compressor, plain, torch.rand(*request, 3, generator=gen, device=dev))
     return kept, compressor
 
 
@@ -672,23 +720,55 @@ def flash_work(shape, itemsize):
     return 4 * B * N * H * D * itemsize, 4 * B * H * N * N * D, B * H * N * N
 
 
-def phase_flash(dev, stats):
-    """K4 against its plain version at FLASH_SHAPES, and on strided views of
-    a packed qkv product.  Bound: float32 1e-5 of max|ref|; bfloat16 twice
-    the plain bf16 result's distance from the plain float32 result on the
-    same inputs (kernel and plain version round p at other maxima).
-    Library call: F.scaled_dot_product_attention on the same tensors as
-    (B, H, N, D), transposed beforehand (bfloat16 only)."""
+def softmax_peak(q, k, scale):
+    """(B, N, H, 1) float32: each row's largest softmax weight, one batch
+    element at a time."""
+    import torch
+
+    peaks = []
+    for qb, kb in zip(q, k):
+        s = torch.einsum("ihd,jhd->hij", qb.float(), kb.float()) * scale
+        peaks.append(torch.exp(s.amax(dim=-1) - s.logsumexp(dim=-1)).transpose(0, 1))
+        del s
+    return torch.stack(peaks)[..., None]
+
+
+def flash_bf16_agreement(out, tiled, q, k, v, scale):
+    """bf16 K4 against flash_mha_tiled_plain, which rounds p where the
+    kernel does: (share of elements past two ulps plus 1e-5 of max|ref|,
+    largest error over that bound plus one bf16 ulp of the row's largest
+    p v term).  A float32 difference in s flips the rounding of a p now and
+    then, and one flip moves an element by at most that last term.  Phase
+    8 also prints the share of flash_mha_plain, which rounds p at the row
+    max: what a kernel that rounds p elsewhere would show."""
+    err = (out.float() - tiled.float()).abs()
+    tight = bf16_bound(tiled, ulps=2)
+    flip = 2.0**-7 * softmax_peak(q, k, scale) * v.float().abs().max()
+    return (err > tight).float().mean().item(), (err / (tight + flip)).max().item()
+
+
+def phase_flash(dev, stats, dit_opt):
+    """K4 against its plain version at FLASH_SHAPES and the DiT and tiled
+    requests' shapes, and on strided views of a packed qkv product.
+    Bounds: float32 1e-5 of max|ref|; bfloat16 twice the plain bf16
+    result's distance from the plain float32 result on the same inputs
+    (kernel and plain version round p at other maxima), and against
+    flash_mha_tiled_plain, which rounds p at the kernel's running maxima,
+    flash_bf16_agreement: at most FLASH_FLIP_SHARE of the elements past
+    two ulps, none past the flip allowance.  Library call:
+    F.scaled_dot_product_attention on the same tensors as (B, H, N, D),
+    transposed beforehand (bfloat16 only)."""
     import torch
     import torch.nn.functional as F
 
     from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 
+    shapes = FLASH_SHAPES + [s for s in dit_path_shapes(dit_opt)[2] if s not in FLASH_SHAPES]
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 9)
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in FLASH_SHAPES:
+        for shape in shapes:
             D = shape[-1]
             scale = D**-0.5
             q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 1.5).to(dtype) for _ in range(3))
@@ -696,13 +776,19 @@ def phase_flash(dev, stats):
             ref = FA.flash_mha_plain(q, k, v, scale)
             err = (out.float() - ref.float()).abs().max().item()
             check(out.shape == shape and bool(torch.isfinite(out).all()), f"K4 {dtype} {shape}: shape/finite")
+            share, worst, tiled = 0.0, 0.0, ""
             if dtype == torch.float32:
                 limit = 1e-5 * ref.abs().max().item()
             else:
                 f32 = FA.flash_mha_plain(q.float(), k.float(), v.float(), scale)
                 limit = 2 * (ref.float() - f32).abs().max().item()
                 del f32
-            check(err <= limit, f"K4 {dtype} {shape}: max|dy|={err:.3g} (bound {limit:.3g})")
+                tiled_ref = FA.flash_mha_tiled_plain(q, k, v, scale)
+                share, worst = flash_bf16_agreement(out, tiled_ref, q, k, v, scale)
+                row_max = flash_bf16_agreement(ref, tiled_ref, q, k, v, scale)[0]
+                del tiled_ref
+                tiled = (f"; vs tiled plain {share:.3g} past two ulps (un-tiled plain {row_max:.3g}), "
+                         f"worst {worst:.3g} of the flip allowance")
             stats[FLASH_ATTN]["err"] = max(stats[FLASH_ATTN]["err"], err)
             reps = 10 if shape[1] >= 2048 else 20
             ms = cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=reps)
@@ -715,10 +801,14 @@ def phase_flash(dev, stats):
                 del qt, kt, vt
             nbytes, flops, exps = flash_work(shape, q.element_size())
             bms, by = bound(nbytes, flops, str(dtype)[6:])
-            print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} {shape}: max|dy|={err:.3g} (bound {limit:.3g}); "
+            print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} {shape}: max|dy|={err:.3g} (bound {limit:.3g}){tiled}; "
                   f"kernel {ms:.4f} ms plain {pms:.4f} ms sdpa {lib}; {flops / 1e9:.1f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.0f} M exp, least {bms:.4f} ms ({by}), "
                   f"{flops / ms / 1e9:.1f} TFLOP/s")
+            check(err <= limit, f"K4 {dtype} {shape}: max|dy|={err:.3g} (bound {limit:.3g})")
+            check(share <= FLASH_FLIP_SHARE and worst <= 1,
+                  f"K4 {dtype} {shape} against the tiled plain version: {share:.3g} of the elements past two ulps "
+                  f"(bound {FLASH_FLIP_SHARE}), worst {worst:.3g} of the flip allowance")
             if dtype == torch.bfloat16 and shape == FLASH_SHAPES[0]:
                 stats[FLASH_ATTN].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
             del q, k, v, out, ref
@@ -742,12 +832,14 @@ def phase_dit_net(dev, dit_opt):
     of compare_nets).  Seeded weights with flax's default initialisers on
     every layer: flax zeroes adaLN and the final layer, and a net whose
     output is exactly 0 would agree with anything.  The bf16 kernel forward
-    launches K4 once per block."""
+    launches K4 once per block.  Then the path's float32 compressor, kernel
+    path against plain path, at each DiT request's shape and the tiled
+    call's (compare_compressor)."""
     import functools
 
     import torch
 
-    from image_restoration_sde_tpu_torch.models import build_network
+    from image_restoration_sde_tpu_torch.models import build_network, init_params_
     from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
 
     which, setting = dit_opt["network_G"]["which_model"], dit_opt["network_G"]["setting"]
@@ -764,7 +856,18 @@ def phase_dit_net(dev, dit_opt):
     depth = len(nets[torch.bfloat16, False].blocks)
     check(FLASH_ATTN.launches - before == depth, f"DiT forward: {FLASH_ATTN.launches - before} K4 launches")
     compare_nets("dit-net", f"{which} batch {DIT_BATCH} {lat}x{lat}x{setting['in_channels']}", nets, (xt, cond, t))
-    return nets[torch.bfloat16, False]
+    net = nets.pop((torch.bfloat16, False))
+    del nets
+
+    comp_opt = dit_opt["network_L"]
+    compressor = build_network(comp_opt["which_model"], comp_opt["setting"])
+    compressor = init_params_(compressor, torch.Generator().manual_seed(SEED + 11)).to(dev).eval()
+    plain = build_network(comp_opt["which_model"], comp_opt["setting"], plain=True)
+    plain.load_state_dict(compressor.state_dict())
+    plain.to(dev).eval()
+    for request in dit_requests():
+        compare_compressor("dit-net", compressor, plain, torch.rand(*request, 3, generator=gen, device=dev))
+    return net, compressor
 
 
 def dit_want(steps, depth):
@@ -776,13 +879,12 @@ def dit_want(steps, depth):
             NAF_STACK.symbol: 0, FLASH_ATTN.symbol: depth * steps}
 
 
-def phase_dit_main_path(dev, net, dit_opt, smi):
+def phase_dit_main_path(dev, net, compressor, dit_opt, smi):
     """The DiT latent sampler (compressor float32; DiT bf16 compute with its
     parameters cast to bf16 once per request) serves two posterior batches
     of 2 at 1024 px, one sde batch of 2 and the odd 1000x700 image."""
     import torch
 
-    from image_restoration_sde_tpu_torch.models import build_network, init_params_
     from image_restoration_sde_tpu_torch.ops import KERNELS
     from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
     from image_restoration_sde_tpu_torch.sde import IRSDE
@@ -791,9 +893,6 @@ def phase_dit_main_path(dev, net, dit_opt, smi):
     sde_opt = dit_opt["sde"]
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     steps = sde_opt["sample_T"]
-    comp_opt = dit_opt["network_L"]
-    compressor = build_network(comp_opt["which_model"], comp_opt["setting"])
-    compressor = init_params_(compressor, torch.Generator().manual_seed(SEED + 11)).to(dev).eval()
     samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps, cast_params=torch.bfloat16)
                 for m in (DIT_MODE, "sde")}
     gen = torch.Generator(device=dev)
@@ -894,7 +993,7 @@ def main() -> int:
     stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
                  "library_ms": None} for k in KERNELS}
     stats[KERNELS[0]]["library_ms"] = 0.0  # K1: F.layer_norm
-    timed("kernels", phase_kernels, dev, stats, latent_opt)
+    timed("kernels", phase_kernels, dev, stats, latent_opt, dit_opt)
     net = timed("net", phase_net, dev, setting, sde_opt)
     launches = {"deraining": timed("main path", phase_main_path, dev, net, sde_opt, smi)}
     del net
@@ -902,9 +1001,10 @@ def main() -> int:
     launches["latent_dehazing"] = timed("latent main path", phase_latent_main_path, dev, latent_net, compressor,
                                         latent_opt, smi)
     del latent_net, compressor
-    timed("dit kernels", phase_flash, dev, stats)
-    dit_net = timed("dit net", phase_dit_net, dev, dit_opt)
-    launches["dit"], dit_sampler = timed("dit main path", phase_dit_main_path, dev, dit_net, dit_opt, smi)
+    timed("dit kernels", phase_flash, dev, stats, dit_opt)
+    dit_net, dit_compressor = timed("dit net", phase_dit_net, dev, dit_opt)
+    launches["dit"], dit_sampler = timed("dit main path", phase_dit_main_path, dev, dit_net, dit_compressor,
+                                         dit_opt, smi)
     launches["tiled"] = timed("tiled", phase_tiled, dev, dit_sampler, dit_opt["sde"]["sample_T"],
                               len(dit_net.blocks), smi)
 

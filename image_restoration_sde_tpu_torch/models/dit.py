@@ -36,15 +36,13 @@ MLP_RATIO = 4
 FREQ_DIM = 256
 
 
-def glide_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
-    """cos-first sinusoidal embedding, float32."""
-    half = dim // 2
-    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+def glide_timestep_embedding(t: torch.Tensor) -> torch.Tensor:
+    """cos-first sinusoidal embedding of FREQ_DIM channels (periods up to
+    10000), float32."""
+    half = FREQ_DIM // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t.float()[:, None] * freqs[None]
-    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
-    if dim % 2:
-        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
-    return emb
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -116,7 +114,7 @@ class TimestepEmbedder(nn.Module):
 
     def forward(self, t):
         fc1, fc2 = self.mlp[0], self.mlp[2]
-        h = F.linear(glide_timestep_embedding(t, FREQ_DIM), fc1.weight.float(), fc1.bias.float())
+        h = F.linear(glide_timestep_embedding(t), fc1.weight.float(), fc1.bias.float())
         return F.linear(F.silu(h), fc2.weight.float(), fc2.bias.float())
 
 

@@ -49,6 +49,29 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return out.transpose(1, 2).to(q.dtype)
 
 
+def flash_mha_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                          block: int = 64) -> torch.Tensor:
+    """The same function in the kernel's order of operations: keys in tiles
+    of ``block`` (the bfloat16 kernel's 64), a running max and sum in
+    float32, ``p`` rounded to v's dtype at the running max of its tile, the
+    accumulator rescaled when a tile raises the max.  The kernel's results
+    agree with this one to float32 rounding before the last rounding, where
+    :func:`flash_mha_plain` rounds p at the row's final max instead."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, H, N, D)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j in range(0, k.shape[1], block):
+        s = qf @ kf[:, :, j : j + block].transpose(-1, -2) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(v.dtype).float() @ vf[:, :, j : j + block]
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype)
+
+
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Launch K4 on CUDA tensors (B, N, H, D), float32 or bfloat16, D 64 or
     72, each with unit stride over D, stride D over H and batch and token

@@ -250,9 +250,31 @@ FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 409
                 (1, 1000, 16, 64), (3, 35, 4, 64)]
 
 
+FLASH_FLIP_SHARE = 5e-4
+
+
 def _flash_inputs(shape, device, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     return [torch.randn(shape, generator=gen, device=device) * 1.5 for _ in range(3)]
+
+
+def flash_bf16_agreement(got, tiled, q, k, v, scale):
+    """bfloat16 attention against ``flash_mha_tiled_plain``, which rounds p
+    where the kernel does: (share of elements past two bf16 ulps plus 1e-5
+    of max|ref|, largest error over that bound plus one bf16 ulp of the
+    row's largest p v term).  A float32 difference in s flips the rounding
+    of a p now and then, and one flip moves an element by at most that last
+    term; rounding p at the row max instead (``flash_mha_plain``) puts far
+    more past two ulps (``chip_smoke.py`` phase 8 prints both shares).
+    Pass: share <= FLASH_FLIP_SHARE and largest <= 1."""
+    ref = tiled.float()
+    mag = ref.abs().clamp_min(2.0**-126)
+    tight = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * mag.max()
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * scale
+    peak = torch.exp(s.amax(dim=-1) - s.logsumexp(dim=-1)).transpose(1, 2)[..., None]
+    err = (got.float() - ref).abs()
+    flip = 2.0**-7 * peak * v.float().abs().max()
+    return (err > tight).float().mean().item(), (err / (tight + flip)).max().item()
 
 
 @pytest.mark.cuda
@@ -262,7 +284,8 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
     """One launch per call.  TF32 off.  Bound: float32 1e-5 of max|ref|;
     bfloat16 twice the plain bf16 result's distance from the plain float32
     result on the same inputs (kernel and plain version round p at other
-    maxima: the running one, the row's)."""
+    maxima: the running one, the row's), and ``flash_bf16_agreement`` with
+    the tiled plain version, which rounds p at the kernel's maxima."""
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -280,6 +303,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
     else:
         f32 = FA.flash_mha_plain(q.float(), k.float(), v.float(), scale)
         assert err <= 2 * (ref.float() - f32).abs().max().item()
+        del f32
+        share, worst = flash_bf16_agreement(got, FA.flash_mha_tiled_plain(q, k, v, scale), q, k, v, scale)
+        assert share <= FLASH_FLIP_SHARE and worst <= 1, (share, worst)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""PyTorch port, the DiT path: K4's plain version against the JAX package's
-flash attention (Pallas in interpret mode) and its einsum reference; the
+"""PyTorch port, the DiT path: K4's plain versions (un-tiled, and tiled as
+the kernel) against the JAX package's flash attention (Pallas in interpret
+mode) and its einsum reference; the
 DiT against the flax DiT; its key map against ``dit_key_rules``; a 10-step
 latent chain through the compressor and a tiny DiT against the JAX
 composition; the network registry."""
@@ -12,7 +13,7 @@ import torch
 
 from image_restoration_sde_tpu.models.dit import DiT as FlaxDiT
 from image_restoration_sde_tpu.models.latent_unet import UNet as FlaxCompressor
-from image_restoration_sde_tpu.ops.flash_attention import _ref_mha
+from image_restoration_sde_tpu.ops.flash_attention import _flash_forward, _ref_mha
 from image_restoration_sde_tpu.ops.flash_attention import flash_mha as jax_flash_mha
 from image_restoration_sde_tpu.sampling import cast_f32_leaves
 from image_restoration_sde_tpu.sde import IRSDE as JIRSDE
@@ -24,6 +25,7 @@ from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 from image_restoration_sde_tpu_torch.sampling import make_noise_fn
 from image_restoration_sde_tpu_torch.sde import IRSDE, samplers
 from image_restoration_sde_tpu_torch.utils import dit_flax_keys, latent_unet_flax_keys, state_dict_from_flax
+from test_torch_cuda import FLASH_FLIP_SHARE, flash_bf16_agreement
 from test_torch_nafnet import randomize
 from test_torch_unet import KIND_OF, flatten, unflatten
 
@@ -76,6 +78,41 @@ def test_flash_plain_matches_einsum_reference_at_ragged_n(N, dtype, bound):
     (q, k, v), (jq, jk, jv) = _qkv((2, N, 4, 64), dtype, seed=N)
     want = _ref_mha(jq, jk, jv, 0.125)
     assert _rel_err(FA.flash_mha_plain(q, k, v, 0.125), want) <= bound
+
+
+@pytest.mark.parametrize("B,N,H,D", [(1, 256, 4, 64), (2, 192, 2, 72)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_tiled_plain_matches_pallas_kernel_at_its_tiles(B, N, H, D, dtype):
+    """``flash_mha_tiled_plain`` (64-key tiles, the CUDA kernel's) against
+    the Pallas kernel in interpret mode at bq = bk = 64: the same order of
+    operations, p rounded at each tile's running max.  float32: 1e-5 of
+    max|ref|; bfloat16: ``flash_bf16_agreement`` (float32 sums and exp in
+    another order may flip the rounding of a p), which the un-tiled plain
+    version, rounding p at the row max, fails."""
+    (q, k, v), (jq, jk, jv) = _qkv((B, N, H, D), dtype, seed=N + D)
+    scale = D**-0.5
+    want = jax.jit(lambda a, b, c: _flash_forward(a, b, c, scale, bq=64, bk=64, interpret=True))(jq, jk, jv)
+    got = FA.flash_mha_tiled_plain(q, k, v, scale)
+    assert got.dtype == dtype and got.shape == (B, N, H, D)
+    if dtype == torch.float32:
+        assert _rel_err(got, want) <= 1e-5
+    else:
+        want = torch.from_numpy(np.array(jnp.asarray(want, jnp.float32))).to(dtype)
+        share, worst = flash_bf16_agreement(got, want, q, k, v, scale)
+        assert share <= FLASH_FLIP_SHARE and worst <= 1, (share, worst)
+        # the bound tells where p is rounded: at the row max it fails
+        assert flash_bf16_agreement(FA.flash_mha_plain(q, k, v, scale), want, q, k, v, scale)[0] > FLASH_FLIP_SHARE
+
+
+@pytest.mark.parametrize("N", [35, 200])
+def test_tiled_plain_matches_plain_in_f32_at_ragged_n(N):
+    """In float32 no p is rounded, so the tiled and un-tiled versions are
+    the same function up to float32 sums: 1e-5 of max|ref|; a ragged last
+    tile included."""
+    (q, k, v), _ = _qkv((2, N, 4, 64), torch.float32, seed=N + 1)
+    want = FA.flash_mha_plain(q, k, v, 0.125)
+    got = FA.flash_mha_tiled_plain(q, k, v, 0.125)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 def test_flash_entry_runs_the_plain_version_on_the_cpu():
