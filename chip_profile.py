@@ -3,12 +3,16 @@
 
     python3 chip_profile.py
 
-For each of the port's three sampler paths (the configurations of
+For each of the port's sampler paths (the configurations of
 ``chip_smoke.py``: IR-SDE deraining, ConditionalUNet at batch 8, 128 px;
 Refusion latent dehazing, ConditionalNAFNet on the 64x64x8 latents of
 batch 4 at 512 px; Refusion DiT, DiT-L/2 on the 128x128x8 latents of batch
-2 at 1024 px, its parameters cast to bf16 as the sampler casts them), with
-random weights made from a seed, bf16 score net:
+2 at 1024 px, its parameters cast to bf16 as the sampler casts them;
+Gaussian denoising, the unconditional ConditionalUNet's reverse ODE at
+batch 8, 128 px and on one 512x512 image; stereo super-resolution, the
+stereo NAFNet on 4 pairs at 128 px; latent bokeh, the bokeh NAFNet with
+lens values on the 128x128x4 latents of batch 4 at 512 px), with random
+weights made from a seed, bf16 score net:
 
 - wall time per step: host clock around ``STEPS`` reverse steps that end
   in ``torch.cuda.synchronize()``, after a warm run of the same length;
@@ -19,8 +23,8 @@ random weights made from a seed, bf16 score net:
   steps;
 - the share of device time in the port's own kernels (K4 on the DiT
   path);
-- the latent path's compressor encode and decode times, and the host time
-  to enqueue the NAFNet's fused 28-block level.
+- the latent and bokeh paths' compressor encode and decode times, and the
+  host time to enqueue the NAFNet's fused 28-block level.
 
 Without CUDA it exits at once.
 """
@@ -36,18 +40,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED, STEPS = 0, 10
 # the port's kernels by the stem of their device function names (csrc/*.cu)
 PORT_KERNELS = {"K1": "channel_layernorm_kernel", "K2a": "la_ctx", "K2b": "la_apply", "K3": "naf_stack",
-                "K4": "flash_fwd"}
+                "K4": "flash_fwd", "K5 context": "lin_attn_ctx", "K5 apply": "lin_attn_apply"}
 
 
-def profile_steps(name, net, xt, mu, sde, steps):
+def posterior(net, xt, mu, sde):
+    """(run, forward): STEPS posterior steps of ``net(x, mu, tvec)`` from
+    ``xt`` with zero noise, and one forward at t = 50."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from image_restoration_sde_tpu_torch.sde import samplers
 
-    def run():
-        return samplers.reverse_posterior(sde, net, xt, mu, None, steps=steps,
-                                          noise_seq=torch.zeros(steps, *xt.shape, device=xt.device))
+    noise = torch.zeros(STEPS, *xt.shape, device=xt.device)
+    tvec = torch.full((xt.shape[0],), 50, device=xt.device)
+    return (lambda: samplers.reverse_posterior(sde, net, xt, mu, None, steps=STEPS, noise_seq=noise),
+            lambda: net(xt, mu, tvec))
+
+
+def profile_steps(name, run, forward, steps=STEPS):
+    """``run()``: ``steps`` sampler steps; ``forward()``: one net forward."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
         run()
@@ -56,10 +68,9 @@ def profile_steps(name, net, xt, mu, sde, steps):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-        tvec = torch.full((xt.shape[0],), 50, device=xt.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        net(xt, mu, tvec)
+        forward()
         enqueue = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -108,6 +119,26 @@ def fused_site_enqueue(net, batch, dev, reps=20):
           f"per forward (median of {reps})")
 
 
+def compressor_times(tag, compressor, img):
+    import torch
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latent, hidden = compressor.encode(img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        compressor.decode(latent, hidden)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        compressor.decode(latent, hidden)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    print(f"[{tag}] compressor at batch {img.shape[0]}, {img.shape[1]} px, f32: encode {1e3 * (t1 - t0):.2f} ms "
+          f"(cold), decode {1e3 * (t2 - t1):.2f} ms (cold), {1e3 * (t3 - t2):.2f} ms (warm)")
+    return latent
+
+
 def main() -> int:
     import torch
 
@@ -121,7 +152,7 @@ def main() -> int:
         ConditionalNAFNet, ConditionalUNet, UNet, build_network, init_params_,
     )
     from image_restoration_sde_tpu_torch.sampling import make_noise_fn
-    from image_restoration_sde_tpu_torch.sde import IRSDE
+    from image_restoration_sde_tpu_torch.sde import IRSDE, DenoisingSDE, samplers
 
     dev = torch.device("cuda", 0)
 
@@ -141,28 +172,14 @@ def main() -> int:
     opt = load("deraining", "test", "ir-sde.yml")
     unet = seeded(ConditionalUNet(**opt["network_G"]["setting"], dtype=torch.bfloat16))
     lq = torch.rand(8, 128, 128, 3, generator=gen, device=dev)
-    profile_steps("deraining", unet, lq + 0.1, lq, make_sde(opt), STEPS)
+    profile_steps("deraining", *posterior(unet, lq + 0.1, lq, make_sde(opt)))
     del unet
 
     opt = load("latent-dehazing", "test", "nasde.yml")
     naf = seeded(ConditionalNAFNet(**opt["network_G"]["setting"], dtype=torch.bfloat16))
     compressor = seeded(UNet(**opt["network_L"]["setting"]))
-    img = torch.rand(4, 512, 512, 3, generator=gen, device=dev)
-    with torch.inference_mode():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        latent, hidden = compressor.encode(img)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        compressor.decode(latent, hidden)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        compressor.decode(latent, hidden)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-    print(f"[latent] compressor at batch 4, 512 px, f32: encode {1e3 * (t1 - t0):.2f} ms (cold), "
-          f"decode {1e3 * (t2 - t1):.2f} ms (cold), {1e3 * (t3 - t2):.2f} ms (warm)")
-    profile_steps("latent", naf, latent + 0.1, latent, make_sde(opt), STEPS)
+    latent = compressor_times("latent", compressor, torch.rand(4, 512, 512, 3, generator=gen, device=dev))
+    profile_steps("latent", *posterior(naf, latent + 0.1, latent, make_sde(opt)))
     fused_site_enqueue(naf, latent.shape[0], dev)
     del naf
 
@@ -171,7 +188,32 @@ def main() -> int:
     img = torch.rand(2, 1024, 1024, 3, generator=gen, device=dev)
     with torch.inference_mode():
         latent, _ = compressor.encode(img)
-    profile_steps("dit", make_noise_fn(dit, torch.bfloat16), latent + 0.1, latent, make_sde(opt), STEPS)
+    profile_steps("dit", *posterior(make_noise_fn(dit, torch.bfloat16), latent + 0.1, latent, make_sde(opt)))
+    del dit, compressor
+
+    opt = load("denoising", "test", "ir-sde.yml")
+    unet = seeded(ConditionalUNet(**opt["network_G"]["setting"], conditional=False, dtype=torch.bfloat16))
+    s = opt["sde"]
+    dsde = DenoisingSDE.create(s["max_sigma"], s["T"], s["schedule"], device=dev)
+    for tag, x in (("denoise", torch.rand(8, 128, 128, 3, generator=gen, device=dev)),
+                   ("denoise-512", torch.rand(1, 512, 512, 3, generator=gen, device=dev))):
+        tvec = torch.full((x.shape[0],), 50, device=dev)
+        profile_steps(tag, lambda: samplers.dsde_reverse_ode(dsde, lambda a, t: unet(a, None, t), x, steps=STEPS),
+                      lambda: unet(x, None, tvec))
+    del unet
+
+    opt = load("stereo-sr", "test", "refusion.yml")
+    stereo = seeded(build_network("StereoConditionalNAFNet", opt["network_G"]["setting"], dtype=torch.bfloat16))
+    lq = torch.rand(4, 128, 128, 6, generator=gen, device=dev)
+    profile_steps("stereo", *posterior(stereo, lq + 0.1, lq, make_sde(opt)))
+    del stereo
+
+    opt = load("latent-bokeh", "test", "refusion.yml")
+    bokeh = seeded(build_network("BokehConditionalNAFNet", opt["network_G"]["setting"], dtype=torch.bfloat16))
+    compressor = seeded(build_network(opt["network_L"]["which_model"], opt["network_L"]["setting"]))
+    latent = compressor_times("bokeh", compressor, torch.rand(4, 512, 512, 3, generator=gen, device=dev))
+    lens = (torch.full((4,), 2.0, device=dev), torch.full((4,), 16.0, device=dev), torch.full((4,), 0.5, device=dev))
+    profile_steps("bokeh", *posterior(lambda x, m, t: bokeh(x, m, t, lens), latent + 0.1, latent, make_sde(opt)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four paths, each at full width with random weights made from a seed:
+Eight paths, each at full width with random weights made from a seed:
 
 - IR-SDE deraining (configs/deraining/test/ir-sde.yml): ConditionalUNet
   (nf=64, depth=4) in bf16 with float32 parameters, 128 px images at
@@ -21,7 +21,20 @@ Four paths, each at full width with random weights made from a seed:
   4096 tokens, bf16 compute, parameters cast to bf16 once per request)
   runs 100 reverse steps, its attention through kernel K4;
 - tiled large images: a 1536x1536 uint8 image as four 1024 px tiles in one
-  call of the DiT sampler, blended on the card.
+  call of the DiT sampler, blended on the card;
+- the public op ``ops.linear_attention.linear_attention`` (kernel K5) at
+  the token counts of the deraining UNet's levels;
+- Gaussian denoising (configs/denoising/test/ir-sde.yml): the unconditional
+  ConditionalUNet (nf=64, depth=4, full attention in the mid block) in bf16,
+  DenoisingSDE (max_sigma 70, T 1000, cosine), the reverse ODE from the
+  optimal timestep of sigma 50 (414 steps);
+- stereo super-resolution (configs/stereo-sr/test/refusion.yml): the stereo
+  NAFNet (width 64, enc [1, 1, 1, 28], mid 1, dec [1, 1, 1, 1], a SCAM after
+  every block) in bf16, 100 posterior steps;
+- latent bokeh (configs/latent-bokeh/test/refusion.yml): the compressor
+  UNet (ch 64, ch_mult [1, 2, 4], embed_dim 4) and the bokeh NAFNet (width
+  64, enc [2, 2, 4, 8], mid 12, dec [2, 2, 2, 2], lens conditioning) in
+  bf16, 100 posterior steps on H/4 latents.
 
 Phases, each printing its lines and its seconds:
 
@@ -64,7 +77,31 @@ Phases, each printing its lines and its seconds:
    2 K2a, 2 K2b and no K3 launches;
 11. tiled path: ``tiling.tiled_restore_device`` on a 1x1536x1536 uint8
    image, tile 1024, overlap 64, tile_batch 4 (four tiles, one sampler
-   call: 2400 K4 launches).
+   call: 2400 K4 launches);
+12. linear attention: the op path at (BH, N, d) = (32, 16384, 32),
+   (32, 4096, 32), (32, 1024, 32), (32, 256, 32) (the deraining UNet's
+   levels at batch 8 x 4 heads), (6, 1000, 32), (8, 4096, 16) and
+   (8, 4096, 64), float32 and bfloat16, one context and one apply launch
+   per call; each against its plain version, both passes timed beside
+   their plain halves and the bound; one gradient through the op;
+13. denoise net: one forward of the unconditional UNet at batch 8, 128 px,
+   kernel path against plain path (17 K1, 8 K2a, 8 K2b per forward), and
+   K1, K2 at its sites and those of the 512 px request;
+14. denoise main path: ``make_denoising_sampler`` (t0 = 414) serves a batch
+   of 8 noisy 128 px images and one 500x500 image (padded to 512x512)
+   twice; per request exactly 7038 K1, 3312 K2a and 3312 K2b launches;
+15. stereo net: one forward at batch 4 pairs, 128 px, kernel path against
+   plain path (144 K1 per forward, no K3), and K1 at its sites and those
+   of the 140x200 request;
+16. stereo main path: the restoration sampler serves two posterior batches
+   of 4 pairs at 128 px and one 140x200 pair (the net pads it to 144x208:
+   SCAM at 18x26 and 9x13); per request exactly 14400 K1 launches;
+17. bokeh net: the compressor's kernel path against its plain path at
+   batch 4, 512 px and at 704x1024; the bokeh NAFNet's at batch 4 on
+   128x128x4 latents (72 K1 per forward, no K3); K1, K2 at both nets' sites;
+18. bokeh main path: the latent sampler with seeded lens values serves two
+   posterior batches of 4 at 512 px and one 700x1000 image (padded to
+   704x1024); per request exactly 7204 K1, 2 K2a and 2 K2b launches.
 
 Launch counts are set to 0 just before each main path and read just after.
 Then one JSON line with each kernel's launches, error, times and bound, and
@@ -78,6 +115,7 @@ are float32 on both sides.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -92,6 +130,9 @@ CONFIG = os.path.join(REPO, "configs", "deraining", "test", "ir-sde.yml")
 LATENT_CONFIG = os.path.join(REPO, "configs", "latent-dehazing", "test", "nasde.yml")
 REFUSION_CONFIG = os.path.join(REPO, "configs", "deraining", "test", "refusion.yml")
 DIT_CONFIG = os.path.join(REPO, "configs", "latent-dehazing", "train", "dit.yml")
+DENOISE_CONFIG = os.path.join(REPO, "configs", "denoising", "test", "ir-sde.yml")
+STEREO_CONFIG = os.path.join(REPO, "configs", "stereo-sr", "test", "refusion.yml")
+BOKEH_CONFIG = os.path.join(REPO, "configs", "latent-bokeh", "test", "refusion.yml")
 BATCH, SIZE, SEED = 8, 128, 0
 ODD_HW = (100, 140)
 LN_PER_FORWARD, ATTN_PER_FORWARD = 18, 9
@@ -103,6 +144,21 @@ NAF_LN_PER_FORWARD, COMPRESSOR_LN, COMPRESSOR_ATTN = 16, 4, 2
 # the DiT path's serving constants: posterior sampling at 1024 px, batch 2
 DIT_MODE, DIT_BATCH, DIT_SIZE, DIT_ODD_HW = "posterior", 2, 1024, (1000, 700)
 TILED_HW, TILE, TILE_OVERLAP, TILE_BATCH = (1536, 1536), 1024, 64, 4
+# K5's (BH, N, d): the deraining UNet's 128, 64, 32 and 16 px levels at
+# batch 8 x 4 heads (K5b's and K5a's regimes on the TPU), an N where the JAX
+# op falls back to its composition, and the other two head dims; one
+# gradient through the op at LIN_ATTN_GRAD_SHAPE
+LIN_ATTN_SHAPES = [(32, 16384, 32), (32, 4096, 32), (32, 1024, 32), (32, 256, 32), (6, 1000, 32),
+                   (8, 4096, 16), (8, 4096, 64)]
+LIN_ATTN_GRAD_SHAPE = (4, 1000, 32)
+# the serving constants of the denoising, stereo and bokeh paths: batch 8
+# at 128 px (the train crop) and one 500x500 image (McMaster's size),
+# sigma 50 -> t0 = 414 reverse ODE steps; batch 4 pairs at 128 px and one
+# 140x200 pair; batch 4 at 512 px (the train GT_size) and one 700x1000
+# image.  K1 and K2 launches per net forward
+DENOISE_ODD_HW, DENOISE_T0, DENOISE_LN_PER_FORWARD, DENOISE_ATTN_PER_FORWARD = (500, 500), 414, 17, 8
+STEREO_BATCH, STEREO_ODD_HW, STEREO_LN_PER_FORWARD = 4, (140, 200), 144
+BOKEH_BATCH, BOKEH_SIZE, BOKEH_ODD_HW, BOKEH_LN_PER_FORWARD = 4, 512, (700, 1000), 72
 # K4's (B, N, H, D): the slice first; phase 8 adds the shapes of every DiT
 # and tiled request (dit_path_shapes) that are not among these
 FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
@@ -208,6 +264,16 @@ def path_shapes():
     ln += [(1024, BATCH * mid * mid)] * 2
     attn += [mid * mid]
     return ln, attn
+
+
+def counts(**nonzero):
+    """Expected launch counts by kernel symbol: the named kernels' (by
+    their ops attribute name), 0 for every other kernel of ops.KERNELS."""
+    from image_restoration_sde_tpu_torch import ops
+
+    want = {k.symbol: 0 for k in ops.KERNELS}
+    want.update({getattr(ops, name).symbol: n for name, n in nonzero.items()})
+    return want
 
 
 def pad64(hw):
@@ -542,50 +608,22 @@ def phase_net(dev, setting, sde_opt):
 
 
 def phase_main_path(dev, net, sde_opt, smi):
-    import torch
-
-    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
-    from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler, pad_to_bucket, unpad
+    """The deraining sampler serves two posterior batches of 8, one sde
+    batch of 8 and the odd 100x140 image (padded to 128x192)."""
+    from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     samplers = {m: make_restoration_sampler(sde, net, mode=m) for m in ("posterior", "sde")}
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 3)
+    gen = rng_generator(dev, SEED + 3)
     rng = np.random.default_rng(SEED + 3)
-    requests = [("posterior", rng.random((BATCH, SIZE, SIZE, 3), np.float32)),
-                ("posterior", rng.random((BATCH, SIZE, SIZE, 3), np.float32)),
-                ("sde", rng.random((BATCH, SIZE, SIZE, 3), np.float32)),
-                ("posterior", rng.random((1, *ODD_HW, 3), np.float32))]
-
-    for k in KERNELS:
-        k.launches = 0
-    rates = {}
-    for mode, img in requests:
-        before = {k.symbol: k.launches for k in KERNELS}
-        padded, hw = pad_to_bucket(img)
-        lq = torch.from_numpy(padded).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = unpad(samplers[mode](lq, gen), hw)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        check(out.shape == img.shape and out.dtype == torch.float32, f"{mode} output shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), f"{mode} output not finite")
-        steps = sde.T  # one chunk: the default runs the whole batch at once
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
-        want = {LAYERNORM.symbol: LN_PER_FORWARD * steps, LA_CTX.symbol: ATTN_PER_FORWARD * steps,
-                LA_APPLY.symbol: ATTN_PER_FORWARD * steps, NAF_STACK.symbol: 0, FLASH_ATTN.symbol: 0}
-        check(grew == want, f"launch counts {grew}, expected {want}")
-        if img.shape[0] == BATCH:
-            rates[mode] = BATCH / seconds
-        print(f"[main] {mode:9s} {img.shape[0]}x{img.shape[1]}x{img.shape[2]} "
-              f"(padded {tuple(padded.shape[1:3])}): {seconds:.3f} s, {img.shape[0] / seconds:.3f} img/s, "
-              f"launches {grew}")
-    launches = {k.symbol: k.launches for k in KERNELS}
-    print(f"[main] img/s at batch {BATCH}, {SIZE}px, {sde.T} steps, bf16: posterior {rates['posterior']:.4f}, "
-          f"sde {rates['sde']:.4f} (host clock, warm; card: {smi})")
-    return launches
+    requests = [("posterior", rng.random((BATCH, SIZE, SIZE, 3), np.float32), (gen,)),
+                ("posterior", rng.random((BATCH, SIZE, SIZE, 3), np.float32), (gen,)),
+                ("sde", rng.random((BATCH, SIZE, SIZE, 3), np.float32), (gen,)),
+                ("posterior", rng.random((1, *ODD_HW, 3), np.float32), (gen,))]
+    # one chunk: the default runs the whole batch at once
+    want = counts(LAYERNORM=LN_PER_FORWARD * sde.T, LA_CTX=ATTN_PER_FORWARD * sde.T, LA_APPLY=ATTN_PER_FORWARD * sde.T)
+    return serve("main", dev, requests, samplers, want, smi, BATCH, pad=64)
 
 
 def compare_compressor(tag, compressor, plain, img):
@@ -663,54 +701,24 @@ def phase_latent_net(dev, latent_opt, refusion_setting):
 
 
 def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
-    import torch
-
-    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
-    from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
+    """The latent sampler serves two batches of 4 at 512 px in the YAML's
+    mode, one sde batch of 4 and the odd 700x1000 image (704x1024)."""
     from image_restoration_sde_tpu_torch.sde import IRSDE
     from image_restoration_sde_tpu_torch.training import make_latent_sampler
 
     sde_opt = latent_opt["sde"]
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
-    steps = sde_opt["sample_T"]
-    samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps) for m in ("posterior", "sde")}
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 8)
+    steps, mode = sde_opt["sample_T"], sde_opt["sampling_mode"]
+    samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps) for m in (mode, "sde")}
+    gen = rng_generator(dev, SEED + 8)
     rng = np.random.default_rng(SEED + 8)
     full = (LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3)
-    requests = [(sde_opt["sampling_mode"], rng.random(full, np.float32)),
-                (sde_opt["sampling_mode"], rng.random(full, np.float32)),
-                ("sde", rng.random(full, np.float32)),
-                (sde_opt["sampling_mode"], rng.random((1, *LATENT_ODD_HW, 3), np.float32))]
-
-    for k in KERNELS:
-        k.launches = 0
-    rates = {}
-    for mode, img in requests:
-        before = {k.symbol: k.launches for k in KERNELS}
-        padded, hw = pad_to_bucket(img, 64)
-        lq = torch.from_numpy(padded).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = unpad(samplers[mode](lq, gen), hw)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        check(out.shape == img.shape and out.dtype == torch.float32, f"latent {mode} output shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), f"latent {mode} output not finite")
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
-        want = {LAYERNORM.symbol: NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX.symbol: COMPRESSOR_ATTN,
-                LA_APPLY.symbol: COMPRESSOR_ATTN, NAF_STACK.symbol: steps, FLASH_ATTN.symbol: 0}
-        check(grew == want, f"latent launch counts {grew}, expected {want}")
-        if img.shape[0] == LATENT_BATCH:
-            rates.setdefault(mode, []).append(LATENT_BATCH / seconds)
-        print(f"[latent-main] {mode:9s} {img.shape[0]}x{img.shape[1]}x{img.shape[2]} "
-              f"(padded {tuple(padded.shape[1:3])}): {seconds:.3f} s, {img.shape[0] / seconds:.4f} img/s, "
-              f"launches {grew}")
-    launches = {k.symbol: k.launches for k in KERNELS}
-    print(f"[latent-main] img/s at batch {LATENT_BATCH}, {LATENT_SIZE}px, {steps} steps, bf16 score net: "
-          f"posterior {rates[sde_opt['sampling_mode']][-1]:.4f} (warm), sde {rates['sde'][-1]:.4f} "
-          f"(host clock; card: {smi})")
-    return launches
+    requests = [(mode, rng.random(full, np.float32), (gen,)), (mode, rng.random(full, np.float32), (gen,)),
+                ("sde", rng.random(full, np.float32), (gen,)),
+                (mode, rng.random((1, *LATENT_ODD_HW, 3), np.float32), (gen,))]
+    want = counts(LAYERNORM=NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
+                  LA_APPLY=COMPRESSOR_ATTN, NAF_STACK=steps)
+    return serve("latent-main", dev, requests, samplers, want, smi, LATENT_BATCH, pad=64)
 
 
 def flash_work(shape, itemsize):
@@ -873,20 +881,17 @@ def phase_dit_net(dev, dit_opt):
 def dit_want(steps, depth):
     """Launches per 100-step DiT request: K4 once per block and step, the
     compressor's K1 and K2 once per request, no K3."""
-    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, LA_APPLY, LA_CTX, LAYERNORM, NAF_STACK
-
-    return {LAYERNORM.symbol: COMPRESSOR_LN, LA_CTX.symbol: COMPRESSOR_ATTN, LA_APPLY.symbol: COMPRESSOR_ATTN,
-            NAF_STACK.symbol: 0, FLASH_ATTN.symbol: depth * steps}
+    return counts(LAYERNORM=COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN, LA_APPLY=COMPRESSOR_ATTN,
+                  FLASH_ATTN=depth * steps)
 
 
 def phase_dit_main_path(dev, net, compressor, dit_opt, smi):
     """The DiT latent sampler (compressor float32; DiT bf16 compute with its
     parameters cast to bf16 once per request) serves two posterior batches
-    of 2 at 1024 px, one sde batch of 2 and the odd 1000x700 image."""
+    of 2 at 1024 px, one sde batch of 2 and the odd 1000x700 image (padded
+    to 1024x704: 2816 tokens)."""
     import torch
 
-    from image_restoration_sde_tpu_torch.ops import KERNELS
-    from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
     from image_restoration_sde_tpu_torch.sde import IRSDE
     from image_restoration_sde_tpu_torch.training import make_latent_sampler
 
@@ -895,39 +900,13 @@ def phase_dit_main_path(dev, net, compressor, dit_opt, smi):
     steps = sde_opt["sample_T"]
     samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps, cast_params=torch.bfloat16)
                 for m in (DIT_MODE, "sde")}
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 12)
+    gen = rng_generator(dev, SEED + 12)
     rng = np.random.default_rng(SEED + 12)
     full = (DIT_BATCH, DIT_SIZE, DIT_SIZE, 3)
-    requests = [(DIT_MODE, rng.random(full, np.float32)), (DIT_MODE, rng.random(full, np.float32)),
-                ("sde", rng.random(full, np.float32)), (DIT_MODE, rng.random((1, *DIT_ODD_HW, 3), np.float32))]
-    want = dit_want(steps, len(net.blocks))
-
-    for k in KERNELS:
-        k.launches = 0
-    rates = {}
-    for mode, img in requests:
-        before = {k.symbol: k.launches for k in KERNELS}
-        padded, hw = pad_to_bucket(img, 64)
-        lq = torch.from_numpy(padded).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = unpad(samplers[mode](lq, gen), hw)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        check(out.shape == img.shape and out.dtype == torch.float32, f"dit {mode} output shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), f"dit {mode} output not finite")
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
-        check(grew == want, f"dit launch counts {grew}, expected {want}")
-        if img.shape[0] == DIT_BATCH:
-            rates.setdefault(mode, []).append(DIT_BATCH / seconds)
-        print(f"[dit-main] {mode:9s} {img.shape[0]}x{img.shape[1]}x{img.shape[2]} "
-              f"(padded {tuple(padded.shape[1:3])}, {(padded.shape[1] // 16) * (padded.shape[2] // 16)} tokens): "
-              f"{seconds:.3f} s, {img.shape[0] / seconds:.4f} img/s, launches {grew}")
-    launches = {k.symbol: k.launches for k in KERNELS}
-    print(f"[dit-main] img/s at batch {DIT_BATCH}, {DIT_SIZE}px, {steps} steps, bf16 DiT-L/2: {DIT_MODE} "
-          f"{rates[DIT_MODE][-1]:.4f} (warm), {rates[DIT_MODE][0]:.4f} (first), sde {rates['sde'][-1]:.4f} "
-          f"(host clock; card: {smi})")
+    requests = [(DIT_MODE, rng.random(full, np.float32), (gen,)), (DIT_MODE, rng.random(full, np.float32), (gen,)),
+                ("sde", rng.random(full, np.float32), (gen,)),
+                (DIT_MODE, rng.random((1, *DIT_ODD_HW, 3), np.float32), (gen,))]
+    launches = serve("dit-main", dev, requests, samplers, dit_want(steps, len(net.blocks)), smi, DIT_BATCH, pad=64)
     return launches, samplers[DIT_MODE]
 
 
@@ -953,31 +932,443 @@ def phase_tiled(dev, sampler, steps, depth, smi):
     return launches
 
 
+def lin_attn_work(shape, itemsize):
+    """(bytes, FLOP) of the K5 op on (BH, N, d): q, k, v read and the output
+    written once; the d x d outer products of the context and the d x d
+    product of the apply, 2 N d^2 FLOP each per slice."""
+    BH, N, d = shape
+    return 4 * BH * N * d * itemsize, 4 * BH * N * d * d
+
+
+def phase_lin_attn(dev, stats):
+    """The public op ``ops.linear_attention.linear_attention`` (K5) at
+    LIN_ATTN_SHAPES, float32 and bfloat16: the op path (counts set to 0,
+    one call of the op per shape and dtype, counts read: exactly one
+    context and one apply launch per call), then each call's output against
+    ``linear_attention_plain`` on the same inputs (float32 1e-5 of
+    max|ref|, bfloat16 bf16_bound), each pass timed beside its plain half
+    and the op's bound; then one gradient through the op on the card
+    against the plain composition's (float32, 1e-5 of max|grad|).  No
+    single PyTorch call computes the function: library_ms is null."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import KERNELS, LIN_ATTN_APPLY, LIN_ATTN_CTX
+    from image_restoration_sde_tpu_torch.ops import linear_attention as LA
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32) for shape in LIN_ATTN_SHAPES]
+    inputs = {case: [(torch.randn(case[1], generator=gen, device=dev) * 1.5).to(case[0]) for _ in range(3)]
+              for case in cases}
+    for k in KERNELS:
+        k.launches = 0
+    outs = {case: LA.linear_attention(*inputs[case]) for case in cases}
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in KERNELS}
+    check(launches == counts(LIN_ATTN_CTX=len(cases), LIN_ATTN_APPLY=len(cases)),
+          f"linear_attention path launch counts {launches}")
+    print(f"[lin-attn] op path: {len(cases)} calls, launches {launches}")
+    for case in cases:
+        dtype, shape = case
+        q, k, v = inputs[case]
+        out, ref = outs[case], LA.linear_attention_plain(q, k, v)
+        err = (out.float() - ref.float()).abs()
+        check(out.shape == shape and out.dtype == dtype and bool(torch.isfinite(out).all()),
+              f"K5 {dtype} {shape}: shape/dtype/finite")
+        if dtype == torch.float32:
+            ok = err.max().item() <= 1e-5 * ref.abs().max().item()
+        else:
+            ok = bool((err <= bf16_bound(ref)).all())
+        check(ok, f"K5 {dtype} {shape}: max|dy|={err.max().item():.3g}")
+        ctx = LA.linear_attention_context_cuda(k, v)
+        ctx_ref = LA.linear_attention_context_plain(k, v)
+        cerr = (ctx - ctx_ref).abs().max().item()
+        check(cerr <= 1e-5 * ctx_ref.abs().max().item(), f"K5 {dtype} {shape}: max|dctx|={cerr:.3g}")
+        stats[LIN_ATTN_CTX]["err"] = max(stats[LIN_ATTN_CTX]["err"], cerr)
+        stats[LIN_ATTN_APPLY]["err"] = max(stats[LIN_ATTN_APPLY]["err"], err.max().item())
+        ms_c = cuda_ms(lambda: LA.linear_attention_context_cuda(k, v))
+        pms_c = cuda_ms(lambda: LA.linear_attention_context_plain(k, v))
+        ms_a = cuda_ms(lambda: LA.linear_attention_apply_heads_cuda(q, ctx))
+        pms_a = cuda_ms(lambda: LA.linear_attention_apply_heads_plain(q, ctx))
+        nbytes, flops = lin_attn_work(shape, q.element_size())
+        bms, by = bound(nbytes, flops, str(dtype)[6:])
+        half = bound(nbytes / 2, flops / 2, str(dtype)[6:])
+        print(f"[lin-attn] K5 {str(dtype)[6:]:8s} {shape}: max|dctx|={cerr:.3g} max|dy|={err.max().item():.3g}; "
+              f"context {ms_c:.4f} ms plain {pms_c:.4f} ms | apply {ms_a:.4f} ms plain {pms_a:.4f} ms | op "
+              f"{ms_c + ms_a:.4f} ms, least {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"{nbytes / (ms_c + ms_a) / 1e9:.3f} TB/s")
+        if case == cases[0]:
+            stats[LIN_ATTN_CTX].update(ms=ms_c, plain_ms=pms_c, bound_ms=half[0], bound_by=half[1])
+            stats[LIN_ATTN_APPLY].update(ms=ms_a, plain_ms=pms_a, bound_ms=half[0], bound_by=half[1])
+        del q, k, v, out, ref, ctx, ctx_ref
+    del inputs, outs
+
+    ins = [torch.randn(LIN_ATTN_GRAD_SHAPE, generator=gen, device=dev, requires_grad=True) for _ in range(3)]
+    g = torch.randn(LIN_ATTN_GRAD_SHAPE, generator=gen, device=dev)
+    got = torch.autograd.grad(LA.linear_attention(*ins), ins, g)
+    want = torch.autograd.grad(LA.linear_attention_plain(*ins), ins, g)
+    errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+    check(max(errs) <= 1e-5, f"K5 gradient: max|dgrad| / max|grad| = {errs}")
+    print(f"[lin-attn] gradient through the op at {LIN_ATTN_GRAD_SHAPE} f32: max|dgrad| / max|grad| "
+          f"(q, k, v) = {', '.join(f'{e:.3g}' for e in errs)} (bound 1e-5)")
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_sites():
+    """Record the (C, rows, dtype) of every K1 launch and the (B, N, dtype)
+    of every K2 launch made inside the block, into the yielded lists."""
+    from image_restoration_sde_tpu_torch.ops import layernorm as LN
+    from image_restoration_sde_tpu_torch.ops import linear_attention as LA
+
+    ln, attn = [], []
+    ln_cuda, ctx_cuda = LN.channel_layernorm_cuda, LA.linear_attention_ctx_cuda
+
+    def ln_rec(x, g, eps):
+        ln.append((x.shape[-1], x.numel() // x.shape[-1], x.dtype))
+        return ln_cuda(x, g, eps)
+
+    def ctx_rec(qkv, *a):
+        attn.append((qkv.shape[0], qkv.shape[1], qkv.dtype))
+        return ctx_cuda(qkv, *a)
+
+    LN.channel_layernorm_cuda, LA.linear_attention_ctx_cuda = ln_rec, ctx_rec
+    try:
+        yield ln, attn
+    finally:
+        LN.channel_layernorm_cuda, LA.linear_attention_ctx_cuda = ln_cuda, ctx_cuda
+
+
+def ctx_float64(qkv, heads=4, dim_head=32):
+    """K2a's function, linear_attention_ctx_plain's math in float64."""
+    import torch
+
+    B, N, _ = qkv.shape
+    x = qkv.double().reshape(B, N, 3, heads, dim_head)
+    return torch.einsum("bnhd,bnhe->bhed", torch.softmax(x[:, :, 1], dim=1), x[:, :, 2] / N)
+
+
+def hold_sites(tag, dev, ln_sites, attn_sites):
+    """K1 and K2b against their plain versions at each recorded site shape,
+    on seeded inputs, with phase 3's bounds; K2a's ctx within 1e-5 of
+    max|ctx| of the float64 composition (at N >= 65536 the plain float32
+    version's own sums over N drift past that bound; the kernel's do not)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import layernorm as LN
+    from image_restoration_sde_tpu_torch.ops import linear_attention as LA
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+
+    def agree(out, ref):
+        err = (out.float() - ref.float()).abs()
+        if out.dtype == torch.float32:
+            return err.max().item() <= 1e-5 * ref.abs().max().item(), err.max().item()
+        return bool((err <= bf16_bound(ref)).all()), err.max().item()
+
+    worst = [0.0, 0.0]
+    for C, rows, dtype in sorted(set(ln_sites), key=str):
+        eps = 1e-5 if dtype == torch.float32 else 1e-3
+        x = (torch.randn(rows, C, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        g = torch.randn(C, generator=gen, device=dev) * 0.2 + 1
+        ok, err = agree(LN.channel_layernorm_cuda(x, g, eps), LN.channel_layernorm_plain(x, g, eps))
+        check(ok, f"{tag}: K1 {dtype} C={C} rows={rows}: max|dy|={err:.3g}")
+        worst[0] = max(worst[0], err)
+    ctx_rel = [0.0, 0.0]  # kernel and plain float32 ctx against float64, / max|ctx|
+    for batch, N, dtype in sorted(set(attn_sites), key=str):
+        qkv = (torch.randn(batch, N, 384, generator=gen, device=dev) * 1.5).to(dtype)
+        ctx, ctx_ref = LA.linear_attention_ctx_cuda(qkv), LA.linear_attention_ctx_plain(qkv)
+        ref64 = ctx_float64(qkv)
+        scale = ref64.abs().max().item()
+        rel = [(c.double() - ref64).abs().max().item() / scale for c in (ctx, ctx_ref)]
+        ctx_rel = [max(a, b) for a, b in zip(ctx_rel, rel)]
+        check(rel[0] <= 1e-5, f"{tag}: K2a {dtype} B={batch} N={N}: max|dctx| = {rel[0]:.3g} of max|ctx|")
+        ok, err = agree(LA.linear_attention_apply_cuda(qkv, ctx_ref), LA.linear_attention_apply_plain(qkv, ctx_ref))
+        check(ok, f"{tag}: K2b {dtype} B={batch} N={N}: max|dout|={err:.3g}")
+        worst[1] = max(worst[1], err)
+        del qkv, ref64
+    print(f"[{tag}] K1 at the path's {len(set(ln_sites))} (C, rows, dtype) sites and K2 at its "
+          f"{len(set(attn_sites))} (B, N, dtype) sites against their plain versions: max|dy| {worst[0]:.3g}, "
+          f"max|dout| {worst[1]:.3g} (phase 3's bounds); K2a's ctx against the float64 composition "
+          f"{ctx_rel[0]:.3g} of max|ctx| (bound 1e-5), the plain float32 version's {ctx_rel[1]:.3g}")
+
+
+def serve(tag, dev, requests, samplers, want, smi, rate_batch, pad=None):
+    """Each request (mode, NHWC float32 array, extra arguments) through
+    ``samplers[mode](x, *extra)``, with exact launch counts per request (``want``);
+    counts set to 0 before the first and read after the last.  ``pad``
+    pads each request to a bucket multiple first (pad_to_bucket) and crops
+    the output back."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
+
+    for k in KERNELS:
+        k.launches = 0
+    rates = {}
+    for i, (mode, img, args) in enumerate(requests):
+        before = {k.symbol: k.launches for k in KERNELS}
+        padded, hw = pad_to_bucket(img, pad) if pad else (img, img.shape[1:3])
+        x = torch.from_numpy(padded).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = unpad(samplers[mode](x, *args), hw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(out.shape == img.shape and out.dtype == torch.float32, f"{tag} {mode} output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{tag} {mode} output not finite")
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        check(grew == want, f"{tag} launch counts {grew}, expected {want}")
+        if img.shape[0] == rate_batch:
+            rates.setdefault(mode, []).append(rate_batch / seconds)
+        print(f"[{tag}] {mode:9s} {'x'.join(map(str, img.shape))} (run as {tuple(padded.shape[1:3])}): "
+              f"{seconds:.3f} s, {img.shape[0] / seconds:.4f} img/s, launches {grew}")
+    for mode, r in rates.items():
+        print(f"[{tag}] img/s at batch {rate_batch}, {mode}: {r[-1]:.4f} (last), {r[0]:.4f} (first) "
+              f"(host clock; card: {smi})")
+    return {k.symbol: k.launches for k in KERNELS}
+
+
+def phase_denoise_net(dev, opt):
+    """The denoising UNet (configs/denoising/test/ir-sde.yml's setting with
+    conditional=False: full attention in the mid block) at full width:
+    one forward at batch 8, 128 px, kernel path against plain path in
+    float32 and bfloat16 (compare_nets); the bf16 kernel forward launches
+    K1 17 times and K2a, K2b 8 times each; K1 and K2 at the sites of that
+    forward and of the 512 px request, against their plain versions."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import ConditionalUNet
+
+    setting = {**opt["network_G"]["setting"], "conditional": False}
+    nets = make_nets(ConditionalUNet, setting, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen, device=dev)
+    t = torch.randint(1, 415, (BATCH,), generator=gen, device=dev)
+    net = nets[torch.bfloat16, False]
+    with recorded_sites() as (ln, attn), torch.inference_mode():
+        net(x, None, t)
+        big = torch.rand(1, *pad64(DENOISE_ODD_HW), 3, generator=gen, device=dev)
+        net(big, None, t[:1])
+    check((len(ln), len(attn)) == (2 * DENOISE_LN_PER_FORWARD, 2 * DENOISE_ATTN_PER_FORWARD),
+          f"denoising forward: {len(ln) // 2} K1, {len(attn) // 2} K2 launches")
+    compare_nets("denoise-net", f"unconditional nf={setting['nf']} depth={setting['depth']} batch {BATCH} "
+                 f"{SIZE}px", nets, (x, None, t))
+    hold_sites("denoise-net", dev, ln, attn)
+    del nets
+    return net
+
+
+def phase_denoise_main_path(dev, net, opt, smi):
+    """make_denoising_sampler (DenoisingSDE max_sigma 70, T 1000, cosine;
+    sigma 50 -> t0 reverse ODE steps; bf16 net, f32 parameters) serves a
+    batch of 8 noisy 128 px images and one 500x500 image (reflect-padded to
+    512x512), twice; per request exactly 17 t0 K1 and 8 t0 K2a, K2b
+    launches."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.sampling import make_denoising_sampler
+    from image_restoration_sde_tpu_torch.sde import DenoisingSDE
+
+    sde_opt, sigma = opt["sde"], float(opt["degradation"]["sigma"])
+    sde = DenoisingSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], device=dev)
+    sample = make_denoising_sampler(sde, net, sigma)
+    check(sample.t0 == DENOISE_T0, f"optimal timestep {sample.t0} for sigma {sigma}, expected {DENOISE_T0}")
+    rng = np.random.default_rng(SEED + 17)
+
+    def noisy(shape):
+        clean = rng.random(shape, np.float32)
+        return (clean + sigma / 255 * rng.standard_normal(shape, np.float32)).astype(np.float32)
+
+    requests = [("ode", noisy((BATCH, SIZE, SIZE, 3)), ()), ("ode", noisy((1, *DENOISE_ODD_HW, 3)), ())]
+    requests.append(("ode", requests[-1][1], ()))
+    want = counts(LAYERNORM=DENOISE_LN_PER_FORWARD * sample.t0, LA_CTX=DENOISE_ATTN_PER_FORWARD * sample.t0,
+                  LA_APPLY=DENOISE_ATTN_PER_FORWARD * sample.t0)
+    print(f"[denoise-main] sigma {sigma:g} -> t0 = {sample.t0} reverse ODE steps per request")
+    return serve("denoise-main", dev, requests, {"ode": sample}, want, smi, BATCH, pad=64)
+
+
+def phase_stereo_net(dev, opt):
+    """The stereo NAFNet (configs/stereo-sr/test/refusion.yml: width 64, enc
+    [1, 1, 1, 28], mid 1, dec [1, 1, 1, 1], a SCAM after every block) at
+    full width and depth: one forward at batch 4 pairs, 128 px, kernel path
+    against plain path (compare_nets); the bf16 kernel forward launches K1
+    144 times (36 blocks: norm1, norm2 and SCAM's two) and K3 never; K1 at
+    the sites of that forward and of the 140x200 request."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import StereoConditionalNAFNet
+    from image_restoration_sde_tpu_torch.ops import NAF_STACK
+
+    setting = opt["network_G"]["setting"]
+    nets = make_nets(StereoConditionalNAFNet, setting, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    lq = torch.rand(STEREO_BATCH, SIZE, SIZE, 6, generator=gen, device=dev)
+    xt = lq + torch.randn(lq.shape, generator=gen, device=dev) * 0.2
+    t = torch.randint(1, 101, (STEREO_BATCH,), generator=gen, device=dev)
+    net = nets[torch.bfloat16, False]
+    k3 = NAF_STACK.launches
+    with recorded_sites() as (ln, attn), torch.inference_mode():
+        net(xt, lq, t)
+        odd = torch.rand(1, *STEREO_ODD_HW, 6, generator=gen, device=dev)
+        net(odd, odd, t[:1])
+    check((len(ln), len(attn), NAF_STACK.launches - k3) == (2 * STEREO_LN_PER_FORWARD, 0, 0),
+          f"stereo forward: {len(ln) // 2} K1, {len(attn)} K2, {NAF_STACK.launches - k3} K3 launches")
+    compare_nets("stereo-net", f"stereo NAFNet batch {STEREO_BATCH} pairs {SIZE}px", nets, (xt, lq, t))
+    hold_sites("stereo-net", dev, ln, attn)
+    del nets
+    return net
+
+
+def phase_stereo_main_path(dev, net, opt, smi):
+    """The IR-SDE restoration sampler with the stereo net (max_sigma 50,
+    T 100, cosine, eps 0.005; posterior, 100 steps; bf16 net): a batch of 4
+    pairs at 128 px, twice, and one 140x200 pair (zero-padded by the net to
+    144x208: SCAM at 18x26 and 9x13); per request exactly 144 x 100 K1."""
+    from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+
+    sde_opt = opt["sde"]
+    sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+    mode = sde_opt["sampling_mode"]
+    sampler = {mode: make_restoration_sampler(sde, net, mode=mode)}
+    gen = rng_generator(dev, SEED + 19)
+    rng = np.random.default_rng(SEED + 19)
+    full = (STEREO_BATCH, SIZE, SIZE, 6)
+    requests = [(mode, rng.random(full, np.float32), (gen,)), (mode, rng.random(full, np.float32), (gen,)),
+                (mode, rng.random((1, *STEREO_ODD_HW, 6), np.float32), (gen,))]
+    return serve("stereo-main", dev, requests, sampler, counts(LAYERNORM=STEREO_LN_PER_FORWARD * sde.T), smi,
+                 STEREO_BATCH)
+
+
+def rng_generator(dev, seed):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def phase_bokeh_net(dev, opt):
+    """The bokeh path's nets (configs/latent-bokeh/test/refusion.yml): the
+    compressor UNet (ch 64, ch_mult [1, 2, 4], embed_dim 4: latents at H/4),
+    kernel path against plain path at each request's shape
+    (compare_compressor); the bokeh NAFNet (img_channel 4, width 64, enc
+    [2, 2, 4, 8], mid 12, dec [2, 2, 2, 2], lens conditioning) at batch 4 on
+    128x128x4 latents, kernel path against plain path (compare_nets); its
+    bf16 kernel forward launches K1 72 times and K3 never; K1 and K2 at the
+    sites of both nets at both request shapes."""
+    import functools
+
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import build_network, init_params_
+    from image_restoration_sde_tpu_torch.ops import NAF_STACK
+
+    comp_opt = opt["network_L"]
+    compressor = build_network(comp_opt["which_model"], comp_opt["setting"])
+    compressor = init_params_(compressor, torch.Generator().manual_seed(SEED + 20)).to(dev).eval()
+    plain = build_network(comp_opt["which_model"], comp_opt["setting"], plain=True)
+    plain.load_state_dict(compressor.state_dict())
+    plain.to(dev).eval()
+    gen = rng_generator(dev, SEED + 21)
+    sites = ([], [])
+    for batch, h, w in bokeh_requests():
+        img = torch.rand(batch, h, w, 3, generator=gen, device=dev)
+        with recorded_sites() as (ln, attn):
+            compare_compressor("bokeh-net", compressor, plain, img)
+        sites[0].extend(ln)
+        sites[1].extend(attn)
+    del plain
+
+    setting = opt["network_G"]["setting"]
+    nets = make_nets(functools.partial(build_network, "BokehConditionalNAFNet"), setting, dev)
+    ch, down = setting["img_channel"], 2 ** (len(comp_opt["setting"]["ch_mult"]) - 1)
+    lat = BOKEH_SIZE // down
+    cond = torch.randn(BOKEH_BATCH, lat, lat, ch, generator=gen, device=dev)
+    xt = cond + torch.randn(cond.shape, generator=gen, device=dev)
+    t = torch.randint(1, 101, (BOKEH_BATCH,), generator=gen, device=dev)
+    lens = bokeh_lens(np.random.default_rng(SEED + 21), BOKEH_BATCH, dev)
+    net = nets[torch.bfloat16, False]
+    k3 = NAF_STACK.launches
+    with recorded_sites() as (ln, attn), torch.inference_mode():
+        net(xt, cond, t, lens)
+        _, oh, ow = bokeh_requests()[1]
+        odd = torch.rand(1, oh // down, ow // down, ch, generator=gen, device=dev)
+        net(odd, odd, t[:1], tuple(v[:1] for v in lens))
+    check((len(ln), len(attn), NAF_STACK.launches - k3) == (2 * BOKEH_LN_PER_FORWARD, 0, 0),
+          f"bokeh forward: {len(ln) // 2} K1, {len(attn)} K2, {NAF_STACK.launches - k3} K3 launches")
+    compare_nets("bokeh-net", f"bokeh NAFNet batch {BOKEH_BATCH} {lat}x{lat}x{ch}", nets, (xt, cond, t, lens))
+    hold_sites("bokeh-net", dev, sites[0] + ln, sites[1] + attn)
+    del nets
+    return net, compressor
+
+
+def bokeh_requests():
+    """(batch, H, W) of the bokeh path's requests after padding."""
+    return [(BOKEH_BATCH, BOKEH_SIZE, BOKEH_SIZE), (1, *pad64(BOKEH_ODD_HW))]
+
+
+def bokeh_lens(rng, batch, dev):
+    """Seeded lens values (src, tgt, disparity), each (batch,): lens
+    apertures in [1, 20) and a disparity in [0, 1)."""
+    import torch
+
+    vals = [rng.uniform(1, 20, batch), rng.uniform(1, 20, batch), rng.random(batch)]
+    return tuple(torch.tensor(v, dtype=torch.float32, device=dev) for v in vals)
+
+
+def phase_bokeh_main_path(dev, net, compressor, opt, smi):
+    """The latent sampler with the bokeh net (max_sigma 50, T 100, cosine,
+    eps 0.005; posterior, 100 steps; bf16 score net, f32 compressor; lens
+    values from the seed as the per-sample cond): a batch of 4 at 512 px,
+    twice, and one 700x1000 image (padded to 704x1024); per request exactly
+    72 x 100 + 4 K1 and 2 K2a, K2b launches."""
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+    from image_restoration_sde_tpu_torch.training import make_latent_sampler
+
+    sde_opt = opt["sde"]
+    sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+    mode = sde_opt["sampling_mode"]
+    sampler = {mode: make_latent_sampler(sde, net, compressor, mode=mode)}
+    gen = rng_generator(dev, SEED + 22)
+    rng = np.random.default_rng(SEED + 22)
+    full = (BOKEH_BATCH, BOKEH_SIZE, BOKEH_SIZE, 3)
+    requests = [(mode, rng.random(full, np.float32), (gen, bokeh_lens(rng, BOKEH_BATCH, dev))),
+                (mode, rng.random(full, np.float32), (gen, bokeh_lens(rng, BOKEH_BATCH, dev))),
+                (mode, rng.random((1, *BOKEH_ODD_HW, 3), np.float32), (gen, bokeh_lens(rng, 1, dev)))]
+    want = counts(LAYERNORM=BOKEH_LN_PER_FORWARD * sde.T + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
+                  LA_APPLY=COMPRESSOR_ATTN)
+    return serve("bokeh-main", dev, requests, sampler, want, smi, BOKEH_BATCH, pad=64)
+
+
+def load_yaml(path):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    import yaml
-
     sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    with open(CONFIG) as f:
-        opt = yaml.safe_load(f)
-    with open(LATENT_CONFIG) as f:
-        latent_opt = yaml.safe_load(f)
-    with open(REFUSION_CONFIG) as f:
-        refusion_setting = yaml.safe_load(f)["network_G"]["setting"]
+    opt, latent_opt, dit_opt = (load_yaml(p) for p in (CONFIG, LATENT_CONFIG, DIT_CONFIG))
+    refusion_setting = load_yaml(REFUSION_CONFIG)["network_G"]["setting"]
     sde_opt = opt["sde"]
     setting = opt["network_G"]["setting"]
-
-    with open(DIT_CONFIG) as f:
-        dit_opt = yaml.safe_load(f)
 
     t_start = time.perf_counter()
 
@@ -1007,10 +1398,24 @@ def main() -> int:
                                          dit_opt, smi)
     launches["tiled"] = timed("tiled", phase_tiled, dev, dit_sampler, dit_opt["sde"]["sample_T"],
                               len(dit_net.blocks), smi)
+    del dit_net, dit_compressor, dit_sampler
+    torch.cuda.empty_cache()
+
+    launches["linear_attention"] = timed("linear attention", phase_lin_attn, dev, stats)
+    denoise_opt, stereo_opt, bokeh_opt = (load_yaml(p) for p in (DENOISE_CONFIG, STEREO_CONFIG, BOKEH_CONFIG))
+    denoise_net = timed("denoise net", phase_denoise_net, dev, denoise_opt)
+    launches["denoising"] = timed("denoise main path", phase_denoise_main_path, dev, denoise_net, denoise_opt, smi)
+    del denoise_net
+    stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt)
+    launches["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net, stereo_opt, smi)
+    del stereo_net
+    bokeh_net, bokeh_compressor = timed("bokeh net", phase_bokeh_net, dev, bokeh_opt)
+    launches["latent_bokeh"] = timed("bokeh main path", phase_bokeh_main_path, dev, bokeh_net, bokeh_compressor,
+                                     bokeh_opt, smi)
 
     report = []
     for k in KERNELS:
-        by_path = {path: counts[k.symbol] for path, counts in launches.items()}
+        by_path = {path: grew[k.symbol] for path, grew in launches.items()}
         report.append({
             "name": k.symbol, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1022,7 +1427,8 @@ def main() -> int:
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16; K3 one call at "
           f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px); K4 one "
           f"call at {FLASH_SHAPES[0]} bf16 (one attention site of a DiT-L/2 forward at batch {DIT_BATCH}, "
-          f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention")
+          f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention; K5 (irsde_lin_attn_*) one call of each "
+          f"pass at {LIN_ATTN_SHAPES[0]} bf16, bound_ms half the op's bytes and FLOP each")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

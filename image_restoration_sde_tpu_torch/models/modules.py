@@ -1,7 +1,7 @@
-"""Building blocks of the conditional UNet (PyTorch).
+"""Building blocks of the score networks (PyTorch).
 
 Counterpart of the parts of ``image_restoration_sde_tpu/models/modules.py``
-that ``ConditionalUNet`` uses.  Module and parameter names follow the
+that the port's networks use.  Module and parameter names follow the
 reference torch repository, so its ``state_dict`` keys load as they are.
 
 Layout: tensors are NCHW in ``torch.channels_last`` memory, so the channel
@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -151,6 +152,30 @@ class LinearAttention(nn.Module):
         return self.to_out(out.view(B, H, W, -1).permute(0, 3, 1, 2))
 
 
+class Attention(nn.Module):
+    """Full spatial self-attention (the unconditional UNet's mid block):
+    q k^T, softmax and p v in float32 with torch matmuls, a 1x1 projection
+    back and no output LayerNorm.  The JAX package computes it with XLA
+    einsums, not a Pallas kernel."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        hidden = self.heads * self.dim_head
+        qkv = self.to_qkv(x).permute(0, 2, 3, 1).reshape(B, H * W, 3, self.heads, self.dim_head)
+        q, k, v = (t.float().transpose(1, 2) for t in qkv.unbind(2))  # (B, h, N, d)
+        sim = torch.matmul(q * self.dim_head**-0.5, k.transpose(-1, -2))
+        out = torch.matmul(torch.softmax(sim, dim=-1), v)  # (B, h, N, d)
+        out = out.transpose(1, 2).reshape(B, H, W, hidden).to(x.dtype)
+        return self.to_out(out.permute(0, 3, 1, 2))
+
+
 class PreNorm(nn.Module):
     def __init__(self, dim: int, fn: nn.Module, plain: bool = False):
         super().__init__()
@@ -209,3 +234,36 @@ def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
 class PixelShuffle(nn.PixelShuffle):
     def forward(self, x):
         return pixel_shuffle(x, self.upscale_factor)
+
+
+def bicubic_resize_weights(in_size: int, out_size: int, a: float = -0.75) -> np.ndarray:
+    """Dense ``(out, in)`` float32 interpolation matrix equal to torch
+    ``F.interpolate(mode="bicubic", align_corners=False)`` along one axis
+    (no antialias; Keys kernel with a = -0.75, indices clamped at the
+    borders): the JAX package's ``bicubic_resize_weights``, copied."""
+    w = np.zeros((out_size, in_size), np.float32)
+    scale = in_size / out_size
+    for i in range(out_size):
+        src = (i + 0.5) * scale - 0.5
+        f = math.floor(src)
+        t = src - f
+        for off, dist in zip((-1, 0, 1, 2), (t + 1, t, 1 - t, 2 - t)):
+            x = abs(dist)
+            if x <= 1:
+                wk = (a + 2) * x**3 - (a + 3) * x**2 + 1
+            elif x < 2:
+                wk = a * (x**3 - 5 * x**2 + 8 * x - 4)
+            else:
+                wk = 0.0
+            idx = min(max(f + off, 0), in_size - 1)
+            w[i, idx] += wk
+    return w
+
+
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output index of a nearest resize that samples
+    at half-pixel centres, in float32 as ``jax.image.resize(...,
+    "nearest")`` computes it (torch's ``mode="nearest-exact"``; torch's
+    legacy ``"nearest"`` differs where out_size is not a multiple of
+    in_size)."""
+    return np.floor((np.arange(out_size, dtype=np.float32) + 0.5) * in_size / out_size).astype(np.int64)

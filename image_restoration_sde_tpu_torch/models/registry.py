@@ -13,13 +13,17 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import dit
+from .bokeh_nafnet import BokehConditionalNAFNet
 from .latent_unet import UNet
 from .nafnet import ConditionalNAFNet
+from .stereo_nafnet import StereoConditionalNAFNet
 from .unet import ConditionalUNet
 
 _REGISTRY: Dict[str, Any] = {
     "ConditionalUNet": ConditionalUNet,
     "ConditionalNAFNet": ConditionalNAFNet,
+    "StereoConditionalNAFNet": StereoConditionalNAFNet,
+    "BokehConditionalNAFNet": BokehConditionalNAFNet,
     "UNet": UNet,
     "DiT": dit.DiT,
     **dit.LADDER,

@@ -1,10 +1,12 @@
-"""ConditionalUNet score network, conditional variant (PyTorch).
+"""ConditionalUNet score network (PyTorch).
 
 Counterpart of ``image_restoration_sde_tpu/models/unet.py``.  The input is
-``concat([x_t - cond, cond])``; a sinusoidal time embedding feeds a float32
-two-layer MLP; ``depth`` levels of two ResBlocks and a linear attention, with
-a stride-2 downsample (the deepest level keeps its resolution through a
-plain 3x3 conv); a middle block with attention; on the way up, two skips
+``concat([x_t - cond, cond])`` (``conditional=False``, the denoising-SDE
+variant: ``x_t`` alone, ``forward(x, None, t)``); a sinusoidal time
+embedding feeds a float32 two-layer MLP; ``depth`` levels of two ResBlocks
+and a linear attention, with a stride-2 downsample (the deepest level keeps
+its resolution through a plain 3x3 conv); a middle block with linear
+attention (unconditional: full spatial attention); on the way up, two skips
 concatenated per level; a final ResBlock over the stem features.  Inputs are
 reflect-padded at the bottom/right to a multiple of 2^depth and cropped back.
 
@@ -15,10 +17,13 @@ parameters stay float32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from .modules import (
+    Attention,
     Conv2d,
     Downsample,
     Linear,
@@ -38,18 +43,19 @@ class ConditionalUNet(nn.Module):
         out_nc: int = 3,
         nf: int = 64,
         depth: int = 4,
+        conditional: bool = True,
         dtype: torch.dtype = torch.float32,
         plain: bool = False,
     ):
         super().__init__()
-        self.depth = depth
+        self.depth, self.conditional = depth, conditional
         self.dtype = dtype
         time_dim = nf * 4
 
         def attn(dim):
             return PreNormResidual(dim, LinearAttention(dim, plain=plain), plain=plain)
 
-        self.init_conv = Conv2d(in_nc * 2, nf, 7, padding=3, bias=False)
+        self.init_conv = Conv2d(in_nc * 2 if conditional else in_nc, nf, 7, padding=3, bias=False)
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(nf), Linear(nf, time_dim), nn.GELU(), Linear(time_dim, time_dim)
         )
@@ -75,17 +81,18 @@ class ConditionalUNet(nn.Module):
 
         mid_dim = nf * 2**depth
         self.mid_block1 = ResBlock(mid_dim, mid_dim, time_dim)
-        self.mid_attn = attn(mid_dim)
+        self.mid_attn = (attn(mid_dim) if conditional
+                         else PreNormResidual(mid_dim, Attention(mid_dim), plain=plain))
         self.mid_block2 = ResBlock(mid_dim, mid_dim, time_dim)
 
         self.final_res_block = ResBlock(nf * 2, nf, time_dim)
         self.final_conv = Conv2d(nf, out_nc, 3, padding=1)
 
-    def forward(self, xt: torch.Tensor, cond: torch.Tensor, time) -> torch.Tensor:
+    def forward(self, xt: torch.Tensor, cond: Optional[torch.Tensor], time) -> torch.Tensor:
         B, H, W, _ = xt.shape
         time = torch.as_tensor(time, dtype=torch.float32, device=xt.device).reshape(-1).expand(B)
 
-        x = torch.cat([xt - cond, cond], dim=-1)
+        x = torch.cat([xt - cond, cond], dim=-1) if self.conditional else xt
         x = check_image_size(x, 2**self.depth)
         # NHWC contiguous, seen as NCHW: channels_last memory
         x = x.to(self.dtype).contiguous().permute(0, 3, 1, 2)

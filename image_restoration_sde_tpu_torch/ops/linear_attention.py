@@ -1,10 +1,12 @@
-"""Packed all-heads linear attention: CUDA kernels K2a (context) and K2b
-(apply), and their plain PyTorch versions.
+"""Linear (channel) attention: the packed all-heads op with CUDA kernels
+K2a (context) and K2b (apply), the per-slice op ``linear_attention`` with
+CUDA kernels K5 (context and apply), and their plain PyTorch versions.
 
-Counterpart of ``linear_attention_packed`` in
-``image_restoration_sde_tpu/ops/linear_attention.py``.  The input is the
-qkv projection ``(B, N, 3*heads*dim_head)`` with channels ordered
-``[q heads | k heads | v heads]``; per head:
+Counterpart of ``linear_attention_packed`` and ``linear_attention`` in
+``image_restoration_sde_tpu/ops/linear_attention.py``.
+
+Packed: the input is the qkv projection ``(B, N, 3*heads*dim_head)`` with
+channels ordered ``[q heads | k heads | v heads]``; per head:
 
     ctxT[e, d] = sum_n softmax_N(k)[n, d] v[n, e] / N           (context)
     out[n, e]  = sum_d softmax_d(q)[n, d] dim_head^-1/2 ctxT[e, d] (apply)
@@ -13,8 +15,19 @@ qkv projection ``(B, N, 3*heads*dim_head)`` with channels ordered
 the output is ``(B, N, heads*dim_head)`` in the input's dtype.  The kernels
 are ``csrc/linear_attention.cu``; they take dim_head = 32 and any N.
 
-:func:`linear_attention_packed` launches the kernels on a CUDA tensor and
-runs the plain versions on a CPU tensor.
+Per slice: q, k, v are separate ``(BH, N, d)`` tensors, one head each:
+
+    ctx[d, e]  = sum_n softmax_N(k)[n, d] v[n, e] / N              (context)
+    out[n, e]  = sum_d softmax_d(q)[n, d] d^-1/2 ctx[d, e]          (apply)
+
+in float32, returned in q's dtype.  The kernels are
+``csrc/linear_attention_bh.cu``; they take d in ``KERNEL_HEAD_DIMS`` and any
+N.  ``linear_attention`` is differentiable: its backward is the autograd of
+the plain composition on the saved inputs, as the JAX op's custom_vjp is
+``jax.vjp`` of its jnp composition.
+
+:func:`linear_attention_packed` and :func:`linear_attention` launch the
+kernels on CUDA tensors and run the plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import torch
 from .. import kernels
 
 _SRC = "image_restoration_sde_tpu_torch/csrc/linear_attention.cu"
+_SRC_BH = "image_restoration_sde_tpu_torch/csrc/linear_attention_bh.cu"
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
 LA_CTX = kernels.Kernel(
@@ -37,6 +51,16 @@ LA_APPLY = kernels.Kernel(
     replaces="image_restoration_sde_tpu/ops/linear_attention.py:225",
 )
 KERNEL_DIM_HEAD = 32
+# K5 replaces both the resident and the N-tiled Pallas kernel (one function)
+LIN_ATTN_CTX = kernels.Kernel(
+    "irsde_lin_attn_ctx", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _V], source=_SRC_BH,
+    replaces="image_restoration_sde_tpu/ops/linear_attention.py:46,102",
+)
+LIN_ATTN_APPLY = kernels.Kernel(
+    "irsde_lin_attn_apply", [_V, _V, _V, _I, _I, _I, _I, _V], source=_SRC_BH,
+    replaces="image_restoration_sde_tpu/ops/linear_attention.py:46,102",
+)
+KERNEL_HEAD_DIMS = (16, 32, 64)
 
 
 def _split(qkv: torch.Tensor, heads: int, dim_head: int):
@@ -117,3 +141,93 @@ def linear_attention_packed(qkv: torch.Tensor, heads: int = 4, dim_head: int = 3
     if qkv.device.type == "cpu":
         return linear_attention_packed_plain(qkv, heads, dim_head)
     raise ValueError(f"linear_attention_packed: no implementation for device {qkv.device}")
+
+
+# ------------------------------------------------- per-slice op (K5)
+def linear_attention_context_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(BH, N, d) k and v -> float32 ctx (BH, d, d), indexed [bh, d, e]."""
+    ks = torch.softmax(k.float(), dim=-2)
+    return torch.einsum("bnd,bne->bde", ks, v.float() / k.shape[-2])
+
+
+def linear_attention_apply_heads_plain(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    """(BH, N, d) q and float32 ctx (BH, d, d) -> (BH, N, d) in q's dtype."""
+    qs = torch.softmax(q.float(), dim=-1) * (q.shape[-1] ** -0.5)
+    return torch.einsum("bde,bnd->bne", ctx, qs).to(q.dtype)
+
+
+def linear_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``_jnp_linear_attention`` in float32, returned in
+    q's dtype."""
+    return linear_attention_apply_heads_plain(q, linear_attention_context_plain(k, v))
+
+
+def _check_heads(*ts: torch.Tensor) -> int:
+    q = ts[0]
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"linear attention kernels: tensors on {[str(t.device) for t in ts]}, not a CUDA device")
+    if q.dim() != 3 or q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"linear attention kernels take (BH, N, d) with d in {KERNEL_HEAD_DIMS}, "
+                         f"got {tuple(q.shape)}")
+    if any(t.shape != q.shape or t.dtype != q.dtype or t.device != q.device for t in ts):
+        raise ValueError("q, k and v must share shape, dtype and device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("q, k and v must be contiguous")
+    return kernels.dtype_code(q.dtype)
+
+
+def linear_attention_context_cuda(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch K5's context pass: (BH, N, d) CUDA k, v -> float32 ctx (BH, d, d)."""
+    code = _check_heads(k, v)
+    BH, N, d = k.shape
+    n_ws = kernels.load_library().irsde_lin_attn_ctx_workspace(BH, N, d)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=k.device)
+    done = torch.zeros(BH, dtype=torch.int32, device=k.device)
+    ctx = torch.empty(BH, d, d, dtype=torch.float32, device=k.device)
+    LIN_ATTN_CTX(kernels.ptr(k), kernels.ptr(v), kernels.ptr(ctx), kernels.ptr(ws), kernels.ptr(done),
+                 BH, N, d, code, kernels.current_stream(k.device))
+    return ctx
+
+
+def linear_attention_apply_heads_cuda(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    """Launch K5's apply pass: (BH, N, d) CUDA q and float32 ctx -> (BH, N, d)
+    in q's dtype."""
+    code = _check_heads(q)
+    BH, N, d = q.shape
+    if ctx.shape != (BH, d, d) or ctx.dtype != torch.float32:
+        raise ValueError(f"ctx must be float32 {(BH, d, d)}")
+    if ctx.device != q.device or not ctx.is_contiguous():
+        raise ValueError("ctx must be contiguous, on q's device")
+    out = torch.empty_like(q)
+    LIN_ATTN_APPLY(kernels.ptr(q), kernels.ptr(ctx), kernels.ptr(out), BH, N, d, code,
+                   kernels.current_stream(q.device))
+    return out
+
+
+def _linear_attention_forward(q, k, v):
+    if q.is_cuda:
+        _check_heads(q, k, v)
+        return linear_attention_apply_heads_cuda(q, linear_attention_context_cuda(k, v))
+    if q.device.type == "cpu":
+        return linear_attention_plain(q, k, v)
+    raise ValueError(f"linear_attention: no implementation for device {q.device}")
+
+
+class _LinearAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _linear_attention_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = linear_attention_plain(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(BH, N, d) q, k, v -> (BH, N, d) in q's dtype; differentiable.  The
+    K5 kernels for CUDA tensors, the plain version for CPU tensors."""
+    return _LinearAttention.apply(q, k, v)

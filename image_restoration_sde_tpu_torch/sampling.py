@@ -1,10 +1,11 @@
 """High-level restoration sampling API (PyTorch).
 
 Counterpart of ``image_restoration_sde_tpu/sampling.py``: start from the
-noised LQ image (``noise_state``) and run the chosen reverse sampler.  Any
-image size runs as it is; ``pad_to_bucket`` / ``unpad`` reflect-pad to a
-bucket multiple and crop back, as the JAX package does for its compiled
-shapes.
+noised LQ image (``noise_state``) and run the chosen reverse sampler; or,
+for the denoising SDE, run the reverse ODE from the noisy image at the
+timestep of its noise level.  Any image size runs as it is;
+``pad_to_bucket`` / ``unpad`` reflect-pad to a bucket multiple and crop
+back, as the JAX package does for its compiled shapes.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from .sde import IRSDE, samplers
+from .sde import DenoisingSDE, IRSDE, samplers
 from .sde.rng import GeneratorLike, is_generator_batch
 
 SAMPLING_MODES = ("sde", "posterior", "ode")
@@ -69,20 +70,24 @@ def make_noise_fn(net: nn.Module, cast_params) -> Callable:
     for k in getattr(net, "fused_param_names", list)():
         params[k] = params[k].float()
 
-    def noise_fn(x, mu, tvec):
-        return functional_call(net, params, (x, mu, tvec))
+    def noise_fn(*args):
+        return functional_call(net, params, args)
 
     return noise_fn
 
 
-def run_chunks(sample_one: Callable, lq: torch.Tensor, gen: GeneratorLike, chunk: Optional[int]):
-    """``sample_one(lq_chunk, gen_chunk)`` over the batch's sub-batches."""
+def run_chunks(sample_one: Callable, lq: torch.Tensor, gen: GeneratorLike, chunk: Optional[int], cond=None):
+    """``sample_one(lq_chunk, gen_chunk)`` over the batch's sub-batches;
+    with a per-sample ``cond`` (a tuple of tensors with the batch as their
+    first axis), ``sample_one(lq_chunk, gen_chunk, cond_chunk)``."""
     B = lq.shape[0]
     c = _sample_chunk(B, chunk)
-    outs = [
-        sample_one(lq[i : i + c], gen[i : i + c] if is_generator_batch(gen) else gen)
-        for i in range(0, B, c)
-    ]
+    outs = []
+    for i in range(0, B, c):
+        args = [lq[i : i + c], gen[i : i + c] if is_generator_batch(gen) else gen]
+        if cond is not None:
+            args.append(tuple(v[i : i + c] for v in cond))
+        outs.append(sample_one(*args))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -112,6 +117,27 @@ def make_restoration_sampler(
 
         return run_chunks(sample_one, lq, gen, chunk)
 
+    return sample
+
+
+def make_denoising_sampler(
+    sde: DenoisingSDE,
+    net: nn.Module,  # net(x, None, tvec) -> noise, NHWC
+    sigma: float,
+    cast_params=None,
+) -> Callable:
+    """Returns ``sample(noisy) -> denoised`` (NHWC float32): the reverse ODE
+    from ``noisy`` over ``t0`` steps, ``t0 = sde.get_optimal_timestep(sigma)``
+    computed once, here.  Deterministic: no generator.  ``cast_params`` as
+    in :func:`make_restoration_sampler`."""
+    t0 = sde.get_optimal_timestep(sigma)
+
+    @torch.inference_mode()
+    def sample(noisy: torch.Tensor) -> torch.Tensor:
+        noise_fn = make_noise_fn(net, cast_params)
+        return samplers.dsde_reverse_ode(sde, lambda x, tvec: noise_fn(x, None, tvec), noisy, steps=t0)
+
+    sample.t0 = t0
     return sample
 
 

@@ -1,14 +1,17 @@
-"""IR-SDE reverse samplers as Python loops (PyTorch).
+"""IR-SDE and denoising-SDE samplers as Python loops (PyTorch).
 
-Counterpart of the IR-SDE part of ``image_restoration_sde_tpu/sde/samplers.py``,
-where each sampler is one ``lax.scan``.  Here the loop runs eagerly, one
-network call per step.
+Counterpart of ``image_restoration_sde_tpu/sde/samplers.py``, where each
+sampler is one ``lax.scan``.  Here the loop runs eagerly, one network call
+per step.
 
-``noise_fn(x, mu, tvec) -> noise`` is the conditional score network
-(``score = -noise / sigma_bar``); ``tvec`` is an int ``(B,)`` tensor.
+``noise_fn`` is the score network (``score = -noise / sigma_bar``):
+``noise_fn(x, mu, tvec)`` for the IR-SDE samplers (conditional),
+``noise_fn(x, tvec)`` for the ``dsde_*`` ones (unconditional); ``tvec`` is
+an int ``(B,)`` tensor.
 
 The stochastic samplers take either a generator (one, or one per sample) or
-a pre-drawn ``noise_seq`` of shape ``(T, *x.shape)``, consumed t=T first.
+a pre-drawn ``noise_seq`` of shape ``(T, *x.shape)``, consumed in the
+chain's order (t=T first in reverse, t=1 first in ``forward_sde``).
 ``noise_seq`` lets tests thread the same noise through this package and the
 JAX package.
 """
@@ -17,31 +20,56 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from .denoising_sde import DenoisingSDE
 from .irsde import IRSDE
 from .rng import GeneratorLike, normal_like
 
 Tensor = torch.Tensor
 CondNoiseFn = Callable[[Tensor, Tensor, Tensor], Tensor]
+UncondNoiseFn = Callable[[Tensor, Tensor], Tensor]
 
 
 def _tvec(batch: int, t: int, device) -> Tensor:
     return torch.full((batch,), t, dtype=torch.int32, device=device)
 
 
-def _loop_with_noise(step, x, T, gen, noise_seq, return_all):
-    """Run ``step(x, t, z) -> x`` for t = T..1, with ``z`` from ``noise_seq``
-    (row i for t = T - i) or drawn from ``gen``."""
-    if noise_seq is not None and noise_seq.shape[0] != T:
-        raise ValueError(f"noise_seq has {noise_seq.shape[0]} steps, expected {T}")
+def _loop(step, x, ts, return_all):
+    """Run ``step(x, t) -> x`` over the timesteps ``ts``."""
     states = []
-    for i, t in enumerate(range(T, 0, -1)):
-        z = noise_seq[i] if noise_seq is not None else normal_like(gen, x)
-        x = step(x, t, z)
+    for t in ts:
+        x = step(x, t)
         if return_all:
             states.append(x)
     return (x, torch.stack(states)) if return_all else x
+
+
+def _loop_with_noise(step, x, T, gen, noise_seq, return_all, ts=None):
+    """Run ``step(x, t, z) -> x`` for t = T..1 (or over ``ts``), with ``z``
+    from ``noise_seq`` (row i for the i-th timestep) or drawn from ``gen``."""
+    ts = range(T, 0, -1) if ts is None else ts
+    if noise_seq is not None and noise_seq.shape[0] != T:
+        raise ValueError(f"noise_seq has {noise_seq.shape[0]} steps, expected {T}")
+    zs = iter(noise_seq) if noise_seq is not None else None
+    return _loop(lambda x, t: step(x, t, next(zs) if zs is not None else normal_like(gen, x)),
+                 x, ts, return_all)
+
+
+def forward_sde(
+    sde: IRSDE,
+    x0: Tensor,
+    mu: Tensor,
+    gen: Optional[GeneratorLike] = None,
+    steps: Optional[int] = None,
+    return_all: bool = False,
+    noise_seq: Optional[Tensor] = None,
+):
+    """The forward mean-reverting SDE x0 -> x_T, t = 1..T (no network)."""
+    T = sde.T if steps is None else steps
+    return _loop_with_noise(lambda x, t, z: sde.forward_step(x, mu, t, z), x0, T, gen, noise_seq,
+                            return_all, ts=range(1, T + 1))
 
 
 def reverse_sde(
@@ -77,15 +105,12 @@ def reverse_ode(
     """Deterministic probability-flow ODE sampler."""
     T = sde.T if steps is None else steps
     batch = xt.shape[0]
-    x = xt
-    states = []
-    for t in range(T, 0, -1):
-        noise_pred = noise_fn(x, mu, _tvec(batch, t, x.device))
-        score = sde.score_from_noise(noise_pred, t)
-        x = sde.reverse_ode_step(x, mu, score, t)
-        if return_all:
-            states.append(x)
-    return (x, torch.stack(states)) if return_all else x
+
+    def step(x, t):
+        score = sde.score_from_noise(noise_fn(x, mu, _tvec(batch, t, x.device)), t)
+        return sde.reverse_ode_step(x, mu, score, t)
+
+    return _loop(step, xt, range(T, 0, -1), return_all)
 
 
 def reverse_posterior(
@@ -107,3 +132,103 @@ def reverse_posterior(
         return sde.reverse_posterior_step(x, mu, noise_pred, t, z)
 
     return _loop_with_noise(step, xt, T, gen, noise_seq, return_all)
+
+
+def optimal_reverse(
+    sde: IRSDE,
+    xt: Tensor,
+    x0: Tensor,
+    mu: Tensor,
+    steps: Optional[int] = None,
+    return_all: bool = False,
+):
+    """The closed-form posterior-mean rollout from x_T to x_0 (no network)."""
+    T = sde.T if steps is None else steps
+    return _loop(lambda x, t: sde.reverse_optimum_step(x, x0, mu, t), xt, range(T, 0, -1), return_all)
+
+
+def ode_sampler(
+    sde: IRSDE,
+    noise_fn: CondNoiseFn,
+    xt: Tensor,
+    mu: Tensor,
+    rtol: float = 1e-5,
+    atol: float = 1e-5,
+    method: str = "RK45",
+    eps: float = 1e-3,
+) -> Tensor:
+    """scipy's ``solve_ivp`` over the probability-flow ODE from t = T to
+    ``eps``, on the host (float64 state, float32 drift on ``xt``'s device;
+    the timestep is the solver's t truncated to an int).  Step control
+    depends on the data, so this is a debugging tool, not a serving path."""
+    from scipy import integrate
+
+    shape, batch = xt.shape, xt.shape[0]
+
+    @torch.inference_mode()
+    def ode_func(t, x_flat):
+        t = int(t)
+        x = torch.from_numpy(x_flat.reshape(shape)).to(device=xt.device, dtype=torch.float32)
+        score = sde.score_from_noise(noise_fn(x, mu, _tvec(batch, t, xt.device)), t)
+        return sde.ode_reverse_drift(x, mu, score, t).cpu().numpy().reshape(-1)
+
+    x0 = xt.detach().cpu().numpy().reshape(-1).astype(np.float64)
+    solution = integrate.solve_ivp(ode_func, (sde.T, eps), x0, rtol=rtol, atol=atol, method=method)
+    return torch.from_numpy(solution.y[:, -1].reshape(shape)).to(device=xt.device, dtype=torch.float32)
+
+
+# ------------------------------------------------------------- DenoisingSDE
+def dsde_reverse_sde(
+    sde: DenoisingSDE,
+    noise_fn: Optional[UncondNoiseFn],
+    xt: Tensor,
+    gen: Optional[GeneratorLike] = None,
+    x0: Optional[Tensor] = None,
+    steps: Optional[int] = None,
+    return_all: bool = False,
+    noise_seq: Optional[Tensor] = None,
+):
+    """Reverse SDE of the denoising SDE; with ``x0`` given, the analytic
+    score replaces the network."""
+    T = sde.T if steps is None else steps
+    batch = xt.shape[0]
+
+    def step(x, t, z):
+        if x0 is not None:
+            score = sde.get_real_score(x, x0, t)
+        else:
+            score = sde.score_from_noise(noise_fn(x, _tvec(batch, t, x.device)), t)
+        return sde.reverse_sde_step(x, score, t, z)
+
+    return _loop_with_noise(step, xt, T, gen, noise_seq, return_all)
+
+
+def dsde_reverse_ode(
+    sde: DenoisingSDE,
+    noise_fn: UncondNoiseFn,
+    xt: Tensor,
+    steps: Optional[int] = None,
+    return_all: bool = False,
+):
+    """Deterministic reverse ODE of the denoising SDE: the denoising task's
+    sampler, started at the optimal timestep for the input's noise level."""
+    T = sde.T if steps is None else steps
+    batch = xt.shape[0]
+
+    def step(x, t):
+        score = sde.score_from_noise(noise_fn(x, _tvec(batch, t, x.device)), t)
+        return sde.reverse_ode_step(x, score, t)
+
+    return _loop(step, xt, range(T, 0, -1), return_all)
+
+
+def dsde_optimal_reverse(
+    sde: DenoisingSDE,
+    xt: Tensor,
+    x0: Tensor,
+    steps: Optional[int] = None,
+    return_all: bool = False,
+):
+    """The denoising SDE's closed-form posterior-mean rollout (no network)."""
+    T = sde.T if steps is None else steps
+    return _loop(lambda x, t: sde.reverse_optimum_step(x, x0, t), xt, range(T, 0, -1), return_all)

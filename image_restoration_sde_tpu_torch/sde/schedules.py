@@ -85,6 +85,11 @@ def build_tables(
     ``max_sigma * sqrt(1 - eps^2)``.
     """
     max_sigma = max_sigma / 255.0 if max_sigma >= 1 else float(max_sigma)
+    return tables_for(max_sigma, T, schedule, eps, device)
+
+
+def tables_for(max_sigma: float, T: int, schedule: str, eps: float, device) -> ScheduleTables:
+    """:class:`ScheduleTables` for a ``max_sigma`` already on the 0..1 scale."""
     thetas = make_theta_schedule(schedule, T)
     sigmas = np.sqrt(max_sigma**2 * 2.0 * thetas)
     thetas_cumsum = np.cumsum(thetas) - thetas[0]  # thetas[0] is not 0

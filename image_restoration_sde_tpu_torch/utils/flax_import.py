@@ -1,5 +1,6 @@
-"""Load flax parameters into the PyTorch modules: ``ConditionalUNet``,
-``ConditionalNAFNet``, the latent compressor ``UNet`` and ``DiT``.
+"""Load flax parameters into the PyTorch modules: ``ConditionalUNet`` (both
+variants), ``ConditionalNAFNet``, ``StereoConditionalNAFNet``,
+``BokehConditionalNAFNet``, the latent compressor ``UNet`` and ``DiT``.
 
 The reverse direction of ``image_restoration_sde_tpu/utils/torch_import.py``:
 a flax parameter tree, flattened to ``{"a/b/kernel": array}`` (without the
@@ -12,8 +13,8 @@ space, with each layout transform inverted:
   depthwise kernels (3, 3, 1, D) take the conv transform to (D, 1, 3, 3).
 
 The key maps are this package's own copies; the tests hold them against
-``unet_key_rules``, ``nafnet_key_rules``, ``latent_unet_key_rules`` and
-``dit_key_rules``.
+``unet_key_rules``, ``nafnet_key_rules``, ``stereo_nafnet_key_rules``,
+``bokeh_nafnet_key_rules``, ``latent_unet_key_rules`` and ``dit_key_rules``.
 """
 
 from __future__ import annotations
@@ -56,9 +57,19 @@ def _linear_attn(tp: str, fp_attn: str, fp_wrap: str) -> Dict[str, Entry]:
     }
 
 
-def unet_flax_keys(depth: int = 4) -> Dict[str, Entry]:
-    """torch ``state_dict`` key -> (flax path, transform kind) for the
-    conditional ``ConditionalUNet``."""
+def _full_attn(tp: str, fp_attn: str, fp_wrap: str) -> Dict[str, Entry]:
+    return {
+        f"{tp}.fn.norm.g": (f"{fp_wrap}/ChannelLayerNorm_0/g", "norm"),
+        f"{tp}.fn.fn.to_qkv.weight": (f"{fp_attn}/Conv_0/kernel", "conv"),
+        f"{tp}.fn.fn.to_out.weight": (f"{fp_attn}/Conv_1/kernel", "conv"),
+        f"{tp}.fn.fn.to_out.bias": (f"{fp_attn}/Conv_1/bias", "ident"),
+    }
+
+
+def unet_flax_keys(depth: int = 4, conditional: bool = True) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for
+    ``ConditionalUNet``; the unconditional variant's mid block is full
+    attention."""
     keys: Dict[str, Entry] = {
         "init_conv.weight": ("init_conv/kernel", "conv"),
         "time_mlp.1.weight": ("time_mlp_1/kernel", "dense"),
@@ -71,7 +82,8 @@ def unet_flax_keys(depth: int = 4) -> Dict[str, Entry]:
     keys.update(_resblock("final_res_block", "final_res_block", True))
     keys.update(_resblock("mid_block1", "mid_block1", False))
     keys.update(_resblock("mid_block2", "mid_block2", False))
-    keys.update(_linear_attn("mid_attn", "mid_attn", "mid_attn_wrap"))
+    mid_attn = _linear_attn if conditional else _full_attn
+    keys.update(mid_attn("mid_attn", "mid_attn", "mid_attn_wrap"))
     for i in range(depth):
         keys.update(_resblock(f"downs.{i}.0", f"down{i}_block1", False))
         keys.update(_resblock(f"downs.{i}.1", f"down{i}_block2", False))
@@ -115,29 +127,84 @@ def _naf_block(tp: str, fp: str) -> Dict[str, Entry]:
     return keys
 
 
-def nafnet_flax_keys(enc_blk_nums: Sequence[int], middle_blk_num: int,
-                     dec_blk_nums: Sequence[int]) -> Dict[str, Entry]:
-    """torch ``state_dict`` key -> (flax path, transform kind) for
-    ``ConditionalNAFNet``."""
-    keys: Dict[str, Entry] = {
+def _naf_levels(keys: Dict[str, Entry], block, enc_blk_nums: Sequence[int], middle_blk_num: int,
+                dec_blk_nums: Sequence[int]) -> Dict[str, Entry]:
+    """The NAFNet skeleton shared by the three variants: ``block(tp, fp)``
+    maps one block."""
+    _conv_bias(keys, "intro", "intro")
+    _conv_bias(keys, "ending", "ending")
+    for i, num in enumerate(enc_blk_nums):
+        for b in range(num):
+            keys.update(block(f"encoders.{i}.{b}", f"enc{i}_block{b}"))
+        _conv_bias(keys, f"downs.{i}", f"down{i}")
+    for b in range(middle_blk_num):
+        keys.update(block(f"middle_blks.{b}", f"mid_block{b}"))
+    for i, num in enumerate(dec_blk_nums):
+        _conv_bias(keys, f"ups.{i}.0", f"up{i}", bias=False)
+        for b in range(num):
+            keys.update(block(f"decoders.{i}.{b}", f"dec{i}_block{b}"))
+    return keys
+
+
+def _naf_time_mlp() -> Dict[str, Entry]:
+    return {
         "time_mlp.1.weight": ("time_mlp_1/kernel", "dense"),
         "time_mlp.1.bias": ("time_mlp_1/bias", "ident"),
         "time_mlp.3.weight": ("time_mlp_2/kernel", "dense"),
         "time_mlp.3.bias": ("time_mlp_2/bias", "ident"),
     }
-    _conv_bias(keys, "intro", "intro")
-    _conv_bias(keys, "ending", "ending")
-    for i, num in enumerate(enc_blk_nums):
-        for b in range(num):
-            keys.update(_naf_block(f"encoders.{i}.{b}", f"enc{i}_block{b}"))
-        _conv_bias(keys, f"downs.{i}", f"down{i}")
-    for b in range(middle_blk_num):
-        keys.update(_naf_block(f"middle_blks.{b}", f"mid_block{b}"))
-    for i, num in enumerate(dec_blk_nums):
-        _conv_bias(keys, f"ups.{i}.0", f"up{i}", bias=False)
-        for b in range(num):
-            keys.update(_naf_block(f"decoders.{i}.{b}", f"dec{i}_block{b}"))
+
+
+def nafnet_flax_keys(enc_blk_nums: Sequence[int], middle_blk_num: int,
+                     dec_blk_nums: Sequence[int]) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for
+    ``ConditionalNAFNet``."""
+    return _naf_levels(_naf_time_mlp(), _naf_block, enc_blk_nums, middle_blk_num, dec_blk_nums)
+
+
+def _scam(tp: str, fp: str) -> Dict[str, Entry]:
+    keys: Dict[str, Entry] = {
+        f"{tp}.norm_l.g": (f"{fp}/norm_l/g", "norm"),
+        f"{tp}.norm_r.g": (f"{fp}/norm_r/g", "norm"),
+        f"{tp}.beta": (f"{fp}/beta", "norm"),
+        f"{tp}.gamma": (f"{fp}/gamma", "norm"),
+    }
+    for proj in ("l_proj1", "r_proj1", "l_proj2", "r_proj2"):
+        _conv_bias(keys, f"{tp}.{proj}", f"{fp}/{proj}")
     return keys
+
+
+def stereo_nafnet_flax_keys(enc_blk_nums: Sequence[int], middle_blk_num: int,
+                            dec_blk_nums: Sequence[int]) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for
+    ``StereoConditionalNAFNet``: each torch block carries its SCAM as
+    ``.fusion``; flax nests the two as ``block`` and ``fusion``."""
+
+    def block(tp, fp):
+        return {**_naf_block(tp, f"{fp}/block"), **_scam(f"{tp}.fusion", f"{fp}/fusion")}
+
+    return _naf_levels(_naf_time_mlp(), block, enc_blk_nums, middle_blk_num, dec_blk_nums)
+
+
+def bokeh_nafnet_flax_keys(enc_blk_nums: Sequence[int], middle_blk_num: int,
+                           dec_blk_nums: Sequence[int]) -> Dict[str, Entry]:
+    """torch ``state_dict`` key -> (flax path, transform kind) for
+    ``BokehConditionalNAFNet``: the net's time and camera MLPs are
+    Sequential(Linear, SimpleGate, Linear) (indices 0 and 2), each block's
+    ``time_mlp`` and ``cam_mlp`` Sequential(SimpleGate, Linear)."""
+
+    def block(tp, fp):
+        keys = {k: e for k, e in _naf_block(tp, fp).items() if ".mlp." not in k}
+        for name in ("time_mlp", "cam_mlp"):
+            keys[f"{tp}.{name}.1.weight"] = (f"{fp}/{name}/kernel", "dense")
+            keys[f"{tp}.{name}.1.bias"] = (f"{fp}/{name}/bias", "ident")
+        return keys
+
+    keys: Dict[str, Entry] = {}
+    for name in ("time_mlp", "cam_mlp"):
+        _dense(keys, f"{name}.0", f"{name}_1")
+        _dense(keys, f"{name}.2", f"{name}_2")
+    return _naf_levels(keys, block, enc_blk_nums, middle_blk_num, dec_blk_nums)
 
 
 def latent_unet_flax_keys(depth: int = 4) -> Dict[str, Entry]:

@@ -71,6 +71,65 @@ def test_linear_attention_kernels_match_plain(cuda_device, N, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [36, 256, 1024, 4100])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_per_slice_linear_attention_kernels_match_plain(cuda_device, N, d, dtype):
+    """K5: one context and one apply launch per call.  TF32 off.  Bound:
+    ctx and float32 outputs 1e-5 of max|ref|; bfloat16 outputs
+    ``_bf16_bound`` (both sides compute in float32 from the same bf16
+    inputs, then round)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(N + d)
+    q, k, v = ((torch.randn(3, N, d, generator=gen, device=cuda_device) * 1.5).to(dtype) for _ in range(3))
+    ctx = linear_attention.linear_attention_context_cuda(k, v)
+    ctx_ref = linear_attention.linear_attention_context_plain(k, v)
+    assert (ctx - ctx_ref).abs().max().item() <= 1e-5 * ctx_ref.abs().max().item()
+    counted = (linear_attention.LIN_ATTN_CTX, linear_attention.LIN_ATTN_APPLY)
+    before = [kk.launches for kk in counted]
+    out = linear_attention.linear_attention(q, k, v)
+    assert [kk.launches - b for kk, b in zip(counted, before)] == [1, 1]
+    ref = linear_attention.linear_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    err = (out.float() - ref.float()).abs().cpu().numpy()
+    if dtype == torch.float32:
+        assert err.max() <= 1e-5 * ref.abs().max().item()
+    else:
+        assert (err <= _bf16_bound(ref.float().cpu().numpy())).all()
+
+
+@pytest.mark.cuda
+def test_per_slice_linear_attention_gradient(cuda_device):
+    """The op under autograd on the card: its forward launches K5, its
+    backward is the plain composition's, so the gradients equal those of
+    the plain composition within float32 1e-5 of max|grad|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ins = [torch.randn(4, 300, 32, generator=gen, device=cuda_device, requires_grad=True) for _ in range(3)]
+    g = torch.randn(4, 300, 32, generator=gen, device=cuda_device)
+    got = torch.autograd.grad(linear_attention.linear_attention(*ins), ins, g)
+    want = torch.autograd.grad(linear_attention.linear_attention_plain(*ins), ins, g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_per_slice_linear_attention_refuses_what_it_does_not_take(cuda_device):
+    q = torch.randn(2, 64, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="d in"):
+        linear_attention.linear_attention(q[..., :24].contiguous(), q[..., :24].contiguous(), q[..., :24].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_attention.linear_attention(q, q.transpose(0, 1).contiguous().transpose(0, 1), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        linear_attention.linear_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="share"):
+        linear_attention.linear_attention(q, q[:, :32].contiguous(), q)
+    with pytest.raises(ValueError, match="share"):
+        linear_attention.linear_attention(q, q.bfloat16(), q)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.randn(64, 32, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -373,6 +432,69 @@ def test_dit_kernel_path_matches_plain_path(cuda_device, dtype):
         f32 = nets[torch.float32, True](x, x * 0.5, t)
     assert grew == 2
     assert got.shape == (2, 22, 30, 4) and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * ref.abs().max().item()
+    else:
+        assert err <= 2 * (ref - f32).abs().max().item()
+
+
+def _kernel_and_plain_nets(build, dtype, device):
+    """The same seeded weights in the kernel path and the plain path at
+    ``dtype``, and the plain path in float32."""
+    from image_restoration_sde_tpu_torch.models import init_params_
+
+    nets = {}
+    for key in ((dtype, False), (dtype, True), (torch.float32, True)):
+        nets[key] = build(dtype=key[0], plain=key[1])
+        init_params_(nets[key], torch.Generator().manual_seed(0))
+        nets[key].to(device).eval()
+    return nets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unconditional UNet", "stereo NAFNet", "bokeh NAFNet"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_new_nets_kernel_path_matches_plain_path(cuda_device, name, dtype):
+    """The denoising UNet (nf 8, depth 4: 17 K1 and 8 K2a, K2b per
+    forward, full attention in the mid block), the stereo NAFNet (width 16,
+    enc (1, 4), mid 1, dec (1, 1): 4 K1 per block with its SCAM, no K3) and
+    the bokeh NAFNet (the same levels: 2 K1 per block, no K3) on ragged
+    inputs.  TF32 off.  Bounds as the UNet's."""
+    import functools
+
+    from image_restoration_sde_tpu_torch.models import BokehConditionalNAFNet, ConditionalUNet
+    from image_restoration_sde_tpu_torch.models import StereoConditionalNAFNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    levels = dict(width=16, enc_blk_nums=(1, 4), middle_blk_num=1, dec_blk_nums=(1, 1))
+    gen = torch.Generator().manual_seed(1)
+    t = torch.tensor([5, 80], device=cuda_device)
+    if name == "unconditional UNet":
+        build = functools.partial(ConditionalUNet, nf=8, depth=4, conditional=False)
+        x = torch.rand(2, 40, 36, 3, generator=gen).to(cuda_device)
+        args, want = (x, None, t), [17, 8, 8, 0]
+    elif name == "stereo NAFNet":
+        build = functools.partial(StereoConditionalNAFNet, **levels)
+        x = torch.rand(2, 22, 30, 6, generator=gen).to(cuda_device)
+        args, want = (x, x * 0.5, t), [4 * 8, 0, 0, 0]
+    else:
+        build = functools.partial(BokehConditionalNAFNet, img_channel=4, **levels)
+        x = torch.rand(2, 22, 30, 4, generator=gen).to(cuda_device)
+        lens = (torch.tensor([2.0, 8.0], device=cuda_device), torch.tensor([16.0, 1.4], device=cuda_device),
+                torch.tensor([0.3, 0.9], device=cuda_device))
+        args, want = (x, x * 0.5, t, lens), [2 * 8, 0, 0, 0]
+    nets = _kernel_and_plain_nets(build, dtype, cuda_device)
+    counted = (layernorm.LAYERNORM, linear_attention.LA_CTX, linear_attention.LA_APPLY, naf_stack.NAF_STACK)
+    counts = [k.launches for k in counted]
+    with torch.inference_mode():
+        got = nets[dtype, False](*args)
+        grew = [k.launches - c for k, c in zip(counted, counts)]
+        ref = nets[dtype, True](*args)
+        f32 = nets[torch.float32, True](*args)
+    assert grew == want
+    assert got.shape == x.shape and torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-4 * ref.abs().max().item()

@@ -270,10 +270,11 @@ def test_latent_chain_through_dit_matches_jax(tiny_weights, compressor_weights, 
 # ---------------------------------------------------------------- registry
 def test_registry_names_and_its_error():
     ladder = {f"DiT_{s}_{p}" for s in ("S", "B", "L", "XL") for p in (2, 4, 8)}
-    assert set(available()) == {"ConditionalUNet", "ConditionalNAFNet", "UNet", "DiT"} | ladder
+    nets = {"ConditionalUNet", "ConditionalNAFNet", "StereoConditionalNAFNet", "BokehConditionalNAFNet", "UNet", "DiT"}
+    assert set(available()) == nets | ladder
     net = build_network("DiT_S_4", {"in_channels": 8, "dtype": "bfloat16", "depth": 1})
     assert isinstance(net, DiT) and net.dtype == torch.bfloat16 and net.patch_size == 4
     assert net.blocks[0].attn.qkv.weight.shape == (3 * 384, 384) and len(net.blocks) == 1
     assert build_network("UNet", dict(COMP)).__class__ is UNet
-    with pytest.raises(ValueError, match=r"unknown network 'DiT_M_2'; available: \['ConditionalNAFNet'"):
+    with pytest.raises(ValueError, match=r"unknown network 'DiT_M_2'; available: \['BokehConditionalNAFNet'"):
         build_network("DiT_M_2", {})

@@ -1,6 +1,8 @@
 """PyTorch port, score network: the weight bridge's key map against
 ``unet_key_rules`` and the ConditionalUNet forward against the flax module
-with the same weights, float32 and bfloat16."""
+with the same weights, float32 and bfloat16, in both variants (the
+unconditional one, with full attention in its mid block, is the denoising
+SDE's)."""
 
 import jax
 import jax.numpy as jnp
@@ -24,13 +26,13 @@ def flatten(params) -> dict:
     return {"/".join(str(k.key) for k in path[1:]): np.asarray(leaf) for path, leaf in flat}
 
 
-def random_flax_params(depth: int, nf: int, seed: int = 0) -> dict:
+def random_flax_params(depth: int, nf: int, seed: int = 0, conditional: bool = True) -> dict:
     """Flax-initialised tree with every leaf replaced by seeded numpy values
     (kernels ~ 1/sqrt(fan_in), biases and gains off their defaults), so
     every parameter shows in the output."""
-    net = FlaxUNet(in_nc=3, out_nc=3, nf=nf, depth=depth)
+    net = FlaxUNet(in_nc=3, out_nc=3, nf=nf, depth=depth, conditional=conditional)
     x = jnp.zeros((1, 16, 16, 3))
-    flat = flatten(jax.jit(net.init)(jax.random.PRNGKey(0), x, x, jnp.array([1.0])))
+    flat = flatten(jax.jit(net.init)(jax.random.PRNGKey(0), x, x if conditional else None, jnp.array([1.0])))
     r = np.random.default_rng(seed)
     out = {}
     for path, leaf in flat.items():
@@ -60,16 +62,18 @@ def tiny_weights():
     return random_flax_params(TINY["depth"], TINY["nf"])
 
 
+@pytest.mark.parametrize("conditional", [True, False])
 @pytest.mark.parametrize("depth", [1, 2, 4])
-def test_key_map_matches_unet_key_rules(depth):
-    rules = unet_key_rules(depth)
-    keys = unet_flax_keys(depth)
-    assert {fp for fp, _ in keys.values()} == set(rules)
+def test_key_map_matches_unet_key_rules(depth, conditional):
+    rules = unet_key_rules(depth, conditional=conditional)
+    keys = unet_flax_keys(depth, conditional=conditional)
+    assert {fp for fp, _ in keys.values()} == set(rules) and len(keys) == len(rules)
     for tkey, (fpath, kind) in keys.items():
         r_tkey, r_tf = rules[fpath]
         assert r_tkey == tkey, fpath
         assert KIND_OF[r_tf.__name__] == kind, fpath
-    assert set(keys) == set(ConditionalUNet(in_nc=3, out_nc=3, nf=8, depth=depth).state_dict())
+    net = ConditionalUNet(in_nc=3, out_nc=3, nf=8, depth=depth, conditional=conditional)
+    assert set(keys) == set(net.state_dict())
 
 
 def test_bridge_fills_every_key_once_with_its_shape(tiny_weights):
@@ -130,3 +134,41 @@ def test_forward_matches_flax_bf16(tiny_weights, hw):
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 5e-2 * scale
     assert np.abs(got - f32).max() <= 2 * np.abs(want - f32).max()
+
+
+# ------------------------------------------------ unconditional variant
+@pytest.fixture(scope="module")
+def uncond_weights():
+    return random_flax_params(TINY["depth"], TINY["nf"], seed=1, conditional=False)
+
+
+def uncond_port(weights, dtype=torch.float32) -> ConditionalUNet:
+    net = ConditionalUNet(**TINY, conditional=False, dtype=dtype)
+    net.load_state_dict(state_dict_from_flax(weights, keys=unet_flax_keys(TINY["depth"], conditional=False)))
+    return net.eval()
+
+
+def _uncond_pair(weights, dtype, hw):
+    r = np.random.default_rng(3)
+    x = r.random((2, *hw, 3), np.float32)
+    tvec = np.array([40, 3], np.int32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    fnet = FlaxUNet(**TINY, conditional=False, dtype=jdt)
+    want = np.asarray(jax.jit(lambda p, a, t: fnet.apply(p, a, None, t))(unflatten(weights), x, tvec))
+    with torch.inference_mode():
+        got = uncond_port(weights, tdt)(torch.from_numpy(x), None, torch.from_numpy(tvec))
+    assert got.shape == (2, *hw, 3) and got.dtype == torch.float32
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (30, 20)], ids=str)
+def test_unconditional_forward_matches_flax(uncond_weights, hw):
+    """No LQ concat (init_conv takes in_nc), full attention in the mid
+    block.  float32: 1e-4 of max|out|, as the conditional net's; bfloat16:
+    that net's bounds (5e-2 of max|out|, and within twice flax's own
+    bf16-vs-f32 distance of the f32 forward)."""
+    got, want = _uncond_pair(uncond_weights, "float32", hw)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    got16, want16 = _uncond_pair(uncond_weights, "bfloat16", hw)
+    assert np.abs(got16 - want16).max() <= 5e-2 * np.abs(want16).max()
+    assert np.abs(got16 - got).max() <= 2 * np.abs(want16 - got).max()
