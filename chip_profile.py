@@ -17,14 +17,16 @@ weights made from a seed, bf16 score net:
 - wall time per step: host clock around ``STEPS`` reverse steps that end
   in ``torch.cuda.synchronize()``, after a warm run of the same length;
 - host enqueue time per net forward: host clock around one forward with
-  no synchronisation (the card runs behind);
+  no synchronisation (the card runs behind), median of ``ENQUEUE_REPS``
+  forwards, each started on an idle card;
 - device time per step by kernel, and the device's busy share (summed
   kernel time over wall time), from ``torch.profiler`` over the same
   steps;
 - the share of device time in the port's own kernels (K4 on the DiT
   path);
-- the latent and bokeh paths' compressor encode and decode times, and the
-  host time to enqueue the NAFNet's fused 28-block level.
+- the latent and bokeh paths' compressor encode and decode times, the
+  host time to enqueue the NAFNet's fused 28-block level, and that
+  level's kernel (K3) time by phase, from clock readings in the kernel.
 
 Without CUDA it exits at once.
 """
@@ -32,12 +34,14 @@ Without CUDA it exits at once.
 from __future__ import annotations
 
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED, STEPS = 0, 10
+ENQUEUE_REPS = 5  # host enqueue per forward: median of this many forwards, each on an idle card
 # the port's kernels by the stem of their device function names (csrc/*.cu)
 PORT_KERNELS = {"K1": "channel_layernorm_kernel", "K2a": "la_ctx", "K2b": "la_apply", "K3": "naf_stack",
                 "K4": "flash_fwd", "K5 context": "lin_attn_ctx", "K5 apply": "lin_attn_apply"}
@@ -68,10 +72,13 @@ def profile_steps(name, run, forward, steps=STEPS):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        forward()
-        enqueue = (time.perf_counter() - t0) * 1e3
+        enqueues = []
+        for _ in range(ENQUEUE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            enqueues.append((time.perf_counter() - t0) * 1e3)
+        enqueue = statistics.median(enqueues)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
@@ -95,8 +102,6 @@ def fused_site_enqueue(net, batch, dev, reps=20):
     """Host time to enqueue the NAFNet's fused level (weight gathering,
     pointer table, time modulation and the K3 launch), median of ``reps``,
     with the card idle before each."""
-    import statistics
-
     import torch
 
     from image_restoration_sde_tpu_torch.models.nafnet import FUSE_MIN_BLOCKS
@@ -117,6 +122,42 @@ def fused_site_enqueue(net, batch, dev, reps=20):
         torch.cuda.synchronize()
     print(f"[latent] fused level ({len(blocks)} blocks, C={C}) host enqueue {statistics.median(times[3:]):.3f} ms "
           f"per forward (median of {reps})")
+
+
+def fused_site_phases(net, batch, dev):
+    """K3's time by phase at the latent NAFNet's fused level: one launch
+    with its first CTA reading the card's clock around every grid barrier
+    (``naf_stack_phase_times``); per phase kind the mean over the blocks of
+    that CTA's own work and of its wait at the barrier that ends the phase
+    (the wait holds the slowest CTA's extra work and the barrier)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    level = max(range(len(net.encoders)), key=lambda i: len(net.encoders[i]))
+    blocks = [blk.tensors() for blk in net.encoders[level]]
+    C = blocks[0]["conv3.weight"].shape[0]
+    with torch.inference_mode():
+        temb = net.time_mlp(torch.full((batch,), 50.0, device=dev))
+        x = torch.randn(batch, 8, 8, C, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        x = x.to(net.dtype)
+        tmod = NS.time_modulation(blocks, temb)
+        NS.naf_stack_cuda(x, blocks, tmod, 1e-3)
+        _, st = NS.naf_stack_phase_times(x, blocks, tmod, 1e-3)
+    st = st.tolist()
+    names = ["opening stats", "opening combine"] + ["1 conv1+dw+gate+mean", "2 SCA", "3 conv3", "4 LN2+conv4",
+                                                     "5 conv5"] * len(blocks)
+    work, wait, prev = {}, {}, st[0]
+    for name, before, after in zip(names, st[1:-1:2], st[2:-1:2]):
+        work.setdefault(name, []).append((before - prev) / 1e3)
+        wait.setdefault(name, []).append((after - before) / 1e3)
+        prev = after
+    work["5 conv5"].append((st[-1] - prev) / 1e3)
+    print(f"[latent] K3 phases at ({batch}, 8, 8, {C}), {len(blocks)} blocks: {(st[-1] - st[0]) / 1e3:.1f} us "
+          f"from first to last reading")
+    for name in dict.fromkeys(names):
+        print(f"[latent]   {name:22s} work {statistics.mean(work[name]):7.2f} us, barrier wait "
+              f"{statistics.mean(wait.get(name, [0.0])):7.2f} us (mean over {len(work[name])})")
 
 
 def compressor_times(tag, compressor, img):
@@ -181,6 +222,7 @@ def main() -> int:
     latent = compressor_times("latent", compressor, torch.rand(4, 512, 512, 3, generator=gen, device=dev))
     profile_steps("latent", *posterior(naf, latent + 0.1, latent, make_sde(opt)))
     fused_site_enqueue(naf, latent.shape[0], dev)
+    fused_site_phases(naf, latent.shape[0], dev)
     del naf
 
     opt = load("latent-dehazing", "train", "dit.yml")

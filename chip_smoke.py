@@ -42,11 +42,15 @@ Phases, each printing its lines and its seconds:
 2. build: the CUDA kernels, from this checkout's sources;
 3. kernels: each kernel against its plain PyTorch version at the paths'
    shapes (K1 and K2 at every path's, the DiT and tiled requests'
-   compressor included), float32 and bfloat16, with both times (CUDA events), the time
+   compressor included), float32 and bfloat16, with both times, the time
    of one PyTorch call computing the same function where there is one, and
    the least time the card could take (bytes or operations at the H100's
-   published peaks); K3 also block by block, as chained one-block
-   launches that must end bit-equal to the one launch;
+   published peaks; K3's at the float32 rate its arithmetic runs at); K1
+   and K2 at the deraining sites (and K5 in phase 12) timed from a CUDA
+   graph of 20 back-to-back calls, since one launch between CUDA events
+   reads the host's enqueue, with that earlier figure beside it; K3 also
+   block by block, as chained one-block launches that must end bit-equal
+   to the one launch;
 4. net: one forward of the full-width UNet, kernel path against plain
    path; and a 100-step float32 chain on a small input, kernel against plain;
 5. main path: the deraining sampler serves two posterior batches of 8, one
@@ -191,6 +195,37 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of ``fn`` on the card: ``n`` back-to-back calls
+    captured in one CUDA graph and replayed (median of ``reps`` replays,
+    CUDA events) over ``n``.  For kernels shorter than the host's ~40 us
+    per launch, where ``cuda_ms`` around one launch reads the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -361,7 +396,7 @@ def phase_build():
     kernels.load_library()
     print(f"[build] {path.relative_to(REPO)} built in {seconds:.1f} s")
     for line in (path.parent / "ptxas.log").read_text().splitlines():
-        if "Used" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("Used", "spill", "Compiling entry", "Performance", "setmaxnreg", "rror")):
             print(f"[build]   {line.strip()}")
 
 
@@ -398,15 +433,20 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
                 ok = bool((err <= bf16_bound(ref)).all())
             stats[LN.LAYERNORM]["err"] = max(stats[LN.LAYERNORM]["err"], err.max().item())
             check(ok, f"K1 {dtype} C={C} rows={rows}: max|dy|={err.max().item():.3g}")
-            ms = cuda_ms(lambda: LN.channel_layernorm_cuda(x, g, eps))
-            pms = cuda_ms(lambda: LN.channel_layernorm_plain(x, g, eps))
             g_lib = g.to(dtype)
-            lms = cuda_ms(lambda: F.layer_norm(x, (C,), g_lib, None, eps))
+            timer = graph_ms if dtype == torch.bfloat16 and (C, rows) in ln_sites else cuda_ms
+            ms = timer(lambda: LN.channel_layernorm_cuda(x, g, eps))
+            pms = timer(lambda: LN.channel_layernorm_plain(x, g, eps))
+            lms = timer(lambda: F.layer_norm(x, (C,), g_lib, None, eps))
+            ems = cuda_ms(lambda: LN.channel_layernorm_cuda(x, g, eps)) if timer is graph_ms else ms
+            how = "graph of 20" if timer is graph_ms else "events"
             print(f"[kernels] K1 {str(dtype)[6:]:8s} C={C:5d} rows={rows:6d} max|dy|={err.max().item():.3g} "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms F.layer_norm {lms:.4f} ms")
-            if dtype == torch.bfloat16 and (C, rows) in ln_sites:
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms F.layer_norm {lms:.4f} ms ({how}; "
+                  f"kernel by events around one launch {ems:.4f} ms)")
+            if timer is graph_ms:
                 n = ln_sites.count((C, rows))
                 stats[LN.LAYERNORM]["ms"] += n * ms
+                stats[LN.LAYERNORM]["event_ms"] += n * ems
                 stats[LN.LAYERNORM]["plain_ms"] += n * pms
                 stats[LN.LAYERNORM]["library_ms"] += n * lms
     # bound over one forward's 18 sites, bf16: read x, write y, read g
@@ -436,18 +476,26 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
             check(ok, f"K2b {dtype} B={batch} N={N}: max|dout|={err.max().item():.3g}")
             stats[LA.LA_CTX]["err"] = max(stats[LA.LA_CTX]["err"], cerr)
             stats[LA.LA_APPLY]["err"] = max(stats[LA.LA_APPLY]["err"], err.max().item())
-            ms_c = cuda_ms(lambda: LA.linear_attention_ctx_cuda(qkv))
-            pms_c = cuda_ms(lambda: LA.linear_attention_ctx_plain(qkv))
-            ms_a = cuda_ms(lambda: LA.linear_attention_apply_cuda(qkv, ctx_ref))
-            pms_a = cuda_ms(lambda: LA.linear_attention_apply_plain(qkv, ctx_ref))
+            site = dtype == torch.bfloat16 and batch == BATCH and N in attn_sites
+            timer = graph_ms if site else cuda_ms
+            ms_c = timer(lambda: LA.linear_attention_ctx_cuda(qkv))
+            pms_c = timer(lambda: LA.linear_attention_ctx_plain(qkv))
+            ms_a = timer(lambda: LA.linear_attention_apply_cuda(qkv, ctx_ref))
+            pms_a = timer(lambda: LA.linear_attention_apply_plain(qkv, ctx_ref))
+            ems_c = cuda_ms(lambda: LA.linear_attention_ctx_cuda(qkv)) if site else ms_c
+            ems_a = cuda_ms(lambda: LA.linear_attention_apply_cuda(qkv, ctx_ref)) if site else ms_a
             print(f"[kernels] K2 {str(dtype)[6:]:8s} B={batch} N={N:5d} max|dctx|={cerr:.3g} "
                   f"max|dout|={err.max().item():.3g} "
-                  f"K2a {ms_c:.4f} ms plain {pms_c:.4f} ms | K2b {ms_a:.4f} ms plain {pms_a:.4f} ms")
-            if dtype == torch.bfloat16 and batch == BATCH and N in attn_sites:
+                  f"K2a {ms_c:.4f} ms plain {pms_c:.4f} ms | K2b {ms_a:.4f} ms plain {pms_a:.4f} ms "
+                  f"({'graph of 20' if site else 'events'}; kernels by events around one launch "
+                  f"{ems_c:.4f} / {ems_a:.4f} ms)")
+            if site:
                 n = attn_sites.count(N)
                 stats[LA.LA_CTX]["ms"] += n * ms_c
+                stats[LA.LA_CTX]["event_ms"] += n * ems_c
                 stats[LA.LA_CTX]["plain_ms"] += n * pms_c
                 stats[LA.LA_APPLY]["ms"] += n * ms_a
+                stats[LA.LA_APPLY]["event_ms"] += n * ems_a
                 stats[LA.LA_APPLY]["plain_ms"] += n * pms_a
     # bounds over one forward's 9 sites, bf16: K2a reads k and v (256 of the
     # 384 channels) and writes ctx; K2b reads q and ctx and writes out
@@ -513,16 +561,23 @@ def phase_naf_stack(dev, stats):
                 one_err, z = max(one_err, e.max().item()), zi
             check(torch.equal(z, y), f"K3 {dtype} {shape}: K={K} in one launch differs from {K} chained launches")
             stats[NS.NAF_STACK]["err"] = max(stats[NS.NAF_STACK]["err"], err)
-            ms = cuda_ms(lambda: NS.naf_stack_cuda(x, blocks, tmod, eps), reps=10)
+            # the card's time from a CUDA graph of 5 launches; beside it one launch
+            # between CUDA events, the earlier figure, which also holds the host's
+            # ~0.5-1 ms of pointer-table and argument work before each launch
+            ms = graph_ms(lambda: NS.naf_stack_cuda(x, blocks, tmod, eps), n=5, reps=3)
+            ems = cuda_ms(lambda: NS.naf_stack_cuda(x, blocks, tmod, eps), reps=10)
             pms = cuda_ms(lambda: NS.naf_stack_plain(x, stacked, eps), reps=10)
             nbytes, flops = naf_stack_work(x, blocks)
-            bms, by = bound(nbytes, flops, str(dtype)[6:])
+            # K3 computes in float32 (FMA) whatever x's dtype: the float32 peak
+            bms, by = bound(nbytes, flops, "float32")
             print(f"[kernels] K3 {str(dtype)[6:]:8s} {shape} K={K}: max|dy|={err:.3g} (bound {limit:.3g}), "
                   f"one block at a time max|dy|={one_err:.3g}, chained launches bit-equal; "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
-                  f"least {bms:.4f} ms ({by}), {nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.2f} TFLOP/s")
+                  f"kernel {ms:.4f} ms (graph of 5; one launch between events {ems:.4f} ms) plain {pms:.4f} ms; "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
+                  f"least {bms:.4f} ms ({by}, float32 FMA; bytes alone {bound(nbytes, 0, 'float32')[0]:.4f} ms), "
+                  f"{nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.2f} TFLOP/s")
             if dtype == torch.bfloat16 and shape == main_shape:
-                stats[NS.NAF_STACK].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+                stats[NS.NAF_STACK].update(ms=ms, event_ms=ems, plain_ms=pms, bound_ms=bms, bound_by=by)
 
 
 def make_net(cls, setting, dtype, plain, dev, state=None):
@@ -986,20 +1041,24 @@ def phase_lin_attn(dev, stats):
         check(cerr <= 1e-5 * ctx_ref.abs().max().item(), f"K5 {dtype} {shape}: max|dctx|={cerr:.3g}")
         stats[LIN_ATTN_CTX]["err"] = max(stats[LIN_ATTN_CTX]["err"], cerr)
         stats[LIN_ATTN_APPLY]["err"] = max(stats[LIN_ATTN_APPLY]["err"], err.max().item())
-        ms_c = cuda_ms(lambda: LA.linear_attention_context_cuda(k, v))
-        pms_c = cuda_ms(lambda: LA.linear_attention_context_plain(k, v))
-        ms_a = cuda_ms(lambda: LA.linear_attention_apply_heads_cuda(q, ctx))
-        pms_a = cuda_ms(lambda: LA.linear_attention_apply_heads_plain(q, ctx))
+        ms_c = graph_ms(lambda: LA.linear_attention_context_cuda(k, v))
+        pms_c = graph_ms(lambda: LA.linear_attention_context_plain(k, v))
+        ms_a = graph_ms(lambda: LA.linear_attention_apply_heads_cuda(q, ctx))
+        pms_a = graph_ms(lambda: LA.linear_attention_apply_heads_plain(q, ctx))
+        ems_c = cuda_ms(lambda: LA.linear_attention_context_cuda(k, v))
+        ems_a = cuda_ms(lambda: LA.linear_attention_apply_heads_cuda(q, ctx))
         nbytes, flops = lin_attn_work(shape, q.element_size())
         bms, by = bound(nbytes, flops, str(dtype)[6:])
         half = bound(nbytes / 2, flops / 2, str(dtype)[6:])
         print(f"[lin-attn] K5 {str(dtype)[6:]:8s} {shape}: max|dctx|={cerr:.3g} max|dy|={err.max().item():.3g}; "
               f"context {ms_c:.4f} ms plain {pms_c:.4f} ms | apply {ms_a:.4f} ms plain {pms_a:.4f} ms | op "
               f"{ms_c + ms_a:.4f} ms, least {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-              f"{nbytes / (ms_c + ms_a) / 1e9:.3f} TB/s")
+              f"{nbytes / (ms_c + ms_a) / 1e9:.3f} TB/s (graph of 20; by events around one launch: context "
+              f"{ems_c:.4f} ms, apply {ems_a:.4f} ms)")
         if case == cases[0]:
-            stats[LIN_ATTN_CTX].update(ms=ms_c, plain_ms=pms_c, bound_ms=half[0], bound_by=half[1])
-            stats[LIN_ATTN_APPLY].update(ms=ms_a, plain_ms=pms_a, bound_ms=half[0], bound_by=half[1])
+            stats[LIN_ATTN_CTX].update(ms=ms_c, event_ms=ems_c, plain_ms=pms_c, bound_ms=half[0], bound_by=half[1])
+            stats[LIN_ATTN_APPLY].update(ms=ms_a, event_ms=ems_a, plain_ms=pms_a, bound_ms=half[0],
+                                         bound_by=half[1])
         del q, k, v, out, ref, ctx, ctx_ref
     del inputs, outs
 
@@ -1381,8 +1440,10 @@ def main() -> int:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
-    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+    stats = {k: {"err": 0.0, "ms": 0.0, "event_ms": None, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
                  "library_ms": None} for k in KERNELS}
+    for k in KERNELS[:3]:  # K1, K2a, K2b: summed over sites
+        stats[k]["event_ms"] = 0.0
     stats[KERNELS[0]]["library_ms"] = 0.0  # K1: F.layer_norm
     timed("kernels", phase_kernels, dev, stats, latent_opt, dit_opt)
     net = timed("net", phase_net, dev, setting, sde_opt)
@@ -1423,12 +1484,15 @@ def main() -> int:
             "bound_ms": stats[k]["bound_ms"], "bound_by": stats[k]["bound_by"],
             "library_ms": stats[k]["library_ms"],
         })
+        if stats[k]["event_ms"] is not None:  # the earlier figure, one launch between CUDA events
+            report[-1]["event_ms"] = stats[k]["event_ms"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
-          f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16; K3 one call at "
+          f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
+          f"of 20 calls (event_ms: one launch between CUDA events, the earlier figure); K3 one call at "
           f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px); K4 one "
           f"call at {FLASH_SHAPES[0]} bf16 (one attention site of a DiT-L/2 forward at batch {DIT_BATCH}, "
           f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention; K5 (irsde_lin_attn_*) one call of each "
-          f"pass at {LIN_ATTN_SHAPES[0]} bf16, bound_ms half the op's bytes and FLOP each")
+          f"pass at {LIN_ATTN_SHAPES[0]} bf16 from CUDA graphs, bound_ms half the op's bytes and FLOP each")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

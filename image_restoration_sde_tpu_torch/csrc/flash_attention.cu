@@ -7,32 +7,56 @@
 //
 // Replaces the Pallas TPU kernel image_restoration_sde_tpu/ops/flash_attention.py
 // (_fa_kernel, launched by _flash_forward): the same arithmetic, tile by
-// tile, with p rounded before the p v product and l summed from the
-// unrounded p, as there.
+// tile, with p rounded at its key tile's running max before the p v
+// product and l summed from the unrounded p, as there.
 //
 // Bound on the H100: operations.  4 B H N^2 D FLOP against 4 B N H D
 // elements moved; at the DiT-L/2 operating point (N = 4096, D = 64) that is
-// ~2000 FLOP per byte, far above the ~295 FLOP/byte bf16 ridge, and as
-// many exponentials (B H N^2) as the tensor cores do 512-FLOP rows, so the
-// exponential unit comes close to the bound too.  Design (bf16): one CTA of
-// four warps per (64-query tile, head, batch); each warp holds its 16 query
-// rows' fragments in registers, streams 64-key tiles of k and v through
-// shared memory with cp.async (v's load overlaps q k^T, the next k's load
-// overlaps p v), and runs both products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, f32 sums).  The score tile never leaves
-// registers: its accumulator fragments are the A fragments of p v once
-// rounded to bf16.  Key columns past N score -1e30 (finite, as the TPU
-// kernel's _NEG_INF); rows past N load as zeros and are never stored; head
-// dims pad with zeros to a multiple of 16 (72 -> 80) inside the kernel.
+// ~2000 FLOP per byte, far above the ~295 FLOP/byte bf16 ridge, and as many
+// exponentials (B H N^2) as the tensor cores do 512-FLOP rows: at 16 ex2 per
+// clock and SM the exponentials alone take about as long as the products
+// at their peak, so the exponentials of one tile have to overlap the
+// products of another.
+//
+// bf16, D = 64 (every serving path): flash_fwd_wgmma, built for Hopper.
+// One CTA of three warpgroups per (128-query tile, head, batch):
+//   - warpgroup 0 is the producer: one thread loads the q tile and streams
+//     128-key k and v tiles into a kStages-deep shared-memory ring with TMA
+//     (cp.async.bulk.tensor, 4-D maps over (D, H, N, B) with the caller's
+//     strides, 128-byte swizzle, rows past N zero-filled), each stage's k
+//     and v tracked by their own "full" mbarrier and released by an "empty"
+//     one;
+//   - warpgroups 1 and 2 each own 64 query rows and run both products on
+//     wgmma: S = Q K^T as m64n128k16 from shared memory (Q and K K-major),
+//     O += P V as m64n64k16 with P from registers (the S accumulator
+//     rounded to bf16 is the A fragment) and V read MN-major, so no
+//     transpose pass.  Tile j's S product is issued together with tile
+//     j - 1's P V product, and the two warpgroups take turns issuing them
+//     (named barriers), so one warpgroup's softmax runs under the other's
+//     products;
+//   - softmax: the row max is taken on the raw scores and p = exp2(s c -
+//     m c) with c = scale log2(e) folded into one FFMA (scale must be > 0);
+//   - epilogue: O / l in bf16 into the (dead) q tile in the swizzled
+//     layout, then one TMA store per warpgroup, which clips rows past N.
+// The tensor maps are encoded on the host (the last 16 kept, by pointer,
+// shape and strides); cuTensorMapEncodeTiled is reached through
+// cudaGetDriverEntryPoint, so no -lcuda.
+//
+// bf16, D = 72 (DiT-XL's head; no serving path measured here uses it):
+// flash_fwd_bf16, the earlier design: one CTA of four warps per 64-query
+// tile, mma.sync m16n8k16, cp.async k/v tiles of 64 keys, head dims padded
+// to 80 with zeros inside the kernel.  The 144-byte rows do not fit the
+// 128-byte swizzle of the wgmma path in one box.
 // float32 inputs run on the FMA units (TF32 stays off), 32x32 tiles.
 // q, k and v take any batch and token stride (a multiple of 16 bytes), so
 // the (B, N, 3, H, D) view of a packed qkv product goes in with no copy.
 //
 // Every tile is visited in the same order by one CTA, with no atomics and
 // no split over keys, so results do not depend on scheduling.
-//
-// Left for later: wgmma and TMA, warp specialisation, double-buffered k/v,
-// 16-byte output stores through shared memory.
+
+#include <cuda.h>
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -253,6 +277,405 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
   }
 }
 
+// ------------------------------------------------------------------ bf16, D = 64: wgmma + TMA
+
+namespace wg {
+
+constexpr int kD = 64;                       // head dim: one 128-byte swizzle row
+constexpr int kBQ = 128;                     // query rows per CTA, 64 per consumer warpgroup
+constexpr int kBK = 128;                     // keys per k/v tile
+constexpr int kStages = 3;                   // k/v ring depth
+constexpr int kThreads = 384;                // warpgroup 0 producer, 1 and 2 consumers
+constexpr int kTileBytes = kBK * kD * 2;     // one k or v tile (and the q tile): 16 KB
+constexpr int kSmem = 1024 + kTileBytes * (1 + 2 * kStages);  // + slack to align to 1024
+constexpr int kBarTurn = 1;                  // named barriers 1, 2: whose turn to issue wgmma
+constexpr int kBarStore = 3;                 // named barriers 3, 4: a warpgroup's output tile is staged
+static_assert(kBQ == kBK, "q, k and v share one tensor-map box");
+
+struct Barriers {
+  uint64_t q_full;
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t empty[kStages];
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(b)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
+}
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box (D, 1, kBK, 1) at (0, h, row, b) -> dst; completion counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// box (D, 1, 64, 1) of src -> (0, h, row, b); returns once src has been read
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int h, int row, int b) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(0), "r"(h), "r"(row), "r"(b)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle (1024-byte atoms of 8 rows, 1024-byte aligned): start address,
+// leading and stride byte offsets both 1024 (the next 8-row group; the
+// leading offset is not read by a K-major operand, nor by an MN-major one
+// 64 columns wide), layout type 1 (128B swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// keep the compiler from moving reads or writes of wgmma registers across
+// the asynchronous issue and the wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128, f32) = a (64 x 16) b (16 x 128) [+ d if accumulate]: a and b K-major bf16 in shared memory
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += a (64 x 16: bf16 fragments in registers) b (16 x 64: MN-major bf16 in shared memory)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to, int N,
+                    float c) {  // c = scale * log2(e)
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ Barriers bar;
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = base;
+  auto sK = [&](int s) { return base + kTileBytes * (1 + s); };
+  auto sV = [&](int s) { return base + kTileBytes * (1 + kStages + s); };
+
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (N + kBK - 1) / kBK;
+  const int wgi = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar.k_full[s], 1);
+      mbar_init(&bar.v_full[s], 1);
+      mbar_init(&bar.empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: one thread keeps the ring full; the warpgroup hands its
+    // registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bar.q_full, kTileBytes);
+      tma_load(sQ, &tq, &bar.q_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
+        mbar_expect_tx(&bar.k_full[s], kTileBytes);
+        tma_load(sK(s), &tk, &bar.k_full[s], h, j * kBK, b);
+        mbar_expect_tx(&bar.v_full[s], kTileBytes);
+        tma_load(sV(s), &tv, &bar.v_full[s], h, j * kBK, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wgi - 1;
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int tig = lane & 3;  // accumulator column pair; rows lane / 4 and lane / 4 + 8 of the warp's 16
+  uint8_t* myQ = sQ + cw * 64 * 128;
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores, rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+  unsigned pa[kBK / 16][4];         // p of the previous tile, bf16 A fragments
+
+  // tile j's scores sc -> p (into pa), the running max and sum, and o rescaled
+  auto softmax = [&](int j, float (&sc)[64]) {
+    // mask the keys past N (the last tile only), running max of the raw scores
+    if ((j + 1) * kBK > N) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int key = j * kBK + (i / 4) * 8 + tig * 2 + (i & 1);
+        if (key >= N) sc[i] = kNegInf;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+    }
+    float corr[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m[r] - mx[r]) * c);
+      m[r] = mx[r];
+      mc[r] = mx[r] * c;
+    }
+    // p = exp2(s c - m c): f32 into the row sums, bf16 into p v's A fragments
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float p0 = ex2(fmaf(sc[4 * i], c, -mc[0])), p1 = ex2(fmaf(sc[4 * i + 1], c, -mc[0]));
+      const float p2 = ex2(fmaf(sc[4 * i + 2], c, -mc[1])), p3 = ex2(fmaf(sc[4 * i + 3], c, -mc[1]));
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      pa[i / 2][(i & 1) * 2] = pack_bf16(p0, p1);
+      pa[i / 2][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[4 * i] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
+    }
+  };
+
+  if (cw == 1) named_arrive(kBarTurn, 256);  // consumer 0 goes first
+  mbar_wait(&bar.q_full, 0);
+
+  // tile 0: q k^T only.  Then tile j's q k^T is issued with tile j - 1's
+  // p v, in turns with the other warpgroup, and the softmax of tile j runs
+  // while the other warpgroup's products do.  Every wgmma is issued on a
+  // path all four warps of the warpgroup take.
+  {
+    float sc[64];
+    mbar_wait(&bar.k_full[0], 0);
+    named_sync(kBarTurn + cw, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n128k16_ss(sc, sw128_desc(myQ) + 2 * kk, sw128_desc(sK(0)) + 2 * kk, kk > 0);
+    wgmma_commit();
+    if (!(cw == 1 && n_tiles == 1)) named_arrive(kBarTurn + 1 - cw, 256);
+    wgmma_wait_all();
+    fence_regs(sc);
+    softmax(0, sc);
+  }
+  for (int j = 1; j < n_tiles; ++j) {
+    const int s = j % kStages, sp = (j - 1) % kStages;
+    mbar_wait(&bar.k_full[s], (j / kStages) & 1);
+    mbar_wait(&bar.v_full[sp], ((j - 1) / kStages) & 1);
+
+    float sc[64];
+    named_sync(kBarTurn + cw, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n128k16_ss(sc, sw128_desc(myQ) + 2 * kk, sw128_desc(sK(s)) + 2 * kk, kk > 0);
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) wgmma_m64n64k16_rs(o, pa[t], sw128_desc(sV(sp) + t * 16 * 128));
+    wgmma_commit();
+    if (!(cw == 1 && j == n_tiles - 1)) named_arrive(kBarTurn + 1 - cw, 256);
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&bar.empty[sp]);  // k and v of tile j - 1 are read
+    softmax(j, sc);
+  }
+
+  // the last tile's p v
+  {
+    const int sp = (n_tiles - 1) % kStages;
+    mbar_wait(&bar.v_full[sp], ((n_tiles - 1) / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) wgmma_m64n64k16_rs(o, pa[t], sw128_desc(sV(sp) + t * 16 * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // out tile into this warpgroup's half of the q tile, in the 128-byte
+  // swizzle the output map expects: 16-byte chunk i of row r at i ^ (r % 8)
+  const int row = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int chunk = (i ^ (row & 7)) * 16 + tig * 4;
+    *reinterpret_cast<unsigned*>(myQ + row * 128 + chunk) = pack_bf16(o[4 * i] / l[0], o[4 * i + 1] / l[0]);
+    *reinterpret_cast<unsigned*>(myQ + (row + 8) * 128 + chunk) = pack_bf16(o[4 * i + 2] / l[1], o[4 * i + 3] / l[1]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(kBarStore + cw, 128);
+  if (threadIdx.x % 128 == 0 && q0 + 64 * cw < N) tma_store(&to, myQ, h, q0 + 64 * cw, b);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// 4-D map (D, H, N, B) of a bf16 tensor with unit dim stride, head stride
+// D and the given token and batch strides (elements), box (D, 1, rows, 1),
+// 128-byte swizzle, zero fill past the edges.  The last kMapCache maps are
+// kept by everything that goes into them: a sampler hands the kernel the
+// same buffers step after step, and encoding costs host time on a path
+// whose host already sets its pace.
+constexpr int kMapCache = 16;
+
+struct MapKey {
+  const void* ptr;
+  long long sb, sn;
+  int B, N, H, rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && sb == o.sb && sn == o.sn && B == o.B && N == o.N && H == o.H && rows == o.rows;
+  }
+};
+
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, long long sb, long long sn, int rows) {
+  // a stride of a dimension of size 1 is never followed; keep it valid
+  if (N == 1) sn = (long long)H * kD;
+  if (B == 1) sb = sn * N;
+  const MapKey key{ptr, sb, sn, B, N, H, rows};
+  static std::mutex mu;
+  static MapKey keys[kMapCache];
+  static CUtensorMap maps[kMapCache];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key) {
+      *map = maps[i];
+      return true;
+    }
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, estride,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  used = used < kMapCache ? used + 1 : kMapCache;
+  return true;
+}
+
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap mq, mk, mv, mo;
+  const long long o_sn = (long long)p.H * kD;
+  if (!encode_map(&mq, p.q, p.B, p.N, p.H, p.q_sb, p.q_sn, kBQ) ||
+      !encode_map(&mk, p.k, p.B, p.N, p.H, p.k_sb, p.k_sn, kBK) ||
+      !encode_map(&mv, p.v, p.B, p.N, p.H, p.v_sb, p.v_sn, kBK) ||
+      !encode_map(&mo, p.o, p.B, p.N, p.H, o_sn * p.N, o_sn, 64))
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
+  flash_fwd_wgmma<<<grid, kThreads, kSmem, stream>>>(mq, mk, mv, mo, p.N, p.scale * 1.4426950408889634f);
+  return cudaSuccess;
+}
+
+}  // namespace wg
+
 // ------------------------------------------------------------------ f32
 
 constexpr int kF32Rows = 32;  // query rows per CTA: 8 thread rows x 4
@@ -368,8 +791,12 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const Params p) {
 template <int DP>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == IRSDE_BF16) {
-    const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
-    flash_fwd_bf16<DP><<<grid, kThreads, 0, stream>>>(p);
+    if constexpr (DP == 64) {
+      return wg::launch(p, stream);
+    } else {
+      const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
+      flash_fwd_bf16<DP><<<grid, kThreads, 0, stream>>>(p);
+    }
   } else {
     const dim3 grid((unsigned)((p.N + kF32Rows - 1) / kF32Rows), (unsigned)p.H, (unsigned)p.B);
     flash_fwd_f32<DP><<<grid, kF32Threads, 0, stream>>>(p);
@@ -387,6 +814,7 @@ extern "C" int irsde_flash_attention(const void* q, const void* k, const void* v
                                      void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || H > 65535 || B > 65535 || (D != 64 && D != 72)) return (int)cudaErrorInvalidValue;
   if (dtype != IRSDE_BF16 && dtype != IRSDE_F32) return (int)cudaErrorInvalidValue;
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // the bf16 kernel takes the max of the raw scores
   const Params p{q, k, v, o, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, B, N, H, D, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = D == 64 ? launch<64>(p, dtype, s) : launch<80>(p, dtype, s);

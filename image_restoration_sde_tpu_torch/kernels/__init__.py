@@ -58,7 +58,8 @@ def library_path() -> Path:
 
 
 def build() -> tuple:
-    """Compile the library if the current sources have none yet.
+    """Compile the library if the current sources have none yet: one
+    ``nvcc -c`` per source, all started together, then one link.
 
     Returns ``(path, seconds spent compiling)``; the compiler's register and
     shared-memory report goes to ``ptxas.log`` beside the library.
@@ -67,14 +68,34 @@ def build() -> tuple:
     if lib.is_file():
         return lib, 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = lib.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        tmp = lib.with_suffix(f".{tag}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for o, _ in jobs)],
+                              capture_output=True, text=True)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
     seconds = time.perf_counter() - t0
-    (lib.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (lib.parent / "ptxas.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib, seconds
 
@@ -91,6 +112,8 @@ def load_library() -> ctypes.CDLL:
     lib.irsde_lin_attn_ctx_workspace.restype = ctypes.c_longlong
     lib.irsde_naf_stack_workspace.argtypes = [ctypes.c_int] * 4
     lib.irsde_naf_stack_workspace.restype = ctypes.c_longlong
+    lib.irsde_naf_stack_stamps.argtypes = [ctypes.c_int]
+    lib.irsde_naf_stack_stamps.restype = ctypes.c_int
     return lib
 
 

@@ -11,8 +11,9 @@ over the keys:
 ``p`` is rounded before the division, as the Pallas kernel does; the JAX
 package's einsum reference ``_ref_mha`` divides first and then rounds, so
 the two differ in bfloat16.  The kernel is ``csrc/flash_attention.cu``:
-tensor-core products in bfloat16, FMA in float32, any N, head dims 64 and
-72, q/k/v with any batch and token stride (the (B, N, 3, H, D) view of a
+tensor-core products in bfloat16 (``wgmma`` with TMA-fed 128-key tiles at
+head dim 64, ``mma.sync`` with 64-key tiles at 72), FMA in float32, any N,
+q/k/v with any batch and token stride (the (B, N, 3, H, D) view of a
 packed qkv product goes in as it is).
 
 :func:`flash_mha` launches the kernel on CUDA tensors and runs the plain
@@ -37,6 +38,8 @@ FLASH_ATTN = kernels.Kernel(
 )
 
 HEAD_DIMS = (64, 72)
+# keys per tile of the bfloat16 kernel, by head dim: where it rounds p
+KEY_TILE = {64: 128, 72: 64}
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -50,13 +53,16 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 
 def flash_mha_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                          block: int = 64) -> torch.Tensor:
+                          block: int | None = None) -> torch.Tensor:
     """The same function in the kernel's order of operations: keys in tiles
-    of ``block`` (the bfloat16 kernel's 64), a running max and sum in
+    of ``block`` (by default the bfloat16 kernel's, ``KEY_TILE`` of the head
+    dim, 128 where that has none), a running max and sum in
     float32, ``p`` rounded to v's dtype at the running max of its tile, the
     accumulator rescaled when a tile raises the max.  The kernel's results
     agree with this one to float32 rounding before the last rounding, where
     :func:`flash_mha_plain` rounds p at the row's final max instead."""
+    if block is None:
+        block = KEY_TILE.get(q.shape[-1], 128)
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, H, N, D)
     m = torch.full(qf.shape[:-1] + (1,), -1e30, device=q.device)
     l = torch.zeros_like(m)
@@ -75,7 +81,8 @@ def flash_mha_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Launch K4 on CUDA tensors (B, N, H, D), float32 or bfloat16, D 64 or
     72, each with unit stride over D, stride D over H and batch and token
-    strides that are multiples of 16 bytes.  Returns a contiguous tensor."""
+    strides that are multiples of 16 bytes; ``scale`` > 0.  Returns a
+    contiguous tensor."""
     code = kernels.dtype_code(q.dtype)
     if not q.is_cuda:
         raise ValueError(f"flash_mha_cuda: q is on {q.device}, not a CUDA device")
@@ -84,6 +91,8 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     B, N, H, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_mha: head dim {D}; the kernel takes {HEAD_DIMS}")
+    if not scale > 0:
+        raise ValueError(f"flash_mha: scale {scale}; the kernel takes a positive scale")
     size = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

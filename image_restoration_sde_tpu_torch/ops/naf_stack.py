@@ -29,7 +29,7 @@ from .. import kernels
 
 NAF_STACK = kernels.Kernel(
     "irsde_naf_stack",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     source="image_restoration_sde_tpu_torch/csrc/naf_stack.cu",
     replaces="image_restoration_sde_tpu/ops/naf_stack.py:104",
 )
@@ -149,13 +149,31 @@ def _block_tensors(blocks: Sequence[Block], x: torch.Tensor) -> tuple:
 
 def naf_stack_cuda(x: torch.Tensor, blocks: Sequence[Block], tmod: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch K3 on a contiguous CUDA tensor x (B, H, W, C), float32 or
-    bfloat16; ``tmod`` float32 (K, B, 4C)."""
+    bfloat16, C a multiple of 8; ``tmod`` float32 (K, B, 4C)."""
+    return _launch(x, blocks, tmod, eps, None)
+
+
+def naf_stack_phase_times(x: torch.Tensor, blocks: Sequence[Block], tmod: torch.Tensor, eps: float) -> tuple:
+    """One K3 launch as :func:`naf_stack_cuda`, its first CTA reading the
+    card's clock around every grid barrier.  Returns (output, stamps): the
+    int64 nanosecond readings, on the host, in the kernel's order (start;
+    before and after each barrier: two opening barriers, then five per
+    block, four in the last; end)."""
+    stamps = torch.zeros(kernels.load_library().irsde_naf_stack_stamps(len(blocks)), dtype=torch.int64,
+                         device=x.device)
+    y = _launch(x, blocks, tmod, eps, stamps)
+    return y, stamps.cpu()
+
+
+def _launch(x, blocks, tmod, eps, stamps):
     code = kernels.dtype_code(x.dtype)
     if not x.is_cuda:
         raise ValueError(f"naf_stack_cuda: x is on {x.device}, not a CUDA device")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("naf_stack: x must be a contiguous (B, H, W, C) tensor")
     B, H, W, C = x.shape
+    if C % 8:
+        raise ValueError(f"naf_stack: C={C}; the kernel takes a multiple of 8 channels")
     K = len(blocks)
     if K == 0:
         raise ValueError("naf_stack: no blocks")
@@ -167,7 +185,8 @@ def naf_stack_cuda(x: torch.Tensor, blocks: Sequence[Block], tmod: torch.Tensor,
                      dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     NAF_STACK(kernels.ptr(x), kernels.ptr(y), kernels.ptr(tmod), kernels.ptr(table), kernels.ptr(ws),
-              B, H, W, C, K, eps, code, kernels.current_stream(x.device))
+              B, H, W, C, K, eps, code, None if stamps is None else kernels.ptr(stamps),
+              kernels.current_stream(x.device))
     return y
 
 

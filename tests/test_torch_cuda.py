@@ -258,6 +258,21 @@ def test_naf_stack_kernel_rounds_each_block(cuda_device, B, H, W, C, K, dtype):
 
 
 @pytest.mark.cuda
+def test_naf_stack_phase_times_stamp_every_barrier(cuda_device):
+    """The timed launch gives the same bits as the plain launch, and one
+    clock reading at the start, two around each of the 1 + 5K grid
+    barriers and one at the end, in order."""
+    K = 3
+    blocks = _naf_blocks(K, 64, 64, cuda_device, seed=5)
+    x = torch.randn(2, 8, 8, 64, generator=torch.Generator(device=cuda_device).manual_seed(6), device=cuda_device)
+    tmod = naf_stack.time_modulation(blocks, torch.randn(2, 64, device=cuda_device))
+    y, stamps = naf_stack.naf_stack_phase_times(x, blocks, tmod, 1e-5)
+    assert torch.equal(y, naf_stack.naf_stack_cuda(x, blocks, tmod, 1e-5))
+    assert stamps.shape == (2 + 2 * (1 + 5 * K),)
+    assert (stamps[1:] >= stamps[:-1]).all() and stamps[0] > 0
+
+
+@pytest.mark.cuda
 def test_naf_stack_kernel_refuses_what_it_does_not_take(cuda_device):
     blocks = _naf_blocks(2, 64, 64, cuda_device)
     x = torch.randn(2, 4, 4, 64, device=cuda_device)
@@ -268,6 +283,10 @@ def test_naf_stack_kernel_refuses_what_it_does_not_take(cuda_device):
         naf_stack.naf_stack_cuda(x, blocks, tmod[:, :1], 1e-5)
     with pytest.raises(ValueError, match="float32"):
         naf_stack.naf_stack_cuda(x, [{**b, "conv1.weight": b["conv1.weight"].half()} for b in blocks], tmod, 1e-5)
+    narrow = _naf_blocks(2, 60, 64, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        naf_stack.naf_stack_cuda(torch.randn(2, 4, 4, 60, device=cuda_device), narrow,
+                                 naf_stack.time_modulation(narrow, torch.randn(2, 64, device=cuda_device)), 1e-5)
 
 
 @pytest.mark.cuda
@@ -387,6 +406,22 @@ def test_flash_attention_kernel_takes_strided_qkv_views(cuda_device, D, dtype):
 
 
 @pytest.mark.cuda
+def test_flash_attention_kernel_reads_reused_buffers_anew(cuda_device):
+    """The kernel keeps its TMA descriptors by pointer, shape and strides:
+    new contents in the same buffers give the same bits as fresh copies."""
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    q, k, v = (t.bfloat16() for t in _flash_inputs((2, 300, 4, 64), cuda_device, 7))
+    FA.flash_mha(q, k, v, 0.125)
+    for t, seed in ((q, 8), (k, 9), (v, 10)):
+        t.copy_(_flash_inputs((2, 300, 4, 64), cuda_device, seed)[0])
+    got = FA.flash_mha(q, k, v, 0.125)
+    want = FA.flash_mha(q.clone(), k.clone(), v.clone(), 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 
@@ -404,6 +439,8 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
         FA.flash_mha(odd, odd, odd, 0.125)
     with pytest.raises(ValueError, match="must be"):
         FA.flash_mha(q, q[:, :32], q, 0.125)
+    with pytest.raises(ValueError, match="positive scale"):
+        FA.flash_mha(q, q, q, -0.125)
 
 
 @pytest.mark.cuda

@@ -80,19 +80,28 @@ def test_flash_plain_matches_einsum_reference_at_ragged_n(N, dtype, bound):
     assert _rel_err(FA.flash_mha_plain(q, k, v, 0.125), want) <= bound
 
 
-@pytest.mark.parametrize("B,N,H,D", [(1, 256, 4, 64), (2, 192, 2, 72)], ids=str)
+@pytest.mark.parametrize("B,N,H,D,tile", [
+    pytest.param(1, 256, 4, 64, 64, id="1-256-4-64"),
+    pytest.param(2, 192, 2, 72, 64, id="2-192-2-72"),
+    pytest.param(1, 256, 4, 64, 128, id="1-256-4-64-tile128"),
+    pytest.param(2, 384, 2, 64, 128, id="2-384-2-64-tile128"),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_tiled_plain_matches_pallas_kernel_at_its_tiles(B, N, H, D, dtype):
-    """``flash_mha_tiled_plain`` (64-key tiles, the CUDA kernel's) against
-    the Pallas kernel in interpret mode at bq = bk = 64: the same order of
-    operations, p rounded at each tile's running max.  float32: 1e-5 of
-    max|ref|; bfloat16: ``flash_bf16_agreement`` (float32 sums and exp in
-    another order may flip the rounding of a p), which the un-tiled plain
-    version, rounding p at the row max, fails."""
+def test_tiled_plain_matches_pallas_kernel_at_its_tiles(B, N, H, D, tile, dtype):
+    """``flash_mha_tiled_plain`` at ``tile`` keys per tile against the
+    Pallas kernel in interpret mode at bq = bk = tile: the same order of
+    operations, p rounded at each tile's running max.  The CUDA kernel's
+    tiles are ``KEY_TILE``: 128 keys at head dim 64, 64 at 72 (the
+    default ``block``).  float32: 1e-5 of max|ref|; bfloat16:
+    ``flash_bf16_agreement`` (float32 sums and exp in another order may
+    flip the rounding of a p), which the un-tiled plain version, rounding p
+    at the row max, fails."""
     (q, k, v), (jq, jk, jv) = _qkv((B, N, H, D), dtype, seed=N + D)
     scale = D**-0.5
-    want = jax.jit(lambda a, b, c: _flash_forward(a, b, c, scale, bq=64, bk=64, interpret=True))(jq, jk, jv)
-    got = FA.flash_mha_tiled_plain(q, k, v, scale)
+    want = jax.jit(lambda a, b, c: _flash_forward(a, b, c, scale, bq=tile, bk=tile, interpret=True))(jq, jk, jv)
+    got = FA.flash_mha_tiled_plain(q, k, v, scale, block=tile)
+    if tile == FA.KEY_TILE[D]:
+        assert torch.equal(got, FA.flash_mha_tiled_plain(q, k, v, scale))  # the default follows the kernel
     assert got.dtype == dtype and got.shape == (B, N, H, D)
     if dtype == torch.float32:
         assert _rel_err(got, want) <= 1e-5
