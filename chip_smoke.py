@@ -46,11 +46,14 @@ Phases, each printing its lines and its seconds:
    of one PyTorch call computing the same function where there is one, and
    the least time the card could take (bytes or operations at the H100's
    published peaks; K3's at the float32 rate its arithmetic runs at); K1
-   and K2 at the deraining sites (and K5 in phase 12) timed from a CUDA
-   graph of 20 back-to-back calls, since one launch between CUDA events
-   reads the host's enqueue, with that earlier figure beside it; K3 also
-   block by block, as chained one-block launches that must end bit-equal
-   to the one launch;
+   and K2 at the deraining sites, K2 also at the denoising 512 px
+   request's (and K5 in phase 12) timed from a CUDA graph of 20
+   back-to-back calls, since one launch between CUDA events reads the
+   host's enqueue, with that earlier figure beside it; K2 run twice on
+   every input, the two runs bit-equal; K3 also block by block, as
+   chained one-block launches that must end bit-equal to the one launch;
+   the packed op's gradient on the card against the plain composition's,
+   and K1, K3 and K4 raising under grad (they have no backward yet);
 4. net: one forward of the full-width UNet, kernel path against plain
    path; and a 100-step float32 chain on a small input, kernel against plain;
 5. main path: the deraining sampler serves two posterior batches of 8, one
@@ -301,6 +304,23 @@ def path_shapes():
     return ln, attn
 
 
+def denoise_attn_sites():
+    """(batch, N) of the 8 K2 sites of one denoising UNet forward on the
+    512 px request (the 500x500 image padded): two per level, no mid-block
+    linear attention."""
+    h, w = pad64(DENOISE_ODD_HW)
+    return [(1, (h >> i) * (w >> i)) for i in range(4) for _ in range(2)]
+
+
+def la_work(batch, N, itemsize):
+    """(bytes, FLOP) of one K2a or one K2b call: K2a reads k and v (256 of
+    the 384 channels) and writes ctx, K2b reads q and ctx and writes out
+    (256 channels of traffic a row either way); 2 FLOP for each of a head's
+    32 x 32 products a row, and 4 for each exponential and sum."""
+    ctx_bytes = batch * 4 * 32 * 32 * 4
+    return batch * N * 256 * itemsize + ctx_bytes, 2 * batch * N * 4 * 32 * 32 + 4 * batch * N * 128
+
+
 def counts(**nonzero):
     """Expected launch counts by kernel symbol: the named kernels' (by
     their ops attribute name), 0 for every other kernel of ops.KERNELS."""
@@ -454,18 +474,33 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
     ln_flops = sum(8 * rows * C for C, rows in ln_sites)
     stats[LN.LAYERNORM]["bound_ms"], stats[LN.LAYERNORM]["bound_by"] = bound(ln_bytes, ln_flops, "bfloat16")
 
-    # K2a / K2b at the deraining path's N (batch 8), a ragged N and the
-    # latent, DiT and tiled paths' (batch, N); bound: ctx (f32) and f32
-    # outputs 1e-5 of max|ref|; bf16 outputs bf16_bound
+    # K2a / K2b at the deraining path's N (batch 8), the denoising 512 px
+    # request's (batch 1), N = 1 and a ragged N, and the latent, DiT and
+    # tiled paths' (batch, N); bound: ctx (f32) and f32 outputs 1e-5 of
+    # max|ref| (ctx against the float64 composition past N = 16384, where
+    # the plain float32 version's own sums drift past that bound); bf16
+    # outputs bf16_bound.  Every pair runs each kernel twice: the two runs
+    # must be bit-equal
+    denoise_sites = denoise_attn_sites()
+    timed_sites = {(BATCH, N) for N in attn_sites} | set(denoise_sites)
     pairs = [(BATCH, N) for N in sorted(set(attn_sites), reverse=True)]
-    pairs += sorted({(BATCH, 36), *latent_attn, *dit_attn} - set(pairs))
+    pairs += sorted(set(denoise_sites), reverse=True)
+    pairs += sorted({(BATCH, 36), (3, 1), *latent_attn, *dit_attn} - set(pairs))
+    per_step = {"K2a": 0.0, "K2b": 0.0, "K2a events": 0.0, "K2b events": 0.0, "bound": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for batch, N in pairs:
             qkv = (torch.randn(batch, N, 384, generator=gen, device=dev) * 1.5).to(dtype)
             ctx = LA.linear_attention_ctx_cuda(qkv)
             ctx_ref = LA.linear_attention_ctx_plain(qkv)
-            cerr = (ctx - ctx_ref).abs().max().item()
-            check(cerr <= 1e-5 * ctx_ref.abs().max().item(), f"K2a {dtype} B={batch} N={N}: max|dctx|={cerr:.3g}")
+            if N > 16384:
+                ref64 = ctx_float64(qkv)
+                cerr = (ctx.double() - ref64).abs().max().item()
+                cbound, cref = 1e-5 * ref64.abs().max().item(), "float64 composition"
+                del ref64
+            else:
+                cerr = (ctx - ctx_ref).abs().max().item()
+                cbound, cref = 1e-5 * ctx_ref.abs().max().item(), "plain"
+            check(cerr <= cbound, f"K2a {dtype} B={batch} N={N}: max|dctx|={cerr:.3g} against the {cref}")
             out = LA.linear_attention_apply_cuda(qkv, ctx_ref)
             ref = LA.linear_attention_apply_plain(qkv, ctx_ref)
             err = (out.float() - ref.float()).abs()
@@ -474,9 +509,12 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
             else:
                 ok = bool((err <= bf16_bound(ref)).all())
             check(ok, f"K2b {dtype} B={batch} N={N}: max|dout|={err.max().item():.3g}")
+            same = (torch.equal(ctx, LA.linear_attention_ctx_cuda(qkv))
+                    and torch.equal(out, LA.linear_attention_apply_cuda(qkv, ctx_ref)))
+            check(same, f"K2 {dtype} B={batch} N={N}: two runs differ")
             stats[LA.LA_CTX]["err"] = max(stats[LA.LA_CTX]["err"], cerr)
             stats[LA.LA_APPLY]["err"] = max(stats[LA.LA_APPLY]["err"], err.max().item())
-            site = dtype == torch.bfloat16 and batch == BATCH and N in attn_sites
+            site = dtype == torch.bfloat16 and (batch, N) in timed_sites
             timer = graph_ms if site else cuda_ms
             ms_c = timer(lambda: LA.linear_attention_ctx_cuda(qkv))
             pms_c = timer(lambda: LA.linear_attention_ctx_plain(qkv))
@@ -484,12 +522,13 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
             pms_a = timer(lambda: LA.linear_attention_apply_plain(qkv, ctx_ref))
             ems_c = cuda_ms(lambda: LA.linear_attention_ctx_cuda(qkv)) if site else ms_c
             ems_a = cuda_ms(lambda: LA.linear_attention_apply_cuda(qkv, ctx_ref)) if site else ms_a
-            print(f"[kernels] K2 {str(dtype)[6:]:8s} B={batch} N={N:5d} max|dctx|={cerr:.3g} "
-                  f"max|dout|={err.max().item():.3g} "
-                  f"K2a {ms_c:.4f} ms plain {pms_c:.4f} ms | K2b {ms_a:.4f} ms plain {pms_a:.4f} ms "
-                  f"({'graph of 20' if site else 'events'}; kernels by events around one launch "
-                  f"{ems_c:.4f} / {ems_a:.4f} ms)")
-            if site:
+            bms, by = bound(*la_work(batch, N, qkv.element_size()), str(dtype)[6:])
+            print(f"[kernels] K2 {str(dtype)[6:]:8s} B={batch} N={N:6d} max|dctx|={cerr:.3g} ({cref}) "
+                  f"max|dout|={err.max().item():.3g} bit-equal reruns "
+                  f"K2a {ms_c:.4f} ms plain {pms_c:.4f} ms | K2b {ms_a:.4f} ms plain {pms_a:.4f} ms | "
+                  f"least {bms:.4f} ms each ({by}) ({'graph of 20' if site else 'events'}; kernels by events "
+                  f"around one launch {ems_c:.4f} / {ems_a:.4f} ms)")
+            if site and batch == BATCH:
                 n = attn_sites.count(N)
                 stats[LA.LA_CTX]["ms"] += n * ms_c
                 stats[LA.LA_CTX]["event_ms"] += n * ems_c
@@ -497,16 +536,68 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
                 stats[LA.LA_APPLY]["ms"] += n * ms_a
                 stats[LA.LA_APPLY]["event_ms"] += n * ems_a
                 stats[LA.LA_APPLY]["plain_ms"] += n * pms_a
-    # bounds over one forward's 9 sites, bf16: K2a reads k and v (256 of the
-    # 384 channels) and writes ctx; K2b reads q and ctx and writes out
-    ctx_bytes = BATCH * 4 * 32 * 32 * 4
-    ctx_flops = sum(2 * BATCH * N * 4 * 32 * 32 + 4 * BATCH * N * 128 for N in attn_sites)
-    stats[LA.LA_CTX]["bound_ms"], stats[LA.LA_CTX]["bound_by"] = bound(
-        sum(BATCH * N * 256 * 2 + ctx_bytes for N in attn_sites), ctx_flops, "bfloat16")
-    stats[LA.LA_APPLY]["bound_ms"], stats[LA.LA_APPLY]["bound_by"] = bound(
-        sum(BATCH * N * 256 * 2 + ctx_bytes for N in attn_sites), ctx_flops, "bfloat16")
+            if site and (batch, N) in denoise_sites:
+                n = denoise_sites.count((batch, N))
+                for key, v in (("K2a", ms_c), ("K2b", ms_a), ("K2a events", ems_c), ("K2b events", ems_a),
+                               ("bound", bms)):
+                    per_step[key] += n * v
+            del qkv, ctx, ctx_ref, out, ref, err
+    print(f"[kernels] K2 bf16 over one denoising 512 px step's {len(denoise_sites)} sites: K2a "
+          f"{per_step['K2a']:.4f} ms, K2b {per_step['K2b']:.4f} ms (graphs of 20; by events around one launch "
+          f"{per_step['K2a events']:.4f} / {per_step['K2b events']:.4f} ms), least {per_step['bound']:.4f} ms each")
+    # bounds over one deraining forward's 9 sites, bf16
+    work = [la_work(BATCH, N, 2) for N in attn_sites]
+    for k in (LA.LA_CTX, LA.LA_APPLY):
+        stats[k]["bound_ms"], stats[k]["bound_by"] = bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                                                           "bfloat16")
 
     phase_naf_stack(dev, stats)
+    check_gradients(dev)
+
+
+def check_gradients(dev):
+    """The packed op's gradient on the card (its forward launches K2a and
+    K2b, its backward is the plain composition's) against the plain
+    composition's, float32, within 1e-5 of max|grad|; and K1, K3 and K4,
+    which have no backward yet, raise under grad instead of cutting it."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+    from image_restoration_sde_tpu_torch.ops import layernorm as LN
+    from image_restoration_sde_tpu_torch.ops import linear_attention as LA
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    qkv = (torch.randn(2, 1000, 384, generator=gen, device=dev) * 1.5).requires_grad_()
+    g = torch.randn(2, 1000, 128, generator=gen, device=dev)
+    before = (LA.LA_CTX.launches, LA.LA_APPLY.launches)
+    out = LA.linear_attention_packed(qkv)
+    check((LA.LA_CTX.launches - before[0], LA.LA_APPLY.launches - before[1]) == (1, 1),
+          "K2 gradient: the forward did not launch K2a and K2b once each")
+    (got,) = torch.autograd.grad(out, qkv, g)
+    (want,) = torch.autograd.grad(LA.linear_attention_packed_plain(qkv), qkv, g)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    check(rel <= 1e-5, f"K2 gradient: max|dgrad| / max|grad| = {rel:.3g}")
+
+    x = torch.randn(64, 64, generator=gen, device=dev)
+    w = torch.ones(64, device=dev, requires_grad=True)
+    blocks = naf_blocks(2, 64, 64, dev, SEED + 19)
+    tmod = NS.time_modulation(blocks, torch.randn(2, 64, generator=gen, device=dev))
+    blocks[0]["conv1.weight"].requires_grad_()
+    q = torch.randn(1, 64, 2, 64, generator=gen, device=dev, requires_grad=True)
+    refused = []
+    for name, call in (("K1", lambda: LN.channel_layernorm_cuda(x, w, 1e-5)),
+                       ("K3", lambda: NS.naf_stack_cuda(x.view(2, 4, 8, 64), blocks, tmod, 1e-5)),
+                       ("K4", lambda: FA.flash_mha_cuda(q, q, q, 0.125))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" in str(e):
+                refused.append(name)
+    check(refused == ["K1", "K3", "K4"], f"grad guards: only {refused} raised under grad")
+    print(f"[kernels] K2 gradient through the op on the card at (2, 1000, 384) f32: max|dgrad| / max|grad| = "
+          f"{rel:.3g} (bound 1e-5); K1, K3 and K4 raise under grad (no backward yet)")
 
 
 def phase_naf_stack(dev, stats):

@@ -106,7 +106,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     lib.irsde_error_string.argtypes = [ctypes.c_int]
     lib.irsde_error_string.restype = ctypes.c_char_p
-    lib.irsde_la_ctx_workspace.argtypes = [ctypes.c_int] * 3
+    lib.irsde_la_ctx_workspace.argtypes = [ctypes.c_int] * 4
     lib.irsde_la_ctx_workspace.restype = ctypes.c_longlong
     lib.irsde_lin_attn_ctx_workspace.argtypes = [ctypes.c_int] * 3
     lib.irsde_lin_attn_ctx_workspace.restype = ctypes.c_longlong
@@ -145,6 +145,15 @@ class Kernel:
             msg = load_library().irsde_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+def refuse_grad(op: str, *tensors) -> None:
+    """Raise when autograd would have to pass through a kernel that has no
+    backward: the kernel writes its output through a raw pointer, so the
+    output has no ``grad_fn`` and the gradient would skip the op."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{op}: the CUDA kernel has no backward yet; call it under torch.no_grad() "
+                           "or torch.inference_mode()")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -9,11 +9,12 @@ MLP.  Inputs are zero-padded at the bottom/right to a multiple of
 2^len(enc_blk_nums) and cropped back.
 
 A run of at least ``FUSE_MIN_BLOCKS`` blocks at one level (the 28-block
-deep level of the Refusion configs) goes through the fused stack
-(``ops/naf_stack.py``, kernel K3): all math in float32 with float32
-weights, each block's output rounded to the compute dtype.  Shorter runs go
-block by block in the compute dtype.  The two compute different functions
-in bf16, as in the JAX package; the gate decides which one, not the device.
+deep level of the Refusion configs) at a width K3 takes (``fuses``) goes
+through the fused stack (``ops/naf_stack.py``, kernel K3): all math in
+float32 with float32 weights, each block's output rounded to the compute
+dtype.  Other runs go block by block in the compute dtype.  The two
+compute different functions in bf16, as in the JAX package; the gate
+decides which one, not the device.
 
 ``forward`` takes and returns NHWC float32; inside, activations are NCHW in
 ``channels_last`` memory in the compute ``dtype``; parameters stay float32.
@@ -27,7 +28,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.naf_stack import PARAM_ORDER, naf_stack, naf_stack_plain, stack_middle_params
+from ..ops.naf_stack import CHANNEL_MULTIPLE, PARAM_ORDER, naf_stack, naf_stack_plain, stack_middle_params
 from .modules import (
     ChannelLayerNorm,
     Conv2d,
@@ -41,6 +42,13 @@ from .modules import (
 
 FUSE_MIN_BLOCKS = 4
 _BLOCK_KEYS = PARAM_ORDER + ("mlp.1.weight", "mlp.1.bias")
+
+
+def fuses(blocks: nn.ModuleList) -> bool:
+    """Whether a level's blocks run as one fused stack: at least
+    FUSE_MIN_BLOCKS of them, at a width K3 takes (a multiple of
+    CHANNEL_MULTIPLE channels)."""
+    return len(blocks) >= FUSE_MIN_BLOCKS and blocks[0].beta.shape[1] % CHANNEL_MULTIPLE == 0
 
 
 class NAFBlockBody(nn.Module):
@@ -171,9 +179,9 @@ class ConditionalNAFNet(NAFNetPyramid):
         )
 
     def _block_run(self, blocks: nn.ModuleList, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """A level's blocks: fused through the NAF stack when there are at
-        least FUSE_MIN_BLOCKS of them, else one by one."""
-        if len(blocks) < FUSE_MIN_BLOCKS:
+        """A level's blocks: fused through the NAF stack where ``fuses``
+        says so, else one by one."""
+        if not fuses(blocks):
             return run_blocks(blocks, x, t)
         # float32 weights, read in place (``fused_param_names``)
         params = [blk.tensors() for blk in blocks]
@@ -195,7 +203,7 @@ class ConditionalNAFNet(NAFNetPyramid):
         names = []
         for level in levels:
             blocks = self.get_submodule(level)
-            if len(blocks) >= FUSE_MIN_BLOCKS:
+            if fuses(blocks):
                 names += [f"{level}.{b}.{k}" for b in range(len(blocks)) for k in _BLOCK_KEYS]
         return names
 

@@ -101,6 +101,7 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
             raise ValueError(f"flash_mha: {name} must be contiguous over (H, D), strides {t.stride()}")
         if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
             raise ValueError(f"flash_mha: {name} must be 16-byte aligned, with 16-byte batch and token strides")
+    kernels.refuse_grad("flash_mha_cuda", q, k, v)
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     if out.numel():
         FLASH_ATTN(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),

@@ -50,6 +50,7 @@ def channel_layernorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float) -> torc
         raise ValueError("channel_layernorm: x must be 16-byte aligned")
     if g.numel() != C:
         raise ValueError(f"channel_layernorm: g has {g.numel()} entries, C={C}")
+    kernels.refuse_grad("channel_layernorm_cuda", x, g)
     g = g.reshape(C).to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
     rows = x.numel() // C

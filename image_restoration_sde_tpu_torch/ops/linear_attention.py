@@ -13,7 +13,10 @@ channels ordered ``[q heads | k heads | v heads]``; per head:
 
 ``ctx`` is float32 ``(B, heads, dim_head, dim_head)`` indexed ``[b, h, e, d]``;
 the output is ``(B, N, heads*dim_head)`` in the input's dtype.  The kernels
-are ``csrc/linear_attention.cu``; they take dim_head = 32 and any N.
+are ``csrc/linear_attention.cu``; they take heads = 4, dim_head = 32 and
+any N.  ``linear_attention_packed`` is differentiable: its backward is the
+autograd of the plain composition on the saved qkv, as the JAX op's
+custom_vjp is ``jax.vjp`` of its jnp composition.
 
 Per slice: q, k, v are separate ``(BH, N, d)`` tensors, one head each:
 
@@ -43,14 +46,14 @@ _SRC_BH = "image_restoration_sde_tpu_torch/csrc/linear_attention_bh.cu"
 _V, _I = ctypes.c_void_p, ctypes.c_int
 
 LA_CTX = kernels.Kernel(
-    "irsde_la_ctx", [_V, _V, _V, _V, _I, _I, _I, _I, _V], source=_SRC,
+    "irsde_la_ctx", [_V, _V, _V, _I, _I, _I, _I, _V], source=_SRC,
     replaces="image_restoration_sde_tpu/ops/linear_attention.py:195",
 )
 LA_APPLY = kernels.Kernel(
     "irsde_la_apply", [_V, _V, _V, _I, _I, _I, _I, _V], source=_SRC,
     replaces="image_restoration_sde_tpu/ops/linear_attention.py:225",
 )
-KERNEL_DIM_HEAD = 32
+KERNEL_HEADS, KERNEL_DIM_HEAD = 4, 32
 # K5 replaces both the resident and the N-tiled Pallas kernel (one function)
 LIN_ATTN_CTX = kernels.Kernel(
     "irsde_lin_attn_ctx", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _V], source=_SRC_BH,
@@ -96,10 +99,14 @@ def _check(qkv: torch.Tensor, heads: int, dim_head: int) -> int:
         raise ValueError(f"linear attention kernels: qkv is on {qkv.device}, not a CUDA device")
     if dim_head != KERNEL_DIM_HEAD:
         raise ValueError(f"linear attention kernels take dim_head={KERNEL_DIM_HEAD}, not {dim_head}")
+    if heads != KERNEL_HEADS:
+        raise ValueError(f"linear attention kernels take heads={KERNEL_HEADS}, not {heads}")
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * heads * dim_head:
         raise ValueError(f"qkv must be (B, N, {3 * heads * dim_head}), got {tuple(qkv.shape)}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned")
     return kernels.dtype_code(qkv.dtype)
 
 
@@ -107,12 +114,11 @@ def linear_attention_ctx_cuda(qkv: torch.Tensor, heads: int = 4, dim_head: int =
     """Launch K2a: (B, N, 3*hid) CUDA tensor -> float32 ctx (B, heads, 32, 32)."""
     code = _check(qkv, heads, dim_head)
     B, N, _ = qkv.shape
-    n_ws = kernels.load_library().irsde_la_ctx_workspace(B, N, heads)
+    n_ws = kernels.load_library().irsde_la_ctx_workspace(B, N, heads, code)
     ws = torch.empty(n_ws, dtype=torch.float32, device=qkv.device)
-    done = torch.zeros(B * heads, dtype=torch.int32, device=qkv.device)
     ctx = torch.empty(B, heads, dim_head, dim_head, dtype=torch.float32, device=qkv.device)
-    LA_CTX(kernels.ptr(qkv), kernels.ptr(ctx), kernels.ptr(ws), kernels.ptr(done), B, N, heads,
-           code, kernels.current_stream(qkv.device))
+    LA_CTX(kernels.ptr(qkv), kernels.ptr(ctx), kernels.ptr(ws), B, N, heads, code,
+           kernels.current_stream(qkv.device))
     return ctx
 
 
@@ -132,15 +138,34 @@ def linear_attention_apply_cuda(
     return out
 
 
-def linear_attention_packed(qkv: torch.Tensor, heads: int = 4, dim_head: int = 32) -> torch.Tensor:
-    """(B, N, 3*heads*dim_head) -> (B, N, heads*dim_head).  The kernels for
-    a CUDA tensor, the plain versions for a CPU tensor."""
+def _packed_forward(qkv, heads, dim_head):
     if qkv.is_cuda:
         ctx = linear_attention_ctx_cuda(qkv, heads, dim_head)
         return linear_attention_apply_cuda(qkv, ctx, heads, dim_head)
     if qkv.device.type == "cpu":
         return linear_attention_packed_plain(qkv, heads, dim_head)
     raise ValueError(f"linear_attention_packed: no implementation for device {qkv.device}")
+
+
+class _LinearAttentionPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head):
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.dim_head = heads, dim_head
+        return _packed_forward(qkv, heads, dim_head)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv = ctx.saved_tensors[0].detach().requires_grad_()
+        with torch.enable_grad():
+            out = linear_attention_packed_plain(qkv, ctx.heads, ctx.dim_head)
+        return torch.autograd.grad(out, qkv, grad)[0], None, None
+
+
+def linear_attention_packed(qkv: torch.Tensor, heads: int = 4, dim_head: int = 32) -> torch.Tensor:
+    """(B, N, 3*heads*dim_head) -> (B, N, heads*dim_head); differentiable.
+    The kernels for a CUDA tensor, the plain versions for a CPU tensor."""
+    return _LinearAttentionPacked.apply(qkv, heads, dim_head)
 
 
 # ------------------------------------------------- per-slice op (K5)

@@ -34,6 +34,9 @@ NAF_STACK = kernels.Kernel(
     replaces="image_restoration_sde_tpu/ops/naf_stack.py:104",
 )
 
+# the kernel takes C a multiple of this (csrc/naf_stack.cu)
+CHANNEL_MULTIPLE = 8
+
 # the kernel's per-block pointer table, in csrc/naf_stack.cu's order
 PARAM_ORDER = (
     "conv1.weight", "conv1.bias", "conv2.weight", "conv2.bias", "sca.1.weight", "sca.1.bias",
@@ -172,14 +175,16 @@ def _launch(x, blocks, tmod, eps, stamps):
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("naf_stack: x must be a contiguous (B, H, W, C) tensor")
     B, H, W, C = x.shape
-    if C % 8:
-        raise ValueError(f"naf_stack: C={C}; the kernel takes a multiple of 8 channels")
+    if C % CHANNEL_MULTIPLE:
+        raise ValueError(f"naf_stack: C={C}; the kernel takes a multiple of {CHANNEL_MULTIPLE} channels")
     K = len(blocks)
     if K == 0:
         raise ValueError("naf_stack: no blocks")
     if tmod.shape != (K, B, 4 * C) or tmod.dtype != torch.float32 or tmod.device != x.device \
             or not tmod.is_contiguous():
         raise ValueError(f"naf_stack: tmod must be contiguous float32 {(K, B, 4 * C)} on {x.device}")
+    if torch.is_grad_enabled():  # skip gathering every block's tensors when it is not
+        kernels.refuse_grad("naf_stack_cuda", x, tmod, *(t for blk in blocks for t in blk.values()))
     table = _pointer_table(x.device, _block_tensors(blocks, x))
     ws = torch.empty(kernels.load_library().irsde_naf_stack_workspace(B, H, W, C),
                      dtype=torch.float32, device=x.device)

@@ -49,18 +49,36 @@ def test_layernorm_kernel_matches_plain(cuda_device, C, rows, dtype):
         assert (err <= _bf16_bound(ref.float().cpu().numpy())).all()
 
 
+# K2's N, each at batch 3 but the deraining UNet's first level (batch 8)
+# and the denoising 512 px request's (batch 1)
+LA_BATCH = {16384: 8, 262144: 1}
+
+
+def _ctx_float64(qkv: torch.Tensor) -> torch.Tensor:
+    """K2a's function, ``linear_attention_ctx_plain``'s math in float64."""
+    B, N, _ = qkv.shape
+    x = qkv.double().reshape(B, N, 3, 4, 32)
+    return torch.einsum("bnhd,bnhe->bhed", torch.softmax(x[:, :, 1], dim=1), x[:, :, 2] / N)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [36, 256, 1024, 4100])
+@pytest.mark.parametrize("N", [1, 36, 256, 1024, 4100, 16384, 262144])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_linear_attention_kernels_match_plain(cuda_device, N, dtype):
     """TF32 off.  Bound: ctx and float32 outputs 1e-5 of max|ref|;
-    bfloat16 outputs ``_bf16_bound``."""
+    bfloat16 outputs ``_bf16_bound``.  ctx is held against the float64
+    composition at every N, and against the float32 plain version up to
+    N = 16384 (beyond, the plain version's own float32 sums over N drift
+    past that bound)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    qkv = (torch.randn(3, N, 384, generator=gen, device=cuda_device) * 1.5).to(dtype)
+    qkv = (torch.randn(LA_BATCH.get(N, 3), N, 384, generator=gen, device=cuda_device) * 1.5).to(dtype)
     ctx = linear_attention.linear_attention_ctx_cuda(qkv)
     ctx_ref = linear_attention.linear_attention_ctx_plain(qkv)
-    assert (ctx - ctx_ref).abs().max().item() <= 1e-5 * ctx_ref.abs().max().item()
+    ref64 = _ctx_float64(qkv)
+    assert (ctx.double() - ref64).abs().max().item() <= 1e-5 * ref64.abs().max().item()
+    if N <= 16384:
+        assert (ctx - ctx_ref).abs().max().item() <= 1e-5 * ctx_ref.abs().max().item()
     out = linear_attention.linear_attention_apply_cuda(qkv, ctx_ref)
     ref = linear_attention.linear_attention_apply_plain(qkv, ctx_ref)
     err = (out.float() - ref.float()).abs().cpu().numpy()
@@ -68,6 +86,64 @@ def test_linear_attention_kernels_match_plain(cuda_device, N, dtype):
         assert err.max() <= 1e-5 * ref.abs().max().item()
     else:
         assert (err <= _bf16_bound(ref.float().cpu().numpy())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4100, 16384, 262144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_linear_attention_kernels_are_bit_equal_run_to_run(cuda_device, N, dtype):
+    """Two runs of K2a and of K2b on the same input give the same bits:
+    K2a combines its slices in a fixed order, whichever CTA ends first."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = (torch.randn(LA_BATCH.get(N, 3), N, 384, generator=gen, device=cuda_device) * 1.5).to(dtype)
+    ctx = [linear_attention.linear_attention_ctx_cuda(qkv) for _ in range(2)]
+    out = [linear_attention.linear_attention_apply_cuda(qkv, ctx[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ctx[0], ctx[1]) and torch.equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+def test_linear_attention_packed_gradient(cuda_device):
+    """The packed op under autograd on the card: its forward launches K2a
+    and K2b once each, its backward is the plain composition's, so the
+    gradient equals the plain composition's within float32 1e-5 of
+    max|grad|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    qkv = (torch.randn(2, 300, 384, generator=gen, device=cuda_device) * 1.5).requires_grad_()
+    g = torch.randn(2, 300, 128, generator=gen, device=cuda_device)
+    before = [linear_attention.LA_CTX.launches, linear_attention.LA_APPLY.launches]
+    out = linear_attention.linear_attention_packed(qkv)
+    assert [linear_attention.LA_CTX.launches, linear_attention.LA_APPLY.launches] == [b + 1 for b in before]
+    (got,) = torch.autograd.grad(out, qkv, g)
+    (want,) = torch.autograd.grad(linear_attention.linear_attention_packed_plain(qkv), qkv, g)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["layernorm", "naf_stack", "flash_attention"])
+def test_kernels_without_a_backward_refuse_grad(cuda_device, op):
+    """K1, K3 and K4 have no backward yet: with grad enabled and an input
+    that requires grad, each wrapper raises instead of returning an output
+    the gradient would skip; under ``torch.no_grad()`` it runs."""
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    if op == "layernorm":
+        x, g = torch.randn(64, 32, device=cuda_device), torch.ones(32, device=cuda_device)
+        call, grad_input = (lambda: layernorm.channel_layernorm(x, g, 1e-5)), g
+    elif op == "naf_stack":
+        blocks = _naf_blocks(2, 64, 64, cuda_device)
+        x = torch.randn(2, 4, 4, 64, device=cuda_device)
+        tmod = naf_stack.time_modulation(blocks, torch.randn(2, 64, device=cuda_device))
+        call, grad_input = (lambda: naf_stack.naf_stack_cuda(x, blocks, tmod, 1e-5)), blocks[1]["conv3.weight"]
+    else:
+        x = torch.randn(1, 64, 2, 64, device=cuda_device)
+        call, grad_input = (lambda: FA.flash_mha(x, x, x, 0.125)), x
+    grad_input.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        call()
 
 
 @pytest.mark.cuda
@@ -138,6 +214,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         layernorm.channel_layernorm(x.half(), torch.ones(32, device=cuda_device), 1e-3)
     with pytest.raises(ValueError, match="dim_head"):
         linear_attention.linear_attention_packed(torch.randn(1, 8, 3 * 4 * 16, device=cuda_device), 4, 16)
+    with pytest.raises(ValueError, match="heads"):
+        linear_attention.linear_attention_packed(torch.randn(1, 8, 3 * 2 * 32, device=cuda_device), 2, 32)
+    odd = torch.randn(8 * 384 + 1, device=cuda_device)[1:].view(1, 8, 384)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        linear_attention.linear_attention_ctx_cuda(odd)
 
 
 @pytest.mark.cuda

@@ -251,6 +251,37 @@ def test_fused_level_matches_the_blocks_one_by_one(tiny_weights, monkeypatch):
     assert np.abs((fused - blocks).numpy()).max() <= 1e-5 * blocks.abs().max().item()
 
 
+def test_fusion_needs_a_width_the_kernel_takes(monkeypatch):
+    """Width 12, enc (4, 4): the 4-block level at 12 channels (not a
+    multiple of 8, which K3 needs) runs block by block and stays out of
+    ``fused_param_names``; the 4-block level at 24 channels fuses.  The
+    float32 forward agrees with the plain path's within 1e-5 of max|out|."""
+    from image_restoration_sde_tpu_torch.models import init_params_
+
+    cfg = dict(img_channel=3, width=12, enc_blk_nums=(4, 4), middle_blk_num=1, dec_blk_nums=(1, 1))
+    net, plain = (ConditionalNAFNet(**cfg, plain=p).eval() for p in (False, True))
+    init_params_(net, torch.Generator().manual_seed(0))
+    plain.load_state_dict(net.state_dict())
+    names = net.fused_param_names()
+    assert names == plain.fused_param_names()
+    assert len(names) == 4 * len(pnafnet._BLOCK_KEYS) and all(n.startswith("encoders.1.") for n in names)
+    widths = []
+    p_orig = pnafnet.naf_stack
+
+    def record(x, *a):
+        widths.append(x.shape[-1])
+        return p_orig(x, *a)
+
+    monkeypatch.setattr(pnafnet, "naf_stack", record)
+    x = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(7))
+    t = torch.tensor([3, 50])
+    with torch.inference_mode():
+        got, ref = net(x, x * 0.5, t), plain(x, x * 0.5, t)
+    assert widths == [24]
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
 def test_kernel_sites_get_contiguous_rows(tiny_weights, monkeypatch):
     """Every K1 and K3 call of a forward gets contiguous (pixels, C) rows,
     which the CUDA wrappers require (they raise rather than copy)."""

@@ -15,6 +15,7 @@ import torch
 
 from image_restoration_sde_tpu.ops.layernorm import channel_layernorm as j_channel_layernorm
 from image_restoration_sde_tpu.ops.linear_attention import _jnp_packed, _pallas_packed
+from image_restoration_sde_tpu.ops.linear_attention import linear_attention_packed as j_linear_attention_packed
 from image_restoration_sde_tpu_torch.ops import KERNELS, layernorm, linear_attention
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,6 +118,22 @@ def test_linear_attention_outlier_head_no_nan():
     scale = np.abs(ref).max()
     assert np.abs(got - ref).max() / scale < 1e-4
     assert np.abs(got - pallas).max() / scale < 1e-4
+
+
+def test_linear_attention_packed_gradient_matches_jax():
+    """float32, B = 2, N = 64: the gradient of sum(out * w) through the
+    port's op (its autograd.Function's backward) against ``jax.grad``
+    through the JAX op's custom_vjp.  Bound 1e-5 of max|grad|: both
+    differentiate a float32 composition of the same function, with sums in
+    another order."""
+    r = np.random.default_rng(12)
+    qkv = (r.standard_normal((2, 64, 384)) * 1.5).astype(np.float32)
+    w = r.standard_normal((2, 64, 128)).astype(np.float32)
+    want = np.asarray(jax.jit(jax.grad(lambda t: jnp.sum(j_linear_attention_packed(t, 4, 32) * w)))(jnp.asarray(qkv)))
+    x = torch.from_numpy(qkv).requires_grad_()
+    (linear_attention.linear_attention_packed(x, 4, 32) * torch.from_numpy(w)).sum().backward()
+    assert x.grad.shape == qkv.shape
+    assert np.abs(x.grad.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_linear_attention_ctx_layout():
