@@ -110,6 +110,11 @@ Phases, each printing its lines and its seconds:
    posterior batches of 4 at 512 px and one 700x1000 image (padded to
    704x1024); per request exactly 7204 K1, 2 K2a and 2 K2b launches.
 
+K1 is also timed over one bf16 forward of each path's score net (phases 3,
+6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
+F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
+``by_path`` on K1's entry of the JSON line.
+
 Launch counts are set to 0 just before each main path and read just after.
 Then one JSON line with each kernel's launches, error, times and bound, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -321,6 +326,47 @@ def la_work(batch, N, itemsize):
     return batch * N * 256 * itemsize + ctx_bytes, 2 * batch * N * 4 * 32 * 32 + 4 * batch * N * 128
 
 
+def ln_work(sites):
+    """(bytes, FLOP) of K1 over bf16 (C, rows) sites: x read and y written
+    once, g (float32) read once a site; ~8 FLOP an element."""
+    return sum(2 * rows * C * 2 + C * 4 for C, rows in sites), sum(8 * rows * C for C, rows in sites)
+
+
+def k1_site_times(dev, sites):
+    """{(C, rows): (K1 ms, F.layer_norm ms)} for each distinct bf16 site
+    (eps 1e-3, seeded x and g), each from a CUDA graph of 20 calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_sde_tpu_torch.ops import layernorm as LN
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    times = {}
+    for C, rows in sorted(set(sites)):
+        x = (torch.randn(rows, C, generator=gen, device=dev) * 2 + 0.5).bfloat16()
+        g = torch.randn(C, generator=gen, device=dev) * 0.2 + 1
+        g_lib = g.bfloat16()
+        times[C, rows] = (graph_ms(lambda: LN.channel_layernorm_cuda(x, g, 1e-3)),
+                          graph_ms(lambda: F.layer_norm(x, (C,), g_lib, None, 1e-3)))
+    return times
+
+
+def k1_path(label, sites, times, stats):
+    """Print and record (stats[K1]["by_path"]) K1 over one forward's bf16
+    sites: the sum of each site's time, its bound by bytes and
+    F.layer_norm's sum."""
+    from image_restoration_sde_tpu_torch.ops import LAYERNORM
+
+    ms = sum(times[site][0] for site in sites)
+    lms = sum(times[site][1] for site in sites)
+    bms, by = bound(*ln_work(sites), "bfloat16")
+    print(f"[k1-path] {label}: {len(sites)} K1 launches a forward over {len(set(sites))} (C, rows) sites, bf16: "
+          f"K1 {ms:.4f} ms, least {bms:.4f} ms ({by}), F.layer_norm {lms:.4f} ms (graphs of 20 calls per site)")
+    stats[LAYERNORM]["by_path"][label] = {"launches": len(sites), "ms": ms, "bound_ms": bms, "bound_by": by,
+                                          "library_ms": lms}
+
+
 def counts(**nonzero):
     """Expected launch counts by kernel symbol: the named kernels' (by
     their ops attribute name), 0 for every other kernel of ops.KERNELS."""
@@ -440,6 +486,7 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
     # x's dtype)
     shapes = sorted(set(ln_sites))
     shapes += sorted({(64, 1001), (1024, 999), *latent_ln, *dit_ln} - set(shapes))
+    site_times = {}
     for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
         for C, rows in shapes:
             x = (torch.randn(rows, C, generator=gen, device=dev) * 2 + 0.5).to(dtype)
@@ -464,15 +511,15 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
                   f"kernel {ms:.4f} ms plain {pms:.4f} ms F.layer_norm {lms:.4f} ms ({how}; "
                   f"kernel by events around one launch {ems:.4f} ms)")
             if timer is graph_ms:
+                site_times[C, rows] = (ms, lms)
                 n = ln_sites.count((C, rows))
                 stats[LN.LAYERNORM]["ms"] += n * ms
                 stats[LN.LAYERNORM]["event_ms"] += n * ems
                 stats[LN.LAYERNORM]["plain_ms"] += n * pms
                 stats[LN.LAYERNORM]["library_ms"] += n * lms
     # bound over one forward's 18 sites, bf16: read x, write y, read g
-    ln_bytes = sum(2 * rows * C * 2 + C * 4 for C, rows in ln_sites)
-    ln_flops = sum(8 * rows * C for C, rows in ln_sites)
-    stats[LN.LAYERNORM]["bound_ms"], stats[LN.LAYERNORM]["bound_by"] = bound(ln_bytes, ln_flops, "bfloat16")
+    stats[LN.LAYERNORM]["bound_ms"], stats[LN.LAYERNORM]["bound_by"] = bound(*ln_work(ln_sites), "bfloat16")
+    k1_path(f"deraining {BATCH}x{SIZE}px", ln_sites, site_times, stats)
 
     # K2a / K2b at the deraining path's N (batch 8), the denoising 512 px
     # request's (batch 1), N = 1 and a ragged N, and the latent, DiT and
@@ -802,7 +849,7 @@ def compare_compressor(tag, compressor, plain, img):
           f"max|d| / max|ref| = {worst:.3g} (bound 1e-4); launches K1, K2a, K2b {grew}")
 
 
-def phase_latent_net(dev, latent_opt, refusion_setting):
+def phase_latent_net(dev, latent_opt, refusion_setting, stats):
     """One forward of each full-width NAFNet, kernel path against plain
     path: the latent net at batch 4 on 64x64x8 latents (K3 at 8x8), and the
     deraining Refusion net at batch 8, 128 px (K3 at 16x16).  The kernel
@@ -828,11 +875,13 @@ def phase_latent_net(dev, latent_opt, refusion_setting):
         t = torch.randint(1, 101, (batch,), generator=gen, device=dev)
         if kept is None:
             before = (LAYERNORM.launches, NAF_STACK.launches)
-            with torch.inference_mode():
+            with recorded_sites() as (ln, _), torch.inference_mode():
                 nets[torch.bfloat16, False](xt, cond, t)
             grew = (LAYERNORM.launches - before[0], NAF_STACK.launches - before[1])
             check(grew == (NAF_LN_PER_FORWARD, 1), f"{name}: K1, K3 launches {grew} per forward")
             kept = nets[torch.bfloat16, False]
+            ln = [(C, rows) for C, rows, _ in ln]
+            k1_path(f"latent {batch}x{LATENT_SIZE}px", ln, k1_site_times(dev, ln), stats)
         compare_nets("latent-net", f"{name} batch {batch} {size}x{size}x{ch}", nets, (xt, cond, t))
         del nets
 
@@ -1198,11 +1247,13 @@ def ctx_float64(qkv, heads=4, dim_head=32):
     return torch.einsum("bnhd,bnhe->bhed", torch.softmax(x[:, :, 1], dim=1), x[:, :, 2] / N)
 
 
-def hold_sites(tag, dev, ln_sites, attn_sites):
+def hold_sites(tag, dev, ln_sites, attn_sites, stats, forwards):
     """K1 and K2b against their plain versions at each recorded site shape,
     on seeded inputs, with phase 3's bounds; K2a's ctx within 1e-5 of
     max|ctx| of the float64 composition (at N >= 65536 the plain float32
-    version's own sums over N drift past that bound; the kernel's do not)."""
+    version's own sums over N drift past that bound; the kernel's do not).
+    Then K1 timed over each of ``forwards`` ({label: the (C, rows, dtype)
+    of one bf16 forward's K1 launches}, k1_path)."""
     import torch
 
     from image_restoration_sde_tpu_torch.ops import layernorm as LN
@@ -1242,6 +1293,10 @@ def hold_sites(tag, dev, ln_sites, attn_sites):
           f"{len(set(attn_sites))} (B, N, dtype) sites against their plain versions: max|dy| {worst[0]:.3g}, "
           f"max|dout| {worst[1]:.3g} (phase 3's bounds); K2a's ctx against the float64 composition "
           f"{ctx_rel[0]:.3g} of max|ctx| (bound 1e-5), the plain float32 version's {ctx_rel[1]:.3g}")
+    forwards = {label: [(C, rows) for C, rows, _ in sites] for label, sites in forwards.items()}
+    times = k1_site_times(dev, [site for sites in forwards.values() for site in sites])
+    for label, sites in forwards.items():
+        k1_path(label, sites, times, stats)
 
 
 def serve(tag, dev, requests, samplers, want, smi, rate_batch, pad=None):
@@ -1281,7 +1336,7 @@ def serve(tag, dev, requests, samplers, want, smi, rate_batch, pad=None):
     return {k.symbol: k.launches for k in KERNELS}
 
 
-def phase_denoise_net(dev, opt):
+def phase_denoise_net(dev, opt, stats):
     """The denoising UNet (configs/denoising/test/ir-sde.yml's setting with
     conditional=False: full attention in the mid block) at full width:
     one forward at batch 8, 128 px, kernel path against plain path in
@@ -1307,7 +1362,9 @@ def phase_denoise_net(dev, opt):
           f"denoising forward: {len(ln) // 2} K1, {len(attn) // 2} K2 launches")
     compare_nets("denoise-net", f"unconditional nf={setting['nf']} depth={setting['depth']} batch {BATCH} "
                  f"{SIZE}px", nets, (x, None, t))
-    hold_sites("denoise-net", dev, ln, attn)
+    n = DENOISE_LN_PER_FORWARD
+    hold_sites("denoise-net", dev, ln, attn, stats, {f"denoising {BATCH}x{SIZE}px": ln[:n],
+                                                     f"denoising 1x{pad64(DENOISE_ODD_HW)[0]}px": ln[n:]})
     del nets
     return net
 
@@ -1341,7 +1398,7 @@ def phase_denoise_main_path(dev, net, opt, smi):
     return serve("denoise-main", dev, requests, {"ode": sample}, want, smi, BATCH, pad=64)
 
 
-def phase_stereo_net(dev, opt):
+def phase_stereo_net(dev, opt, stats):
     """The stereo NAFNet (configs/stereo-sr/test/refusion.yml: width 64, enc
     [1, 1, 1, 28], mid 1, dec [1, 1, 1, 1], a SCAM after every block) at
     full width and depth: one forward at batch 4 pairs, 128 px, kernel path
@@ -1369,7 +1426,8 @@ def phase_stereo_net(dev, opt):
     check((len(ln), len(attn), NAF_STACK.launches - k3) == (2 * STEREO_LN_PER_FORWARD, 0, 0),
           f"stereo forward: {len(ln) // 2} K1, {len(attn)} K2, {NAF_STACK.launches - k3} K3 launches")
     compare_nets("stereo-net", f"stereo NAFNet batch {STEREO_BATCH} pairs {SIZE}px", nets, (xt, lq, t))
-    hold_sites("stereo-net", dev, ln, attn)
+    hold_sites("stereo-net", dev, ln, attn, stats,
+               {f"stereo {STEREO_BATCH}x{SIZE}px pairs": ln[:STEREO_LN_PER_FORWARD]})
     del nets
     return net
 
@@ -1403,7 +1461,7 @@ def rng_generator(dev, seed):
     return gen
 
 
-def phase_bokeh_net(dev, opt):
+def phase_bokeh_net(dev, opt, stats):
     """The bokeh path's nets (configs/latent-bokeh/test/refusion.yml): the
     compressor UNet (ch 64, ch_mult [1, 2, 4], embed_dim 4: latents at H/4),
     kernel path against plain path at each request's shape
@@ -1453,7 +1511,8 @@ def phase_bokeh_net(dev, opt):
     check((len(ln), len(attn), NAF_STACK.launches - k3) == (2 * BOKEH_LN_PER_FORWARD, 0, 0),
           f"bokeh forward: {len(ln) // 2} K1, {len(attn)} K2, {NAF_STACK.launches - k3} K3 launches")
     compare_nets("bokeh-net", f"bokeh NAFNet batch {BOKEH_BATCH} {lat}x{lat}x{ch}", nets, (xt, cond, t, lens))
-    hold_sites("bokeh-net", dev, sites[0] + ln, sites[1] + attn)
+    hold_sites("bokeh-net", dev, sites[0] + ln, sites[1] + attn, stats,
+               {f"bokeh {BOKEH_BATCH}x{BOKEH_SIZE}px": ln[:BOKEH_LN_PER_FORWARD]})
     del nets
     return net, compressor
 
@@ -1535,12 +1594,12 @@ def main() -> int:
                  "library_ms": None} for k in KERNELS}
     for k in KERNELS[:3]:  # K1, K2a, K2b: summed over sites
         stats[k]["event_ms"] = 0.0
-    stats[KERNELS[0]]["library_ms"] = 0.0  # K1: F.layer_norm
+    stats[KERNELS[0]].update(library_ms=0.0, by_path={})  # K1: F.layer_norm; K1 per path
     timed("kernels", phase_kernels, dev, stats, latent_opt, dit_opt)
     net = timed("net", phase_net, dev, setting, sde_opt)
     launches = {"deraining": timed("main path", phase_main_path, dev, net, sde_opt, smi)}
     del net
-    latent_net, compressor = timed("latent net", phase_latent_net, dev, latent_opt, refusion_setting)
+    latent_net, compressor = timed("latent net", phase_latent_net, dev, latent_opt, refusion_setting, stats)
     launches["latent_dehazing"] = timed("latent main path", phase_latent_main_path, dev, latent_net, compressor,
                                         latent_opt, smi)
     del latent_net, compressor
@@ -1555,13 +1614,13 @@ def main() -> int:
 
     launches["linear_attention"] = timed("linear attention", phase_lin_attn, dev, stats)
     denoise_opt, stereo_opt, bokeh_opt = (load_yaml(p) for p in (DENOISE_CONFIG, STEREO_CONFIG, BOKEH_CONFIG))
-    denoise_net = timed("denoise net", phase_denoise_net, dev, denoise_opt)
+    denoise_net = timed("denoise net", phase_denoise_net, dev, denoise_opt, stats)
     launches["denoising"] = timed("denoise main path", phase_denoise_main_path, dev, denoise_net, denoise_opt, smi)
     del denoise_net
-    stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt)
+    stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt, stats)
     launches["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net, stereo_opt, smi)
     del stereo_net
-    bokeh_net, bokeh_compressor = timed("bokeh net", phase_bokeh_net, dev, bokeh_opt)
+    bokeh_net, bokeh_compressor = timed("bokeh net", phase_bokeh_net, dev, bokeh_opt, stats)
     launches["latent_bokeh"] = timed("bokeh main path", phase_bokeh_main_path, dev, bokeh_net, bokeh_compressor,
                                      bokeh_opt, smi)
 
@@ -1577,13 +1636,16 @@ def main() -> int:
         })
         if stats[k]["event_ms"] is not None:  # the earlier figure, one launch between CUDA events
             report[-1]["event_ms"] = stats[k]["event_ms"]
+        if "by_path" in stats[k]:  # K1 over one forward of each path's score net
+            report[-1]["by_path"] = stats[k]["by_path"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
           f"of 20 calls (event_ms: one launch between CUDA events, the earlier figure); K3 one call at "
           f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px); K4 one "
           f"call at {FLASH_SHAPES[0]} bf16 (one attention site of a DiT-L/2 forward at batch {DIT_BATCH}, "
           f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention; K5 (irsde_lin_attn_*) one call of each "
-          f"pass at {LIN_ATTN_SHAPES[0]} bf16 from CUDA graphs, bound_ms half the op's bytes and FLOP each")
+          f"pass at {LIN_ATTN_SHAPES[0]} bf16 from CUDA graphs, bound_ms half the op's bytes and FLOP each; "
+          f"K1's by_path: one bf16 forward of each path's score net, from CUDA graphs")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -108,7 +108,7 @@ def load_library() -> ctypes.CDLL:
     lib.irsde_error_string.restype = ctypes.c_char_p
     lib.irsde_la_ctx_workspace.argtypes = [ctypes.c_int] * 4
     lib.irsde_la_ctx_workspace.restype = ctypes.c_longlong
-    lib.irsde_lin_attn_ctx_workspace.argtypes = [ctypes.c_int] * 3
+    lib.irsde_lin_attn_ctx_workspace.argtypes = [ctypes.c_int] * 4
     lib.irsde_lin_attn_ctx_workspace.restype = ctypes.c_longlong
     lib.irsde_naf_stack_workspace.argtypes = [ctypes.c_int] * 4
     lib.irsde_naf_stack_workspace.restype = ctypes.c_longlong

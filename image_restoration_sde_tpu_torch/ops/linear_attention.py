@@ -56,7 +56,7 @@ LA_APPLY = kernels.Kernel(
 KERNEL_HEADS, KERNEL_DIM_HEAD = 4, 32
 # K5 replaces both the resident and the N-tiled Pallas kernel (one function)
 LIN_ATTN_CTX = kernels.Kernel(
-    "irsde_lin_attn_ctx", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _V], source=_SRC_BH,
+    "irsde_lin_attn_ctx", [_V, _V, _V, _V, _I, _I, _I, _I, _V], source=_SRC_BH,
     replaces="image_restoration_sde_tpu/ops/linear_attention.py:46,102",
 )
 LIN_ATTN_APPLY = kernels.Kernel(
@@ -187,6 +187,12 @@ def linear_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     return linear_attention_apply_heads_plain(q, linear_attention_context_plain(k, v))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes (a
+    view into a larger tensor): the kernels read rows with 16-byte copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_heads(*ts: torch.Tensor) -> int:
     q = ts[0]
     if not all(t.is_cuda for t in ts):
@@ -204,13 +210,15 @@ def _check_heads(*ts: torch.Tensor) -> int:
 def linear_attention_context_cuda(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch K5's context pass: (BH, N, d) CUDA k, v -> float32 ctx (BH, d, d)."""
     code = _check_heads(k, v)
+    k, v = _aligned(k), _aligned(v)
     BH, N, d = k.shape
-    n_ws = kernels.load_library().irsde_lin_attn_ctx_workspace(BH, N, d)
+    n_ws = kernels.load_library().irsde_lin_attn_ctx_workspace(BH, N, d, code)
+    if n_ws <= 0:
+        raise ValueError(f"linear attention kernels: no context plan for (BH, N, d) = {(BH, N, d)}")
     ws = torch.empty(n_ws, dtype=torch.float32, device=k.device)
-    done = torch.zeros(BH, dtype=torch.int32, device=k.device)
     ctx = torch.empty(BH, d, d, dtype=torch.float32, device=k.device)
-    LIN_ATTN_CTX(kernels.ptr(k), kernels.ptr(v), kernels.ptr(ctx), kernels.ptr(ws), kernels.ptr(done),
-                 BH, N, d, code, kernels.current_stream(k.device))
+    LIN_ATTN_CTX(kernels.ptr(k), kernels.ptr(v), kernels.ptr(ctx), kernels.ptr(ws), BH, N, d, code,
+                 kernels.current_stream(k.device))
     return ctx
 
 
@@ -223,6 +231,7 @@ def linear_attention_apply_heads_cuda(q: torch.Tensor, ctx: torch.Tensor) -> tor
         raise ValueError(f"ctx must be float32 {(BH, d, d)}")
     if ctx.device != q.device or not ctx.is_contiguous():
         raise ValueError("ctx must be contiguous, on q's device")
+    q = _aligned(q)
     out = torch.empty_like(q)
     LIN_ATTN_APPLY(kernels.ptr(q), kernels.ptr(ctx), kernels.ptr(out), BH, N, d, code,
                    kernels.current_stream(q.device))

@@ -28,11 +28,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K1's (dtype, C, rows): the first sites, then every lane-group width (C/VEC
+# a power of two or not: C = 96, 192, 320 bf16 mask lanes; f32 C = 1024
+# takes 8 vectors a lane) at 1, 7 (rows not a multiple of a warp's), 1001
+# and 131072 rows
+LN_CASES = [(dtype, C, rows) for dtype in (torch.float32, torch.bfloat16)
+            for C, rows in [(64, 4096), (128, 1001), (512, 999), (1024, 2048)]]
+LN_CASES += [(torch.bfloat16, C, rows) for C in (8, 64, 96, 128, 192, 320, 512, 1024, 2048)
+             for rows in (1, 7, 1001, 131072)]
+LN_CASES += [(torch.float32, C, rows) for C in (4, 64, 96, 1024) for rows in (1, 7, 1001, 131072)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,rows", [(64, 4096), (128, 1001), (512, 999), (1024, 2048)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_layernorm_kernel_matches_plain(cuda_device, C, rows, dtype):
-    """Bound: float32 1e-5 of max|y|; bfloat16 ``_bf16_bound``."""
+@pytest.mark.parametrize("dtype,C,rows", LN_CASES, ids=str)
+def test_layernorm_kernel_matches_plain(cuda_device, dtype, C, rows):
+    """Bound: float32 1e-5 of max|y|; bfloat16 ``_bf16_bound`` (computed on
+    the card: the largest cases hold 2.7e8 elements)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn(rows, C, generator=gen, device=cuda_device) * 2 + 0.5).to(dtype)
     g = torch.randn(C, generator=gen, device=cuda_device) * 0.2 + 1
@@ -40,13 +51,13 @@ def test_layernorm_kernel_matches_plain(cuda_device, C, rows, dtype):
     launches = layernorm.LAYERNORM.launches
     y = layernorm.channel_layernorm(x, g, eps)
     assert layernorm.LAYERNORM.launches == launches + 1
-    ref = layernorm.channel_layernorm_plain(x, g, eps)
-    torch.cuda.synchronize()
-    err = (y.float() - ref.float()).abs().cpu().numpy()
+    ref = layernorm.channel_layernorm_plain(x, g, eps).float()
+    err = (y.float() - ref).abs()
     if dtype == torch.float32:
-        assert err.max() <= 1e-5 * ref.abs().max().item()
+        assert err.max().item() <= 1e-5 * ref.abs().max().item()
     else:
-        assert (err <= _bf16_bound(ref.float().cpu().numpy())).all()
+        mag = ref.abs().clamp_min(2.0**-126)
+        assert bool((err <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * mag.max()).all())
 
 
 # K2's N, each at batch 3 but the deraining UNet's first level (batch 8)
@@ -173,6 +184,62 @@ def test_per_slice_linear_attention_kernels_match_plain(cuda_device, N, d, dtype
         assert err.max() <= 1e-5 * ref.abs().max().item()
     else:
         assert (err <= _bf16_bound(ref.float().cpu().numpy())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_per_slice_linear_attention_kernels_are_bit_equal_run_to_run(cuda_device, d, dtype):
+    """Two runs of K5's context and of its apply pass on the same input give
+    the same bits: the context combines its slices in a fixed order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 3)
+    q, k, v = ((torch.randn(6, 4100, d, generator=gen, device=cuda_device) * 1.5).to(dtype) for _ in range(3))
+    ctx = [linear_attention.linear_attention_context_cuda(k, v) for _ in range(2)]
+    out = [linear_attention.linear_attention_apply_heads_cuda(q, ctx[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ctx[0], ctx[1]) and torch.equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_per_slice_linear_attention_long_slice_against_float64(cuda_device, d, dtype):
+    """K5 at BH = 1, N = 262144 (the slices and the combine at their
+    longest).  ctx within 1e-5 of max|ctx| of the float64 composition (the
+    plain float32 version's own sums over N drift there); the apply pass on
+    that ctx within the bounds of the other K5 tests."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 4)
+    q, k, v = ((torch.randn(1, 262144, d, generator=gen, device=cuda_device) * 1.5).to(dtype) for _ in range(3))
+    ctx = linear_attention.linear_attention_context_cuda(k, v)
+    ref64 = torch.einsum("bnd,bne->bde", torch.softmax(k.double(), dim=-2), v.double() / k.shape[-2])
+    assert (ctx.double() - ref64).abs().max().item() <= 1e-5 * ref64.abs().max().item()
+    ctx32 = ref64.float()
+    out = linear_attention.linear_attention_apply_heads_cuda(q, ctx32)
+    ref = linear_attention.linear_attention_apply_heads_plain(q, ctx32).float()
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5 * ref.abs().max().item()
+    else:
+        mag = ref.abs().clamp_min(2.0**-126)
+        assert bool((err <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * mag.max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_per_slice_linear_attention_takes_unaligned_views(cuda_device, dtype):
+    """K5 reads rows with 16-byte copies; a contiguous view whose data does
+    not start on 16 bytes is copied first and gives the aligned result."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    flat = (torch.randn(3 * 2 * 300 * 32 + 1, generator=gen, device=cuda_device) * 1.5).to(dtype)
+    q, k, v = flat[1:].view(3, 2, 300, 32)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    counted = (linear_attention.LIN_ATTN_CTX, linear_attention.LIN_ATTN_APPLY)
+    before = [kk.launches for kk in counted]
+    out = linear_attention.linear_attention(q, k, v)
+    assert [kk.launches - b for kk, b in zip(counted, before)] == [1, 1]
+    want = linear_attention.linear_attention(q.clone(), k.clone(), v.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
