@@ -28,6 +28,16 @@ weights made from a seed, bf16 score net:
   host time to enqueue the NAFNet's fused 28-block level, and that
   level's kernel (K3) time by phase, from clock readings in the kernel.
 
+Then where one train step's time goes on the two pixel train paths
+(``configs/deraining/train/ir-sde.yml``: ConditionalUNet nf=64, depth=4,
+Adam; ``configs/deraining/train/refusion.yml``: ConditionalNAFNet width 64,
+enc [1, 1, 1, 28], Lion), built by the port's runner, float32, batch 4 of
+128 px, on the kernel path and the plain path, with TF32 off for
+convolutions (as ``chip_smoke.py`` runs) and with torch's default (cuDNN
+TF32 on, what the train entry point runs with): wall ms per step (host
+clock around ``TRAIN_STEPS`` steps ending in a synchronisation) and device
+time by kernel over the same steps.
+
 Without CUDA it exits at once.
 """
 
@@ -40,7 +50,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SEED, STEPS = 0, 10
+SEED, STEPS, TRAIN_STEPS = 0, 10, 3
 ENQUEUE_REPS = 5  # host enqueue per forward: median of this many forwards, each on an idle card
 # the port's kernels by the stem of their device function names (csrc/*.cu)
 PORT_KERNELS = {"K1": "channel_layernorm_kernel", "K2a": "la_ctx", "K2b": "la_apply", "K3": "naf_stack",
@@ -63,7 +73,6 @@ def posterior(net, xt, mu, sde):
 def profile_steps(name, run, forward, steps=STEPS):
     """``run()``: ``steps`` sampler steps; ``forward()``: one net forward."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
         run()
@@ -80,15 +89,31 @@ def profile_steps(name, run, forward, steps=STEPS):
             enqueues.append((time.perf_counter() - t0) * 1e3)
         enqueue = statistics.median(enqueues)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        kernels = device_times(run, steps)
+    report(name, kernels, wall, f"host enqueue {enqueue:.3f} ms/forward; ")
+
+
+def device_times(run, steps):
+    """{kernel name: device ms per step} of ``run()`` (``steps`` steps)
+    under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
     kernels = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / steps  # ms per step
+    return kernels
+
+
+def report(name, kernels, wall, extra=""):
+    """Print wall and device time per step, the busy share, the top
+    kernels and the port's kernels' share."""
     busy = sum(kernels.values())
-    print(f"[{name}] wall {wall:.3f} ms/step; host enqueue {enqueue:.3f} ms/forward; device busy "
+    print(f"[{name}] wall {wall:.3f} ms/step; {extra}device busy "
           f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall, idle {100 - 100 * busy / wall:.1f}%)")
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"[{name}]   {v:8.4f} ms/step {100 * v / busy:5.1f}%  {k[:110]}")
@@ -180,6 +205,45 @@ def compressor_times(tag, compressor, img):
     return latent
 
 
+def profile_train(dev, gen):
+    """One train step of each pixel train path (module docstring), kernel
+    path and plain path, TF32 off and at torch's default."""
+    import torch
+    import yaml
+
+    from image_restoration_sde_tpu_torch import runners
+    from image_restoration_sde_tpu_torch.utils import options
+
+    lq = torch.rand(4, 128, 128, 3, generator=gen, device=dev)
+    gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
+    default_tf32 = torch.backends.cudnn.allow_tf32
+    for cfg in ("ir-sde", "refusion"):
+        with open(os.path.join(REPO, "configs", "deraining", "train", f"{cfg}.yml")) as f:
+            raw = yaml.safe_load(f)
+        for plain in (False, True):
+            raw["network_G"]["setting"]["plain"] = plain
+            task = runners.build_task(options.dict_to_nonedict(raw), SEED, dev)
+            step_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+            def run(n=TRAIN_STEPS):
+                for _ in range(n):
+                    task._train_step(task.state, lq, gt, step_gen)
+
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                run(2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+                name = f"train {cfg} {'plain' if plain else 'kernel'} path, cuDNN TF32 {'on' if tf32 else 'off'}"
+                report(name, device_times(run, TRAIN_STEPS), wall, "batch 4 at 128 px, float32; ")
+            del task
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = default_tf32
+
+
 def main() -> int:
     import torch
 
@@ -256,6 +320,9 @@ def main() -> int:
     latent = compressor_times("bokeh", compressor, torch.rand(4, 512, 512, 3, generator=gen, device=dev))
     lens = (torch.full((4,), 2.0, device=dev), torch.full((4,), 16.0, device=dev), torch.full((4,), 0.5, device=dev))
     profile_steps("bokeh", *posterior(lambda x, m, t: bokeh(x, m, t, lens), latent + 0.1, latent, make_sde(opt)))
+    del bokeh, compressor
+    torch.cuda.empty_cache()
+    profile_train(dev, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Eight paths, each at full width with random weights made from a seed:
+Eight serving paths and two training paths, each at full width with random
+weights made from a seed:
 
 - IR-SDE deraining (configs/deraining/test/ir-sde.yml): ConditionalUNet
   (nf=64, depth=4) in bf16 with float32 parameters, 128 px images at
@@ -34,7 +35,15 @@ Eight paths, each at full width with random weights made from a seed:
 - latent bokeh (configs/latent-bokeh/test/refusion.yml): the compressor
   UNet (ch 64, ch_mult [1, 2, 4], embed_dim 4) and the bokeh NAFNet (width
   64, enc [2, 2, 4, 8], mid 12, dec [2, 2, 2, 2], lens conditioning) in
-  bf16, 100 posterior steps on H/4 latents.
+  bf16, 100 posterior steps on H/4 latents;
+- pixel-space training through the port's train entry point
+  (``python -m image_restoration_sde_tpu_torch.train``), float32, batch 4
+  of 128 px crops: IR-SDE deraining (configs/deraining/train/ir-sde.yml:
+  ConditionalUNet nf=64, depth=4, Adam, MultiStepLR, L1) and Refusion
+  deraining (configs/deraining/train/refusion.yml: ConditionalNAFNet width
+  64, enc [1, 1, 1, 28], its 28-block level one K3 launch at 16x16x512,
+  Lion, TrueCosineAnnealingLR), ``niter`` cut to TRAIN_STEPS on synthetic
+  128-256 px image folders written from the seed to a temporary directory.
 
 Phases, each printing its lines and its seconds:
 
@@ -53,7 +62,7 @@ Phases, each printing its lines and its seconds:
    every input, the two runs bit-equal; K3 also block by block, as
    chained one-block launches that must end bit-equal to the one launch;
    the packed op's gradient on the card against the plain composition's,
-   and K1, K3 and K4 raising under grad (they have no backward yet);
+   K1 and K3 differentiable, and K4 raising under grad (no backward yet);
 4. net: one forward of the full-width UNet, kernel path against plain
    path; and a 100-step float32 chain on a small input, kernel against plain;
 5. main path: the deraining sampler serves two posterior batches of 8, one
@@ -108,7 +117,25 @@ Phases, each printing its lines and its seconds:
    128x128x4 latents (72 K1 per forward, no K3); K1, K2 at both nets' sites;
 18. bokeh main path: the latent sampler with seeded lens values serves two
    posterior batches of 4 at 512 px and one 700x1000 image (padded to
-   704x1024); per request exactly 7204 K1, 2 K2a and 2 K2b launches.
+   704x1024); per request exactly 7204 K1, 2 K2a and 2 K2b launches;
+19. train kernels: K1's gradient (x and g) at each site of the deraining
+   UNet's train step (batch 4, 128 px) and K3's (x, temb and every block
+   tensor) at (4, 16, 16, 512), 28 blocks, float32, against the plain
+   compositions' (their backwards), within 1e-5 of each gradient's max;
+   forward and backward timed, kernel path against plain path;
+20. train nets: one loss and backward of the full-width ConditionalUNet and
+   of the Refusion pixel NAFNet through ``training.make_train_step``, kernel
+   path against plain path, the same parameters, batch and injected
+   (timesteps, x_t): the loss within 1e-4, each gradient within 1e-3 of its
+   max;
+21. train main path, for each of the two train YAMLs: ``train.train`` for
+   TRAIN_STEPS steps (checkpoints every TRAIN_SAVE, one validation at the
+   end through the YAML's sampler), exactly 18 K1, 9 K2a and 9 K2b (UNet)
+   or 16 K1 and 1 K3 (NAFNet) launches per step, none in the backward; a
+   finite loss; the run resumed from the TRAIN_SAVE checkpoint agreeing
+   with the uninterrupted one at its first step (loss within 1e-6,
+   parameters within 2 lr); then TRAIN_PLAIN_STEPS steps of the plain path;
+   train ms/step and img/s, kernel path and plain path (a record).
 
 K1 is also timed over one bf16 forward of each path's score net (phases 3,
 6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
@@ -116,13 +143,15 @@ F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
 ``by_path`` on K1's entry of the JSON line.
 
 Launch counts are set to 0 just before each main path and read just after.
-Then one JSON line with each kernel's launches, error, times and bound, and
-last ``{"ok": true, "device": {...}}``.  Any failed check raises: the
+Then a ``[train]`` JSON line with the train paths' times, one JSON line
+with each kernel's launches, error, times and bound, and last
+``{"ok": true, "device": {...}}``.  Any failed check raises: the
 script exits non-zero and prints no result.  Without CUDA it exits at once.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False), so float32 comparisons
-are float32 on both sides.
+are float32 on both sides; only phase 21 runs the train entry point with
+torch's default (cuDNN TF32 on), as a user's run gets it.
 """
 
 from __future__ import annotations
@@ -133,6 +162,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -171,6 +201,17 @@ LIN_ATTN_GRAD_SHAPE = (4, 1000, 32)
 DENOISE_ODD_HW, DENOISE_T0, DENOISE_LN_PER_FORWARD, DENOISE_ATTN_PER_FORWARD = (500, 500), 414, 17, 8
 STEREO_BATCH, STEREO_ODD_HW, STEREO_LN_PER_FORWARD = 4, (140, 200), 144
 BOKEH_BATCH, BOKEH_SIZE, BOKEH_ODD_HW, BOKEH_LN_PER_FORWARD = 4, 512, (700, 1000), 72
+# the pixel train paths (configs/deraining/train/*.yml: batch 4 of 128 px
+# crops, float32), their launches per train step (K1, K2a = K2b, K3: the
+# UNet's forward, the Refusion NAFNet's 8 unfused blocks and its fused
+# 28-block level), and the train runs' cuts: niter, checkpoint interval,
+# plain-path steps, synthetic train and validation pairs
+TRAIN_CONFIGS = {"ir-sde": os.path.join(REPO, "configs", "deraining", "train", "ir-sde.yml"),
+                 "refusion": os.path.join(REPO, "configs", "deraining", "train", "refusion.yml")}
+TRAIN_PER_STEP = {"ir-sde": (LN_PER_FORWARD, ATTN_PER_FORWARD, 0), "refusion": (NAF_LN_PER_FORWARD, 0, 1)}
+TRAIN_BATCH, TRAIN_SIZE = 4, 128
+TRAIN_NAF_LEVEL = (28, 512)  # the Refusion net's fused level: blocks, channels (at TRAIN_SIZE / 8)
+TRAIN_STEPS, TRAIN_SAVE, TRAIN_PLAIN_STEPS, TRAIN_PAIRS, TRAIN_VAL_PAIRS = 24, 12, 8, 8, 2
 # K4's (B, N, H, D): the slice first; phase 8 adds the shapes of every DiT
 # and tiled request (dit_path_shapes) that are not among these
 FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
@@ -294,17 +335,17 @@ def naf_stack_work(x, blocks):
     return nbytes, flops
 
 
-def path_shapes():
+def path_shapes(batch=BATCH):
     """(C, rows) of the 18 LayerNorm sites and N of the 9 attention sites
-    of one ConditionalUNet(nf=64, depth=4) forward at batch 8, 128 px."""
+    of one ConditionalUNet(nf=64, depth=4) forward at ``batch``, 128 px."""
     ln, attn = [], []
     for i in range(4):
         res = SIZE >> i
         down_c, up_c = 64 << i, 64 << (i + 1)
-        ln += [(down_c, BATCH * res * res)] * 2 + [(up_c, BATCH * res * res)] * 2
+        ln += [(down_c, batch * res * res)] * 2 + [(up_c, batch * res * res)] * 2
         attn += [res * res] * 2
     mid = SIZE >> 3
-    ln += [(1024, BATCH * mid * mid)] * 2
+    ln += [(1024, batch * mid * mid)] * 2
     attn += [mid * mid]
     return ln, attn
 
@@ -605,8 +646,10 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
 def check_gradients(dev):
     """The packed op's gradient on the card (its forward launches K2a and
     K2b, its backward is the plain composition's) against the plain
-    composition's, float32, within 1e-5 of max|grad|; and K1, K3 and K4,
-    which have no backward yet, raise under grad instead of cutting it."""
+    composition's, float32, within 1e-5 of max|grad|; K1 and K3 return
+    outputs with a grad_fn under grad (their gradients are held in phase
+    19); and K4, which has no backward yet, raises under grad instead of
+    cutting it."""
     import torch
 
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
@@ -630,21 +673,23 @@ def check_gradients(dev):
     x = torch.randn(64, 64, generator=gen, device=dev)
     w = torch.ones(64, device=dev, requires_grad=True)
     blocks = naf_blocks(2, 64, 64, dev, SEED + 19)
-    tmod = NS.time_modulation(blocks, torch.randn(2, 64, generator=gen, device=dev))
     blocks[0]["conv1.weight"].requires_grad_()
     q = torch.randn(1, 64, 2, 64, generator=gen, device=dev, requires_grad=True)
-    refused = []
-    for name, call in (("K1", lambda: LN.channel_layernorm_cuda(x, w, 1e-5)),
-                       ("K3", lambda: NS.naf_stack_cuda(x.view(2, 4, 8, 64), blocks, tmod, 1e-5)),
+    refused, graphed = [], []
+    temb = torch.randn(2, 64, generator=gen, device=dev)
+    for name, call in (("K1", lambda: LN.channel_layernorm(x, w, 1e-5)),
+                       ("K3", lambda: NS.naf_stack(x.view(2, 4, 8, 64), blocks, temb, 1e-5)),
                        ("K4", lambda: FA.flash_mha_cuda(q, q, q, 0.125))):
         try:
-            call()
+            if call().grad_fn is not None:
+                graphed.append(name)
         except RuntimeError as e:
             if "no backward" in str(e):
                 refused.append(name)
-    check(refused == ["K1", "K3", "K4"], f"grad guards: only {refused} raised under grad")
+    check(refused == ["K4"] and graphed == ["K1", "K3"],
+          f"grad guards: {refused} raised under grad, {graphed} returned a grad_fn")
     print(f"[kernels] K2 gradient through the op on the card at (2, 1000, 384) f32: max|dgrad| / max|grad| = "
-          f"{rel:.3g} (bound 1e-5); K1, K3 and K4 raise under grad (no backward yet)")
+          f"{rel:.3g} (bound 1e-5); K1 and K3 differentiable, K4 raises under grad (no backward yet)")
 
 
 def phase_naf_stack(dev, stats):
@@ -1555,6 +1600,318 @@ def phase_bokeh_main_path(dev, net, compressor, opt, smi):
     return serve("bokeh-main", dev, requests, sampler, want, smi, BOKEH_BATCH, pad=64)
 
 
+# ---------------------------------------------------------------- training
+def train_counts(label):
+    """Launches per train step of the TRAIN_CONFIGS path ``label``: its
+    forward's (TRAIN_PER_STEP), none in the backward."""
+    ln, attn, naf = TRAIN_PER_STEP[label]
+    return counts(LAYERNORM=ln, LA_CTX=attn, LA_APPLY=attn, NAF_STACK=naf)
+
+
+class Injected:
+    """An SDE whose ``generate_random_states`` returns the given
+    ``(timesteps, x_t)``; every other attribute is the wrapped SDE's."""
+
+    def __init__(self, sde, timesteps, xt):
+        self._sde, self._states = sde, (timesteps, xt)
+
+    def __getattr__(self, name):
+        return getattr(self._sde, name)
+
+    def generate_random_states(self, *args):
+        return self._states
+
+
+def phase_train_kernels(dev):
+    """K1's and K3's gradients on the card, float32, against the plain
+    compositions' on the same inputs: K1 (x and g) at each (C, rows) site of
+    the deraining UNet's train step (batch 4, 128 px), K3 (x, temb and every
+    block tensor) at the Refusion pixel net's fused level (4, 16, 16, 512),
+    28 blocks.  Each forward launches its kernel once and has a grad_fn; the
+    backward (the plain composition's autograd on the saved inputs)
+    launches none.  Bound: each gradient within 1e-5 of its max.  Times:
+    forward and backward together, kernel path against plain path."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import layernorm as LN
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    gen = rng_generator(dev, SEED + 30)
+
+    def held(tag, launched, fn, inputs, cot, plain_fn):
+        before = launched.launches
+        y = fn(*inputs)
+        check(launched.launches == before + 1 and y.grad_fn is not None, f"{tag}: one launch with a grad_fn")
+        got = torch.autograd.grad(y, inputs, cot)
+        check(launched.launches == before + 1, f"{tag}: the backward launched the kernel")
+        want = torch.autograd.grad(plain_fn(*inputs), inputs, cot)
+        rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(got, want))
+        check(rel <= 1e-5, f"{tag}: max|dgrad| / max|grad| = {rel:.3g} (bound 1e-5)")
+        ms = cuda_ms(lambda: torch.autograd.grad(fn(*inputs), inputs, cot), reps=5)
+        pms = cuda_ms(lambda: torch.autograd.grad(plain_fn(*inputs), inputs, cot), reps=5)
+        return rel, ms, pms
+
+    ln_sites, _ = path_shapes(TRAIN_BATCH)
+    total = [0.0, 0.0]
+    for C, rows in sorted(set(ln_sites)):
+        x = (torch.randn(rows, C, generator=gen, device=dev) * 2 + 0.5).requires_grad_()
+        g = (torch.randn(C, generator=gen, device=dev) * 0.2 + 1).requires_grad_()
+        cot = torch.randn(rows, C, generator=gen, device=dev)
+        rel, ms, pms = held(f"K1 gradient C={C} rows={rows}", LN.LAYERNORM,
+                            lambda a, b: LN.channel_layernorm(a, b, 1e-5), (x, g), cot,
+                            lambda a, b: LN.channel_layernorm_plain(a, b, 1e-5))
+        n = ln_sites.count((C, rows))
+        total = [total[0] + n * ms, total[1] + n * pms]
+        print(f"[train-kernels] K1 f32 C={C:5d} rows={rows:6d} x{n}: max|dgrad|/max|grad| {rel:.3g} (bound 1e-5); "
+              f"forward+backward kernel {ms:.4f} ms, plain {pms:.4f} ms (events)")
+    print(f"[train-kernels] K1 over the UNet train step's {len(ln_sites)} sites, forward+backward: kernel "
+          f"{total[0]:.4f} ms, plain {total[1]:.4f} ms")
+
+    K, C = TRAIN_NAF_LEVEL
+    blocks = [{k: v.requires_grad_() for k, v in blk.items()} for blk in naf_blocks(K, C, 4 * C // 8, dev, SEED + 31)]
+    x = torch.randn(TRAIN_BATCH, TRAIN_SIZE // 8, TRAIN_SIZE // 8, C, generator=gen, device=dev).requires_grad_()
+    temb = torch.randn(TRAIN_BATCH, 4 * C // 8, generator=gen, device=dev).requires_grad_()
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+    inputs = (x, temb, *(v for blk in blocks for v in blk.values()))
+    n = len(blocks[0])
+
+    def unflat(ts):
+        return [dict(zip(blocks[0], ts[i : i + n])) for i in range(0, len(ts), n)]
+
+    rel, ms, pms = held(f"K3 gradient {tuple(x.shape)} K={K}", NS.NAF_STACK,
+                        lambda a, t, *ts: NS.naf_stack(a, unflat(ts), t, 1e-5), inputs, cot,
+                        lambda a, t, *ts: NS.naf_stack_plain(a, NS.stack_middle_params(unflat(ts), t), 1e-5))
+    print(f"[train-kernels] K3 f32 {tuple(x.shape)} K={K}: gradients of x, temb and {len(inputs) - 2} block "
+          f"tensors max|dgrad|/max|grad| {rel:.3g} (bound 1e-5); forward+backward kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms (events)")
+
+
+def phase_train_nets(dev, train_opts):
+    """One loss and backward of each full-width train net, float32, batch 4
+    at 128 px, through ``training.make_train_step`` with a zero learning
+    rate: kernel path against plain path, the same parameters (seeded, every
+    parameter non-zero), batch and injected ``(timesteps, x_t)``.  Bound:
+    the loss within 1e-4 of itself and each parameter's gradient within
+    1e-3 of its max|grad| (the kernel path's forward is held to 1e-4 of its
+    output's max in phase 4; the gradient flows back through those
+    activations).  Launches per step: the forward's, none in the backward."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import build_network, init_params_
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+    from image_restoration_sde_tpu_torch.training import ScheduledOptimizer, build_optimizer, create_train_state, \
+        make_train_step
+
+    gen = rng_generator(dev, SEED + 32)
+    for label, opt in train_opts.items():
+        which, setting = opt["network_G"]["which_model_G"], opt["network_G"]["setting"]
+        sde_opt = opt["sde"]
+        sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+        lq = torch.rand(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3, generator=gen, device=dev)
+        gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
+        t, xt = sde.generate_random_states(gen, gt, lq)
+        state_dict = init_params_(build_network(which, setting), torch.Generator().manual_seed(SEED + 33)).state_dict()
+        out = {}
+        for plain in (False, True):
+            net = build_network(which, setting, plain=plain).to(dev).train()
+            net.load_state_dict(state_dict)
+            optimizer = ScheduledOptimizer(build_optimizer(opt["train"]["optimizer"], net.parameters()), lambda s: 0.0)
+            state = create_train_state(net, optimizer)
+            before = {k.symbol: k.launches for k in KERNELS}
+            _, metrics = make_train_step(Injected(sde, t, xt))(state, lq, gt, None)
+            grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+            check(grew == (counts() if plain else train_counts(label)), f"train net {label} plain={plain}: {grew}")
+            out[plain] = (metrics["loss"].item(), {k: p.grad.clone() for k, p in net.named_parameters()})
+            del net, state, optimizer
+        loss_rel = abs(out[False][0] - out[True][0]) / abs(out[True][0])
+        worst, worst_name = 0.0, None
+        for k, want in out[True][1].items():
+            scale = want.abs().max().item()
+            check(scale > 0, f"train net {label}: {k} has a zero gradient")
+            rel = (out[False][1][k] - want).abs().max().item() / scale
+            if rel > worst:
+                worst, worst_name = rel, k
+        print(f"[train-net] {label} {which} f32 batch {TRAIN_BATCH} {TRAIN_SIZE}px: loss kernel "
+              f"{out[False][0]:.6g} plain {out[True][0]:.6g} (rel {loss_rel:.3g}, bound 1e-4); "
+              f"{len(out[True][1])} gradients, worst max|dgrad|/max|grad| {worst:.3g} at {worst_name} (bound 1e-3)")
+        check(loss_rel <= 1e-4 and worst <= 1e-3, f"train net {label}: kernel path differs from plain path")
+        del out
+        torch.cuda.empty_cache()
+
+
+def write_train_yaml(path, opt, root, data, niter, save_freq, val_freq, resume=None, plain=False, name=None):
+    """``opt`` (a train YAML) with its data on the synthetic folders, its
+    iteration count and frequencies cut to this run, written to ``path``."""
+    import copy
+
+    import yaml
+
+    opt = copy.deepcopy(opt)
+    opt["name"] = name or opt["name"]
+    opt["use_tb_logger"] = False
+    ds = opt["datasets"]
+    ds["train"].update(dataroot_GT=f"{data}/train/GT", dataroot_LQ=f"{data}/train/LQ")
+    ds["val"].update(dataroot_GT=f"{data}/val/GT", dataroot_LQ=f"{data}/val/LQ", max_images=TRAIN_VAL_PAIRS)
+    opt["path"].update(root=root, resume_state=resume)
+    opt["train"].update(niter=niter, val_freq=val_freq)
+    opt["logger"].update(print_freq=4, save_checkpoint_freq=save_freq)
+    if plain:
+        opt["network_G"]["setting"] = {**opt["network_G"]["setting"], "plain": True}
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+@contextlib.contextmanager
+def recorded_steps(snapshot_at=None):
+    """Record every train step and validation the pixel task makes inside
+    the block: per step its launches by kernel symbol, card milliseconds
+    (host clock between synchronisations) and loss, and the net's
+    parameters after step ``snapshot_at``; per validation its launches and
+    image count."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import runners
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    rec = {"steps": [], "vals": [], "snapshot": None}
+    step, validate = runners.PixelDiffusionTask.step, runners.PixelDiffusionTask.validate
+
+    def step_rec(self, state, batch, gen):
+        before = {k.symbol: k.launches for k in KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(self, state, batch, gen)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec["steps"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, ms, loss))
+        if state.step == snapshot_at:
+            rec["snapshot"] = {k: v.detach().clone() for k, v in state.net.named_parameters()}
+        return state, metrics
+
+    def validate_rec(self, state, loader, gen, out_dir, at):
+        before = {k.symbol: k.launches for k in KERNELS}
+        vm = validate(self, state, loader, gen, out_dir, at)
+        rec["vals"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, vm))
+        return vm
+
+    runners.PixelDiffusionTask.step, runners.PixelDiffusionTask.validate = step_rec, validate_rec
+    try:
+        yield rec
+    finally:
+        runners.PixelDiffusionTask.step, runners.PixelDiffusionTask.validate = step, validate
+
+
+def phase_train_main_path(dev, label, opt, workdir, smi):
+    """The port's train entry point (``train.train``, what ``python -m
+    image_restoration_sde_tpu_torch.train -opt=<yml>`` runs) on the YAML,
+    float32 with torch's default TF32 settings, which the entry point runs
+    with (cuDNN TF32 on: with it off, cuDNN runs the UNet's float32
+    convolutions through FFTs at ~5x the step time; ``chip_profile.py``),
+    its data on synthetic 128-256 px folders, ``niter`` cut to
+    TRAIN_STEPS with checkpoints every TRAIN_SAVE steps and one validation
+    (TRAIN_VAL_PAIRS images, the YAML's sampler) at the end.  Per train step
+    exactly the forward's launches (``train_counts``) and a finite loss; per
+    validation image exactly the sampler's; the checkpoints on disk.  Then
+    the run resumed from the TRAIN_SAVE checkpoint (the same YAML with
+    ``path.resume_state``): its first step's loss within 1e-6 of the
+    uninterrupted run's step TRAIN_SAVE + 1 and the parameters after it
+    elementwise within 2 lr_G (Adam's and Lion's sign-sensitive steps on
+    gradients the card may sum in another order); and
+    TRAIN_PLAIN_STEPS steps of the plain path (no kernel launches) for its
+    time.  Returns the launches of the first run by kernel symbol and the
+    times."""
+    import torch
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    try:
+        return train_main_path(dev, label, opt, workdir, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def train_main_path(dev, label, opt, workdir, smi):
+    import statistics as stats_
+
+    import torch
+
+    from image_restoration_sde_tpu_torch import train
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.utils import options
+
+    data = os.path.join(workdir, "data")
+    root = os.path.join(workdir, label)
+    os.makedirs(root, exist_ok=True)
+    yml = write_train_yaml(os.path.join(root, "run.yml"), opt, root, data, TRAIN_STEPS, TRAIN_SAVE, TRAIN_STEPS)
+    exp = options.parse(yml)["path"]["experiments_root"]
+    want = train_counts(label)
+    for k in KERNELS:
+        k.launches = 0
+    with recorded_steps(snapshot_at=TRAIN_SAVE + 1) as rec:
+        t0 = time.perf_counter()
+        train.train(yml, dev)
+        seconds = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in KERNELS}
+    check(len(rec["steps"]) == TRAIN_STEPS, f"train {label}: {len(rec['steps'])} steps")
+    for i, (grew, _, loss) in enumerate(rec["steps"]):
+        check(grew == want, f"train {label} step {i + 1}: launches {grew}, expected {want}")
+        check(np.isfinite(loss), f"train {label} step {i + 1}: loss {loss}")
+    t_val = opt["sde"].get("sample_T") or opt["sde"]["T"]
+    check(len(rec["vals"]) == 1, f"train {label}: {len(rec['vals'])} validations")
+    for grew, vm in rec["vals"]:
+        sampler = {sym: n * t_val * TRAIN_VAL_PAIRS for sym, n in want.items()}
+        check(grew == sampler and np.isfinite(vm["psnr"]), f"train {label} validation: {grew}, psnr {vm['psnr']}")
+    saved = sorted(os.listdir(os.path.join(exp, "models")))
+    check(saved == sorted([f"{TRAIN_SAVE}_G.pth", f"{TRAIN_STEPS}_G.pth", "lastest_EMA.pth"]),
+          f"train {label}: models {saved}")
+    ms = [r[1] for r in rec["steps"][2:]]
+    losses = [r[2] for r in rec["steps"]]
+    snapshot, resumed_loss_want = rec["snapshot"], rec["steps"][TRAIN_SAVE][2]
+
+    state_file = os.path.join(exp, "training_state", f"{TRAIN_SAVE}.state")
+    yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), opt, root, data, TRAIN_STEPS, TRAIN_SAVE,
+                                  TRAIN_STEPS, resume=state_file)
+    with recorded_steps(snapshot_at=TRAIN_SAVE + 1) as rec_resume:
+        train.train(yml_resume, dev)
+    check(len(rec_resume["steps"]) == TRAIN_STEPS - TRAIN_SAVE, f"train {label} resumed: {len(rec_resume['steps'])}")
+    grew, _, loss = rec_resume["steps"][0]
+    check(grew == want, f"train {label} resumed step: launches {grew}")
+    loss_rel = abs(loss - resumed_loss_want) / abs(resumed_loss_want)
+    lr = float(opt["train"]["lr_G"])
+    resumed = rec_resume["snapshot"]
+    dparam = max((resumed[k] - v).abs().max().item() for k, v in snapshot.items())
+    equal = all(torch.equal(resumed[k], v) for k, v in snapshot.items())
+    later = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(rec_resume["steps"], rec["steps"][TRAIN_SAVE:]))
+    print(f"[train-main] {label}: resumed from step {TRAIN_SAVE}, step {TRAIN_SAVE + 1}: loss {loss:.8g} against "
+          f"{resumed_loss_want:.8g} uninterrupted (rel {loss_rel:.3g}, bound 1e-6); parameters after it max|d| "
+          f"{dparam:.3g} (bound 2 lr_G = {2 * lr:.3g}), bit-equal: {equal}; steps {TRAIN_SAVE + 1}..{TRAIN_STEPS} "
+          f"losses max rel {later:.3g} against the uninterrupted run's (a record)")
+    check(loss_rel <= 1e-6 and dparam <= 2 * lr, f"train {label}: the resumed step differs")
+    del snapshot, resumed
+    torch.cuda.empty_cache()
+
+    yml_plain = write_train_yaml(os.path.join(root, "plain.yml"), opt, root, data, TRAIN_PLAIN_STEPS,
+                                 TRAIN_STEPS * 10, TRAIN_STEPS * 10, plain=True, name=f"{opt['name']}_plain")
+    before = sum(k.launches for k in KERNELS)
+    with recorded_steps() as rec_plain:
+        train.train(yml_plain, dev)
+    check(sum(k.launches for k in KERNELS) == before, f"train {label}: the plain path launched a kernel")
+    pms = [r[1] for r in rec_plain["steps"][2:]]
+    k_ms, p_ms = stats_.median(ms), stats_.median(pms)
+    print(f"[train-main] {label}: {TRAIN_STEPS} steps, batch {TRAIN_BATCH} at {TRAIN_SIZE}px, float32 (cuDNN TF32 on), "
+          f"{seconds:.1f} s with {TRAIN_STEPS // TRAIN_SAVE + 1} saves and one validation; loss {losses[0]:.4g} -> "
+          f"{losses[-1]:.4g}; launches per step {want}")
+    print(f"[train-main] {label}: ms/step (median of steps 3..) kernel path {k_ms:.3f} ({TRAIN_BATCH * 1e3 / k_ms:.3f} "
+          f"img/s), plain path {p_ms:.3f} ({TRAIN_BATCH * 1e3 / p_ms:.3f} img/s) over {len(pms)} steps; "
+          f"card: {smi}")
+    record = {"ms_per_step": k_ms, "img_per_s": TRAIN_BATCH * 1e3 / k_ms, "plain_ms_per_step": p_ms,
+              "plain_img_per_s": TRAIN_BATCH * 1e3 / p_ms, "launches_per_step": want, "card": smi}
+    return launches, record
+
+
 def load_yaml(path):
     import yaml
 
@@ -1623,6 +1980,25 @@ def main() -> int:
     bokeh_net, bokeh_compressor = timed("bokeh net", phase_bokeh_net, dev, bokeh_opt, stats)
     launches["latent_bokeh"] = timed("bokeh main path", phase_bokeh_main_path, dev, bokeh_net, bokeh_compressor,
                                      bokeh_opt, smi)
+    del bokeh_net, bokeh_compressor
+    torch.cuda.empty_cache()
+
+    from image_restoration_sde_tpu_torch.data.synthetic import write_pairs
+
+    train_opts = {label: load_yaml(p) for label, p in TRAIN_CONFIGS.items()}
+    for label, o in train_opts.items():
+        train_ds = o["datasets"]["train"]
+        check((train_ds["batch_size"], train_ds["GT_size"]) == (TRAIN_BATCH, TRAIN_SIZE), f"{label}: {train_ds}")
+    timed("train kernels", phase_train_kernels, dev)
+    timed("train nets", phase_train_nets, dev, train_opts)
+    train_record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        write_pairs(os.path.join(workdir, "data", "train"), TRAIN_PAIRS, SEED + 40, 128, 256)
+        write_pairs(os.path.join(workdir, "data", "val"), TRAIN_VAL_PAIRS, SEED + 41, 128, 192)
+        for label, o in train_opts.items():
+            launches[f"train_{label}"], train_record[label] = timed(
+                f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi)
+    print(f"[train] {json.dumps(train_record)}")
 
     report = []
     for k in KERNELS:

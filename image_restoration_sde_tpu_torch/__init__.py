@@ -1,7 +1,8 @@
 """PyTorch and CUDA port of ``image_restoration_sde_tpu`` for NVIDIA Hopper.
 
-Imports torch and numpy only.  The hand-written CUDA kernels build at their
-first launch (``kernels``), never at import.
+Imports torch, numpy, scipy and PyYAML, never JAX.  The hand-written CUDA
+kernels build at their first launch (``kernels``), never at import.  The
+pixel-space train entry point is ``python -m image_restoration_sde_tpu_torch.train``.
 """
 
 from . import models, ops, sampling, sde, tiling, training

@@ -1,0 +1,160 @@
+"""Input pipeline: sharded, seeded, thread-prefetched batch iterators.
+
+A copy of ``image_restoration_sde_tpu/data/loader.py`` with two changes:
+the process index and count come from ``torch.distributed`` when it is
+initialised (else 0 of 1), and a train loader can start at any step
+(``start_step``), so a resumed run reads the batches an uninterrupted run
+would have read.
+
+Replaces torch DataLoader + DistIterSampler (ref data/__init__.py:8-33,
+data/data_sampler.py:13-68) with a host-side pipeline that feeds the
+accelerator:
+
+- **Epoch enlargement**: like DistIterSampler's ``ratio`` (drivers pass
+  200/1000), one "epoch" is ``ratio * len(dataset)`` samples so the
+  iter-oriented training loop rarely re-shuffles.
+- **Determinism**: shuffles are seeded by (seed, epoch); per-sample
+  augmentation RNG is seeded by (seed, epoch, index-position) through
+  ``dataset.set_epoch_seed``.
+- **Host sharding**: each process takes a rank-strided slice
+  (``process_index :: process_count``), per-host batch =
+  global_batch / process_count (ref data/__init__.py:11-16).
+- **Thread-pool decode + prefetch**: cv2/numpy release the GIL; a small
+  executor decodes ahead of the train step so the card never waits.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+
+
+def _collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        if isinstance(vals[0], np.ndarray):
+            out[key] = np.stack(vals)
+        else:
+            out[key] = vals
+    return out
+
+
+class TrainLoader:
+    """Infinite iterator of train batches (drop_last semantics)."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        seed: int = 0,
+        ratio: int = 1,
+        num_workers: int = 8,
+        prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
+        start_step: int = 0,
+    ):
+        if batch_size % process_count != 0:
+            raise ValueError("global batch size must divide process count")
+        self.dataset = dataset
+        self.global_batch = batch_size
+        self.local_batch = batch_size // process_count
+        self.seed = seed
+        self.ratio = max(1, int(ratio))
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
+        self.start_step = start_step
+
+    def _epoch_indices(self, epoch: int) -> np.ndarray:
+        n = len(self.dataset)
+        total = n * self.ratio
+        rng = np.random.default_rng((self.seed, epoch))
+        idx = rng.permutation(total) % n  # DistIterSampler: shuffled, mod n
+        idx = idx[self.process_index :: self.process_count]
+        usable = (len(idx) // self.local_batch) * self.local_batch
+        return idx[:usable].reshape(-1, self.local_batch)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        stop = threading.Event()
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+
+        def producer():
+            epoch, skip = divmod(self.start_step, self.steps_per_epoch())
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                while not stop.is_set():
+                    if hasattr(self.dataset, "set_epoch_seed"):
+                        self.dataset.set_epoch_seed((self.seed, epoch))
+                    for batch_idx in self._epoch_indices(epoch)[skip:]:
+                        samples = list(pool.map(self.dataset.__getitem__, batch_idx))
+                        batch = _collate(samples)
+                        while not stop.is_set():
+                            try:
+                                q.put(batch, timeout=0.5)
+                                break
+                            except queue.Full:
+                                continue
+                        if stop.is_set():
+                            return
+                    epoch, skip = epoch + 1, 0
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                yield q.get()
+        finally:
+            stop.set()
+
+    def steps_per_epoch(self) -> int:
+        return len(self._epoch_indices(0))
+
+
+class EvalLoader:
+    """Sequential batch-1 iterator (ref data/__init__.py:30-33)."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __iter__(self):
+        if hasattr(self.dataset, "set_epoch_seed"):
+            self.dataset.set_epoch_seed(None)
+        for i in range(len(self.dataset)):
+            yield _collate([self.dataset[i]])
+
+
+def process_index_and_count() -> tuple:
+    """(rank, world size) of ``torch.distributed`` when it is initialised,
+    else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def create_dataloader(dataset, dataset_opt, opt=None, seed: int = 0, ratio: int = 1, start_step: int = 0):
+    """Reference-shaped factory (ref data/__init__.py:8-33)."""
+    phase = dataset_opt.get("phase", "train")
+    if phase == "train":
+        index, count = process_index_and_count()
+        return TrainLoader(
+            dataset,
+            batch_size=int(dataset_opt["batch_size"]),
+            seed=seed,
+            ratio=ratio,
+            num_workers=int(dataset_opt.get("n_workers") or 8),
+            process_index=index,
+            process_count=count,
+            start_step=start_step,
+        )
+    return EvalLoader(dataset)

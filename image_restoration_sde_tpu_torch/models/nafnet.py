@@ -6,7 +6,9 @@ Counterpart of ``image_restoration_sde_tpu/models/nafnet.py``: NAFBlocks
 per-channel beta/gamma residual scales), 2x2 stride-2 downsamples,
 1x1 + PixelShuffle upsamples with additive skips, and a SimpleGate time
 MLP.  Inputs are zero-padded at the bottom/right to a multiple of
-2^len(enc_blk_nums) and cropped back.
+2^len(enc_blk_nums) and cropped back.  ``conditional=False`` (the denoising
+SDE's variant) takes ``x_t`` alone, ``forward(x, None, t)``, where the
+conditional net takes ``concat([x_t - cond, cond])``.
 
 A run of at least ``FUSE_MIN_BLOCKS`` blocks at one level (the 28-block
 deep level of the Refusion configs) at a width K3 takes (``fuses``) goes
@@ -23,7 +25,7 @@ decides which one, not the device.
 from __future__ import annotations
 
 import operator
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -167,13 +169,15 @@ class ConditionalNAFNet(NAFNetPyramid):
         middle_blk_num: int = 1,
         enc_blk_nums: Sequence[int] = (),
         dec_blk_nums: Sequence[int] = (),
+        conditional: bool = True,
         dtype: torch.dtype = torch.float32,
         plain: bool = False,
     ):
         time_dim = width * 4
-        super().__init__(img_channel * 2, img_channel, width, middle_blk_num, enc_blk_nums, dec_blk_nums,
+        in_ch = img_channel * 2 if conditional else img_channel
+        super().__init__(in_ch, img_channel, width, middle_blk_num, enc_blk_nums, dec_blk_nums,
                          lambda chan: NAFBlock(chan, time_dim, plain=plain))
-        self.dtype, self.plain = dtype, plain
+        self.conditional, self.dtype, self.plain = conditional, dtype, plain
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(width), Linear(width, time_dim * 2), SimpleGate(), Linear(time_dim, time_dim)
         )
@@ -207,12 +211,12 @@ class ConditionalNAFNet(NAFNetPyramid):
                 names += [f"{level}.{b}.{k}" for b in range(len(blocks)) for k in _BLOCK_KEYS]
         return names
 
-    def forward(self, inp: torch.Tensor, cond: torch.Tensor, time) -> torch.Tensor:
+    def forward(self, inp: torch.Tensor, cond: Optional[torch.Tensor], time) -> torch.Tensor:
         B, H, W, _ = inp.shape
         time = torch.as_tensor(time, dtype=torch.float32, device=inp.device).reshape(-1).expand(B)
         t = self.time_mlp(time)  # float32, as flax's dtype-less Dense
 
-        x = torch.cat([inp - cond, cond], dim=-1)
+        x = torch.cat([inp - cond, cond], dim=-1) if self.conditional else inp
         x = check_image_size(x, self.padder_size, mode="zeros")
         x = x.to(self.dtype).contiguous().permute(0, 3, 1, 2)  # channels_last NCHW
         x = self.pyramid(x, lambda blocks, x: self._block_run(blocks, x, t))

@@ -8,7 +8,9 @@ with ``y`` in ``x``'s dtype.  Counterpart of
 kernel is ``csrc/layernorm.cu``.
 
 :func:`channel_layernorm` launches the kernel on a CUDA tensor and runs the
-plain version on a CPU tensor.
+plain version on a CPU tensor.  It is differentiable: its backward is the
+autograd of the plain version on the saved ``(x, g)``, as the JAX op's
+custom_vjp takes the vjp of its jnp composition.
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ def channel_layernorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float) -> torc
         raise ValueError("channel_layernorm: x must be 16-byte aligned")
     if g.numel() != C:
         raise ValueError(f"channel_layernorm: g has {g.numel()} entries, C={C}")
-    kernels.refuse_grad("channel_layernorm_cuda", x, g)
     g = g.reshape(C).to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
     rows = x.numel() // C
@@ -60,11 +61,30 @@ def channel_layernorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float) -> torc
     return y
 
 
-def channel_layernorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., C), g: (C,).  The kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+def _forward(x, g, eps):
     if x.is_cuda:
         return channel_layernorm_cuda(x, g, eps)
     if x.device.type == "cpu":
         return channel_layernorm_plain(x, g, eps)
     raise ValueError(f"channel_layernorm: no implementation for device {x.device}")
+
+
+class _ChannelLayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return _forward(x, g, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = channel_layernorm_plain(*inputs, ctx.eps)
+        return (*torch.autograd.grad(y, inputs, grad), None)
+
+
+def channel_layernorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., C), g: (C,); differentiable.  The kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    return _ChannelLayerNorm.apply(x, g, eps)

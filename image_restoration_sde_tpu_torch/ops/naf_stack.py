@@ -14,7 +14,10 @@ The kernel reads them in place through a device table of pointers;
 package, which only the plain version and the tests use.
 
 :func:`naf_stack` launches the kernel on a CUDA tensor and runs the plain
-version on a CPU tensor.
+version on a CPU tensor.  It is differentiable: ``tmod`` is computed outside
+the kernel's autograd Function, whose backward recomputes the plain version
+from the saved ``x``, ``tmod`` and block tensors, as the JAX op's custom_vjp
+does; the gradient of ``temb`` flows through :func:`time_modulation`.
 """
 
 from __future__ import annotations
@@ -69,6 +72,11 @@ def time_modulation(blocks: Sequence[Block], temb: torch.Tensor) -> torch.Tensor
 def stack_middle_params(blocks: Sequence[Block], temb: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The JAX package's stacked layout, float32: 1x1 kernels (K, in, out),
     the depthwise kernel (K, 3, 3, 2C), vectors (K, 1, D), ``tmod`` (K, B, 4C)."""
+    return stack_params(blocks, time_modulation(blocks, temb))
+
+
+def stack_params(blocks: Sequence[Block], tmod: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """:func:`stack_middle_params` with the time modulation (K, B, 4C) given."""
 
     def dense(k):  # (out, in, 1, 1) -> (in, out)
         return torch.stack([b[k].reshape(b[k].shape[0], -1).t() for b in blocks]).float()
@@ -85,7 +93,7 @@ def stack_middle_params(blocks: Sequence[Block], temb: torch.Tensor) -> Dict[str
         "w4": dense("conv4.weight"), "b4": vec("conv4.bias"),
         "w5": dense("conv5.weight"), "b5": vec("conv5.bias"),
         "g1": vec("norm1.g"), "g2": vec("norm2.g"), "beta": vec("beta"), "gamma": vec("gamma"),
-        "tmod": time_modulation(blocks, temb),
+        "tmod": tmod.float(),
     }
 
 
@@ -183,8 +191,6 @@ def _launch(x, blocks, tmod, eps, stamps):
     if tmod.shape != (K, B, 4 * C) or tmod.dtype != torch.float32 or tmod.device != x.device \
             or not tmod.is_contiguous():
         raise ValueError(f"naf_stack: tmod must be contiguous float32 {(K, B, 4 * C)} on {x.device}")
-    if torch.is_grad_enabled():  # skip gathering every block's tensors when it is not
-        kernels.refuse_grad("naf_stack_cuda", x, tmod, *(t for blk in blocks for t in blk.values()))
     table = _pointer_table(x.device, _block_tensors(blocks, x))
     ws = torch.empty(kernels.load_library().irsde_naf_stack_workspace(B, H, W, C),
                      dtype=torch.float32, device=x.device)
@@ -195,11 +201,38 @@ def _launch(x, blocks, tmod, eps, stamps):
     return y
 
 
+def _unflatten(tensors: Sequence[torch.Tensor]) -> list:
+    """A flat sequence of K blocks' tensors, each block's in PARAM_ORDER ->
+    K block mappings."""
+    n = len(PARAM_ORDER)
+    return [dict(zip(PARAM_ORDER, tensors[i : i + n])) for i in range(0, len(tensors), n)]
+
+
+class _NafStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tmod, eps, *tensors):
+        ctx.save_for_backward(x, tmod, *tensors)
+        ctx.eps = eps
+        blocks = _unflatten(tensors)
+        if x.is_cuda:
+            return naf_stack_cuda(x, blocks, tmod, eps)
+        if x.device.type == "cpu":
+            return naf_stack_plain(x, stack_params(blocks, tmod), eps)
+        raise ValueError(f"naf_stack: no implementation for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        x, tmod, *tensors = inputs
+        with torch.enable_grad():
+            y = naf_stack_plain(x, stack_params(_unflatten(tensors), tmod), ctx.eps)
+        grads = torch.autograd.grad(y, inputs, grad)
+        return (grads[0], grads[1], None, *grads[2:])
+
+
 def naf_stack(x: torch.Tensor, blocks: Sequence[Block], temb: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """K NAFBlocks on x (B, H, W, C) with time embedding ``temb`` (B, T).
-    The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return naf_stack_cuda(x, blocks, time_modulation(blocks, temb), eps)
-    if x.device.type == "cpu":
-        return naf_stack_plain(x, stack_middle_params(blocks, temb), eps)
-    raise ValueError(f"naf_stack: no implementation for device {x.device}")
+    """K NAFBlocks on x (B, H, W, C) with time embedding ``temb`` (B, T);
+    differentiable in x, temb and every block tensor.  The kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    tensors = [blk[k] for blk in blocks for k in PARAM_ORDER]
+    return _NafStack.apply(x, time_modulation(blocks, temb), eps, *tensors)

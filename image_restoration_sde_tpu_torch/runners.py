@@ -1,0 +1,239 @@
+"""Task runners for pixel-space training: build the net, SDE, optimizer and
+train state from a YAML, and expose ``step`` and ``validate``.
+
+Counterpart of the pixel tasks of ``image_restoration_sde_tpu/runners.py``:
+
+- ``denoising`` -> :class:`PixelDiffusionTask` (IR-SDE on pixels; covers
+  derain/deblur/deshadow/dehaze and the inpainting/sr degradation plugins;
+  stereo datasets switch the net to ``StereoConditionalNAFNet``), or
+  :class:`GaussianDenoisingTask` (the denoising SDE) when the distortion is
+  ``denoising``;
+- ``latent`` and ``latent_denoising`` (the compressor, latent and bokeh
+  tasks) are not in the port yet (ROADMAP, Queue 1 item 5, latent part).
+
+Each runner owns its net, SDE, schedule and train state and exposes
+``step(state, batch, gen)`` (host-side degradation prep, then one train
+step), ``validate(state, loader, gen, out_dir, step)`` (PSNR through the
+port's samplers), ``params_trees(state)`` (label -> ``state_dict`` for
+checkpoints) and ``maybe_load_pretrained(state)``.
+
+The net's initial weights are torch's default initialisation of the
+reference's modules, drawn from the run's seed.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .data.io_utils import save_img
+from .models import build_network
+from .sampling import make_denoising_sampler, make_restoration_sampler, pad_to_bucket, unpad
+from .sde import DenoisingSDE, IRSDE
+from .training import build_from_options, build_lr_schedule, create_train_state, make_denoising_train_step, \
+    make_train_step
+from .training.checkpoint import ema_state_dict, load_params
+from .utils import metrics, options
+from .utils.degradations import add_noise, mask_to, upscale
+from .utils.img_utils import split_eyes, tensor2img
+
+
+def effective_distortion(opt) -> str:
+    """Infer the degradation plugin.  The reference hardcodes it per task
+    directory (some shipped configs carry stale ``distortion`` keys, e.g.
+    inpainting says 'derain' — ref config/inpainting/options/train/ir-sde.yml);
+    we infer from the telltale config fields instead."""
+    deg = opt["degradation"] or {}
+    if deg.get("mask_root"):
+        return "inpainting"
+    if opt["distortion"] == "sr":
+        return "sr"
+    if opt["distortion"] == "denoising":
+        return "denoising"
+    if opt["distortion"] is None and (opt["datasets"] or {}).get("train", {}).get("mode") == "GT":
+        return "denoising"
+    return opt["distortion"] or "paired"
+
+
+def build_task(opt, seed: int, device):
+    model_type = opt["model"]
+    if model_type == "denoising" and effective_distortion(opt) == "denoising":
+        return GaussianDenoisingTask(opt, seed, device)
+    if model_type in ("denoising", "sde"):
+        return PixelDiffusionTask(opt, seed, device)
+    if model_type in ("latent", "latent_denoising"):
+        raise NotImplementedError(f"model type {model_type!r}: latent training is not in the port yet "
+                                  "(ROADMAP, Queue 1 item 5, latent part)")
+    raise NotImplementedError(f"model type {model_type!r}")
+
+
+def _dataset_mode(opt) -> str:
+    dsets = opt["datasets"] or {}
+    for key in ("train", *dsets.keys()):
+        if dsets.get(key):
+            return dsets[key].get("mode", "")
+    return ""
+
+
+def _seeded_network(which: str, setting: dict, seed: int):
+    """The net with torch's default initialisation drawn from ``seed``,
+    leaving the caller's global generator as it was.  ``upscale``, which
+    ``options.parse`` adds to the setting of sr configs, is dropped: the
+    reference nets take it and do not use it."""
+    setting = {k: v for k, v in setting.items() if k != "upscale"}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build_network(which, setting)
+
+
+class _Base:
+    def __init__(self, opt, seed: int, device, which: str, setting: dict):
+        self.opt, self.device = opt, torch.device(device)
+        self.deg_rng = np.random.default_rng(seed + 77)
+        # test-time configs carry no train: section; a zero-lr placeholder
+        # keeps train-state construction uniform
+        self.train_opt = opt["train"] or options.dict_to_nonedict(
+            {"lr_G": 0.0, "lr_scheme": "MultiStepLR", "lr_steps": []}
+        )
+        self.lr_schedule = build_lr_schedule(self.train_opt)
+        self.net = _seeded_network(which, setting, seed).to(self.device).train()
+        optimizer = build_from_options(self.train_opt, self.net.parameters(), self.lr_schedule)
+        self.state = create_train_state(self.net, optimizer)
+
+    def _loss_kwargs(self):
+        t = self.train_opt
+        return dict(
+            loss_type=t["loss_type"] or "l1",
+            is_weighted=bool(t["is_weighted"]),
+            weight=float(t["weight"] or 1.0),
+            remat=bool(t.get("remat")),
+        )
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.net.parameters())
+
+    def params_trees(self, state) -> Dict[str, dict]:
+        return {"G": state.net.state_dict(), "EMA": ema_state_dict(state)}
+
+    def maybe_load_pretrained(self, state) -> None:
+        """Load ``path.pretrain_model_G`` into the net.  On resume,
+        ``options.check_resume`` points it at the resumed iteration's
+        ``{iter}_G.pth`` (the reference's semantics)."""
+        load_path = self.opt["path"]["pretrain_model_G"]
+        if load_path:
+            strict = self.opt["path"]["strict_load"] is not False
+            state.net.load_state_dict(load_params(load_path), strict=strict)
+
+    def extra_state(self) -> dict:
+        """What a checkpoint keeps of the runner: its degradation generator."""
+        return {"deg_rng": self.deg_rng.bit_generator.state}
+
+    def load_extra_state(self, extra: dict) -> None:
+        if "deg_rng" in extra:
+            self.deg_rng.bit_generator.state = extra["deg_rng"]
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+
+    def _save_val_images(self, out_img, out_dir, step, i):
+        """Save the first few validation outputs; stereo (6-channel) outputs
+        as one PNG per eye (ref stereo-sr/train.py:282-287)."""
+        if i < 3:
+            for eye, img in split_eyes(out_img):
+                save_img(img, os.path.join(out_dir, f"{step}_{i}{eye}.png"))
+
+    def _validate(self, loader, restore, out_dir, step) -> Dict[str, float]:
+        """PSNR of ``restore(batch) -> (restored, gt)`` over the first
+        ``max_images`` validation batches, the net in eval mode."""
+        max_val = self.opt["datasets"]["val"]["max_images"] or 16
+        avg_psnr, n = 0.0, 0
+        self.net.eval()
+        try:
+            for i, vb in enumerate(loader):
+                if i >= max_val:
+                    break
+                out, gt = restore(vb)
+                out_img = tensor2img(out[0])
+                avg_psnr += metrics.calculate_psnr(out_img, tensor2img(gt[0]))
+                n += 1
+                self._save_val_images(out_img, out_dir, step, i)
+        finally:
+            self.net.train()
+        return {"psnr": avg_psnr / max(1, n)}
+
+
+class PixelDiffusionTask(_Base):
+    """IR-SDE on pixels (ref DenoisingModel, denoising_model.py:25-199)."""
+
+    def __init__(self, opt, seed: int, device):
+        which, setting = options.network_setting(opt)
+        if _dataset_mode(opt).startswith("Ste") and which == "ConditionalNAFNet":
+            # the stereo-sr task dir ships its own ConditionalNAFNet with
+            # SCAM fusion under the same class name (SURVEY §2.2)
+            which = "StereoConditionalNAFNet"
+        super().__init__(opt, seed, device, which, setting)
+        sde_opt = opt["sde"]
+        self.sde = IRSDE.create(max_sigma=sde_opt["max_sigma"], T=int(sde_opt["T"]), schedule=sde_opt["schedule"],
+                                eps=float(sde_opt["eps"]), device=self.device)
+        self._train_step = make_train_step(self.sde, **self._loss_kwargs())
+        mode = sde_opt["sampling_mode"] or "sde"
+        steps = int(sde_opt["sample_T"]) if sde_opt["sample_T"] else None
+        self.sampler = make_restoration_sampler(self.sde, self.net, mode=mode, steps=steps)
+
+    def prepare_pair(self, batch) -> Tuple[np.ndarray, np.ndarray]:
+        distortion = effective_distortion(self.opt)
+        if distortion == "inpainting":
+            gt = batch["GT"]
+            lq = mask_to(gt, self.opt["degradation"]["mask_root"], rng=self.deg_rng)
+            return lq.astype(np.float32), gt
+        if distortion == "sr":
+            return (
+                upscale(batch["LQ"], int(self.opt["degradation"]["scale"])).astype(np.float32),
+                batch["GT"],
+            )
+        return batch["LQ"], batch["GT"]
+
+    def step(self, state, batch, gen: torch.Generator):
+        lq, gt = self.prepare_pair(batch)
+        return self._train_step(state, self._tensor(lq), self._tensor(gt), gen)
+
+    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
+        def restore(vb):
+            lq, gt = self.prepare_pair(vb)
+            vlq, hw = pad_to_bucket(np.asarray(lq), 64)
+            return unpad(self.sampler(self._tensor(vlq), gen), hw), gt
+
+        return self._validate(loader, restore, out_dir, step)
+
+
+class GaussianDenoisingTask(_Base):
+    """DenoisingSDE task (ref config/denoising-sde, §3.4): GT-only data, the
+    noisy state is the input; sigma^2-weighted loss; validation is the
+    reverse ODE from the optimal timestep for the degradation sigma."""
+
+    def __init__(self, opt, seed: int, device):
+        which, setting = options.network_setting(opt)
+        super().__init__(opt, seed, device, which, {**setting, "conditional": False})
+        sde_opt = opt["sde"]
+        self.sde = DenoisingSDE.create(max_sigma=sde_opt["max_sigma"], T=int(sde_opt["T"]),
+                                       schedule=sde_opt["schedule"], device=self.device)
+        kwargs = self._loss_kwargs()
+        if self.train_opt["is_weighted"] is None:
+            kwargs["is_weighted"] = True
+        self._train_step = make_denoising_train_step(self.sde, **kwargs)
+        self.sigma = float(opt["degradation"]["sigma"])
+        self.sampler = make_denoising_sampler(self.sde, self.net, self.sigma)
+
+    def step(self, state, batch, gen: torch.Generator):
+        return self._train_step(state, self._tensor(batch["GT"]), gen)
+
+    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
+        def restore(vb):
+            gt = self._tensor(vb["GT"])
+            vlq, hw = pad_to_bucket(add_noise(gt, gen, self.sigma).cpu().numpy(), 64)
+            return unpad(self.sampler(self._tensor(vlq)), hw), vb["GT"]
+
+        return self._validate(loader, restore, out_dir, step)

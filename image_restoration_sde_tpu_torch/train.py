@@ -1,0 +1,170 @@
+"""Training entry point of the PyTorch port:
+
+    python -m image_restoration_sde_tpu_torch.train -opt=<yml> [--device cuda|cpu]
+
+Counterpart of ``tools/train.py``: the same YAML, the same loop (print,
+validate and save at their frequencies; resume from
+``path.resume_state``).  The YAML's ``model`` / ``distortion`` keys select a
+task runner (``runners.build_task``); pixel-space tasks only, so far.
+
+It runs on the card unless ``--device cpu`` is given; without a card it
+raises.  One process, one card (data parallelism: ROADMAP, Queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import random
+import sys
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .data import create_dataloader, create_dataset
+from .runners import build_task
+from .sde import rng
+from .training.checkpoint import load_training_state, save_checkpoint
+from .utils import options
+from .utils.logging_utils import TensorboardWriter, mkdir_and_rename, mkdirs, setup_logger
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train: no CUDA device; pass --device cpu to train on the CPU")
+    return device
+
+
+def train(opt_path: str, device="cuda"):
+    """Run the YAML's training to ``train.niter`` iterations; returns the
+    final ``TrainState``."""
+    device = resolve_device(str(device))
+    opt = options.parse(opt_path, is_train=True)
+    resume_state_path = opt["path"].get("resume_state")
+    resume_iter = 0
+    if resume_state_path:
+        resume_iter = int(os.path.basename(resume_state_path).split(".")[0])
+        options.check_resume(opt, resume_iter)
+    opt = options.dict_to_nonedict(opt)
+
+    if not resume_state_path:
+        mkdir_and_rename(opt["path"]["experiments_root"])
+    mkdirs([opt["path"][k] for k in ("models", "training_state", "log", "val_images")])
+    setup_logger("base", opt["path"]["log"], "train_" + opt["name"], screen=True, tofile=True)
+    setup_logger("val", opt["path"]["log"], "val_" + opt["name"], screen=True, tofile=True)
+    logger, logger_val = logging.getLogger("base"), logging.getLogger("val")
+    logger.info(options.dict2str(opt))
+    tb = TensorboardWriter(os.path.join(opt["path"]["experiments_root"], "tb_logger")) if opt["use_tb_logger"] \
+        else None
+
+    seed = opt["train"]["manual_seed"]
+    if seed is None:
+        seed = random.randint(1, 10000)
+    logger.info(f"Random seed: {seed}; device {device}"
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    np.random.seed(seed)
+    random.seed(seed)
+
+    # ---------------------------------------------------------------- task
+    task = build_task(opt, seed, device)
+    logger.info(f"Task {type(task).__name__}: {task.n_params():,d} parameters")
+    state = task.state
+    task.maybe_load_pretrained(state)
+    gen = rng.generator(seed, device)  # the train step's draws
+    start_epoch, current_step = 0, 0
+    if resume_state_path:
+        start_epoch, current_step, extra = load_training_state(resume_state_path, state, gen)
+        task.load_extra_state(extra)
+        if current_step != resume_iter:
+            raise ValueError(f"{resume_state_path} holds iteration {current_step}")
+        logger.info(f"Resuming training from epoch {start_epoch}, iter {current_step}")
+
+    # ---------------------------------------------------------------- data
+    train_loader = val_loader = None
+    total_iters = int(opt["train"]["niter"])
+    steps_per_epoch = 1
+    for phase, dataset_opt in opt["datasets"].items():
+        if phase == "train":
+            train_set = create_dataset(dataset_opt)
+            ratio = dataset_opt["dataset_enlarge_ratio"] or 200
+            train_loader = create_dataloader(train_set, dataset_opt, opt, seed=seed, ratio=ratio,
+                                             start_step=current_step)
+            steps_per_epoch = train_loader.steps_per_epoch()
+            logger.info(f"Train set: {len(train_set)} images, {steps_per_epoch} iters/epoch, "
+                        f"target {total_iters} iters, batch {dataset_opt['batch_size']}")
+        elif phase == "val":
+            val_set = create_dataset(dataset_opt)
+            val_loader = create_dataloader(val_set, dataset_opt, opt)
+            logger.info(f"Val set: {len(val_set)} images")
+    if train_loader is None:
+        raise ValueError("the YAML has no datasets.train")
+
+    print_freq = int(opt["logger"]["print_freq"] or 100)
+    save_freq = int(opt["logger"]["save_checkpoint_freq"] or 5000)
+    val_freq = int(opt["train"]["val_freq"] or 5000)
+    best_psnr, best_iter = 0.0, 0
+    t_last, steps_last = time.perf_counter(), current_step
+
+    logger.info("Start training...")
+    batch_iter = iter(train_loader)
+    epoch = start_epoch
+    try:
+        while current_step < total_iters:
+            batch = next(batch_iter)
+            current_step += 1
+            epoch = current_step // max(1, steps_per_epoch)
+
+            state, train_metrics = task.step(state, batch, gen)
+
+            if current_step % print_freq == 0:
+                loss = float(train_metrics["loss"])
+                now = time.perf_counter()
+                bsz = len(next(iter(batch.values())))
+                ips = (current_step - steps_last) * bsz / (now - t_last)
+                t_last, steps_last = now, current_step
+                lr = float(task.lr_schedule(current_step))
+                logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, lr:{lr:.3e}, "
+                            f"img/s:{ips:.1f}> loss: {loss:.4e}")
+                if tb:
+                    tb.add_scalar("loss", loss, current_step)
+                    tb.add_scalar("img_per_sec", ips, current_step)
+
+            if val_loader is not None and current_step % val_freq == 0:
+                vm = task.validate(state, val_loader, rng.generator(seed + current_step, device),
+                                   opt["path"]["val_images"], current_step)
+                if vm["psnr"] > best_psnr:
+                    best_psnr, best_iter = vm["psnr"], current_step
+                logger_val.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, psnr: {vm['psnr']:.6f}, "
+                                f"best psnr: {best_psnr:.6f} @ iter {best_iter:,d}>")
+                if tb:
+                    tb.add_scalar("val_psnr", vm["psnr"], current_step)
+
+            if current_step % save_freq == 0:
+                logger.info("Saving models and training states.")
+                save_checkpoint(opt["path"], state, epoch, current_step, gen, task.extra_state())
+    finally:
+        batch_iter.close()  # stop the prefetch thread
+    logger.info("Saving the final model.")
+    save_checkpoint(opt["path"], state, epoch, current_step, gen, task.extra_state())
+    logger.info("End of training.")
+    if tb:
+        tb.close()
+    return state
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where to train (default: the card)")
+    args = parser.parse_args(argv)
+    train(args.opt, args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from image_restoration_sde_tpu_torch import ops
 from image_restoration_sde_tpu_torch.ops import layernorm, linear_attention, naf_stack
 
 
@@ -132,29 +133,110 @@ def test_linear_attention_packed_gradient(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["layernorm", "naf_stack", "flash_attention"])
+@pytest.mark.parametrize("op", ["flash_attention"])
 def test_kernels_without_a_backward_refuse_grad(cuda_device, op):
-    """K1, K3 and K4 have no backward yet: with grad enabled and an input
-    that requires grad, each wrapper raises instead of returning an output
-    the gradient would skip; under ``torch.no_grad()`` it runs."""
+    """K4 has no backward yet: with grad enabled and an input that requires
+    grad, its wrapper raises instead of returning an output the gradient
+    would skip; under ``torch.no_grad()`` it runs.  (K1 and K3 have
+    backwards: test_layernorm_gradient, test_naf_stack_gradient.)"""
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 
-    if op == "layernorm":
-        x, g = torch.randn(64, 32, device=cuda_device), torch.ones(32, device=cuda_device)
-        call, grad_input = (lambda: layernorm.channel_layernorm(x, g, 1e-5)), g
-    elif op == "naf_stack":
-        blocks = _naf_blocks(2, 64, 64, cuda_device)
-        x = torch.randn(2, 4, 4, 64, device=cuda_device)
-        tmod = naf_stack.time_modulation(blocks, torch.randn(2, 64, device=cuda_device))
-        call, grad_input = (lambda: naf_stack.naf_stack_cuda(x, blocks, tmod, 1e-5)), blocks[1]["conv3.weight"]
-    else:
-        x = torch.randn(1, 64, 2, 64, device=cuda_device)
-        call, grad_input = (lambda: FA.flash_mha(x, x, x, 0.125)), x
+    x = torch.randn(1, 64, 2, 64, device=cuda_device)
+    call, grad_input = (lambda: FA.flash_mha(x, x, x, 0.125)), x
     grad_input.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         call()
     with torch.no_grad():
         call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,rows", [(64, 65536), (128, 1001), (512, 2048), (1024, 512)], ids=str)
+def test_layernorm_gradient(cuda_device, C, rows):
+    """K1 under autograd on the card, float32: the forward launches K1 once
+    and has a grad_fn; the gradients of x and g equal the plain
+    composition's within 1e-5 of their max (the backward is that
+    composition, on the kernel's saved inputs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    x = (torch.randn(rows, C, generator=gen, device=cuda_device) * 2 + 0.5).requires_grad_()
+    g = (torch.randn(C, generator=gen, device=cuda_device) * 0.2 + 1).requires_grad_()
+    cot = torch.randn(rows, C, generator=gen, device=cuda_device)
+    before = layernorm.LAYERNORM.launches
+    y = layernorm.channel_layernorm(x, g, 1e-5)
+    assert layernorm.LAYERNORM.launches == before + 1 and y.grad_fn is not None
+    got = torch.autograd.grad(y, (x, g), cot)
+    assert layernorm.LAYERNORM.launches == before + 1  # the backward launches none
+    want = torch.autograd.grad(layernorm.channel_layernorm_plain(x, g, 1e-5), (x, g), cot)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,K", [(3, 5, 7, 64, 4), (2, 8, 8, 512, 3)], ids=str)
+def test_naf_stack_gradient(cuda_device, B, H, W, C, K):
+    """K3 under autograd on the card, float32: one launch with a grad_fn;
+    the gradients of x, temb and every block tensor equal plain autograd
+    through ``naf_stack_plain`` within 1e-5 of each one's max (the backward
+    recomputes that composition), and the backward launches nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(K)
+    blocks = [{k: v.requires_grad_() for k, v in blk.items()} for blk in _naf_blocks(K, C, 4 * C // 8, cuda_device)]
+    x = torch.randn(B, H, W, C, generator=gen, device=cuda_device).requires_grad_()
+    temb = torch.randn(B, 4 * C // 8, generator=gen, device=cuda_device).requires_grad_()
+    cot = torch.randn(B, H, W, C, generator=gen, device=cuda_device)
+    inputs = [x, temb, *(v for blk in blocks for v in blk.values())]
+    before = naf_stack.NAF_STACK.launches
+    y = naf_stack.naf_stack(x, blocks, temb, 1e-5)
+    assert naf_stack.NAF_STACK.launches == before + 1 and y.grad_fn is not None
+    got = torch.autograd.grad(y, inputs, cot)
+    assert naf_stack.NAF_STACK.launches == before + 1
+    want = torch.autograd.grad(naf_stack.naf_stack_plain(x, naf_stack.stack_middle_params(blocks, temb), 1e-5),
+                               inputs, cot)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_name", ["ConditionalUNet", "ConditionalNAFNet"])
+def test_train_steps_kernel_path_match_plain_path(cuda_device, net_name):
+    """Two train steps of a tiny net (UNet nf=16 depth 3; NAFNet width 16
+    with a fused 4-block level), float32, Adam, the same weights, batches
+    and generator on the kernel path and the plain path: each step's loss
+    within 1e-4 of itself and the parameters after the steps elementwise
+    within 2 lr (Adam's first step moves a near-zero gradient element by up
+    to 2 lr when its sign differs)."""
+    from image_restoration_sde_tpu_torch.models import ConditionalNAFNet, ConditionalUNet, init_params_
+    from image_restoration_sde_tpu_torch.sde import IRSDE
+    from image_restoration_sde_tpu_torch.training import (build_from_options, build_lr_schedule, create_train_state,
+                                                          make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_opt = {"optimizer": "Adam", "lr_G": 1e-4, "lr_scheme": "MultiStepLR", "lr_steps": [], "beta1": 0.9,
+                 "beta2": 0.99}
+    build = {"ConditionalUNet": lambda plain: ConditionalUNet(nf=16, depth=3, plain=plain),
+             "ConditionalNAFNet": lambda plain: ConditionalNAFNet(width=16, enc_blk_nums=(1, 4), middle_blk_num=1,
+                                                                  dec_blk_nums=(1, 1), plain=plain)}[net_name]
+    sde = IRSDE.create(10, 100, "cosine", 0.005, device=cuda_device)
+    batches = [tuple(torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(i + j)).to(cuda_device)
+                     for j in range(2)) for i in range(0, 4, 2)]
+    runs = {}
+    state_dict = init_params_(build(False), torch.Generator().manual_seed(0)).state_dict()
+    for plain in (False, True):
+        net = build(plain).to(cuda_device)
+        net.load_state_dict(state_dict)
+        state = create_train_state(net, build_from_options(train_opt, net.parameters(), build_lr_schedule(train_opt)))
+        step, gen = make_train_step(sde), torch.Generator(device=cuda_device).manual_seed(3)
+        launches = sum(k.launches for k in ops.KERNELS)
+        step_losses = [step(state, lq, gt, gen)[1]["loss"].item() for lq, gt in batches]
+        assert (sum(k.launches for k in ops.KERNELS) > launches) == (not plain)
+        runs[plain] = (step_losses, {k: v.detach().clone() for k, v in net.named_parameters()})
+    for a, b in zip(runs[False][0], runs[True][0]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for k, v in runs[True][1].items():
+        assert (runs[False][1][k] - v).abs().max().item() <= 2 * train_opt["lr_G"], k
 
 
 @pytest.mark.cuda

@@ -332,3 +332,28 @@ def test_cast_params_weights_reach_the_fused_level_as_float32(tiny_weights, monk
             assert torch.equal(v, own[k].bfloat16().float())
     assert torch.isfinite(cast).all() and not torch.equal(cast, ref)
     assert (cast - ref).abs().max().item() <= 0.05 * ref.abs().max().item()
+
+
+def test_unconditional_forward_matches_flax(monkeypatch):
+    """``conditional=False`` (the denoising SDE's variant, no LQ concat):
+    the flax and port nets on the same weights, ``forward(x, None, t)``,
+    the 4-block level fused on both sides, float32.  Bound 1e-4 of
+    max|out|, as the conditional net's."""
+    monkeypatch.setenv("IRSDE_NAF_FUSE_INTERPRET", "1")
+    cfg = dict(TINY, img_channel=3)
+    fnet = FlaxNAFNet(**cfg, conditional=False)
+    x0 = jnp.zeros((1, 16, 16, 3))
+    weights = randomize(flatten(jax.jit(lambda k, x: fnet.init(k, x, None, jnp.array([1.0])))(
+        jax.random.PRNGKey(0), x0)), seed=5)
+    net = ConditionalNAFNet(**cfg, conditional=False)
+    keys = nafnet_flax_keys(cfg["enc_blk_nums"], cfg["middle_blk_num"], cfg["dec_blk_nums"])
+    net.load_state_dict(state_dict_from_flax(weights, keys=keys))
+    assert net.intro.weight.shape[1] == 3
+    r = np.random.default_rng(8)
+    x = r.random((2, 13, 19, 3), np.float32)
+    tvec = np.array([40, 900], np.int32)
+    want = np.asarray(jax.jit(lambda p, a, t: fnet.apply(p, a, None, t))(unflatten(weights), x, tvec))
+    with torch.inference_mode():
+        got = net.eval()(torch.from_numpy(x), None, torch.from_numpy(tvec)).numpy()
+    assert got.shape == x.shape
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
