@@ -36,7 +36,13 @@ enc [1, 1, 1, 28], Lion), built by the port's runner, float32, batch 4 of
 convolutions (as ``chip_smoke.py`` runs) and with torch's default (cuDNN
 TF32 on, what the train entry point runs with): wall ms per step (host
 clock around ``TRAIN_STEPS`` steps ending in a synchronisation) and device
-time by kernel over the same steps.
+time by kernel over the same steps.  Then the same for two latent train
+paths at torch's default, float32, batch 8 of 1024 px crops with a seeded
+frozen compressor: the latent NAFNet (``configs/latent-dehazing/train/
+nasde.yml``, kernel path and plain path) and DiT-L/2
+(``configs/latent-dehazing/train/dit.yml``, kernel path: the plain path's
+attention keeps B H N^2 float32 scores a block for its backward, past the
+card's memory at batch 8), with the step's peak memory.
 
 Without CUDA it exits at once.
 """
@@ -242,6 +248,35 @@ def profile_train(dev, gen):
             del task
             torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = default_tf32
+
+    lq = torch.rand(8, 1024, 1024, 3, generator=gen, device=dev)
+    gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
+    for cfg, paths in (("nasde", (False, True)), ("dit", (False,))):
+        with open(os.path.join(REPO, "configs", "latent-dehazing", "train", f"{cfg}.yml")) as f:
+            raw = yaml.safe_load(f)
+        raw["path"]["pretrain_model_L"] = None  # a seeded compressor
+        for plain in paths:
+            for key in ("network_G", "network_L"):
+                raw[key]["setting"]["plain"] = plain
+            task = runners.build_task(options.dict_to_nonedict(raw), SEED, dev)
+            step_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+            def run(n=TRAIN_STEPS):
+                for _ in range(n):
+                    task._train_step(task.state, lq, gt, step_gen)
+
+            torch.cuda.reset_peak_memory_stats()
+            run(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            name = f"train {cfg} {'plain' if plain else 'kernel'} path, cuDNN TF32 on"
+            report(name, device_times(run, TRAIN_STEPS), wall, f"batch 8 at 1024 px, float32, peak {peak:.2f} GiB; ")
+            del task
+            torch.cuda.empty_cache()
 
 
 def main() -> int:

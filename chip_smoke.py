@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Eight serving paths and two training paths, each at full width with random
-weights made from a seed:
+Eight serving paths and seven training paths, each at full width with
+random weights made from a seed:
 
 - IR-SDE deraining (configs/deraining/test/ir-sde.yml): ConditionalUNet
   (nf=64, depth=4) in bf16 with float32 parameters, 128 px images at
@@ -42,8 +42,21 @@ weights made from a seed:
   ConditionalUNet nf=64, depth=4, Adam, MultiStepLR, L1) and Refusion
   deraining (configs/deraining/train/refusion.yml: ConditionalNAFNet width
   64, enc [1, 1, 1, 28], its 28-block level one K3 launch at 16x16x512,
-  Lion, TrueCosineAnnealingLR), ``niter`` cut to TRAIN_STEPS on synthetic
-  128-256 px image folders written from the seed to a temporary directory.
+  Lion, TrueCosineAnnealingLR);
+- latent, DiT and stereo training through the same entry point, float32,
+  each at its YAML's batch and crop: the Refusion compressor
+  (configs/unet-latent/train/train_haze.yml: UNet ch 8, ch_mult [4, 8, 8,
+  16], batch 16 of 256 px), then with its last checkpoint as the frozen
+  compressor the latent NAFNet (configs/latent-dehazing/train/nasde.yml,
+  batch 8 of 1024 px: 128x128x8 latents, the 28-block level one K3 launch
+  at 16x16x512) and DiT-L/2 (configs/latent-dehazing/train/dit.yml, batch
+  8 of 1024 px: 4096 tokens, K4 at 24 sites with the streamed backward);
+  latent bokeh (configs/latent-bokeh/train/refusion.yml: a seeded ch 64
+  compressor, the bokeh NAFNet with lens values, batch 8 of 512 px, no
+  EMA) and stereo super-resolution (configs/stereo-sr/train/refusion.yml:
+  the SCAM NAFNet, batch 8 of 128 px pairs from 32 px LR).  Each run is cut
+  in ``niter``, its checkpoint interval and its data only (TRAIN_PATHS):
+  synthetic image folders written from the seed to a temporary directory.
 
 Phases, each printing its lines and its seconds:
 
@@ -62,7 +75,7 @@ Phases, each printing its lines and its seconds:
    every input, the two runs bit-equal; K3 also block by block, as
    chained one-block launches that must end bit-equal to the one launch;
    the packed op's gradient on the card against the plain composition's,
-   K1 and K3 differentiable, and K4 raising under grad (no backward yet);
+   and K1, K3 and K4 differentiable (a grad_fn on each output);
 4. net: one forward of the full-width UNet, kernel path against plain
    path; and a 100-step float32 chain on a small input, kernel against plain;
 5. main path: the deraining sampler serves two posterior batches of 8, one
@@ -122,20 +135,32 @@ Phases, each printing its lines and its seconds:
    UNet's train step (batch 4, 128 px) and K3's (x, temb and every block
    tensor) at (4, 16, 16, 512), 28 blocks, float32, against the plain
    compositions' (their backwards), within 1e-5 of each gradient's max;
-   forward and backward timed, kernel path against plain path;
-20. train nets: one loss and backward of the full-width ConditionalUNet and
-   of the Refusion pixel NAFNet through ``training.make_train_step``, kernel
-   path against plain path, the same parameters, batch and injected
-   (timesteps, x_t): the loss within 1e-4, each gradient within 1e-3 of its
-   max;
-21. train main path, for each of the two train YAMLs: ``train.train`` for
-   TRAIN_STEPS steps (checkpoints every TRAIN_SAVE, one validation at the
-   end through the YAML's sampler), exactly 18 K1, 9 K2a and 9 K2b (UNet)
-   or 16 K1 and 1 K3 (NAFNet) launches per step, none in the backward; a
-   finite loss; the run resumed from the TRAIN_SAVE checkpoint agreeing
-   with the uninterrupted one at its first step (loss within 1e-6,
-   parameters within 2 lr); then TRAIN_PLAIN_STEPS steps of the plain path;
-   train ms/step and img/s, kernel path and plain path (a record).
+   forward and backward timed, kernel path against plain path; then K4
+   under autograd (``phase_flash_backward``): at (2, 4096, 16, 64) one
+   launch with a grad_fn and none in the streamed backward, the gradients
+   of q, k, v against the un-tiled ``ref_mha_plain``'s (float32 1e-5,
+   bfloat16 2e-2 of each max); at the DiT train shape (8, 4096, 16, 64) the
+   backward at each block of BWD_BLOCKS, its time and peak memory under its
+   limit, and the forward against its plain version, SDPA and the bounds,
+   float32 and bfloat16;
+20. train nets: one loss and backward of each of the seven full-width
+   train nets through its train step (the DiT at batch 1), kernel path
+   against plain path, the same parameters, batch and injected
+   (timesteps, x_t): the loss within 1e-4, each gradient within 1e-3 of
+   its max; exact launches, none in the backward; one DiT step at batch 8
+   without and one with remat (48 K4 launches), each with its peak memory;
+21. train main path, for each of the seven train YAMLs (TRAIN_PATHS, the
+   compressor first, whose last checkpoint the latent and DiT paths load
+   as ``pretrain_model_L``): ``train.train`` for the path's steps
+   (checkpoints half-way and at the end, one validation at the end through
+   the task's sampler or, for the compressor, its cross decode), exactly
+   ``train_counts`` launches per step (none in the backward) and
+   ``val_counts`` per validation image; a finite loss; the run resumed
+   from the half-way checkpoint bit-equal to the uninterrupted one
+   (compressor, latent, DiT) or, for the pixel, bokeh and stereo paths, its
+   first step's loss within 1e-6 and the parameters after it within 2 lr; then
+   the path's plain-path steps; train ms/step, img/s and peak memory,
+   kernel path and plain path (a record).
 
 K1 is also timed over one bf16 forward of each path's score net (phases 3,
 6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
@@ -201,21 +226,57 @@ LIN_ATTN_GRAD_SHAPE = (4, 1000, 32)
 DENOISE_ODD_HW, DENOISE_T0, DENOISE_LN_PER_FORWARD, DENOISE_ATTN_PER_FORWARD = (500, 500), 414, 17, 8
 STEREO_BATCH, STEREO_ODD_HW, STEREO_LN_PER_FORWARD = 4, (140, 200), 144
 BOKEH_BATCH, BOKEH_SIZE, BOKEH_ODD_HW, BOKEH_LN_PER_FORWARD = 4, 512, (700, 1000), 72
-# the pixel train paths (configs/deraining/train/*.yml: batch 4 of 128 px
-# crops, float32), their launches per train step (K1, K2a = K2b, K3: the
-# UNet's forward, the Refusion NAFNet's 8 unfused blocks and its fused
-# 28-block level), and the train runs' cuts: niter, checkpoint interval,
-# plain-path steps, synthetic train and validation pairs
-TRAIN_CONFIGS = {"ir-sde": os.path.join(REPO, "configs", "deraining", "train", "ir-sde.yml"),
-                 "refusion": os.path.join(REPO, "configs", "deraining", "train", "refusion.yml")}
-TRAIN_PER_STEP = {"ir-sde": (LN_PER_FORWARD, ATTN_PER_FORWARD, 0), "refusion": (NAF_LN_PER_FORWARD, 0, 1)}
-TRAIN_BATCH, TRAIN_SIZE = 4, 128
+# the train paths (configs/*/train/*.yml, float32): each YAML as it is but
+# for niter, the checkpoint interval and its data, synthetic folders written
+# from the seed (the repository holds no dataset).  Per path: its YAML, its
+# kind of data (TRAIN_DATA), and the cuts: steps, the checkpoint interval
+# (the resumed run starts there), plain-path steps (none for the DiT: its
+# plain attention keeps B H N^2 float32 scores a block for the backward,
+# 8.6 GB a block at batch 8) and validation images.  The compressor runs
+# first: its last checkpoint is the latent and DiT paths' frozen compressor
+# (stage 2); the bokeh path's compressor (ch 64) is seeded
+TRAIN_PATHS = {
+    "ir-sde": (("deraining", "train", "ir-sde.yml"), "pixel", 24, 12, 8, 2),
+    "refusion": (("deraining", "train", "refusion.yml"), "pixel", 24, 12, 8, 2),
+    "compressor": (("unet-latent", "train", "train_haze.yml"), "compressor", 12, 6, 4, 2),
+    "latent": (("latent-dehazing", "train", "nasde.yml"), "latent", 8, 4, 4, 1),
+    "dit": (("latent-dehazing", "train", "dit.yml"), "latent", 4, 2, 0, 1),
+    "bokeh": (("latent-bokeh", "train", "refusion.yml"), "bokeh", 8, 4, 4, 1),
+    "stereo": (("stereo-sr", "train", "refusion.yml"), "stereo", 8, 4, 4, 1),
+}
+LATENT_TRAIN = ("latent", "dit", "bokeh")  # frozen compressor, score net on its latents
+TRAIN_BIT_EQUAL = ("compressor", "latent", "dit")  # resumed runs held bit-equal to uninterrupted ones
+# the synthetic data by kind: (writer, train images, their side range, the
+# validation images' side range): 128-256 px pairs for the 128 px pixel
+# crops, 256-320 px for the compressor's 256 px crops, 1024-1280 px for the
+# latent paths' 1024 px crops, bokeh triplets for 512 px crops, stereo
+# pairs for 128 px (HR) crops; TRAIN_VAL_IMAGES validation images each
+TRAIN_DATA = {"pixel": ("pairs", 8, (128, 256), (128, 192)), "compressor": ("pairs", 16, (256, 320), (256, 320)),
+              "latent": ("pairs", 8, (1024, 1280), (256, 320)), "bokeh": ("bokeh", 8, (512, 640), (256, 320)),
+              "stereo": ("stereo", 8, (128, 192), (128, 160))}
+TRAIN_VAL_IMAGES = 2
+# phase 20's batch where it cuts the YAML's: the DiT's plain path (its
+# attention's B H N^2 float32 scores, ~2 GB a block at batch 1)
+TRAIN_NET_BATCH = {"dit": 1}
+TRAIN_BATCH, TRAIN_SIZE = 4, 128  # the pixel train paths' batch and crop
 TRAIN_NAF_LEVEL = (28, 512)  # the Refusion net's fused level: blocks, channels (at TRAIN_SIZE / 8)
-TRAIN_STEPS, TRAIN_SAVE, TRAIN_PLAIN_STEPS, TRAIN_PAIRS, TRAIN_VAL_PAIRS = 24, 12, 8, 8, 2
+DIT_DEPTH = 24  # DiT-L/2's blocks: K4 launches a forward
 # K4's (B, N, H, D): the slice first; phase 8 adds the shapes of every DiT
 # and tiled request (dit_path_shapes) that are not among these
 FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
                 (1, 1000, 16, 64), (3, 35, 4, 64)]
+# K4 under autograd (phase 19): the gradient's shape, where the un-tiled
+# reference's B H N^2 float32 scores fit (2.1 GB; 8.6 GB at batch 8 and
+# ~4x that under autograd), and the DiT-L/2 train step's attention shape
+# (batch 8 of 1024 px crops: 128x128x8 latents, 64x64 patches of 2); the
+# streamed backward's block sizes swept there, and its peak memory limit:
+# FLASH_BWD_BUFFERS float32 (B, H, block, N) buffers (the scores and their
+# softmax, the softmax's gradient and, in bf16, the rounded p) and
+# FLASH_BWD_ROWS float32 (B, N, H, D) ones (k, v and their accumulators
+# in float32, dq, dk, dv, a block's q and cotangent rows)
+FLASH_GRAD_SHAPE, FLASH_TRAIN_SHAPE = (2, 4096, 16, 64), (8, 4096, 16, 64)
+BWD_BLOCKS = (256, 512, 1024, 2048)
+FLASH_BWD_BUFFERS, FLASH_BWD_ROWS = 4, 10
 # bf16 K4 against flash_mha_tiled_plain: the share of elements that may lie
 # past two ulps (a p whose rounding a float32 difference in s flips)
 FLASH_FLIP_SHARE = 5e-4
@@ -646,10 +707,9 @@ def phase_kernels(dev, stats, latent_opt, dit_opt):
 def check_gradients(dev):
     """The packed op's gradient on the card (its forward launches K2a and
     K2b, its backward is the plain composition's) against the plain
-    composition's, float32, within 1e-5 of max|grad|; K1 and K3 return
-    outputs with a grad_fn under grad (their gradients are held in phase
-    19); and K4, which has no backward yet, raises under grad instead of
-    cutting it."""
+    composition's, float32, within 1e-5 of max|grad|; and K1, K3 and K4
+    return outputs with a grad_fn under grad (their gradients are held in
+    phase 19)."""
     import torch
 
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
@@ -675,21 +735,16 @@ def check_gradients(dev):
     blocks = naf_blocks(2, 64, 64, dev, SEED + 19)
     blocks[0]["conv1.weight"].requires_grad_()
     q = torch.randn(1, 64, 2, 64, generator=gen, device=dev, requires_grad=True)
-    refused, graphed = [], []
+    graphed = []
     temb = torch.randn(2, 64, generator=gen, device=dev)
     for name, call in (("K1", lambda: LN.channel_layernorm(x, w, 1e-5)),
                        ("K3", lambda: NS.naf_stack(x.view(2, 4, 8, 64), blocks, temb, 1e-5)),
-                       ("K4", lambda: FA.flash_mha_cuda(q, q, q, 0.125))):
-        try:
-            if call().grad_fn is not None:
-                graphed.append(name)
-        except RuntimeError as e:
-            if "no backward" in str(e):
-                refused.append(name)
-    check(refused == ["K4"] and graphed == ["K1", "K3"],
-          f"grad guards: {refused} raised under grad, {graphed} returned a grad_fn")
+                       ("K4", lambda: FA.flash_mha(q, q, q, 0.125))):
+        if call().grad_fn is not None:
+            graphed.append(name)
+    check(graphed == ["K1", "K3", "K4"], f"grad functions: {graphed} returned a grad_fn")
     print(f"[kernels] K2 gradient through the op on the card at (2, 1000, 384) f32: max|dgrad| / max|grad| = "
-          f"{rel:.3g} (bound 1e-5); K1 and K3 differentiable, K4 raises under grad (no backward yet)")
+          f"{rel:.3g} (bound 1e-5); K1, K3 and K4 differentiable")
 
 
 def phase_naf_stack(dev, stats):
@@ -1602,10 +1657,39 @@ def phase_bokeh_main_path(dev, net, compressor, opt, smi):
 
 # ---------------------------------------------------------------- training
 def train_counts(label):
-    """Launches per train step of the TRAIN_CONFIGS path ``label``: its
-    forward's (TRAIN_PER_STEP), none in the backward."""
-    ln, attn, naf = TRAIN_PER_STEP[label]
-    return counts(LAYERNORM=ln, LA_CTX=attn, LA_APPLY=attn, NAF_STACK=naf)
+    """Launches per train step of the train path ``label``: its forward's,
+    none in the backward.  The compressor's deepest level launches 2 K1 and
+    one K2a and K2b per encode and per decode (COMPRESSOR_LN and
+    COMPRESSOR_ATTN count one of each): the compressor step encodes LQ and
+    GT and decodes twice; a latent step encodes its 2B batch once, frozen,
+    then runs the score net: the NAFNet's 8 unfused blocks (2 K1 each) and
+    its fused 28-block level (K3), DiT-L/2's DIT_DEPTH attention sites (K4),
+    the bokeh NAFNet's 36 blocks; the stereo NAFNet's 36 blocks and SCAMs."""
+    enc_ln, enc_attn = COMPRESSOR_LN // 2, COMPRESSOR_ATTN // 2
+    return {
+        "ir-sde": counts(LAYERNORM=LN_PER_FORWARD, LA_CTX=ATTN_PER_FORWARD, LA_APPLY=ATTN_PER_FORWARD),
+        "refusion": counts(LAYERNORM=NAF_LN_PER_FORWARD, NAF_STACK=1),
+        "compressor": counts(LAYERNORM=2 * COMPRESSOR_LN, LA_CTX=2 * COMPRESSOR_ATTN, LA_APPLY=2 * COMPRESSOR_ATTN),
+        "latent": counts(LAYERNORM=enc_ln + NAF_LN_PER_FORWARD, LA_CTX=enc_attn, LA_APPLY=enc_attn, NAF_STACK=1),
+        "dit": counts(LAYERNORM=enc_ln, LA_CTX=enc_attn, LA_APPLY=enc_attn, FLASH_ATTN=DIT_DEPTH),
+        "bokeh": counts(LAYERNORM=enc_ln + BOKEH_LN_PER_FORWARD, LA_CTX=enc_attn, LA_APPLY=enc_attn),
+        "stereo": counts(LAYERNORM=STEREO_LN_PER_FORWARD),
+    }[label]
+
+
+def val_counts(label, steps):
+    """Launches per validation image of the train path ``label`` whose
+    sampler runs ``steps`` reverse steps: the pixel paths' score net once a
+    step; the compressor's validation encodes LQ and GT and decodes once; a
+    latent path's sampler encodes and decodes once and runs its score net
+    once a step."""
+    step = train_counts(label)
+    if label in ("ir-sde", "refusion", "stereo"):
+        return {k: steps * n for k, n in step.items()}
+    enc = counts(LAYERNORM=COMPRESSOR_LN // 2, LA_CTX=COMPRESSOR_ATTN // 2, LA_APPLY=COMPRESSOR_ATTN // 2)
+    if label == "compressor":
+        return {k: 3 * n for k, n in enc.items()}
+    return {k: steps * (n - enc[k]) + 2 * enc[k] for k, n in step.items()}
 
 
 class Injected:
@@ -1686,44 +1770,218 @@ def phase_train_kernels(dev):
           f"{pms:.4f} ms (events)")
 
 
+def flash_bwd_work(shape, itemsize):
+    """(bytes, FLOP) of K4's backward on (B, N, H, D): q, k, v and the
+    output cotangent read and dq, dk, dv written once; five products of
+    2 B H N^2 D FLOP each (the recomputed scores, dv, the gradient of p, dq,
+    dk)."""
+    B, N, H, D = shape
+    return 7 * B * N * H * D * itemsize, 10 * B * H * N * N * D
+
+
+def phase_flash_backward(dev, stats):
+    """K4 under autograd on the card, float32 and bfloat16.  At
+    FLASH_GRAD_SHAPE: one launch with a grad_fn, none in the backward
+    (``flash_mha_backward``, streamed over BWD_BLOCK query rows), and the
+    gradients of q, k and v against autograd through the un-tiled
+    ``ref_mha_plain`` (its B H N^2 float32 scores fit at batch 2); bounds,
+    each gradient, of its max|grad|: float32 1e-5 (float32 sums in another
+    order), bfloat16 2e-2 (the roundings of p and of its gradient to bf16,
+    which a float32 difference may flip).  At FLASH_TRAIN_SHAPE (one
+    attention site of the DiT-L/2 train step) the backward's peak memory
+    beyond its inputs at each block of BWD_BLOCKS, held under
+    FLASH_BWD_BUFFERS float32 (B, H, block, N) buffers plus
+    FLASH_BWD_ROWS float32 (B, N, H, D) ones, and its time; the kernel's
+    forward beside its plain version, F.scaled_dot_product_attention
+    (forward, and forward with backward) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    gen = rng_generator(dev, SEED + 34)
+    record = {}
+    for dtype, rel_bound in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        name = str(dtype)[6:]
+        shape = FLASH_GRAD_SHAPE
+        scale = shape[-1] ** -0.5
+        q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 1.5).to(dtype).requires_grad_() for _ in range(3))
+        cot = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        before = FLASH_ATTN.launches
+        out = FA.flash_mha(q, k, v, scale)
+        check(FLASH_ATTN.launches == before + 1 and out.grad_fn is not None, f"K4 {name}: one launch with a grad_fn")
+        got = torch.autograd.grad(out, (q, k, v), cot)
+        check(FLASH_ATTN.launches == before + 1, f"K4 {name}: the backward launched the kernel")
+        want = torch.autograd.grad(FA.ref_mha_plain(q, k, v, scale), (q, k, v), cot)
+        rels = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item() for a, b in zip(got, want)]
+        print(f"[flash-bwd] K4 {name} {shape}: gradients of q, k, v against the un-tiled ref_mha_plain's: "
+              f"max|dgrad|/max|grad| {', '.join(f'{r:.3g}' for r in rels)} (bound {rel_bound})")
+        check(max(rels) <= rel_bound, f"K4 {name} gradient: {rels}")
+        del q, k, v, cot, out, got, want
+        torch.cuda.empty_cache()
+
+        shape = FLASH_TRAIN_SHAPE
+        B, N, H, D = shape
+        q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 1.5).to(dtype) for _ in range(3))
+        cot = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        bwd_bytes, bwd_flops = flash_bwd_work(shape, q.element_size())
+        b_ms, b_by = bound(bwd_bytes, bwd_flops, name)
+        sweep = {}
+        for block in BWD_BLOCKS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            grads = FA.flash_mha_backward(q, k, v, cot, scale, block=block)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            del grads
+            limit = FLASH_BWD_BUFFERS * B * H * block * N * 4 + FLASH_BWD_ROWS * B * N * H * D * 4
+            ms = cuda_ms(lambda: FA.flash_mha_backward(q, k, v, cot, scale, block=block), reps=5, warmup=1)
+            sweep[block] = {"ms": ms, "extra_bytes": extra}
+            print(f"[flash-bwd] K4 backward {name} {shape} block {block:4d}: {ms:.3f} ms, peak extra memory "
+                  f"{extra / 2**30:.3f} GiB (limit {limit / 2**30:.3f} GiB: {FLASH_BWD_BUFFERS} (B, H, block, N) and "
+                  f"{FLASH_BWD_ROWS} (B, N, H, D) float32 buffers); least {b_ms:.3f} ms ({b_by}), "
+                  f"{bwd_flops / ms / 1e9:.1f} TFLOP/s")
+            check(extra <= limit, f"K4 backward {name} block {block}: {extra} bytes past its limit {limit}")
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=10)
+        pms = cuda_ms(lambda: FA.flash_mha_plain(q, k, v, scale), reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=10)
+        cott = cot.transpose(1, 2).contiguous()
+        for t in (qt, kt, vt):
+            t.requires_grad_()
+        lbms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                                                   (qt, kt, vt), cott), reps=5, warmup=1)
+        del qt, kt, vt, cott
+        nbytes, flops, _ = flash_work(shape, q.element_size())
+        f_ms, f_by = bound(nbytes, flops, name)
+        print(f"[flash-bwd] K4 forward {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"F.scaled_dot_product_attention {lms:.3f} ms, least {f_ms:.3f} ms ({f_by}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; forward and backward: kernel + "
+              f"backward(block {FA.BWD_BLOCK}) {ms + sweep[FA.BWD_BLOCK]['ms']:.3f} ms, sdpa {lbms:.3f} ms; card: "
+              f"{torch.cuda.get_device_name(dev)}")
+        record[name] = {"shape": list(shape), "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": f_ms,
+                        "bound_by": f_by, "backward_ms": sweep[FA.BWD_BLOCK]["ms"], "backward_bound_ms": b_ms,
+                        "library_fwd_bwd_ms": lbms, "bwd_block": FA.BWD_BLOCK,
+                        "bwd_sweep": {str(b): r for b, r in sweep.items()}}
+        del q, k, v, cot
+        torch.cuda.empty_cache()
+    stats[FLASH_ATTN]["train"] = record
+
+
+def train_batch(label, opt, dev, gen, batch=None):
+    """(lq, gt, cond) at the path's YAML crop and ``batch`` (by default its
+    YAML's, or TRAIN_NET_BATCH's where that cuts it), float32 on the card;
+    cond the bokeh lens values."""
+    import torch
+
+    ds = opt["datasets"]["train"]
+    batch = batch or TRAIN_NET_BATCH.get(label, ds["batch_size"])
+    size, channels = ds["GT_size"], 6 if label == "stereo" else 3
+    lq = torch.rand(batch, size, size, channels, generator=gen, device=dev)
+    gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
+    cond = None
+    if label == "bokeh":
+        cond = tuple(torch.rand(batch, generator=gen, device=dev) * s for s in (160.0, 160.0, 1.0))
+    return lq, gt, cond
+
+
+def train_network(label, opt) -> tuple:
+    """(which, setting) of the net the path ``label`` trains, as its runner
+    builds it: the compressor of ``network_L`` (else ``network_G``), the
+    stereo and bokeh NAFNets for their datasets; without the ``upscale``
+    that ``options.parse`` adds to sr settings."""
+    from image_restoration_sde_tpu_torch.utils import options
+
+    which, setting = options.network_setting(opt, "network_L" if label == "compressor" and opt["network_L"]
+                                             else "network_G")
+    which = {"stereo": "StereoConditionalNAFNet", "bokeh": "BokehConditionalNAFNet"}.get(label, which)
+    return which, {k: v for k, v in setting.items() if k != "upscale"}
+
+
+def train_net_step(label, opt, dev, gen, plain, state_dicts, batch, remat=False):
+    """One train step of the path ``label``'s nets (kernel or plain path)
+    with a zero learning rate on ``batch``: the pixel and latent paths with
+    injected ``(timesteps, x_t)`` drawn from ``gen``.  Returns (loss,
+    {name: gradient}, launches by kernel symbol, the score net)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import runners
+    from image_restoration_sde_tpu_torch.models import build_network
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.training import ScheduledOptimizer, build_optimizer, create_train_state, \
+        make_compressor_train_step, make_latent_train_step, make_train_step
+    from image_restoration_sde_tpu_torch.utils import options
+
+    nopt = options.dict_to_nonedict(opt)
+    which, setting = train_network(label, nopt)
+    net = build_network(which, setting, plain=plain).to(dev).train()
+    net.load_state_dict(state_dicts["net"])
+    optimizer = ScheduledOptimizer(build_optimizer(opt["train"]["optimizer"], net.parameters()), lambda s: 0.0)
+    state = create_train_state(net, optimizer, ema=False)
+    lq, gt, cond = batch
+    sde = runners._make_irsde(nopt["sde"], dev)
+    if label == "compressor":
+        step, args = make_compressor_train_step(), (lq, gt, None)
+    elif label in LATENT_TRAIN:
+        which_l, setting_l = options.network_setting(nopt, "network_L")
+        comp = build_network(which_l, setting_l, plain=plain).to(dev)
+        comp.load_state_dict(state_dicts["compressor"])
+        with torch.no_grad():
+            lat = comp.encode(lq[:1])[0]
+        z = torch.randn(lq.shape[0], *lat.shape[1:], generator=gen, device=dev)
+        t, xt = sde.generate_random_states(gen, z, z + 0.2)
+        step, args = make_latent_train_step(Injected(sde, t, xt), comp, remat=remat), (lq, gt, None, cond)
+    else:
+        t, xt = sde.generate_random_states(gen, gt, lq)
+        step, args = make_train_step(Injected(sde, t, xt)), (lq, gt, None)
+    before = {k.symbol: k.launches for k in KERNELS}
+    _, metrics = step(state, *args)
+    grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+    return metrics["loss"].item(), {k: p.grad.clone() for k, p in net.named_parameters()}, grew, net
+
+
 def phase_train_nets(dev, train_opts):
-    """One loss and backward of each full-width train net, float32, batch 4
-    at 128 px, through ``training.make_train_step`` with a zero learning
-    rate: kernel path against plain path, the same parameters (seeded, every
-    parameter non-zero), batch and injected ``(timesteps, x_t)``.  Bound:
-    the loss within 1e-4 of itself and each parameter's gradient within
-    1e-3 of its max|grad| (the kernel path's forward is held to 1e-4 of its
-    output's max in phase 4; the gradient flows back through those
-    activations).  Launches per step: the forward's, none in the backward."""
+    """One loss and backward of each full-width train net through its train
+    step (``training.make_train_step``, ``make_compressor_train_step``,
+    ``make_latent_train_step``), float32 at its YAML's batch and crop (the
+    DiT at TRAIN_NET_BATCH: the plain path's attention keeps B H N^2 float32
+    scores a block for the backward), with a zero learning rate: kernel path
+    against plain path, the same parameters (seeded, every parameter
+    non-zero; a latent path's compressor too), batch and injected
+    ``(timesteps, x_t)``.  Bound: the loss within 1e-4 of itself and each
+    parameter's gradient within 1e-3 of its max|grad| (the kernel path's
+    forward is held to 1e-4 of its output's max in phases 4-17; the
+    gradient flows back through those activations).  Launches per step: the
+    forward's, none in the backward.  Then one DiT-L/2 step at its YAML's
+    batch without and one with ``remat`` (K4 twice per attention site: the
+    forward again in the backward), each with its peak memory."""
     import torch
 
     from image_restoration_sde_tpu_torch.models import build_network, init_params_
-    from image_restoration_sde_tpu_torch.ops import KERNELS
-    from image_restoration_sde_tpu_torch.sde import IRSDE
-    from image_restoration_sde_tpu_torch.training import ScheduledOptimizer, build_optimizer, create_train_state, \
-        make_train_step
+    from image_restoration_sde_tpu_torch.utils import options
 
     gen = rng_generator(dev, SEED + 32)
     for label, opt in train_opts.items():
-        which, setting = opt["network_G"]["which_model_G"], opt["network_G"]["setting"]
-        sde_opt = opt["sde"]
-        sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
-        lq = torch.rand(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3, generator=gen, device=dev)
-        gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
-        t, xt = sde.generate_random_states(gen, gt, lq)
-        state_dict = init_params_(build_network(which, setting), torch.Generator().manual_seed(SEED + 33)).state_dict()
+        nopt = options.dict_to_nonedict(opt)
+        which, setting = train_network(label, nopt)
+        seeded = torch.Generator().manual_seed(SEED + 33)
+        state_dicts = {"net": init_params_(build_network(which, setting), seeded).state_dict()}
+        if label in LATENT_TRAIN:
+            which_l, setting_l = options.network_setting(nopt, "network_L")
+            state_dicts["compressor"] = init_params_(build_network(which_l, setting_l), seeded).state_dict()
+        batch = train_batch(label, opt, dev, gen)
+        step_gen = rng_generator(dev, SEED + 35)
         out = {}
         for plain in (False, True):
-            net = build_network(which, setting, plain=plain).to(dev).train()
-            net.load_state_dict(state_dict)
-            optimizer = ScheduledOptimizer(build_optimizer(opt["train"]["optimizer"], net.parameters()), lambda s: 0.0)
-            state = create_train_state(net, optimizer)
-            before = {k.symbol: k.launches for k in KERNELS}
-            _, metrics = make_train_step(Injected(sde, t, xt))(state, lq, gt, None)
-            grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+            step_gen.manual_seed(SEED + 35)
+            loss, grads, grew, net = train_net_step(label, opt, dev, step_gen, plain, state_dicts, batch)
             check(grew == (counts() if plain else train_counts(label)), f"train net {label} plain={plain}: {grew}")
-            out[plain] = (metrics["loss"].item(), {k: p.grad.clone() for k, p in net.named_parameters()})
-            del net, state, optimizer
+            out[plain] = (loss, grads)
+            del net, grads
+            torch.cuda.empty_cache()
         loss_rel = abs(out[False][0] - out[True][0]) / abs(out[True][0])
         worst, worst_name = 0.0, None
         for k, want in out[True][1].items():
@@ -1732,32 +1990,84 @@ def phase_train_nets(dev, train_opts):
             rel = (out[False][1][k] - want).abs().max().item() / scale
             if rel > worst:
                 worst, worst_name = rel, k
-        print(f"[train-net] {label} {which} f32 batch {TRAIN_BATCH} {TRAIN_SIZE}px: loss kernel "
+        shape = tuple(batch[0].shape)
+        print(f"[train-net] {label} {which} f32 batch {shape[0]} at {shape[1]}x{shape[2]}x{shape[3]}: loss kernel "
               f"{out[False][0]:.6g} plain {out[True][0]:.6g} (rel {loss_rel:.3g}, bound 1e-4); "
-              f"{len(out[True][1])} gradients, worst max|dgrad|/max|grad| {worst:.3g} at {worst_name} (bound 1e-3)")
+              f"{len(out[True][1])} gradients, worst max|dgrad|/max|grad| {worst:.3g} at {worst_name} (bound 1e-3); "
+              f"launches per step {train_counts(label)}")
         check(loss_rel <= 1e-4 and worst <= 1e-3, f"train net {label}: kernel path differs from plain path")
-        del out
+        del out, batch
         torch.cuda.empty_cache()
+        if label == "dit":
+            ds = opt["datasets"]["train"]
+            batch = train_batch(label, opt, dev, gen, batch=ds["batch_size"])
+            for remat in (False, True):
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, grads, grew, net = train_net_step(label, opt, dev, step_gen, False, state_dicts, batch,
+                                                        remat=remat)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                want = {k: n * (2 if remat and k == "irsde_flash_attention" else 1)
+                        for k, n in train_counts(label).items()}
+                check(grew == want and np.isfinite(loss), f"train net dit remat={remat}: {grew}, loss {loss}")
+                print(f"[train-net] dit {which} f32 batch {ds['batch_size']} at {ds['GT_size']} px, remat {remat} "
+                      f"(torch.utils.checkpoint around the whole net): one step {seconds:.2f} s (with its "
+                      f"warm-up), launches {grew}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                del grads, net
+                torch.cuda.empty_cache()
+            del batch
 
 
-def write_train_yaml(path, opt, root, data, niter, save_freq, val_freq, resume=None, plain=False, name=None):
+def data_roots(kind, data, split):
+    """The dataset keys of a YAML for the synthetic ``kind`` folders under
+    ``data`` (write_train_data)."""
+    root = f"{data}/{kind}/{split}"
+    if kind == "bokeh":
+        return dict(dataroot_GT=f"{root}/tgt", dataroot_LQ=f"{root}/src", dataroot_alpha=f"{root}/alpha",
+                    dataroot_meta=f"{root}/meta.txt")
+    if kind == "stereo":
+        return dict(dataroot_GT=f"{root}/HR", dataroot_LQ=f"{root}/LR_x4")
+    return dict(dataroot_GT=f"{root}/GT", dataroot_LQ=f"{root}/LQ")
+
+
+def write_train_data(data):
+    """The synthetic train and validation folders of TRAIN_DATA under
+    ``data``, made from the seed."""
+    from image_restoration_sde_tpu_torch.data.synthetic import write_bokeh, write_pairs, write_stereo
+
+    writers = {"pairs": write_pairs, "bokeh": write_bokeh, "stereo": write_stereo}
+    for i, (kind, (writer, n, train_hw, val_hw)) in enumerate(sorted(TRAIN_DATA.items())):
+        writers[writer](f"{data}/{kind}/train", n, SEED + 40 + 2 * i, *train_hw)
+        writers[writer](f"{data}/{kind}/val", TRAIN_VAL_IMAGES, SEED + 41 + 2 * i, *val_hw)
+
+
+def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, resume=None, plain=False, name=None,
+                     pretrain_l=None):
     """``opt`` (a train YAML) with its data on the synthetic folders, its
-    iteration count and frequencies cut to this run, written to ``path``."""
+    iteration count and frequencies cut to this run and, for a latent path,
+    its frozen compressor's ``.pth`` (``pretrain_l``, or None: seeded),
+    written to ``path``; ``plain`` the plain path of every net."""
     import copy
 
     import yaml
 
     opt = copy.deepcopy(opt)
+    kind, val_images = TRAIN_PATHS[label][1], TRAIN_PATHS[label][5]
     opt["name"] = name or opt["name"]
     opt["use_tb_logger"] = False
     ds = opt["datasets"]
-    ds["train"].update(dataroot_GT=f"{data}/train/GT", dataroot_LQ=f"{data}/train/LQ")
-    ds["val"].update(dataroot_GT=f"{data}/val/GT", dataroot_LQ=f"{data}/val/LQ", max_images=TRAIN_VAL_PAIRS)
+    ds["train"].update(data_roots(kind, data, "train"))
+    ds["val"].update(data_roots(kind, data, "val"), max_images=val_images)
     opt["path"].update(root=root, resume_state=resume)
+    if "pretrain_model_L" in opt["path"]:
+        opt["path"]["pretrain_model_L"] = pretrain_l
     opt["train"].update(niter=niter, val_freq=val_freq)
     opt["logger"].update(print_freq=4, save_checkpoint_freq=save_freq)
     if plain:
-        opt["network_G"]["setting"] = {**opt["network_G"]["setting"], "plain": True}
+        for key in ("network_G", "network_L"):
+            if key in opt:
+                opt[key]["setting"] = {**opt[key]["setting"], "plain": True}
     with open(path, "w") as f:
         yaml.safe_dump(opt, f)
     return path
@@ -1765,75 +2075,87 @@ def write_train_yaml(path, opt, root, data, niter, save_freq, val_freq, resume=N
 
 @contextlib.contextmanager
 def recorded_steps(snapshot_at=None):
-    """Record every train step and validation the pixel task makes inside
+    """Record every train step and validation the train tasks make inside
     the block: per step its launches by kernel symbol, card milliseconds
     (host clock between synchronisations) and loss, and the net's
-    parameters after step ``snapshot_at``; per validation its launches and
-    image count."""
+    parameters (on the host) after step ``snapshot_at``; per validation its
+    launches and image count."""
     import torch
 
     from image_restoration_sde_tpu_torch import runners
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
     rec = {"steps": [], "vals": [], "snapshot": None}
-    step, validate = runners.PixelDiffusionTask.step, runners.PixelDiffusionTask.validate
+    classes = [c for c in (runners.PixelDiffusionTask, runners.GaussianDenoisingTask, runners.CompressorTask,
+                           runners.LatentDiffusionTask) if "step" in vars(c)]
+    originals = {c: (c.step, c.validate) for c in classes}
 
-    def step_rec(self, state, batch, gen):
-        before = {k.symbol: k.launches for k in KERNELS}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(self, state, batch, gen)
-        loss = metrics["loss"].item()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        rec["steps"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, ms, loss))
-        if state.step == snapshot_at:
-            rec["snapshot"] = {k: v.detach().clone() for k, v in state.net.named_parameters()}
-        return state, metrics
+    def recording(step, validate):
+        def step_rec(self, state, batch, gen):
+            before = {k.symbol: k.launches for k in KERNELS}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(self, state, batch, gen)
+            loss = metrics["loss"].item()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rec["steps"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, ms, loss))
+            if state.step == snapshot_at:
+                rec["snapshot"] = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+            return state, metrics
 
-    def validate_rec(self, state, loader, gen, out_dir, at):
-        before = {k.symbol: k.launches for k in KERNELS}
-        vm = validate(self, state, loader, gen, out_dir, at)
-        rec["vals"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, vm))
-        return vm
+        def validate_rec(self, state, loader, gen, out_dir, at):
+            before = {k.symbol: k.launches for k in KERNELS}
+            vm = validate(self, state, loader, gen, out_dir, at)
+            rec["vals"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, vm))
+            return vm
 
-    runners.PixelDiffusionTask.step, runners.PixelDiffusionTask.validate = step_rec, validate_rec
+        return step_rec, validate_rec
+
+    for c, (step, validate) in originals.items():
+        c.step, c.validate = recording(step, validate)
     try:
         yield rec
     finally:
-        runners.PixelDiffusionTask.step, runners.PixelDiffusionTask.validate = step, validate
+        for c, (step, validate) in originals.items():
+            c.step, c.validate = step, validate
 
 
-def phase_train_main_path(dev, label, opt, workdir, smi):
+def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None):
     """The port's train entry point (``train.train``, what ``python -m
-    image_restoration_sde_tpu_torch.train -opt=<yml>`` runs) on the YAML,
-    float32 with torch's default TF32 settings, which the entry point runs
-    with (cuDNN TF32 on: with it off, cuDNN runs the UNet's float32
-    convolutions through FFTs at ~5x the step time; ``chip_profile.py``),
-    its data on synthetic 128-256 px folders, ``niter`` cut to
-    TRAIN_STEPS with checkpoints every TRAIN_SAVE steps and one validation
-    (TRAIN_VAL_PAIRS images, the YAML's sampler) at the end.  Per train step
-    exactly the forward's launches (``train_counts``) and a finite loss; per
-    validation image exactly the sampler's; the checkpoints on disk.  Then
-    the run resumed from the TRAIN_SAVE checkpoint (the same YAML with
-    ``path.resume_state``): its first step's loss within 1e-6 of the
-    uninterrupted run's step TRAIN_SAVE + 1 and the parameters after it
+    image_restoration_sde_tpu_torch.train -opt=<yml>`` runs) on the train
+    path ``label``'s YAML (TRAIN_PATHS), float32 with torch's default TF32
+    settings, which the entry point runs with (cuDNN TF32 on: with it off,
+    cuDNN runs the UNet's float32 convolutions through FFTs at ~5x the step
+    time; ``chip_profile.py``), its data on the synthetic folders
+    (TRAIN_DATA), ``niter`` cut to the path's steps with a checkpoint
+    half-way and one validation (the path's validation images, the YAML's
+    sampler) at the end.  Per train step exactly the forward's launches
+    (``train_counts``), none in the backward, and a finite loss; per
+    validation image exactly ``val_counts``; the checkpoints on disk
+    (``lastest_EMA.pth`` where the task keeps an EMA).  Then the run
+    resumed from the half-way checkpoint (the same YAML with
+    ``path.resume_state``): its steps against the uninterrupted run's,
+    bit-equal for the paths of TRAIN_BIT_EQUAL (losses and the final
+    parameters), else (the pixel, bokeh and stereo paths) its first step's
+    loss within 1e-6 and the parameters after it
     elementwise within 2 lr_G (Adam's and Lion's sign-sensitive steps on
-    gradients the card may sum in another order); and
-    TRAIN_PLAIN_STEPS steps of the plain path (no kernel launches) for its
-    time.  Returns the launches of the first run by kernel symbol and the
-    times."""
+    gradients the card may sum in another order); and the path's
+    plain-path steps (no kernel launches) for their time.  Returns the
+    launches of the first run by kernel symbol and a record of the times
+    and peak memory."""
     import torch
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True  # torch's default
     try:
-        return train_main_path(dev, label, opt, workdir, smi)
+        return train_main_path(dev, label, opt, workdir, smi, pretrain_l)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
 
 
-def train_main_path(dev, label, opt, workdir, smi):
+def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
+    import gc
     import statistics as stats_
 
     import torch
@@ -1842,74 +2164,100 @@ def train_main_path(dev, label, opt, workdir, smi):
     from image_restoration_sde_tpu_torch.ops import KERNELS
     from image_restoration_sde_tpu_torch.utils import options
 
+    _, kind, steps, save, plain_steps, val_images = TRAIN_PATHS[label]
     data = os.path.join(workdir, "data")
     root = os.path.join(workdir, label)
     os.makedirs(root, exist_ok=True)
-    yml = write_train_yaml(os.path.join(root, "run.yml"), opt, root, data, TRAIN_STEPS, TRAIN_SAVE, TRAIN_STEPS)
+    batch, crop = opt["datasets"]["train"]["batch_size"], opt["datasets"]["train"]["GT_size"]
+    yml = write_train_yaml(os.path.join(root, "run.yml"), label, opt, root, data, steps, save, steps,
+                           pretrain_l=pretrain_l)
     exp = options.parse(yml)["path"]["experiments_root"]
     want = train_counts(label)
     for k in KERNELS:
         k.launches = 0
-    with recorded_steps(snapshot_at=TRAIN_SAVE + 1) as rec:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_steps(snapshot_at=save + 1) as rec:
         t0 = time.perf_counter()
-        train.train(yml, dev)
+        state = train.train(yml, dev)
         seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {k.symbol: k.launches for k in KERNELS}
-    check(len(rec["steps"]) == TRAIN_STEPS, f"train {label}: {len(rec['steps'])} steps")
+    keeps_ema = state.ema is not None
+    final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(keeps_ema is (label not in ("compressor", "bokeh")), f"train {label}: EMA kept: {keeps_ema}")
+    check(len(rec["steps"]) == steps, f"train {label}: {len(rec['steps'])} steps")
     for i, (grew, _, loss) in enumerate(rec["steps"]):
         check(grew == want, f"train {label} step {i + 1}: launches {grew}, expected {want}")
         check(np.isfinite(loss), f"train {label} step {i + 1}: loss {loss}")
     t_val = opt["sde"].get("sample_T") or opt["sde"]["T"]
     check(len(rec["vals"]) == 1, f"train {label}: {len(rec['vals'])} validations")
+    per_image = val_counts(label, t_val)
     for grew, vm in rec["vals"]:
-        sampler = {sym: n * t_val * TRAIN_VAL_PAIRS for sym, n in want.items()}
+        sampler = {sym: n * val_images for sym, n in per_image.items()}
         check(grew == sampler and np.isfinite(vm["psnr"]), f"train {label} validation: {grew}, psnr {vm['psnr']}")
     saved = sorted(os.listdir(os.path.join(exp, "models")))
-    check(saved == sorted([f"{TRAIN_SAVE}_G.pth", f"{TRAIN_STEPS}_G.pth", "lastest_EMA.pth"]),
+    check(saved == sorted([f"{save}_G.pth", f"{steps}_G.pth"] + (["lastest_EMA.pth"] if keeps_ema else [])),
           f"train {label}: models {saved}")
     ms = [r[1] for r in rec["steps"][2:]]
     losses = [r[2] for r in rec["steps"]]
-    snapshot, resumed_loss_want = rec["snapshot"], rec["steps"][TRAIN_SAVE][2]
 
-    state_file = os.path.join(exp, "training_state", f"{TRAIN_SAVE}.state")
-    yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), opt, root, data, TRAIN_STEPS, TRAIN_SAVE,
-                                  TRAIN_STEPS, resume=state_file)
-    with recorded_steps(snapshot_at=TRAIN_SAVE + 1) as rec_resume:
-        train.train(yml_resume, dev)
-    check(len(rec_resume["steps"]) == TRAIN_STEPS - TRAIN_SAVE, f"train {label} resumed: {len(rec_resume['steps'])}")
-    grew, _, loss = rec_resume["steps"][0]
-    check(grew == want, f"train {label} resumed step: launches {grew}")
-    loss_rel = abs(loss - resumed_loss_want) / abs(resumed_loss_want)
-    lr = float(opt["train"]["lr_G"])
-    resumed = rec_resume["snapshot"]
-    dparam = max((resumed[k] - v).abs().max().item() for k, v in snapshot.items())
-    equal = all(torch.equal(resumed[k], v) for k, v in snapshot.items())
-    later = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(rec_resume["steps"], rec["steps"][TRAIN_SAVE:]))
-    print(f"[train-main] {label}: resumed from step {TRAIN_SAVE}, step {TRAIN_SAVE + 1}: loss {loss:.8g} against "
-          f"{resumed_loss_want:.8g} uninterrupted (rel {loss_rel:.3g}, bound 1e-6); parameters after it max|d| "
-          f"{dparam:.3g} (bound 2 lr_G = {2 * lr:.3g}), bit-equal: {equal}; steps {TRAIN_SAVE + 1}..{TRAIN_STEPS} "
-          f"losses max rel {later:.3g} against the uninterrupted run's (a record)")
-    check(loss_rel <= 1e-6 and dparam <= 2 * lr, f"train {label}: the resumed step differs")
-    del snapshot, resumed
+    state_file = os.path.join(exp, "training_state", f"{save}.state")
+    yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), label, opt, root, data, steps, save, steps,
+                                  resume=state_file, pretrain_l=pretrain_l)
+    with recorded_steps(snapshot_at=save + 1) as rec_resume:
+        state = train.train(yml_resume, dev)
+    resumed_final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+    del state
+    gc.collect()
     torch.cuda.empty_cache()
+    check(len(rec_resume["steps"]) == steps - save, f"train {label} resumed: {len(rec_resume['steps'])}")
+    check(all(grew == want for grew, _, _ in rec_resume["steps"]), f"train {label} resumed steps: launches")
+    first_loss, first_want = rec_resume["steps"][0][2], rec["steps"][save][2]
+    loss_rel = abs(first_loss - first_want) / abs(first_want)
+    lr = float(opt["train"]["lr_G"])
+    snapshot, resumed = rec["snapshot"], rec_resume["snapshot"]
+    dparam = max((resumed[k] - v).abs().max().item() for k, v in snapshot.items())
+    equal_losses = [a[2] for a in rec_resume["steps"]] == losses[save:]
+    equal_final = all(torch.equal(resumed_final[k], v) for k, v in final.items())
+    print(f"[train-main] {label}: resumed from step {save}: step {save + 1} loss {first_loss:.8g} against "
+          f"{first_want:.8g} uninterrupted (rel {loss_rel:.3g}); parameters after it max|d| {dparam:.3g} "
+          f"(2 lr_G = {2 * lr:.3g}); steps {save + 1}..{steps} losses bit-equal: {equal_losses}, final parameters "
+          f"bit-equal: {equal_final}")
+    if label in TRAIN_BIT_EQUAL:
+        check(equal_losses and equal_final and dparam == 0, f"train {label}: the resumed run is not bit-equal")
+    else:
+        check(loss_rel <= 1e-6 and dparam <= 2 * lr, f"train {label}: the resumed step differs")
+    del snapshot, resumed, final, resumed_final
 
-    yml_plain = write_train_yaml(os.path.join(root, "plain.yml"), opt, root, data, TRAIN_PLAIN_STEPS,
-                                 TRAIN_STEPS * 10, TRAIN_STEPS * 10, plain=True, name=f"{opt['name']}_plain")
-    before = sum(k.launches for k in KERNELS)
-    with recorded_steps() as rec_plain:
-        train.train(yml_plain, dev)
-    check(sum(k.launches for k in KERNELS) == before, f"train {label}: the plain path launched a kernel")
-    pms = [r[1] for r in rec_plain["steps"][2:]]
-    k_ms, p_ms = stats_.median(ms), stats_.median(pms)
-    print(f"[train-main] {label}: {TRAIN_STEPS} steps, batch {TRAIN_BATCH} at {TRAIN_SIZE}px, float32 (cuDNN TF32 on), "
-          f"{seconds:.1f} s with {TRAIN_STEPS // TRAIN_SAVE + 1} saves and one validation; loss {losses[0]:.4g} -> "
-          f"{losses[-1]:.4g}; launches per step {want}")
-    print(f"[train-main] {label}: ms/step (median of steps 3..) kernel path {k_ms:.3f} ({TRAIN_BATCH * 1e3 / k_ms:.3f} "
-          f"img/s), plain path {p_ms:.3f} ({TRAIN_BATCH * 1e3 / p_ms:.3f} img/s) over {len(pms)} steps; "
-          f"card: {smi}")
-    record = {"ms_per_step": k_ms, "img_per_s": TRAIN_BATCH * 1e3 / k_ms, "plain_ms_per_step": p_ms,
-              "plain_img_per_s": TRAIN_BATCH * 1e3 / p_ms, "launches_per_step": want, "card": smi}
-    return launches, record
+    p_ms = None
+    if plain_steps:
+        yml_plain = write_train_yaml(os.path.join(root, "plain.yml"), label, opt, root, data, plain_steps,
+                                     steps * 10, steps * 10, plain=True, name=f"{opt['name']}_plain",
+                                     pretrain_l=pretrain_l)
+        before = sum(k.launches for k in KERNELS)
+        with recorded_steps() as rec_plain:
+            train.train(yml_plain, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(sum(k.launches for k in KERNELS) == before, f"train {label}: the plain path launched a kernel")
+        p_ms = stats_.median([r[1] for r in rec_plain["steps"][2:]])
+    k_ms = stats_.median(ms)
+    print(f"[train-main] {label}: {steps} steps, batch {batch} at {crop}px, float32 (cuDNN TF32 on), {seconds:.1f} s "
+          f"with {steps // save + 1} saves and one validation of {val_images} image(s); loss {losses[0]:.4g} -> "
+          f"{losses[-1]:.4g}; launches per step {want}; peak memory {peak / 2**30:.2f} GiB")
+    plain_text = (f"plain path {p_ms:.3f} ({batch * 1e3 / p_ms:.3f} img/s) over {plain_steps - 2} steps" if p_ms
+                  else "plain path not run (TRAIN_PATHS)")
+    print(f"[train-main] {label}: ms/step (median of steps 3..) kernel path {k_ms:.3f} ({batch * 1e3 / k_ms:.3f} "
+          f"img/s), {plain_text}; card: {smi}")
+    record = {"ms_per_step": k_ms, "img_per_s": batch * 1e3 / k_ms, "plain_ms_per_step": p_ms,
+              "plain_img_per_s": batch * 1e3 / p_ms if p_ms else None, "peak_memory_gib": peak / 2**30,
+              "batch": batch, "crop": crop, "launches_per_step": want, "card": smi}
+    return launches, record, os.path.join(exp, "models", f"{steps}_G.pth")
 
 
 def load_yaml(path):
@@ -1983,21 +2331,23 @@ def main() -> int:
     del bokeh_net, bokeh_compressor
     torch.cuda.empty_cache()
 
-    from image_restoration_sde_tpu_torch.data.synthetic import write_pairs
-
-    train_opts = {label: load_yaml(p) for label, p in TRAIN_CONFIGS.items()}
-    for label, o in train_opts.items():
-        train_ds = o["datasets"]["train"]
+    train_opts = {label: load_yaml(os.path.join(REPO, "configs", *spec[0])) for label, spec in TRAIN_PATHS.items()}
+    for label in ("ir-sde", "refusion"):
+        train_ds = train_opts[label]["datasets"]["train"]
         check((train_ds["batch_size"], train_ds["GT_size"]) == (TRAIN_BATCH, TRAIN_SIZE), f"{label}: {train_ds}")
     timed("train kernels", phase_train_kernels, dev)
+    timed("train kernels K4", phase_flash_backward, dev, stats)
     timed("train nets", phase_train_nets, dev, train_opts)
     train_record = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
-        write_pairs(os.path.join(workdir, "data", "train"), TRAIN_PAIRS, SEED + 40, 128, 256)
-        write_pairs(os.path.join(workdir, "data", "val"), TRAIN_VAL_PAIRS, SEED + 41, 128, 192)
+        timed("train data", write_train_data, os.path.join(workdir, "data"))
+        compressor_pth = None
         for label, o in train_opts.items():
-            launches[f"train_{label}"], train_record[label] = timed(
-                f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi)
+            pretrain_l = compressor_pth if label in ("latent", "dit") else None
+            launches[f"train_{label}"], train_record[label], last = timed(
+                f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi, pretrain_l)
+            if label == "compressor":
+                compressor_pth = last
     print(f"[train] {json.dumps(train_record)}")
 
     report = []
@@ -2014,6 +2364,8 @@ def main() -> int:
             report[-1]["event_ms"] = stats[k]["event_ms"]
         if "by_path" in stats[k]:  # K1 over one forward of each path's score net
             report[-1]["by_path"] = stats[k]["by_path"]
+        if "train" in stats[k]:  # K4 at the DiT-L/2 train shape: forward, streamed backward, sweep
+            report[-1]["train"] = stats[k]["train"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
           f"of 20 calls (event_ms: one launch between CUDA events, the earlier figure); K3 one call at "

@@ -2,7 +2,8 @@
 
 Imports torch, numpy, scipy and PyYAML, never JAX.  The hand-written CUDA
 kernels build at their first launch (``kernels``), never at import.  The
-pixel-space train entry point is ``python -m image_restoration_sde_tpu_torch.train``.
+train entry point (pixel, compressor and latent tasks) is
+``python -m image_restoration_sde_tpu_torch.train``.
 """
 
 from . import models, ops, sampling, sde, tiling, training

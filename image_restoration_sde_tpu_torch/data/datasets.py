@@ -3,15 +3,16 @@
 A copy of the image-folder part of
 ``image_restoration_sde_tpu/data/datasets.py``: the crops and flips come
 from the same numpy generators, so both packages yield the same samples.
-The LMDB readers and the stereo and bokeh datasets are not in the port yet
-(ROADMAP, Queue 1); their modes raise ``NotImplementedError``.
+The LMDB readers are not in the port (ROADMAP, Queue 1): an LMDB root
+raises ``NotImplementedError``.
 
 Parity: the reference's seven Dataset classes (``data/__init__.py:36-68``)
 built on the option-dict schema (dataroot_GT/dataroot_LQ, GT_size/LR_size,
 use_flip/use_rot/use_swap, color, phase, scale, data_type).  NHWC numpy out
 (the framework is NHWC end-to-end; the reference emits CHW torch tensors).
 
-Implemented here: LQGT, GT, LQ.
+Implemented here: LQGT, GT, LQ (stereo/bokeh variants live in
+``stereo_datasets.py`` / ``bokeh_datasets.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,14 @@ def create_dataset(dataset_opt: Dict[str, Any]):
         return GTDataset(dataset_opt)
     if mode == "LQ":
         return LQDataset(dataset_opt)
-    if mode in ("SteLQGT", "SteLQ", "BokehLQGT", "BokehLQ"):
-        raise NotImplementedError(f"dataset mode {mode!r} is not in the port yet (ROADMAP, Queue 1)")
+    if mode in ("SteLQGT", "SteLQ"):
+        from .stereo_datasets import StereoLQDataset, StereoLQGTDataset
+
+        return StereoLQGTDataset(dataset_opt) if mode == "SteLQGT" else StereoLQDataset(dataset_opt)
+    if mode in ("BokehLQGT", "BokehLQ"):
+        from .bokeh_datasets import BokehLQDataset, BokehLQGTDataset
+
+        return BokehLQGTDataset(dataset_opt) if mode == "BokehLQGT" else BokehLQDataset(dataset_opt)
     raise NotImplementedError(f"Dataset mode {mode!r} is not recognized")
 
 

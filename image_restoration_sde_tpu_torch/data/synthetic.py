@@ -1,10 +1,18 @@
-"""Synthetic paired image folders, made from a seed: for smoke runs and
-tests of the training path where no dataset is at hand.
+"""Synthetic image folders, made from a seed: for smoke runs and tests of
+the training paths where no dataset is at hand.  uint8 RGB PNGs, sizes
+drawn between ``min_size`` and ``max_size``; the clean images are smooth
+random colour fields with edges.
 
-:func:`write_pairs` writes ``<root>/GT/*.png`` (smooth random colour fields
-with edges) and ``<root>/LQ/*.png`` (the same images with bright rain-like
-streaks and noise), uint8 RGB, sizes drawn between ``min_size`` and
-``max_size``.
+- :func:`write_pairs`: ``<root>/GT/*.png`` and ``<root>/LQ/*.png`` (the same
+  images with bright rain-like streaks and noise), what the LQGT and GT
+  datasets read; 1024-1280 px pairs feed the latent tasks' 1024 px crops.
+- :func:`write_bokeh`: ``<root>/{src,tgt,alpha}/*.png`` and
+  ``<root>/meta.txt`` (``id, src lens, tgt lens, disparity`` in the
+  reference's lens grammar), what the Bokeh datasets read.
+- :func:`write_stereo`: ``<root>/HR/*.png`` (files 2i and 2i+1: the left
+  and right views of pair i, the right one shifted by a random disparity)
+  and ``<root>/LR_x{scale}/*.png`` (their matlab-bicubic downscales), what
+  the stereo datasets read.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import os
 
 import numpy as np
 
+from .imresize import imresize
 from .io_utils import save_img
 
 
@@ -50,4 +59,64 @@ def write_pairs(root: str, n: int, seed: int, min_size: int = 128, max_size: int
         lq = _rain(rng, gt)
         for sub, img in (("GT", gt), ("LQ", lq)):
             save_img((img * 255).round().astype(np.uint8), os.path.join(root, sub, f"{i:04d}.png"))
+    return root
+
+
+def _u8(img: np.ndarray) -> np.ndarray:
+    return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
+
+
+def _box_blur(img: np.ndarray, r: int) -> np.ndarray:
+    """Separable (2r+1)-tap box blur of HWC, edges replicated."""
+    for axis in (0, 1):
+        pad = [(r + 1, r) if a == axis else (0, 0) for a in range(img.ndim)]
+        c = np.cumsum(np.pad(img, pad, mode="edge"), axis=axis, dtype=np.float64)
+        hi = np.take(c, np.arange(2 * r + 1, c.shape[axis]), axis=axis)
+        lo = np.take(c, np.arange(0, c.shape[axis] - 2 * r - 1), axis=axis)
+        img = ((hi - lo) / (2 * r + 1)).astype(np.float32)
+    return img
+
+
+def write_bokeh(root: str, n: int, seed: int, min_size: int = 256, max_size: int = 320) -> str:
+    """Write ``n`` bokeh triplets and their ``meta.txt`` under ``root``:
+    ``src`` sharp (f/16), ``tgt`` its background blurred through a soft
+    foreground matte (``alpha``, a union of Gaussian blobs) with a radius
+    that grows as the target f-number falls; returns ``root``."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(min_size, max_size + 1, 2))
+        src = _clean(rng, h, w)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        alpha = np.zeros((h, w), np.float32)
+        for _ in range(int(rng.integers(1, 4))):
+            cy, cx, sd = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w, rng.uniform(0.08, 0.2) * min(h, w)
+            alpha = np.maximum(alpha, np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sd * sd)))
+        alpha = np.clip(alpha * 1.4, 0, 1)
+        f_number = float(rng.choice([1.8, 2.8, 4.0]))
+        tgt = alpha[..., None] * src + (1 - alpha[..., None]) * _box_blur(src, int(round(16 / f_number)))
+        name = f"{i:04d}"
+        for sub, img in (("src", src), ("tgt", tgt), ("alpha", alpha)):
+            save_img(_u8(img), os.path.join(root, sub, f"{name}.png"))
+        lines.append(f"{name}, Sony50mmf16BS, Sony50mmf{f_number}BS, {rng.uniform(0, 1):.2f}")
+    with open(os.path.join(root, "meta.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return root
+
+
+def write_stereo(root: str, n: int, seed: int, min_size: int = 128, max_size: int = 160, scale: int = 4) -> str:
+    """Write ``n`` stereo pairs under ``root``: ``HR/{2i,2i+1}.png`` the
+    left view and the right one (the same scene shifted by 4-16 px), sides
+    multiples of ``scale``, and ``LR_x{scale}/`` their 1/scale matlab
+    bicubic downscales; returns ``root``."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        h, w = (scale * int(v) for v in rng.integers(min_size // scale, max_size // scale + 1, 2))
+        disp = int(rng.integers(4, 17))
+        scene = _clean(rng, h, w + disp)
+        for eye, view in enumerate((scene[:, :w], scene[:, disp : disp + w])):
+            hr = _u8(view)
+            name = f"{2 * i + eye:04d}.png"
+            save_img(hr, os.path.join(root, "HR", name))
+            save_img(_u8(imresize(hr.astype(np.float64) / 255, 1 / scale)), os.path.join(root, f"LR_x{scale}", name))
     return root

@@ -147,15 +147,6 @@ class Kernel:
         self.launches += 1
 
 
-def refuse_grad(op: str, *tensors) -> None:
-    """Raise when autograd would have to pass through a kernel that has no
-    backward: the kernel writes its output through a raw pointer, so the
-    output has no ``grad_fn`` and the gradient would skip the op."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{op}: the CUDA kernel has no backward yet; call it under torch.no_grad() "
-                           "or torch.inference_mode()")
-
-
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -17,8 +17,14 @@ q/k/v with any batch and token stride (the (B, N, 3, H, D) view of a
 packed qkv product goes in as it is).
 
 :func:`flash_mha` launches the kernel on CUDA tensors and runs the plain
-version on CPU tensors.  Forward only: the backward (``_blocked_mha`` in
-the JAX package) comes with training.
+version on CPU tensors.  On CUDA tensors it is differentiable
+(:class:`_FlashMHA`): the backward is :func:`flash_mha_backward`, the
+gradient of the JAX package's ``_ref_mha`` (:func:`ref_mha_plain`) streamed
+over blocks of ``BWD_BLOCK`` query rows, as ``_blocked_mha``'s
+``lax.map`` over checkpointed blocks transposes to: peak extra memory
+O(B·H·BWD_BLOCK·N), never N².  The backward is a torch composition (cuBLAS
+products and elementwise kernels), as the JAX package's backward is no
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +44,12 @@ FLASH_ATTN = kernels.Kernel(
 )
 
 HEAD_DIMS = (64, 72)
+# query rows per block of the streamed backward: of 256, 512, 1024 and
+# 2048, the fastest at the DiT-L/2 train shape (8, 4096, 16, 64) in float32
+# on an H100 whose buffers fit beside that train step at batch 8 (2048's
+# 12.75 GiB would take the step past the card's 80 GB; chip_smoke.py's K4
+# backward phase, PERF.md)
+BWD_BLOCK = 1024
 # keys per tile of the bfloat16 kernel, by head dim: where it rounds p
 KEY_TILE = {64: 128, 72: 64}
 
@@ -50,6 +62,72 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhij,bjhd->bhid", p.to(v.dtype).float(), v.float()) / l
     return out.transpose(1, 2).to(q.dtype)
+
+
+def ref_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """(B, N, H, D) attention as the JAX package's ``_ref_mha``: float32
+    scores, the softmax over the keys, ``p`` rounded to q's dtype, the
+    product summed in float32 and rounded to q's dtype.  It divides before
+    it rounds p, where :func:`flash_mha_plain` rounds first."""
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhij,bjhd->bihd", p.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def flash_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, scale: float,
+                       block: int = BWD_BLOCK) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`ref_mha_plain` at (q, k, v) for
+    the output cotangent ``dout``, in q's dtype, streamed over blocks of
+    ``block`` query rows.  Each block recomputes its (block x N) scores and
+    softmax, writes its rows of dq and adds into float32 dk and dv; the
+    block's float32 buffers (softmax, its gradient and, in bfloat16, the
+    rounded p) are the only ones of size B·H·block·N.  The roundings are
+    autograd's through :func:`ref_mha_plain`: p to q's dtype before the
+    product with v, the gradient of that rounded p back to q's dtype, dq
+    rounded once per block and dk, dv once at the end."""
+    B, N, H, D = q.shape
+    low = q.dtype != torch.float32
+
+    def heads(t):  # (B, n, H, D) -> (B·H, n, D) float32
+        return t.float().transpose(1, 2).reshape(B * H, -1, D)
+
+    kf, vf = heads(k), heads(v)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    for i in range(0, N, block):
+        qb, gb = heads(q[:, i : i + block]), heads(dout[:, i : i + block])
+        p = torch.softmax(torch.bmm(qb, kf.transpose(1, 2)).mul_(scale), dim=-1)
+        pc = p.to(q.dtype).float() if low else p
+        dv.baddbmm_(pc.transpose(1, 2), gb)
+        del pc
+        dp = torch.bmm(gb, vf.transpose(1, 2))
+        if low:
+            dp = dp.to(q.dtype).float()
+        ds = dp.mul_(p)  # the softmax's backward: p (dp - sum(p dp)), in place
+        ds.sub_(p.mul_(ds.sum(dim=-1, keepdim=True)))
+        del p
+        dq[:, i : i + block] = (torch.bmm(ds, kf) * scale).view(B, H, -1, D).transpose(1, 2)
+        dk.baddbmm_(ds.transpose(1, 2), qb, alpha=scale)
+        del ds
+    dk, dv = (t.view(B, H, N, D).transpose(1, 2).to(k.dtype) for t in (dk, dv))
+    return dq, dk, dv
+
+
+class _FlashMHA(torch.autograd.Function):
+    """K4 with a backward: the forward launches the kernel and saves q, k
+    and v as they are (strided views included, no copies); the backward is
+    :func:`flash_mha_backward` and launches no kernel of the port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_mha_cuda(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_mha_backward(q, k, v, dout, ctx.scale), None)
 
 
 def flash_mha_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -101,7 +179,6 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
             raise ValueError(f"flash_mha: {name} must be contiguous over (H, D), strides {t.stride()}")
         if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
             raise ValueError(f"flash_mha: {name} must be 16-byte aligned, with 16-byte batch and token strides")
-    kernels.refuse_grad("flash_mha_cuda", q, k, v)
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     if out.numel():
         FLASH_ATTN(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
@@ -112,9 +189,10 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """(B, N, H, D) attention, softmax over the keys.  The kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (differentiable through :class:`_FlashMHA`), the plain version
+    for CPU tensors."""
     if q.is_cuda:
-        return flash_mha_cuda(q, k, v, scale)
+        return _FlashMHA.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, scale)
     raise ValueError(f"flash_mha: no implementation for device {q.device}")

@@ -1,15 +1,17 @@
-"""Task runners for pixel-space training: build the net, SDE, optimizer and
-train state from a YAML, and expose ``step`` and ``validate``.
+"""Task runners for training: build the net, SDE, optimizer and train state
+from a YAML, and expose ``step`` and ``validate``.
 
-Counterpart of the pixel tasks of ``image_restoration_sde_tpu/runners.py``:
+Counterpart of the tasks of ``image_restoration_sde_tpu/runners.py``:
 
 - ``denoising`` -> :class:`PixelDiffusionTask` (IR-SDE on pixels; covers
   derain/deblur/deshadow/dehaze and the inpainting/sr degradation plugins;
   stereo datasets switch the net to ``StereoConditionalNAFNet``), or
   :class:`GaussianDenoisingTask` (the denoising SDE) when the distortion is
   ``denoising``;
-- ``latent`` and ``latent_denoising`` (the compressor, latent and bokeh
-  tasks) are not in the port yet (ROADMAP, Queue 1 item 5, latent part).
+- ``latent`` -> :class:`CompressorTask` (the Refusion compressor, no EMA);
+- ``latent_denoising`` -> :class:`LatentDiffusionTask` (IR-SDE on the
+  latents of a frozen compressor), or :class:`BokehLatentDiffusionTask`
+  (lens conditioning, no EMA) when the dataset mode starts with ``Bokeh``.
 
 Each runner owns its net, SDE, schedule and train state and exposes
 ``step(state, batch, gen)`` (host-side degradation prep, then one train
@@ -18,7 +20,11 @@ port's samplers), ``params_trees(state)`` (label -> ``state_dict`` for
 checkpoints) and ``maybe_load_pretrained(state)``.
 
 The net's initial weights are torch's default initialisation of the
-reference's modules, drawn from the run's seed.
+reference's modules, drawn from the run's seed; so are a latent task's
+compressor's, unless ``path.pretrain_model_L`` names a ``.pth`` (a
+compressor run's ``{iter}_G.pth`` or a reference file), which it loads on
+every start, resumed ones included: the compressor is not part of the train
+state.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ from .data.io_utils import save_img
 from .models import build_network
 from .sampling import make_denoising_sampler, make_restoration_sampler, pad_to_bucket, unpad
 from .sde import DenoisingSDE, IRSDE
-from .training import build_from_options, build_lr_schedule, create_train_state, make_denoising_train_step, \
-    make_train_step
+from .training import build_from_options, build_lr_schedule, create_train_state, make_compressor_train_step, \
+    make_denoising_train_step, make_latent_sampler, make_latent_train_step, make_train_step
 from .training.checkpoint import ema_state_dict, load_params
 from .utils import metrics, options
 from .utils.degradations import add_noise, mask_to, upscale
@@ -64,9 +70,12 @@ def build_task(opt, seed: int, device):
         return GaussianDenoisingTask(opt, seed, device)
     if model_type in ("denoising", "sde"):
         return PixelDiffusionTask(opt, seed, device)
-    if model_type in ("latent", "latent_denoising"):
-        raise NotImplementedError(f"model type {model_type!r}: latent training is not in the port yet "
-                                  "(ROADMAP, Queue 1 item 5, latent part)")
+    if model_type == "latent":
+        return CompressorTask(opt, seed, device)
+    if model_type == "latent_denoising":
+        if _dataset_mode(opt).startswith("Bokeh"):
+            return BokehLatentDiffusionTask(opt, seed, device)
+        return LatentDiffusionTask(opt, seed, device)
     raise NotImplementedError(f"model type {model_type!r}")
 
 
@@ -89,7 +98,19 @@ def _seeded_network(which: str, setting: dict, seed: int):
         return build_network(which, setting)
 
 
+def _make_irsde(sde_opt, device) -> IRSDE:
+    return IRSDE.create(max_sigma=sde_opt["max_sigma"], T=int(sde_opt["T"]), schedule=sde_opt["schedule"],
+                        eps=float(sde_opt["eps"]), device=device)
+
+
+def _sampler_options(sde_opt) -> dict:
+    steps = int(sde_opt["sample_T"]) if sde_opt["sample_T"] else None
+    return {"mode": sde_opt["sampling_mode"] or "sde", "steps": steps}
+
+
 class _Base:
+    keeps_ema = True  # whether the train state keeps an EMA of the net
+
     def __init__(self, opt, seed: int, device, which: str, setting: dict):
         self.opt, self.device = opt, torch.device(device)
         self.deg_rng = np.random.default_rng(seed + 77)
@@ -101,7 +122,7 @@ class _Base:
         self.lr_schedule = build_lr_schedule(self.train_opt)
         self.net = _seeded_network(which, setting, seed).to(self.device).train()
         optimizer = build_from_options(self.train_opt, self.net.parameters(), self.lr_schedule)
-        self.state = create_train_state(self.net, optimizer)
+        self.state = create_train_state(self.net, optimizer, ema=self.keeps_ema)
 
     def _loss_kwargs(self):
         t = self.train_opt
@@ -116,16 +137,20 @@ class _Base:
         return sum(p.numel() for p in self.net.parameters())
 
     def params_trees(self, state) -> Dict[str, dict]:
-        return {"G": state.net.state_dict(), "EMA": ema_state_dict(state)}
+        trees = {"G": state.net.state_dict()}
+        if state.ema is not None:
+            trees["EMA"] = ema_state_dict(state)
+        return trees
+
+    def _load(self, net, path: str) -> None:
+        net.load_state_dict(load_params(path), strict=self.opt["path"]["strict_load"] is not False)
 
     def maybe_load_pretrained(self, state) -> None:
         """Load ``path.pretrain_model_G`` into the net.  On resume,
         ``options.check_resume`` points it at the resumed iteration's
         ``{iter}_G.pth`` (the reference's semantics)."""
-        load_path = self.opt["path"]["pretrain_model_G"]
-        if load_path:
-            strict = self.opt["path"]["strict_load"] is not False
-            state.net.load_state_dict(load_params(load_path), strict=strict)
+        if self.opt["path"]["pretrain_model_G"]:
+            self._load(state.net, self.opt["path"]["pretrain_model_G"])
 
     def extra_state(self) -> dict:
         """What a checkpoint keeps of the runner: its degradation generator."""
@@ -175,13 +200,9 @@ class PixelDiffusionTask(_Base):
             # SCAM fusion under the same class name (SURVEY §2.2)
             which = "StereoConditionalNAFNet"
         super().__init__(opt, seed, device, which, setting)
-        sde_opt = opt["sde"]
-        self.sde = IRSDE.create(max_sigma=sde_opt["max_sigma"], T=int(sde_opt["T"]), schedule=sde_opt["schedule"],
-                                eps=float(sde_opt["eps"]), device=self.device)
+        self.sde = _make_irsde(opt["sde"], self.device)
         self._train_step = make_train_step(self.sde, **self._loss_kwargs())
-        mode = sde_opt["sampling_mode"] or "sde"
-        steps = int(sde_opt["sample_T"]) if sde_opt["sample_T"] else None
-        self.sampler = make_restoration_sampler(self.sde, self.net, mode=mode, steps=steps)
+        self.sampler = make_restoration_sampler(self.sde, self.net, **_sampler_options(opt["sde"]))
 
     def prepare_pair(self, batch) -> Tuple[np.ndarray, np.ndarray]:
         distortion = effective_distortion(self.opt)
@@ -237,3 +258,103 @@ class GaussianDenoisingTask(_Base):
             return unpad(self.sampler(self._tensor(vlq)), hw), vb["GT"]
 
         return self._validate(loader, restore, out_dir, step)
+
+
+class CompressorTask(_Base):
+    """Refusion compressor pre-training (ref unet-latent LatentModel): the
+    compressor ``UNet`` of ``network_L`` (else ``network_G``) trained on the
+    cross-reconstruction objective, no EMA; validation is the PSNR of the GT
+    latent decoded with the LQ skips."""
+
+    keeps_ema = False
+
+    def __init__(self, opt, seed: int, device):
+        which, setting = options.network_setting(opt, "network_L" if opt["network_L"] else "network_G")
+        super().__init__(opt, seed, device, which, setting)
+        t = self.train_opt
+        self._train_step = make_compressor_train_step(loss_type=t["loss_type"] or "l1",
+                                                      weight=float(t["weight"] or 1.0))
+
+    def maybe_load_pretrained(self, state) -> None:
+        """On resume, the resumed iteration's ``{iter}_G.pth``, to which
+        ``options.check_resume`` points ``pretrain_model_G``; otherwise
+        ``pretrain_model_L``, else ``pretrain_model_G``, as the JAX task
+        prefers them (it skips loading on resume, where orbax restores the
+        parameters)."""
+        path = self.opt["path"]
+        load = path["pretrain_model_L"] or path["pretrain_model_G"]
+        if path["resume_state"]:
+            load = path["pretrain_model_G"]
+        if load:
+            self._load(state.net, load)
+
+    def step(self, state, batch, gen: torch.Generator):
+        return self._train_step(state, self._tensor(batch["LQ"]), self._tensor(batch["GT"]), gen)
+
+    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
+        @torch.inference_mode()
+        def restore(vb):
+            lq, hw = pad_to_bucket(np.asarray(vb["LQ"]), 64)
+            gt, _ = pad_to_bucket(np.asarray(vb["GT"]), 64)
+            _, h_lq = self.net.encode(self._tensor(lq))
+            l_gt, _ = self.net.encode(self._tensor(gt))
+            return unpad(self.net.decode(l_gt, h_lq), hw), vb["GT"]
+
+        return self._validate(loader, restore, out_dir, step)
+
+
+class LatentDiffusionTask(_Base):
+    """Refusion: IR-SDE on the latents of the frozen compressor of
+    ``network_L`` (ref latent_denoising_model.py:26-236); validation through
+    the latent sampler."""
+
+    def __init__(self, opt, seed: int, device):
+        which, setting = self._score_network(opt)
+        super().__init__(opt, seed, device, which, setting)
+        which_l, setting_l = options.network_setting(opt, "network_L")
+        self.compressor = _seeded_network(which_l, setting_l, seed + 1).to(self.device)
+        self.sde = _make_irsde(opt["sde"], self.device)
+        self._train_step = make_latent_train_step(self.sde, self.compressor, **self._loss_kwargs())
+        self.sampler = make_latent_sampler(self.sde, self.net, self.compressor, **_sampler_options(opt["sde"]))
+
+    @staticmethod
+    def _score_network(opt) -> tuple:
+        return options.network_setting(opt)
+
+    def maybe_load_pretrained(self, state) -> None:
+        """The compressor from ``pretrain_model_L`` (on resume too), then the
+        score net as the pixel tasks load it."""
+        if self.opt["path"]["pretrain_model_L"]:
+            self.compressor.load_state_dict(load_params(self.opt["path"]["pretrain_model_L"]))
+        super().maybe_load_pretrained(state)
+
+    def _cond(self, batch):
+        return None
+
+    def step(self, state, batch, gen: torch.Generator):
+        return self._train_step(state, self._tensor(batch["LQ"]), self._tensor(batch["GT"]), gen, self._cond(batch))
+
+    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
+        def restore(vb):
+            vlq, hw = pad_to_bucket(np.asarray(vb["LQ"]), 64)
+            return unpad(self.sampler(self._tensor(vlq), gen, self._cond(vb)), hw), vb["GT"]
+
+        return self._validate(loader, restore, out_dir, step)
+
+
+class BokehLatentDiffusionTask(LatentDiffusionTask):
+    """Latent diffusion with lens conditioning (ref latent-bokeh
+    latent_denoising_model.py:143-189): ``ConditionalNAFNet`` becomes
+    ``BokehConditionalNAFNet``, the batch's ``src_lens``, ``tgt_lens`` and
+    ``disparity`` go to it as ``cond``; no EMA (the reference comments its
+    update out)."""
+
+    keeps_ema = False
+
+    @staticmethod
+    def _score_network(opt) -> tuple:
+        which, setting = options.network_setting(opt)
+        return ("BokehConditionalNAFNet" if which == "ConditionalNAFNet" else which), setting
+
+    def _cond(self, batch):
+        return tuple(self._tensor(batch[k]).reshape(-1) for k in ("src_lens", "tgt_lens", "disparity"))

@@ -5,7 +5,10 @@
 Counterpart of ``tools/train.py``: the same YAML, the same loop (print,
 validate and save at their frequencies; resume from
 ``path.resume_state``).  The YAML's ``model`` / ``distortion`` keys select a
-task runner (``runners.build_task``); pixel-space tasks only, so far.
+task runner (``runners.build_task``): the pixel tasks, the Refusion
+compressor (``model: latent``) and the latent tasks (``model:
+latent_denoising``, whose frozen compressor loads from
+``path.pretrain_model_L``, e.g. a compressor run's ``{iter}_G.pth``).
 
 It runs on the card unless ``--device cpu`` is given; without a card it
 raises.  One process, one card (data parallelism: ROADMAP, Queue 1).

@@ -4,10 +4,11 @@ Counterpart of ``image_restoration_sde_tpu/training/checkpoint.py`` (orbax).
 Parity: ref ``base_model.py:80-131`` + ``denoising_model.py:197-199``; each
 save point writes
 
-- ``<models>/{iter}_G.pth`` and ``<models>/lastest_EMA.pth`` (the
-  reference's spelling): the net's and the EMA's ``state_dict`` in the
-  reference key space, so either loads with ``load_state_dict`` and a
-  reference ``.pth`` loads through :func:`load_params`;
+- ``<models>/{iter}_G.pth`` and, where the task keeps an EMA,
+  ``<models>/lastest_EMA.pth`` (the reference's spelling): the net's and
+  the EMA's ``state_dict`` in the reference key space, so either loads
+  with ``load_state_dict`` and a reference ``.pth`` loads through
+  :func:`load_params`;
 - ``<training_state>/{iter}.state``: the step, epoch and iteration, the
   optimizer's state, the EMA's counter and parameters, the state of the
   run's generator and whatever the task adds (``extra``).
@@ -58,7 +59,7 @@ def save_training_state(training_state_dir: str, state: TrainState, epoch: int, 
     torch.save({
         "step": state.step, "epoch": epoch, "iter": iter_step,
         "optimizer": state.optimizer.state_dict(),
-        "ema": {"step": state.ema.step, "params": _cpu(state.ema.params)},
+        "ema": None if state.ema is None else {"step": state.ema.step, "params": _cpu(state.ema.params)},
         "generator": generator.get_state(),
         "extra": extra or {},
     }, path)
@@ -73,7 +74,8 @@ def load_training_state(path: str, state: TrainState, generator: torch.Generator
     state.step = int(ck["step"])
     state.optimizer.load_state_dict(ck["optimizer"])
     device = next(state.net.parameters()).device
-    state.ema = EMA({k: v.to(device) for k, v in ck["ema"]["params"].items()}, int(ck["ema"]["step"]))
+    if ck["ema"] is not None:
+        state.ema = EMA({k: v.to(device) for k, v in ck["ema"]["params"].items()}, int(ck["ema"]["step"]))
     generator.set_state(ck["generator"])
     return int(ck["epoch"]), int(ck["iter"]), ck["extra"]
 
@@ -82,5 +84,6 @@ def save_checkpoint(opt_path: dict, state: TrainState, epoch: int, iter_step: in
                     generator: torch.Generator, extra: Optional[dict] = None) -> None:
     """Full save point (ref train.py:305-309): weights, EMA, trainer state."""
     save_params(opt_path["models"], state.net.state_dict(), f"{iter_step}_G")
-    save_params(opt_path["models"], ema_state_dict(state), "lastest_EMA")
+    if state.ema is not None:
+        save_params(opt_path["models"], ema_state_dict(state), "lastest_EMA")
     save_training_state(opt_path["training_state"], state, epoch, iter_step, generator, extra)

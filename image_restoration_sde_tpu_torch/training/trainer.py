@@ -8,11 +8,12 @@ states, run the score net, form the maximum-likelihood objective
     loss = w * || reverse_sde_step_mean(x_t, score, t)
                  - reverse_optimum_step(x_t, x_0, t) ||_1,
 
-take grads, update the parameters in place, then the EMA (ema_pytorch's
-defaults, ``EmaConfig()``, as the reference and the JAX package use).  On
-the card the net's forward launches the port's kernels (K1, K2a, K2b and,
-in a fused NAFNet level, K3); their backwards are the autograd of the
-plain compositions.
+take grads, update the parameters in place, then the EMA where the task
+keeps one (ema_pytorch's defaults, ``EmaConfig()``, as the reference and
+the JAX package use).  On the card the net's forward launches the port's
+kernels (K1, K2a, K2b, K3 in a fused NAFNet level, K4 in the DiT); their
+backwards are the autograd of the plain compositions and, for K4, the
+streamed ``flash_mha_backward``.
 
 Draws come from the run's ``torch.Generator`` through
 ``sde.generate_random_states``, in sequence; the generator's state is part
@@ -22,7 +23,7 @@ of a checkpoint, so a resumed run draws what an uninterrupted one would.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -38,11 +39,11 @@ class TrainState:
     step: int  # train-step calls made
     net: nn.Module  # its parameters are the trained ones, updated in place
     optimizer: ScheduledOptimizer
-    ema: EMA
+    ema: Optional[EMA]  # None: a task that keeps no EMA (the compressor, latent bokeh)
 
 
-def create_train_state(net: nn.Module, optimizer: ScheduledOptimizer) -> TrainState:
-    return TrainState(step=0, net=net, optimizer=optimizer, ema=EMA(dict(net.named_parameters())))
+def create_train_state(net: nn.Module, optimizer: ScheduledOptimizer, ema: bool = True) -> TrainState:
+    return TrainState(step=0, net=net, optimizer=optimizer, ema=EMA(dict(net.named_parameters())) if ema else None)
 
 
 def _score_net(net: nn.Module, remat: bool) -> Callable:
@@ -57,7 +58,8 @@ def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     state.optimizer.zero_grad()
     loss.backward()
     state.optimizer.step()
-    state.ema.update(dict(state.net.named_parameters()))
+    if state.ema is not None:
+        state.ema.update(dict(state.net.named_parameters()))
     state.step += 1
     return state
 
@@ -69,15 +71,18 @@ def make_train_step(
     weight: float = 1.0,
     remat: bool = False,
 ) -> Callable:
-    """The IR-SDE train step, ``(state, lq, gt, gen) -> (state, metrics)``
-    with NHWC float32 ``lq``/``gt`` on the net's device and the run's
-    generator; ``state.net(x_t, lq, t)`` predicts the noise.  ``remat=True``
-    recomputes the score net's forward in the backward pass."""
+    """The IR-SDE train step, ``(state, lq, gt, gen[, cond]) -> (state,
+    metrics)`` with NHWC float32 ``lq``/``gt`` on the net's device and the
+    run's generator; ``state.net(x_t, lq, t)`` predicts the noise, or
+    ``state.net(x_t, lq, t, cond)`` where a ``cond`` is given (the bokeh
+    net's lens values).  ``remat=True`` recomputes the score net's forward
+    in the backward pass."""
 
-    def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen: torch.Generator):
+    def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen: torch.Generator,
+                   cond: Optional[Tuple] = None):
         timesteps, xt = sde.generate_random_states(gen, gt, lq)
         tvec = timesteps.reshape(-1)
-        noise = _score_net(state.net, remat)(xt, lq, tvec)
+        noise = _score_net(state.net, remat)(xt, lq, tvec, *(() if cond is None else (cond,)))
         score = sde.score_from_noise(noise, timesteps)
         pred = sde.reverse_sde_step_mean(xt, lq, score, timesteps)
         target = sde.reverse_optimum_step(xt, gt, lq, timesteps)

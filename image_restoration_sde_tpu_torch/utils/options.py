@@ -131,7 +131,9 @@ def parse(
 
 
 def check_resume(opt: Dict[str, Any], resume_iter: int) -> None:
-    """Rewire pretrain_model_G to the resume checkpoint (ref options.py:122-142)."""
+    """Rewire pretrain_model_G to the resume checkpoint (ref options.py:122-142).
+    Every task loads it on resume, the compressor's included; a latent
+    task's ``pretrain_model_L`` (its frozen compressor) stays as given."""
     if opt["path"].get("resume_state"):
         opt["path"]["pretrain_model_G"] = osp.join(
             opt["path"]["models"], f"{resume_iter}_G.pth"

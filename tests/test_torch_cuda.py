@@ -133,21 +133,34 @@ def test_linear_attention_packed_gradient(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["flash_attention"])
-def test_kernels_without_a_backward_refuse_grad(cuda_device, op):
-    """K4 has no backward yet: with grad enabled and an input that requires
-    grad, its wrapper raises instead of returning an output the gradient
-    would skip; under ``torch.no_grad()`` it runs.  (K1 and K3 have
-    backwards: test_layernorm_gradient, test_naf_stack_gradient.)"""
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)], ids=str)
+def test_flash_attention_gradient(cuda_device, dtype, bound):
+    """K4 under autograd on the card, q, k, v strided views of one packed
+    (B, N, 3, H, D) product (2, 1000, 3, 4, 64): one launch with a grad_fn;
+    the backward launches none, and the gradient that reaches the packed
+    tensor is ``flash_mha_backward``'s dq, dk, dv stacked, bit for bit
+    (the backward is that function, on the saved views), and within
+    ``bound`` of its max|grad| of autograd through the un-tiled
+    ``ref_mha_plain`` (float32: sums in another order; bfloat16: the
+    roundings of p and of its gradient, which a float32 difference may
+    flip)."""
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 
-    x = torch.randn(1, 64, 2, 64, device=cuda_device)
-    call, grad_input = (lambda: FA.flash_mha(x, x, x, 0.125)), x
-    grad_input.requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        call()
-    with torch.no_grad():
-        call()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    qkv = (torch.randn(2, 1000, 3, 4, 64, generator=gen, device=cuda_device) * 1.5).to(dtype).requires_grad_()
+    g = torch.randn(2, 1000, 4, 64, generator=gen, device=cuda_device).to(dtype)
+    before = FA.FLASH_ATTN.launches
+    out = FA.flash_mha(*qkv.unbind(2), 0.125)
+    assert FA.FLASH_ATTN.launches == before + 1 and out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, qkv, g)
+    assert FA.FLASH_ATTN.launches == before + 1
+    q, k, v = qkv.detach().unbind(2)
+    assert torch.equal(got, torch.stack(FA.flash_mha_backward(q, k, v, g, 0.125), dim=2))
+    (want,) = torch.autograd.grad(FA.ref_mha_plain(*qkv.unbind(2), 0.125), qkv, g)
+    for i in range(3):
+        a, b = got[:, :, i].float(), want[:, :, i].float()
+        assert (a - b).abs().max().item() <= bound * b.abs().max().item()
 
 
 @pytest.mark.cuda

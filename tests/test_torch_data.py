@@ -95,8 +95,10 @@ def test_eval_loader_and_factory(folders):
     ev = loader.create_dataloader(datasets.create_dataset(opt), opt)
     batches = list(ev)
     assert len(batches) == 6 and batches[0]["GT"].shape[0] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.create_dataset({**opt, "mode": "SteLQGT"})
+    stereo = datasets.create_dataset({**opt, "mode": "SteLQGT"})  # images 2i and 2i+1 pair up
+    assert type(stereo).__name__ == "StereoLQGTDataset" and len(stereo) == 3 and stereo[0]["GT"].shape[2] == 6
+    with pytest.raises(NotImplementedError, match="not recognized"):
+        datasets.create_dataset({**opt, "mode": "LQGT_unknown"})
     with pytest.raises(NotImplementedError, match="LMDB"):
         datasets.create_dataset({**opt, "data_type": "lmdb"})
 

@@ -375,7 +375,8 @@ def _hold(port, jax_out, keys):
     on top of that); the updated parameters and
     the EMA (a copy on its first call) elementwise within 2 lr (Adam's first
     step is lr g/(|g| + eps): a gradient element near 0 whose sign differs
-    between the two moves by up to 2 lr)."""
+    between the two moves by up to 2 lr); the EMA only where the port's
+    state keeps one (``ema_params`` not None)."""
     loss, grads, params, ema_params = port
     jloss, jgrads, jparams, jema_params = jax_out
     to_torch = {k: state_dict_from_flax(tree, keys=keys) for k, tree in
@@ -386,7 +387,8 @@ def _hold(port, jax_out, keys):
         if np.abs(want).max() > 0:
             assert _rel(g.numpy(), want) <= 2e-4, k
         assert np.abs(params[k].detach().numpy() - to_torch["p"][k].numpy()).max() <= 2 * LR, k
-        assert np.abs(ema_params[k].numpy() - to_torch["e"][k].numpy()).max() <= 2 * LR, k
+        if ema_params is not None:
+            assert np.abs(ema_params[k].numpy() - to_torch["e"][k].numpy()).max() <= 2 * LR, k
 
 
 def test_train_step_matches_jax():
@@ -624,31 +626,67 @@ TRAIN_CONFIGS = sorted(
 
 @pytest.mark.parametrize("path", TRAIN_CONFIGS, ids=lambda p: "/".join(p.split(os.sep)[-3::2]))
 def test_build_task_for_every_train_config(path):
-    """Every train YAML of configs/ (its net cut to width 8): the pixel tasks
-    build their runner, net and SDE (the denoising ones the unconditional
-    net; the stereo one the SCAM NAFNet; the sr ones despite the
-    ``upscale`` that ``options.parse`` adds); the latent tasks raise."""
+    """Every train YAML of configs/, its nets cut (widths to 8, a
+    compressor's ch to 4, the DiT to hidden 64 and depth 1, which
+    ``DiT_L_2`` takes from its setting): the pixel tasks build their
+    runner, net and SDE (the denoising ones the unconditional net; the
+    stereo one the SCAM NAFNet; the sr ones despite the ``upscale`` that
+    ``options.parse`` adds); ``model: latent`` the compressor task,
+    ``latent_denoising`` the latent task with its frozen compressor (the
+    bokeh task and net on a Bokeh dataset)."""
     opt = runners.options.parse(path)
-    setting = opt["network_G"]["setting"]
-    for key in ("nf", "width"):
-        if key in setting:
-            setting[key] = 8
+    for key in ("network_G", "network_L"):
+        setting = (opt.get(key) or {}).get("setting") or {}
+        for name, cut in (("nf", 8), ("width", 8), ("ch", 4)):
+            if name in setting:
+                setting[name] = cut
+        if "DiT" in str(opt.get(key, {}).get("which_model")):
+            setting.update(hidden_size=64, depth=1)
     opt = runners.options.dict_to_nonedict(opt)
-    if opt["model"] in ("latent", "latent_denoising"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runners.build_task(opt, 0, "cpu")
-        return
     task = runners.build_task(opt, 0, "cpu")
+    assert task.state.optimizer.inner.__class__.__name__ == opt["train"]["optimizer"]
+    which = runners.options.network_setting(opt)[0]
+    if opt["model"] == "latent":
+        assert isinstance(task, runners.CompressorTask) and type(task.net).__name__ == "UNet"
+        return
+    if opt["model"] == "latent_denoising":
+        bokeh = "bokeh" in path
+        assert type(task) is (runners.BokehLatentDiffusionTask if bokeh else runners.LatentDiffusionTask)
+        assert type(task.net).__name__ == ("BokehConditionalNAFNet" if bokeh else which.split("_")[0])  # DiT_L_2: DiT
+        assert type(task.compressor).__name__ == "UNet"
+        return
     denoising = runners.effective_distortion(opt) == "denoising"
     assert isinstance(task, runners.GaussianDenoisingTask if denoising else runners.PixelDiffusionTask)
     assert getattr(task.net, "conditional", True) is not denoising
-    want = "StereoConditionalNAFNet" if "stereo" in path else opt["network_G"]["which_model_G"]
-    assert type(task.net).__name__ == want
-    assert task.state.optimizer.inner.__class__.__name__ == opt["train"]["optimizer"]
+    assert type(task.net).__name__ == ("StereoConditionalNAFNet" if "stereo" in path else which)
 
 
 def test_build_task_refuses_latent_tasks():
-    opt = runners.options.dict_to_nonedict({"model": "latent_denoising", "degradation": None, "distortion": None,
-                                            "datasets": {}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runners.build_task(opt, 0, "cpu")
+    """``build_task`` from option dicts: ``model: latent`` gives the
+    compressor task (its net the compressor, no EMA), ``latent_denoising``
+    the latent task (an EMA; its compressor frozen: no grad, outside the
+    optimizer) or, on a Bokeh dataset, the bokeh task (the bokeh NAFNet, no
+    EMA, only ``G`` to save); a model type the port does not know raises."""
+    comp = {"which_model": "UNet", "setting": {"in_ch": 3, "out_ch": 3, "ch": 4, "ch_mult": [1, 2], "embed_dim": 4}}
+    naf = {"which_model": "ConditionalNAFNet", "setting": {"img_channel": 4, "width": 8, "enc_blk_nums": [1],
+                                                          "middle_blk_num": 1, "dec_blk_nums": [1]}}
+
+    def opt(model, mode="LQGT"):
+        return runners.options.dict_to_nonedict({
+            "model": model, "distortion": "dehazing", "degradation": None, "datasets": {"train": {"mode": mode}},
+            "network_G": comp if model == "latent" else naf, "network_L": comp, "train": TRAIN_OPT, "path": {},
+            "sde": {"max_sigma": 50, "T": 100, "schedule": "cosine", "eps": 0.005}})
+
+    task = runners.build_task(opt("latent"), 0, "cpu")
+    assert isinstance(task, runners.CompressorTask) and task.net.__class__.__name__ == "UNet"
+    assert task.state.ema is None and set(task.params_trees(task.state)) == {"G"}
+    task = runners.build_task(opt("latent_denoising"), 0, "cpu")
+    assert type(task) is runners.LatentDiffusionTask and isinstance(task.net, ConditionalNAFNet)
+    assert task.state.ema is not None and set(task.params_trees(task.state)) == {"G", "EMA"}
+    assert not any(p.requires_grad for p in task.compressor.parameters())
+    assert {id(p) for p in task.state.optimizer.params} == {id(p) for p in task.net.parameters()}
+    task = runners.build_task(opt("latent_denoising", "BokehLQGT"), 0, "cpu")
+    assert isinstance(task, runners.BokehLatentDiffusionTask) and type(task.net).__name__ == "BokehConditionalNAFNet"
+    assert task.state.ema is None and set(task.params_trees(task.state)) == {"G"}
+    with pytest.raises(NotImplementedError, match="model type"):
+        runners.build_task(opt("latent_unknown"), 0, "cpu")
