@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Eight serving paths and seven training paths, each at full width with
-random weights made from a seed:
+Eight serving paths, seven training paths and the evaluation entry points
+on every test YAML, each at full width with random weights made from a
+seed or trained here:
 
 - IR-SDE deraining (configs/deraining/test/ir-sde.yml): ConditionalUNet
   (nf=64, depth=4) in bf16 with float32 parameters, 128 px images at
@@ -56,7 +57,15 @@ random weights made from a seed:
   EMA) and stereo super-resolution (configs/stereo-sr/train/refusion.yml:
   the SCAM NAFNet, batch 8 of 128 px pairs from 32 px LR).  Each run is cut
   in ``niter``, its checkpoint interval and its data only (TRAIN_PATHS):
-  synthetic image folders written from the seed to a temporary directory.
+  synthetic image folders written from the seed to a temporary directory;
+- evaluation through the port's test entry point (``python -m
+  image_restoration_sde_tpu_torch.test``) on each of the 16 test YAMLs
+  (configs/*/test/*.yml) as shipped, float32 as the runners' validation,
+  with the training paths' last checkpoints where they trained the YAML's
+  network, else seeded weights, on synthetic test sets near the public
+  sets' sizes (EVAL_PATHS); plus TLSC (CNAFNetLocal), a tiled run, the
+  inference and restore entry points, LPIPS and FID, and Gaussian
+  denoising's kernel path against its plain path.
 
 Phases, each printing its lines and its seconds:
 
@@ -160,7 +169,30 @@ Phases, each printing its lines and its seconds:
    (compressor, latent, DiT) or, for the pixel, bokeh and stereo paths, its
    first step's loss within 1e-6 and the parameters after it within 2 lr; then
    the path's plain-path steps; train ms/step, img/s and peak memory,
-   kernel path and plain path (a record).
+   kernel path and plain path (a record);
+22. eval (``phase_eval``, in phase 21's temporary directory, cuDNN TF32 on
+   as a user's run has it): each test YAML of EVAL_PATHS through
+   ``test.evaluate`` (what the test entry point runs) on its synthetic set,
+   exactly ``eval_counts`` K1/K2a/K2b/K3 launches per image (recorded
+   around each image the entry point restores), the output, LQ and GT PNGs
+   (per eye for stereo) and finite PSNR, SSIM, PSNR-Y and SSIM-Y; seconds
+   per image and peak memory per YAML (a record); then CNAFNetLocal over a
+   set whose 28-block level's TLSC window covers its map (one K3 a step)
+   and one where it does not (none: the 28 blocks run one by one, 2 K1
+   each); deraining by tiles with ``tile_device`` (one sampler run per
+   chunk of tiles); the inference entry point with ``--sigma 25`` (230 ODE
+   steps an image); the restore entry point in its own process, by tiles;
+   the compressor's YAML with ``--lpips-pth`` and ``--fid-pth`` (seeded
+   weights), the card's LPIPS distances and InceptionV3 features against
+   the CPU's within 1e-4 (TF32 off) and their milliseconds per image; and
+   Gaussian denoising with its noisy LQ given (the reverse ODE) through the
+   kernel path and the plain path of one seeded net, the output PNGs
+   within one level of 255.  Every K1, K2 and K3 launch of the phase
+   records its site, and after the runs each kernel is held against its
+   plain version at every distinct float32 site the test YAMLs gave it
+   (K2a up to N = 921600 at 720x1280, K3 up to (1, 90, 160, 512)), with
+   phase 3's bounds for K1 and K2 (K2a's ctx against the float64
+   composition) and phase 5's for K3.
 
 K1 is also timed over one bf16 forward of each path's score net (phases 3,
 6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
@@ -168,15 +200,17 @@ F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
 ``by_path`` on K1's entry of the JSON line.
 
 Launch counts are set to 0 just before each main path and read just after.
-Then a ``[train]`` JSON line with the train paths' times, one JSON line
+Then a ``[train]`` JSON line with the train paths' times, an ``[eval]`` one
+with the test YAMLs' seconds per image, peak memory and metrics, one JSON line
 with each kernel's launches, error, times and bound, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the
 script exits non-zero and prints no result.  Without CUDA it exits at once.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False), so float32 comparisons
-are float32 on both sides; only phase 21 runs the train entry point with
-torch's default (cuDNN TF32 on), as a user's run gets it.
+are float32 on both sides; only phases 21 and 22 run the train and test
+entry points with torch's default (cuDNN TF32 on), as a user's run gets
+it (phase 22's LPIPS, FID and plain-path comparisons turn it off again).
 """
 
 from __future__ import annotations
@@ -747,19 +781,66 @@ def check_gradients(dev):
           f"{rel:.3g} (bound 1e-5); K1, K3 and K4 differentiable")
 
 
-def phase_naf_stack(dev, stats):
-    """K3 against its plain version at the latent path's shapes (28 blocks,
-    C = 512): batch 4 at 512 px, the 700x1000 request's 12x16 map, the
-    deraining Refusion net's 16x16 map at batch 8; and a ragged 3x5x7x64
-    stack of 4.  Bound: f32 1e-4 of max|ref|; bf16 twice the plain bf16
-    result's distance from the plain float32 result on the same input.
+def hold_naf_stack(tag, x, blocks, tmod, stacked, eps):
+    """K3 on ``x`` against its plain version.  Bound: f32 1e-4 of max|ref|;
+    bf16 twice the plain bf16 result's distance from the plain float32
+    result on the same input.
 
     Each block's rounding is held block by block: the K blocks run again as
     K chained one-block launches, each against the one-block plain version
     on the same input (f32 1e-5 of max|ref|, bf16 bf16_bound: one ulp), and
     the chain's end must equal the K-block launch bit for bit (every sum
     runs in a fixed order and the grid is sized without K, so a kernel that
-    kept the activation in float32 across blocks would differ)."""
+    kept the activation in float32 across blocks would differ).  Returns
+    (max|dy|, its bound, the one-block chain's max|dy|)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    K, dtype, shape = len(blocks), x.dtype, tuple(x.shape)
+    y = NS.naf_stack_cuda(x, blocks, tmod, eps)
+    ref = NS.naf_stack_plain(x, stacked, eps)
+    err = (y.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(y).all()), f"{tag}: K3 {dtype} {shape}: output not finite")
+    if dtype == torch.float32:
+        limit = 1e-4 * ref.abs().max().item()
+    else:
+        limit = 2 * (ref.float() - NS.naf_stack_plain(x.float(), stacked, eps)).abs().max().item()
+    check(err <= limit, f"{tag}: K3 {dtype} {shape} K={K}: max|dy|={err:.3g} (bound {limit:.3g})")
+    z, one_err = x, 0.0
+    for i in range(K):
+        zi = NS.naf_stack_cuda(z, blocks[i : i + 1], tmod[i : i + 1], eps)
+        one = NS.naf_stack_plain(z, {k: v[i : i + 1] for k, v in stacked.items()}, eps)
+        e = (zi.float() - one.float()).abs()
+        if dtype == torch.float32:
+            ok = e.max().item() <= 1e-5 * one.abs().max().item()
+        else:
+            ok = bool((e <= bf16_bound(one)).all())
+        check(ok, f"{tag}: K3 {dtype} {shape} block {i} alone: max|dy|={e.max().item():.3g}")
+        one_err, z = max(one_err, e.max().item()), zi
+    check(torch.equal(z, y), f"{tag}: K3 {dtype} {shape}: K={K} in one launch differs from {K} chained launches")
+    return err, limit, one_err
+
+
+def naf_stack_inputs(shape, K, dev, gen):
+    """Seeded inputs of K3 on a (B, H, W, C) map: K blocks (naf_blocks), x
+    and a time embedding; returns (x float32, blocks, tmod, stacked)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    C = shape[-1]
+    blocks = naf_blocks(K, C, 4 * C // 8, dev, SEED + K)
+    x32 = torch.randn(shape, generator=gen, device=dev)
+    temb = torch.randn(shape[0], 4 * C // 8, generator=gen, device=dev)
+    return x32, blocks, NS.time_modulation(blocks, temb), NS.stack_middle_params(blocks, temb)
+
+
+def phase_naf_stack(dev, stats):
+    """K3 against its plain version (hold_naf_stack) at the latent path's
+    shapes (28 blocks, C = 512): batch 4 at 512 px, the 700x1000 request's
+    12x16 map, the deraining Refusion net's 16x16 map at batch 8; and a
+    ragged 3x5x7x64 stack of 4; bf16 and f32, each timed."""
     import torch
 
     from image_restoration_sde_tpu_torch.ops import naf_stack as NS
@@ -769,35 +850,10 @@ def phase_naf_stack(dev, stats):
     main_shape = (LATENT_BATCH, 8, 8, 512)
     cases = [(main_shape, 28), ((1, 12, 16, 512), 28), ((8, 16, 16, 512), 28), ((3, 5, 7, 64), 4)]
     for shape, K in cases:
-        C = shape[-1]
-        blocks = naf_blocks(K, C, 4 * C // 8, dev, SEED + K)
-        x32 = torch.randn(shape, generator=gen, device=dev)
-        temb = torch.randn(shape[0], 4 * C // 8, generator=gen, device=dev)
-        stacked = NS.stack_middle_params(blocks, temb)
-        tmod = NS.time_modulation(blocks, temb)
+        x32, blocks, tmod, stacked = naf_stack_inputs(shape, K, dev, gen)
         for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
             x = x32.to(dtype)
-            y = NS.naf_stack_cuda(x, blocks, tmod, eps)
-            ref = NS.naf_stack_plain(x, stacked, eps)
-            err = (y.float() - ref.float()).abs().max().item()
-            check(bool(torch.isfinite(y).all()), f"K3 {dtype} {shape}: output not finite")
-            if dtype == torch.float32:
-                limit = 1e-4 * ref.abs().max().item()
-            else:
-                limit = 2 * (ref.float() - NS.naf_stack_plain(x.float(), stacked, eps)).abs().max().item()
-            check(err <= limit, f"K3 {dtype} {shape} K={K}: max|dy|={err:.3g} (bound {limit:.3g})")
-            z, one_err = x, 0.0
-            for i in range(K):
-                zi = NS.naf_stack_cuda(z, blocks[i : i + 1], tmod[i : i + 1], eps)
-                one = NS.naf_stack_plain(z, {k: v[i : i + 1] for k, v in stacked.items()}, eps)
-                e = (zi.float() - one.float()).abs()
-                if dtype == torch.float32:
-                    ok = e.max().item() <= 1e-5 * one.abs().max().item()
-                else:
-                    ok = bool((e <= bf16_bound(one)).all())
-                check(ok, f"K3 {dtype} {shape} block {i} alone: max|dy|={e.max().item():.3g}")
-                one_err, z = max(one_err, e.max().item()), zi
-            check(torch.equal(z, y), f"K3 {dtype} {shape}: K={K} in one launch differs from {K} chained launches")
+            err, limit, one_err = hold_naf_stack("kernels", x, blocks, tmod, stacked, eps)
             stats[NS.NAF_STACK]["err"] = max(stats[NS.NAF_STACK]["err"], err)
             # the card's time from a CUDA graph of 5 launches; beside it one launch
             # between CUDA events, the earlier figure, which also holds the host's
@@ -816,6 +872,43 @@ def phase_naf_stack(dev, stats):
                   f"{nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.2f} TFLOP/s")
             if dtype == torch.bfloat16 and shape == main_shape:
                 stats[NS.NAF_STACK].update(ms=ms, event_ms=ems, plain_ms=pms, bound_ms=bms, bound_by=by)
+
+
+@contextlib.contextmanager
+def recorded_naf_sites():
+    """Record the (map shape, blocks, dtype, eps) of every K3 launch made
+    inside the block, into the yielded list."""
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    sites, cuda = [], NS.naf_stack_cuda
+
+    def rec(x, blocks, tmod, eps):
+        sites.append((tuple(x.shape), len(blocks), x.dtype, eps))
+        return cuda(x, blocks, tmod, eps)
+
+    NS.naf_stack_cuda = rec
+    try:
+        yield sites
+    finally:
+        NS.naf_stack_cuda = cuda
+
+
+def hold_naf_sites(tag, dev, sites, stats):
+    """K3 against its plain version (hold_naf_stack) at each recorded (map
+    shape, blocks, dtype, eps) site, on seeded blocks and inputs."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    for shape, K, dtype, eps in sorted(set(sites), key=str):
+        x32, blocks, tmod, stacked = naf_stack_inputs(shape, K, dev, gen)
+        err, limit, one_err = hold_naf_stack(tag, x32.to(dtype), blocks, tmod, stacked, eps)
+        stats[NS.NAF_STACK]["err"] = max(stats[NS.NAF_STACK]["err"], err)
+        print(f"[{tag}] K3 {str(dtype)[6:]} {shape} K={K} eps {eps:g}: max|dy|={err:.3g} (bound {limit:.3g}), "
+              f"one block at a time max|dy|={one_err:.3g}, chained launches bit-equal")
+        del x32, blocks, tmod, stacked
 
 
 def make_net(cls, setting, dtype, plain, dev, state=None):
@@ -2260,6 +2353,552 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
     return launches, record, os.path.join(exp, "models", f"{steps}_G.pth")
 
 
+# ---------------------------------------------------------------- evaluation
+# The test YAMLs (configs/<task>/test/<file>), each through the test entry
+# point at its own full width and sampling steps: per YAML its synthetic
+# test set (a kind of EVAL data, the images, their (H, W): near the public
+# set's, or a range for bokeh and stereo), and the train path of phase 21
+# whose last checkpoint it loads where phase 21 trained its network (the
+# same class and setting), else None: a seeded .pth the phase writes.
+# Cuts, each to the time budget: one or two images a set; GoPro's 720x1280
+# kept, the shadow set's 1440x1920 cut to 720x960, bokeh's to 512-768 px,
+# Flickr1024's pairs to 256-384 px HR
+EVAL_PATHS = {
+    ("deblurring", "ir-sde.yml"): ("pairs", 1, (720, 1280), "ir-sde"),
+    ("deblurring", "refusion.yml"): ("pairs", 1, (720, 1280), "refusion"),
+    ("denoising", "ir-sde.yml"): ("gt", 1, (500, 500), None),
+    ("denoising", "refusion.yml"): ("gt", 1, (500, 500), None),
+    ("deraining", "ir-sde.yml"): ("pairs", 2, (321, 481), "ir-sde"),
+    ("deraining", "refusion.yml"): ("pairs", 2, (321, 481), "refusion"),
+    ("deshadow", "ir-sde.yml"): ("pairs", 1, (720, 960), None),
+    ("deshadow", "refusion.yml"): ("pairs", 1, (720, 960), "refusion"),
+    ("inpainting", "ir-sde.yml"): ("gt", 1, (256, 256), "ir-sde"),
+    ("inpainting", "refusion.yml"): ("gt", 1, (256, 256), "refusion"),
+    ("latent-bokeh", "refusion.yml"): ("bokeh", 1, (512, 768), "bokeh"),
+    ("latent-dehazing", "nasde.yml"): ("pairs", 1, (500, 700), "latent"),
+    ("sisr", "ir-sde.yml"): ("sr", 1, (228, 344), "ir-sde"),
+    ("sisr", "refusion.yml"): ("sr", 1, (228, 344), "refusion"),
+    ("stereo-sr", "refusion.yml"): ("stereo", 1, (256, 384), "stereo"),
+    ("unet-latent", "test_latent.yml"): ("pairs", 1, (500, 700), "compressor"),
+}
+# the Gaussian denoising nets' reverse ODE steps: get_optimal_timestep of
+# sigma on the cosine T 1000, max_sigma 70 schedule (the JAX package's
+# integers, tests/test_torch_denoising.py)
+DENOISE_STEPS = {50: DENOISE_T0, 25: 230, 15: 158}
+# TLSC (CNAFNetLocal: deraining/test/refusion.yml's net with windows of a
+# 256 px train crop, 1.5 x 256 / 8 = 48 at the 28-block level): a 224x240
+# set, whose padded 224x240 map (28x30 at that level) the window covers, so
+# K3 fuses the level; and a 321x481 set (padded 336x496: 42x62), where it
+# does not, and the 28 blocks run one by one on the windowed mean (2 K1
+# each)
+TLSC_TRAIN, TLSC_SETS = 256, {"covered": (224, 240), "windowed": (321, 481)}
+# the tiled run: deraining/test/ir-sde.yml by tiles of 256 px, overlap 32,
+# 4 a sampler call, on the card (tile_device)
+EVAL_TILE = (256, 32, 4)
+# the kernel path against the plain path: Gaussian denoising with its LQ
+# given (GT + noise of sigma 50: the reverse ODE, deterministic), TF32 off
+# (with TF32 on, a float32 difference in a conv's input can flip its TF32
+# rounding), the saved PNGs within EVAL_PLAIN_LEVELS of 255; a small image:
+# the plain K2's softmax over the tokens takes 90 s for 414 steps at 256x320
+EVAL_PLAIN_HW, EVAL_PLAIN_LEVELS = (60, 90), 1
+# LPIPS and FID on the card against the same modules on the CPU (TF32 off):
+# LPIPS within 1e-4 of each distance, pool3 features within 1e-4 of max|f|
+LPIPS_FID_IMAGES, LPIPS_FID_BOUND = 3, 1e-4
+
+
+def eval_steps(opt):
+    """Reverse steps a test YAML's sampler runs on one image."""
+    if opt["distortion"] == "denoising":
+        return DENOISE_STEPS[int(opt["degradation"]["sigma"])]
+    return int(opt["sde"].get("sample_T") or opt["sde"]["T"])
+
+
+def eval_counts(opt, steps):
+    """Launches per image of a test YAML's task: its net's per forward times
+    ``steps``; a latent task's compressor encodes and decodes once (the
+    compressor task: two encodes and a decode, no SDE).  The UNet of depth
+    d launches 2 K1 and one K2 at each of its 2d + 1 linear attentions (the
+    unconditional net's middle one is full attention: one K1)."""
+    model, setting = opt["model"], opt["network_G"]["setting"]
+    which = opt["network_G"].get("which_model_G") or opt["network_G"].get("which_model")
+    enc_ln, enc_attn = COMPRESSOR_LN // 2, COMPRESSOR_ATTN // 2
+    if model == "latent":
+        return counts(LAYERNORM=3 * enc_ln, LA_CTX=3 * enc_attn, LA_APPLY=3 * enc_attn)
+    if model == "latent_denoising":
+        bokeh = opt["distortion"] == "bokeh"
+        ln = BOKEH_LN_PER_FORWARD if bokeh else NAF_LN_PER_FORWARD
+        return counts(LAYERNORM=steps * ln + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN, LA_APPLY=COMPRESSOR_ATTN,
+                      NAF_STACK=0 if bokeh else steps)
+    if which == "ConditionalUNet":
+        sites = 2 * int(setting["depth"]) + 1 - (opt["distortion"] == "denoising")
+        ln = 2 * sites + (opt["distortion"] == "denoising")
+        return counts(LAYERNORM=steps * ln, LA_CTX=steps * sites, LA_APPLY=steps * sites)
+    if opt["datasets"]["test1"]["mode"].startswith("Ste"):
+        return counts(LAYERNORM=steps * STEREO_LN_PER_FORWARD)
+    return counts(LAYERNORM=steps * NAF_LN_PER_FORWARD, NAF_STACK=steps)
+
+
+def scaled(want, n):
+    return {k: n * v for k, v in want.items()}
+
+
+def write_eval_data(path, kind, n, hw, seed):
+    """A synthetic test set of ``kind`` under ``path``; returns its dataset
+    keys."""
+    from image_restoration_sde_tpu_torch.data.synthetic import write_bokeh, write_pairs, write_stereo
+
+    if kind == "bokeh":
+        write_bokeh(path, n, seed, *hw)
+        return dict(dataroot_LQ=f"{path}/src", dataroot_alpha=f"{path}/alpha", dataroot_meta=f"{path}/meta.txt")
+    if kind == "stereo":
+        write_stereo(path, n, seed, *hw)
+        return dict(dataroot_GT=f"{path}/HR", dataroot_LQ=f"{path}/LR_x4")
+    write_pairs(path, n, seed, shape=hw)
+    if kind == "pairs":
+        return dict(dataroot_GT=f"{path}/GT", dataroot_LQ=f"{path}/LQ")
+    return dict(dataroot_GT=f"{path}/GT", dataroot_LQ=None)  # gt; sr: the dataset downscales x4
+
+
+def seeded_pth(path, opt):
+    """A test YAML's net (and a latent task's compressor) with ``init_params_``
+    weights from the seed (the score nets' NAFBlock beta and gamma random,
+    not torch's zeros), saved as ``.pth`` files; returns their paths."""
+    import copy
+
+    import torch
+
+    from image_restoration_sde_tpu_torch import runners
+    from image_restoration_sde_tpu_torch.models import init_params_
+    from image_restoration_sde_tpu_torch.utils import options
+
+    opt = options.dict_to_nonedict(copy.deepcopy(opt))
+    opt["path"]["pretrain_model_G"] = opt["path"]["pretrain_model_L"] = None
+    task = runners.build_task(opt, SEED, "cpu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    nets = {"G": task.net, "L": getattr(task, "compressor", None)}
+    paths = {}
+    for label, net in nets.items():
+        if net is not None:
+            init_params_(net, torch.Generator().manual_seed(SEED + len(paths)))
+            paths[label] = f"{path}_{label}.pth"
+            torch.save(net.state_dict(), paths[label])
+    return paths
+
+
+def bokeh_train_compressor(path):
+    """The compressor phase 21's bokeh run froze: its task's seeded one
+    (the train YAML's seed + 1, ``runners``), saved as a ``.pth``."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import runners
+    from image_restoration_sde_tpu_torch.utils import options
+
+    opt = load_yaml(os.path.join(REPO, "configs", *TRAIN_PATHS["bokeh"][0]))
+    which, setting = options.network_setting(opt, "network_L")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(runners._seeded_network(which, setting, int(opt["train"]["manual_seed"]) + 1).state_dict(), path)
+    return path
+
+
+def eval_weights(root, opt, label, trained):
+    """``(pretrain_model_G, pretrain_model_L)`` of a test YAML: phase 21's
+    last checkpoints where it trained the network (a latent task's frozen
+    compressor: the compressor path's, or the bokeh run's seeded one), else
+    seeded weights."""
+    if label == "latent" and label in trained:
+        return trained["latent"], trained["compressor"]
+    if label == "bokeh" and label in trained:
+        return trained["bokeh"], bokeh_train_compressor(os.path.join(root, "bokeh_L.pth"))
+    return trained_or_seeded(root, opt, label, trained)
+
+
+def trained_or_seeded(root, opt, label, trained):
+    """Phase 21's last checkpoint of the train path ``label``, else seeded
+    weights (``seeded_pth``)."""
+    if label in trained:
+        return trained[label], None
+    paths = seeded_pth(os.path.join(root, "seeded"), opt)
+    return paths["G"], paths.get("L")
+
+
+def write_eval_yaml(root, parts, opt, sets, weights, name=None, **top):
+    """The test YAML ``opt`` with its test sets on ``sets`` (set name ->
+    dataset keys, each set otherwise the YAML's first), its weights
+    (``pretrain_model_G``, ``pretrain_model_L``), results under ``root``
+    and the ``top`` keys, written to ``root/<task>/test/<file>`` (the task
+    is the YAML's grandparent directory)."""
+    import copy
+
+    import yaml
+
+    opt = copy.deepcopy(opt)
+    base = opt["datasets"]["test1"]
+    opt["datasets"] = {f"test{i + 1}": {**base, "name": set_name, **keys}
+                       for i, (set_name, keys) in enumerate(sets.items())}
+    opt["name"] = name or opt["name"]
+    opt["path"] = {"root": root, "pretrain_model_G": weights[0], "pretrain_model_L": weights[1], "strict_load": True}
+    opt.update(top)
+    path = os.path.join(root, parts[0], "test", parts[1])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+def test_set(opt, data):
+    """The YAML's one test set, by its name, on ``data``."""
+    return {opt["datasets"]["test1"]["name"]: data}
+
+
+@contextlib.contextmanager
+def recorded_images():
+    """Launches by kernel symbol of each image the test entry point restores
+    inside the block (wrapping its ``restore``)."""
+    from image_restoration_sde_tpu_torch import test as test_entry
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    rec, original = [], test_entry.restore
+
+    def restore(*args):
+        before = {k.symbol: k.launches for k in KERNELS}
+        out = original(*args)
+        rec.append({k.symbol: k.launches - before[k.symbol] for k in KERNELS})
+        return out
+
+    test_entry.restore = restore
+    try:
+        yield rec
+    finally:
+        test_entry.restore = original
+
+
+def run_test(yml, dev, *flags):
+    """``python -m image_restoration_sde_tpu_torch.test -opt=<yml>`` (its
+    ``evaluate``, in this process), every launch count set to 0 just
+    before and read just after; returns its result by set, each image's
+    launches and the run's."""
+    import gc
+
+    import torch
+
+    from image_restoration_sde_tpu_torch import test as test_entry
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    lpips_pth, fid_pth = (flags + (None, None))[:2]
+    for k in KERNELS:
+        k.launches = 0
+    with recorded_images() as rec:
+        result = test_entry.evaluate(yml, dev, lpips_pth, fid_pth)
+    run = {k.symbol: k.launches for k in KERNELS}
+    check(run == {k.symbol: sum(r[k.symbol] for r in rec) for k in KERNELS}, f"{yml}: launches outside the images")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, rec, run
+
+
+def check_outputs(tag, yml, result, rec, want, stereo=False):
+    """Per image exactly ``want`` launches (a dict, or a list by set), the
+    output, LQ and GT PNGs (one per eye of a pair) and, with a GT, finite
+    metrics."""
+    from image_restoration_sde_tpu_torch.utils import options
+
+    opt = options.parse(yml, is_train=False)
+    wants = want if isinstance(want, list) else [want] * len(result)
+    per_image = [w for w, res in zip(wants, result.values()) for _ in res["images"]]
+    check(rec == per_image, f"{tag}: launches per image {rec}, expected {per_image}")
+    for name, res in result.items():
+        files = os.listdir(os.path.join(opt["path"]["results_root"], name))
+        for r in res["images"]:
+            kinds = ("", "_LQ", "_GT") if "psnr" in r else ("", "_LQ")
+            names = {f"{r['name']}{k}{eye}.png" for k in kinds for eye in (("_L", "_R") if stereo else ("",))}
+            check(names <= set(files), f"{tag}: {sorted(names - set(files))} not written")
+            check("psnr" not in r or all(np.isfinite(r[k]) for k in ("psnr", "ssim", "psnr_y", "ssim_y")),
+                  f"{tag}: metrics {r}")
+
+
+def eval_line(tag, res, per_image, smi):
+    secs = [r["seconds"] for r in res["images"]]
+    scores = "" if "psnr" not in res else (f"; PSNR {res['psnr']:.4f} SSIM {res['ssim']:.4f} PSNR-Y "
+                                           f"{res['psnr_y']:.4f} SSIM-Y {res['ssim_y']:.4f}")
+    print(f"[eval] {tag}: {len(secs)} image(s), s/image {[round(s, 3) for s in secs]}, peak memory "
+          f"{res['peak_memory_bytes'] / 2**30:.3f} GiB above the {res['held_memory_bytes'] / 2**30:.3f} GiB "
+          f"held before the set, launches per image "
+          f"{ {k: v for k, v in per_image.items() if v} }{scores}; card: {smi}")
+    return {"seconds": secs, "peak_memory_gib": res["peak_memory_bytes"] / 2**30,
+            "held_memory_gib": res["held_memory_bytes"] / 2**30, "launches_per_image": per_image,
+            **{k: res.get(k) for k in ("psnr", "ssim", "psnr_y", "ssim_y", "lpips", "fid")}}
+
+
+def phase_eval(dev, workdir, smi, trained, stats):
+    """Every test YAML through the test entry point (``test.evaluate``, what
+    ``python -m image_restoration_sde_tpu_torch.test -opt=<yml>`` runs), at
+    torch's default TF32 settings (cuDNN TF32 on), as a user's run gets
+    them: EVAL_PATHS' test sets and weights, exactly ``eval_counts``
+    launches per image, the PNGs and finite metrics; then the TLSC run, the
+    tiled run, an inference run (``--sigma 25``), the restore CLI in its own
+    process, an LPIPS and FID run (seeded weights, held against the CPU),
+    and Gaussian denoising's kernel path against its plain path.  Every K1,
+    K2 and K3 launch of these runs records its site (shape and dtype), and
+    after them each kernel is held against its plain version at every
+    distinct site (``hold_sites``, ``hold_naf_sites``: the float32 sites of
+    the full-size images, 720x1280 included).  Returns the launches by path
+    and a record of the times and peak memory."""
+    import torch
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    try:
+        with recorded_sites() as (ln, attn), recorded_naf_sites() as naf:
+            result = eval_main_path(dev, os.path.join(workdir, "eval"), smi, trained)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    hold_sites("eval", dev, ln, attn, stats, {})
+    hold_naf_sites("eval", dev, naf, stats)
+    return result
+
+
+def eval_main_path(dev, root, smi, trained):
+    launches, record = {}, {}
+    for i, (parts, (kind, n, hw, label)) in enumerate(EVAL_PATHS.items()):
+        key = "/".join(parts)
+        opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+        data = write_eval_data(os.path.join(root, "data", key.replace("/", "_")), kind, n, hw, SEED + 60 + i)
+        top = {}
+        if (opt.get("degradation") or {}).get("mask_root"):
+            from image_restoration_sde_tpu_torch.data.synthetic import write_masks
+
+            top["degradation"] = {**opt["degradation"], "mask_root": write_masks(os.path.join(root, "masks"), 8,
+                                                                                  SEED + 59, max(hw))}
+        weights = eval_weights(os.path.join(root, key.replace("/", "_")), opt, label, trained)
+        yml = write_eval_yaml(root, parts, opt, test_set(opt, data), weights, **top)
+        per_image = eval_counts(opt, eval_steps(opt))
+        result, rec, launches[f"test_{key}"] = run_test(yml, dev)
+        check_outputs(key, yml, result, rec, per_image, stereo=kind == "stereo")
+        (res,) = result.values()
+        record[key] = eval_line(key, res, per_image, smi)
+    launches["test_tlsc"], record["tlsc"] = eval_tlsc(dev, root, smi, trained)
+    launches["test_tiled"], record["tiled"] = eval_tiled(dev, root, smi, trained)
+    launches["inference"], record["inference"] = eval_inference(dev, root, smi)
+    record["restore_cli"] = eval_restore_cli(root)
+    launches["test_lpips_fid"], record["lpips_fid"] = eval_lpips_fid(dev, root, smi, trained)
+    launches["test_plain"], record["plain"] = eval_plain(dev, root, smi)
+    return launches, record
+
+
+def eval_tlsc(dev, root, smi, trained):
+    """CNAFNetLocal on deraining/test/refusion.yml's net (TLSC_TRAIN px
+    train crop) over the two TLSC_SETS: per step one K3 launch where the
+    28-block level's window covers its map, none where it does not (there
+    the level's 28 blocks launch 2 K1 each)."""
+    parts = ("deraining", "refusion.yml")
+    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    opt["network_G"] = {"which_model_G": "CNAFNetLocal",
+                        "setting": {**opt["network_G"]["setting"], "train_size": [1, 3, TLSC_TRAIN, TLSC_TRAIN]}}
+    root = os.path.join(root, "tlsc")
+    sets = {name: write_eval_data(os.path.join(root, "data", name), "pairs", 1, hw, SEED + 80 + i)
+            for i, (name, hw) in enumerate(TLSC_SETS.items())}
+    yml = write_eval_yaml(root, parts, opt, sets, trained_or_seeded(root, opt, "refusion", trained), name="tlsc")
+    steps, window = eval_steps(opt), TLSC_TRAIN * 3 // 2 // 8  # the window at the 28-block level (1/8 scale)
+    wants = []
+    for hw in TLSC_SETS.values():
+        covered = all(window >= -(-side // 16) * 16 // 8 for side in hw)  # the map: padded to 16, at 1/8
+        check(covered == (hw == TLSC_SETS["covered"]), f"tlsc: {hw} covered: {covered}")
+        wants.append(counts(LAYERNORM=steps * (NAF_LN_PER_FORWARD + (0 if covered else 2 * 28)),
+                            NAF_STACK=steps if covered else 0))
+    result, rec, run = run_test(yml, dev)
+    check_outputs("tlsc", yml, result, rec, wants)
+    return run, {name: eval_line(f"tlsc {name} {TLSC_SETS[name]}", res, want, smi)
+                   for (name, res), want in zip(result.items(), wants)}
+
+
+def eval_tiled(dev, root, smi, trained):
+    """deraining/test/ir-sde.yml with ``tile``, ``tile_overlap``,
+    ``tile_batch`` (EVAL_TILE) and ``tile_device``: per image the sampler
+    runs once a chunk of tiles."""
+    from image_restoration_sde_tpu_torch.tiling import tile_grid
+
+    parts, hw = ("deraining", "ir-sde.yml"), (321, 481)
+    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    root = os.path.join(root, "tiled")
+    data = write_eval_data(os.path.join(root, "data"), "pairs", 1, hw, SEED + 85)
+    tile, overlap, tile_batch = EVAL_TILE
+    yml = write_eval_yaml(root, parts, opt, test_set(opt, data), trained_or_seeded(root, opt, "ir-sde", trained),
+                          name="tiled", tile=tile, tile_overlap=overlap, tile_batch=tile_batch, tile_device=True)
+    tiles = len(tile_grid(hw[0], min(tile, hw[0]), overlap)) * len(tile_grid(hw[1], min(tile, hw[1]), overlap))
+    want = scaled(eval_counts(opt, eval_steps(opt)), -(-tiles // tile_batch))
+    result, rec, run = run_test(yml, dev)
+    check_outputs("tiled", yml, result, rec, want)
+    (res,) = result.values()
+    return run, eval_line(f"tiled {hw}, {tiles} tiles of {tile} px, {tile_batch} a call", res, want, smi)
+
+
+def eval_inference(dev, root, smi):
+    """``python -m image_restoration_sde_tpu_torch.inference`` (its
+    ``infer``) on denoising/test/ir-sde.yml with ``--sigma 25``: GT plus
+    noise of sigma 25, the reverse ODE from its optimal timestep; one PNG
+    and exactly those steps' launches an image."""
+    import copy
+
+    from image_restoration_sde_tpu_torch import inference
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    parts, sigma, n = ("denoising", "ir-sde.yml"), 25, 2
+    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    root = os.path.join(root, "inference")
+    data = write_eval_data(os.path.join(root, "data"), "gt", n, (500, 500), SEED + 86)
+    yml = write_eval_yaml(root, parts, opt, test_set(opt, data), trained_or_seeded(root, opt, None, {}),
+                          name="inference")
+    with_sigma = copy.deepcopy(opt)
+    with_sigma["degradation"]["sigma"] = sigma
+    want = scaled(eval_counts(with_sigma, eval_steps(with_sigma)), n)
+    for k in KERNELS:
+        k.launches = 0
+    (times,) = inference.infer(yml, dev, sigma).values()
+    grew = {k.symbol: k.launches for k in KERNELS}
+    out_dir = os.path.join(root, "results", parts[0], "inference", opt["datasets"]["test1"]["name"])
+    check(grew == want and len(times) == n and len(os.listdir(out_dir)) == n,
+          f"inference: launches {grew}, expected {want}; {os.listdir(out_dir)}")
+    print(f"[eval] inference --sigma {sigma}: {n} images of 500x500, {eval_steps(with_sigma)} steps, s/image "
+          f"{[round(t, 3) for t in times]}; launches {grew}; card: {smi}")
+    return grew, {"seconds": times, "steps": eval_steps(with_sigma)}
+
+
+def eval_restore_cli(root):
+    """``python -m image_restoration_sde_tpu_torch.restore`` in its own
+    process, by tiles, on the deraining sweep's YAML and LQ image: exit 0
+    and an output of the input's size."""
+    from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8
+
+    yml = os.path.join(root, "deraining", "test", "ir-sde.yml")
+    src = sorted(os.listdir(os.path.join(root, "data", "deraining_ir-sde.yml", "LQ")))[0]
+    src = os.path.join(root, "data", "deraining_ir-sde.yml", "LQ", src)
+    dst = os.path.join(root, "restored.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "image_restoration_sde_tpu_torch.restore", f"-opt={yml}", "-i", src,
+                           "-o", dst, "--tile", "256", "--tile-overlap", "32"], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"restore CLI: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    check(read_img_uint8(dst).shape == read_img_uint8(src).shape, "restore CLI: output size")
+    print(f"[eval] restore CLI (tiles of 256 px): {proc.stdout.strip()}; {seconds:.1f} s with the process start")
+    return {"seconds_with_start": seconds, "stdout": proc.stdout.strip()}
+
+
+def eval_lpips_fid(dev, root, smi, trained):
+    """The compressor's test YAML with ``--lpips-pth`` (alex) and
+    ``--fid-pth``, seeded weights of both: a finite LPIPS per image and FID
+    per set; then on the set's output and GT PNGs, TF32 off, the card's
+    LPIPS distances and pool3 features against the same modules on the CPU
+    (LPIPS_FID_BOUND), and their milliseconds per image on the card."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8
+    from image_restoration_sde_tpu_torch.utils import fid, lpips
+
+    parts, n, hw = ("unet-latent", "test_latent.yml"), LPIPS_FID_IMAGES, (321, 481)
+    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    root = os.path.join(root, "lpips_fid")
+    data = write_eval_data(os.path.join(root, "data"), "pairs", n, hw, SEED + 87)
+    lpips_pth, fid_pth = os.path.join(root, "lpips_alex.pth"), os.path.join(root, "fid_inception.pth")
+    torch.save(lpips.seeded_state_dict("alex", SEED), lpips_pth)
+    torch.save(fid.seeded_state_dict(SEED), fid_pth)
+    yml = write_eval_yaml(root, parts, opt, test_set(opt, data), trained_or_seeded(root, opt, "compressor", trained),
+                          name="lpips_fid")
+    result, rec, run = run_test(yml, dev, lpips_pth, fid_pth)
+    want = eval_counts(opt, 0)
+    check_outputs("lpips_fid", yml, result, rec, want)
+    ((name, res),) = result.items()
+    check(all(np.isfinite(r["lpips"]) for r in res["images"]) and np.isfinite(res["fid"]), f"lpips/fid: {res}")
+
+    out_dir = os.path.join(root, "results", parts[0], "lpips_fid", name)
+    pairs = [(read_img_uint8(os.path.join(out_dir, f"{r['name']}.png")),
+              read_img_uint8(os.path.join(out_dir, f"{r['name']}_GT.png"))) for r in res["images"]]
+    lp_card, lp_cpu = lpips.make_lpips_fn(lpips_pth, dev), lpips.make_lpips_fn(lpips_pth, "cpu")
+    nets = {d: fid.load_inception(fid_pth, d) for d in (dev, "cpu")}
+    imgs = [torch.from_numpy(o)[None].float() / 255.0 for o, _ in pairs]
+    lp_card(*pairs[0])  # warm up at the default TF32 settings, then time
+    fid.inception_pool3_features(nets[dev], [im.to(dev) for im in imgs])
+    t0 = time.perf_counter()
+    for o, g in pairs:
+        lp_card(o, g)  # returns a float: synchronised
+    lpips_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fid.inception_pool3_features(nets[dev], [im.to(dev) for im in imgs]).cpu()
+    fid_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lp_err = max(abs(lp_card(o, g) - lp_cpu(o, g)) / abs(lp_cpu(o, g)) for o, g in pairs)
+        f_card = fid.inception_pool3_features(nets[dev], [im.to(dev) for im in imgs]).cpu()
+        f_cpu = fid.inception_pool3_features(nets["cpu"], imgs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    f_err = ((f_card - f_cpu).abs().max() / f_cpu.abs().max()).item()
+    print(f"[eval] lpips/fid: {n} images of {hw[0]}x{hw[1]}: LPIPS (alex, seeded) {res['lpips']:.6f}, FID (seeded) "
+          f"{res['fid']:.6f}; card against CPU (TF32 off): LPIPS rel {lp_err:.3g}, pool3 features "
+          f"{f_err:.3g} of max (bound {LPIPS_FID_BOUND}); LPIPS {lpips_ms:.3f} ms/image, InceptionV3 features "
+          f"{fid_ms:.3f} ms/image (batch of {len(imgs)}, resize included); card: {smi}")
+    check(lp_err <= LPIPS_FID_BOUND and f_err <= LPIPS_FID_BOUND, f"lpips/fid: card against CPU {lp_err}, {f_err}")
+    return run, {**eval_line("lpips/fid", res, want, smi), "lpips_ms_per_image": lpips_ms,
+                    "fid_features_ms_per_image": fid_ms, "lpips_card_vs_cpu_rel": lp_err,
+                    "fid_features_card_vs_cpu": f_err}
+
+
+def eval_plain(dev, root, smi):
+    """denoising/test/ir-sde.yml with its noisy LQ given (GT plus noise of
+    sigma 50, an LQGT set): the reverse ODE, deterministic, through the
+    kernel path and the plain path (``plain: true``) of the same seeded
+    net, TF32 off: the output PNGs within EVAL_PLAIN_LEVELS of 255; no
+    launch on the plain path."""
+    import torch
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return eval_plain_paths(dev, root, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def eval_plain_paths(dev, root, smi):
+    import copy
+
+    from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8, save_img
+
+    parts = ("denoising", "ir-sde.yml")
+    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    root = os.path.join(root, "plain")
+    data = write_eval_data(os.path.join(root, "data"), "gt", 1, EVAL_PLAIN_HW, SEED + 88)
+    noise = np.random.default_rng(SEED + 89)
+    for f in sorted(os.listdir(data["dataroot_GT"])):
+        gt = read_img_uint8(os.path.join(data["dataroot_GT"], f)).astype(np.float64)
+        lq = gt + noise.normal(0, opt["degradation"]["sigma"], gt.shape)
+        save_img(np.clip(np.round(lq), 0, 255).astype(np.uint8), os.path.join(root, "data", "LQ", f))
+    data.update(dataroot_LQ=os.path.join(root, "data", "LQ"))
+    weights = trained_or_seeded(root, opt, None, {})
+    opt["datasets"]["test1"]["mode"] = "LQGT"
+    plain = copy.deepcopy(opt)
+    plain["network_G"]["setting"]["plain"] = True
+    want = eval_counts(opt, eval_steps(opt))
+    outs, secs, runs = {}, {}, {}
+    for label, o in (("kernel", opt), ("plain", plain)):
+        yml = write_eval_yaml(os.path.join(root, label), parts, o, test_set(o, data), weights, name=label)
+        result, rec, runs[label] = run_test(yml, dev)
+        check_outputs(f"plain {label}", yml, result, rec, want if label == "kernel" else counts())
+        (res,) = result.values()
+        out_dir = os.path.join(root, label, "results", parts[0], label, o["datasets"]["test1"]["name"])
+        outs[label] = [read_img_uint8(os.path.join(out_dir, f"{r['name']}.png")).astype(int) for r in res["images"]]
+        secs[label] = [r["seconds"] for r in res["images"]]
+    diff = max(np.abs(a - b).max() for a, b in zip(outs["kernel"], outs["plain"]))
+    share = np.mean([(a != b).mean() for a, b in zip(outs["kernel"], outs["plain"])])
+    print(f"[eval] kernel path against plain path, {parts[0]}/{parts[1]} with its LQ given ({EVAL_PLAIN_HW}, "
+          f"{eval_steps(opt)} ODE steps, TF32 off): output PNGs max |d| {diff} level(s) (bound {EVAL_PLAIN_LEVELS}), "
+          f"{share:.3g} of the values differ; s/image kernel {secs['kernel']}, plain {secs['plain']}; card: {smi}")
+    check(diff <= EVAL_PLAIN_LEVELS, f"plain: kernel path against plain path {diff} levels")
+    return runs["kernel"], {"max_levels": int(diff), "share_differing": float(share), "seconds": secs}
+
+
 def load_yaml(path):
     import yaml
 
@@ -2338,17 +2977,17 @@ def main() -> int:
     timed("train kernels", phase_train_kernels, dev)
     timed("train kernels K4", phase_flash_backward, dev, stats)
     timed("train nets", phase_train_nets, dev, train_opts)
-    train_record = {}
+    train_record, trained = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         timed("train data", write_train_data, os.path.join(workdir, "data"))
-        compressor_pth = None
         for label, o in train_opts.items():
-            pretrain_l = compressor_pth if label in ("latent", "dit") else None
-            launches[f"train_{label}"], train_record[label], last = timed(
+            pretrain_l = trained["compressor"] if label in ("latent", "dit") else None
+            launches[f"train_{label}"], train_record[label], trained[label] = timed(
                 f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi, pretrain_l)
-            if label == "compressor":
-                compressor_pth = last
-    print(f"[train] {json.dumps(train_record)}")
+        print(f"[train] {json.dumps(train_record)}")
+        eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats)
+    launches.update(eval_launches)
+    print(f"[eval] {json.dumps(eval_record)}")
 
     report = []
     for k in KERNELS:

@@ -13,6 +13,9 @@ random colour fields with edges.
   and right views of pair i, the right one shifted by a random disparity)
   and ``<root>/LR_x{scale}/*.png`` (their matlab-bicubic downscales), what
   the stereo datasets read.
+- :func:`write_masks`: ``<root>/{i:06d}.png``, an inpainting mask bank
+  (white keeps a pixel, black strokes are the holes), what
+  ``degradation.mask_root`` names.
 """
 
 from __future__ import annotations
@@ -50,11 +53,15 @@ def _rain(rng: np.random.Generator, img: np.ndarray) -> np.ndarray:
     return np.clip(noisy, 0, 1)
 
 
-def write_pairs(root: str, n: int, seed: int, min_size: int = 128, max_size: int = 256) -> str:
-    """Write ``n`` GT/LQ pairs under ``root``; returns ``root``."""
+def write_pairs(root: str, n: int, seed: int, min_size: int = 128, max_size: int = 256, shape=None) -> str:
+    """Write ``n`` GT/LQ pairs under ``root``, each side drawn between
+    ``min_size`` and ``max_size`` unless ``shape`` (H, W) fixes both;
+    returns ``root``."""
     rng = np.random.default_rng(seed)
     for i in range(n):
         h, w = (int(v) for v in rng.integers(min_size, max_size + 1, 2))
+        if shape is not None:
+            h, w = shape
         gt = _clean(rng, h, w)
         lq = _rain(rng, gt)
         for sub, img in (("GT", gt), ("LQ", lq)):
@@ -119,4 +126,23 @@ def write_stereo(root: str, n: int, seed: int, min_size: int = 128, max_size: in
             name = f"{2 * i + eye:04d}.png"
             save_img(hr, os.path.join(root, "HR", name))
             save_img(_u8(imresize(hr.astype(np.float64) / 255, 1 / scale)), os.path.join(root, f"LR_x{scale}", name))
+    return root
+
+
+def write_masks(root: str, n: int, seed: int, size: int = 256) -> str:
+    """Write ``n`` square inpainting masks of side ``size`` under ``root``:
+    white, with 4-8 random black strokes 2-8% of the side wide; returns
+    ``root``."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    for i in range(n):
+        keep = np.ones((size, size), bool)
+        for _ in range(int(rng.integers(4, 9))):
+            (y0, x0), (y1, x1) = rng.uniform(0, size, (2, 2))
+            width = rng.uniform(0.02, 0.08) * size
+            # distance of each pixel to the segment (y0, x0)-(y1, x1)
+            dy, dx = y1 - y0, x1 - x0
+            t = np.clip(((yy - y0) * dy + (xx - x0) * dx) / max(dy * dy + dx * dx, 1e-6), 0, 1)
+            keep &= np.hypot(yy - y0 - t * dy, xx - x0 - t * dx) > width / 2
+        save_img(np.repeat(keep[..., None], 3, axis=2).astype(np.uint8) * 255, os.path.join(root, f"{i:06d}.png"))
     return root

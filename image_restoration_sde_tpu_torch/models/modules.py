@@ -213,6 +213,20 @@ def check_image_size(x: torch.Tensor, multiple: int, mode: str = "reflect") -> t
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def local_avg_pool(x: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
+    """TLSC's windowed mean of NCHW ``x``, the same size out: k1 x k2 window
+    sums from a zero-padded 2-D cumulative sum in float32 (over W, then H),
+    over the window's area, replicate-padded back to the input's H and W;
+    windows larger than the map are cut to it.  In ``x``'s dtype."""
+    _, _, H, W = x.shape
+    k1, k2 = min(H, k1), min(W, k2)
+    s = F.pad(x.float().cumsum(3).cumsum(2), (1, 0, 1, 0))
+    out = (s[:, :, k1:, k2:] + s[:, :, :-k1, :-k2] - s[:, :, :-k1, k2:] - s[:, :, k1:, :-k2]) / (k1 * k2)
+    h, w = out.shape[2:]
+    out = F.pad(out, ((W - w) // 2, (W - w + 1) // 2, (H - h) // 2, (H - h + 1) // 2), mode="replicate")
+    return out.to(x.dtype)
+
+
 def simple_gate(x: torch.Tensor) -> torch.Tensor:
     """Split the channels (axis 1) in half and multiply the halves."""
     x1, x2 = x.chunk(2, dim=1)

@@ -10,13 +10,18 @@ MLP.  Inputs are zero-padded at the bottom/right to a multiple of
 SDE's variant) takes ``x_t`` alone, ``forward(x, None, t)``, where the
 conditional net takes ``concat([x_t - cond, cond])``.
 
+``tlsc_train_size`` (the reference's ``CNAFNetLocal``) replaces the global
+mean of each block's channel attention with TLSC's windowed mean, the
+window 1.5x the train crop's feature map at the block's level
+(``tlsc_kernel``), wherever the window is smaller than the feature map.
+
 A run of at least ``FUSE_MIN_BLOCKS`` blocks at one level (the 28-block
-deep level of the Refusion configs) at a width K3 takes (``fuses``) goes
-through the fused stack (``ops/naf_stack.py``, kernel K3): all math in
-float32 with float32 weights, each block's output rounded to the compute
-dtype.  Other runs go block by block in the compute dtype.  The two
-compute different functions in bf16, as in the JAX package; the gate
-decides which one, not the device.
+deep level of the Refusion configs) at a width K3 takes, whose channel
+attention takes the global mean (``fuses``), goes through the fused stack
+(``ops/naf_stack.py``, kernel K3): all math in float32 with float32
+weights, each block's output rounded to the compute dtype.  Other runs go
+block by block in the compute dtype.  The two compute different functions
+in bf16, as in the JAX package; the gate decides which one, not the device.
 
 ``forward`` takes and returns NHWC float32; inside, activations are NCHW in
 ``channels_last`` memory in the compute ``dtype``; parameters stay float32.
@@ -25,7 +30,7 @@ decides which one, not the device.
 from __future__ import annotations
 
 import operator
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +44,7 @@ from .modules import (
     SimpleGate,
     SinusoidalPosEmb,
     check_image_size,
+    local_avg_pool,
     simple_gate,
 )
 
@@ -46,21 +52,37 @@ FUSE_MIN_BLOCKS = 4
 _BLOCK_KEYS = PARAM_ORDER + ("mlp.1.weight", "mlp.1.bias")
 
 
-def fuses(blocks: nn.ModuleList) -> bool:
-    """Whether a level's blocks run as one fused stack: at least
-    FUSE_MIN_BLOCKS of them, at a width K3 takes (a multiple of
-    CHANNEL_MULTIPLE channels)."""
-    return len(blocks) >= FUSE_MIN_BLOCKS and blocks[0].beta.shape[1] % CHANNEL_MULTIPLE == 0
+def fuses(blocks: nn.ModuleList, hw: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether a level's blocks run as one fused stack on a feature map of
+    ``hw``: at least FUSE_MIN_BLOCKS of them, at a width K3 takes (a
+    multiple of CHANNEL_MULTIPLE channels), and a channel attention that
+    takes the global mean, K3's only one: no TLSC window, or one that
+    covers the map.  Without ``hw``: whether the level fuses on some map."""
+    if len(blocks) < FUSE_MIN_BLOCKS or blocks[0].beta.shape[1] % CHANNEL_MULTIPLE:
+        return False
+    window = blocks[0].sca_kernel
+    return window is None or hw is None or (window[0] >= hw[0] and window[1] >= hw[1])
+
+
+def tlsc_kernel(train_size: Tuple[int, int], level: int) -> Tuple[int, int]:
+    """TLSC's window at a pyramid level: 1.5x the train crop's feature map
+    there (the JAX ``ConditionalNAFNet._sca_kernel``)."""
+    th, tw = train_size
+    base_h, base_w = int(th * 1.5), int(tw * 1.5)
+    fh, fw = th >> level, tw >> level
+    return max(1, fh * base_h // th), max(1, fw * base_w // tw)
 
 
 class NAFBlockBody(nn.Module):
     """A NAFBlock without its time Dense: reference key space ``conv1`` ..
     ``conv5``, ``sca.1``, ``norm1``, ``norm2``, ``beta``, ``gamma``.  Both
     expansions are 2, as in every configuration of the reference (and K3
-    takes only 2)."""
+    takes only 2).  ``sca_kernel``: TLSC's window, or None for the global
+    mean."""
 
-    def __init__(self, c: int, plain: bool = False):
+    def __init__(self, c: int, plain: bool = False, sca_kernel: Optional[Tuple[int, int]] = None):
         super().__init__()
+        self.sca_kernel = sca_kernel
         self.conv1 = Conv2d(c, 2 * c, 1)
         self.conv2 = Conv2d(2 * c, 2 * c, 3, padding=1, groups=2 * c)
         self.conv3 = Conv2d(c, c, 1)
@@ -79,7 +101,7 @@ class NAFBlockBody(nn.Module):
         inp = x
         x = self.norm1(x) * (scale_att + 1) + shift_att
         x = simple_gate(self.conv2(self.conv1(x)))
-        x = self.conv3(x * self.sca(x))
+        x = self.conv3(x * self.sca[1](self.pool(x)))
         # beta/gamma are float32 parameters multiplied in the compute dtype
         y = inp + x * self.beta.to(x.dtype)
 
@@ -90,12 +112,21 @@ class NAFBlockBody(nn.Module):
         x = self.conv5(x)
         return y + x * self.gamma.to(x.dtype)
 
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The channel attention's statistics: TLSC's windowed mean where
+        the window is smaller than the map, else the global mean."""
+        window = self.sca_kernel
+        if window is not None and (window[0] < x.shape[2] or window[1] < x.shape[3]):
+            return local_avg_pool(x, *window)
+        return self.sca[0](x)
+
 
 class NAFBlock(NAFBlockBody):
     """The body plus ``mlp.1``, the time Dense."""
 
-    def __init__(self, c: int, time_emb_dim: int, plain: bool = False):
-        super().__init__(c, plain)
+    def __init__(self, c: int, time_emb_dim: int, plain: bool = False,
+                 sca_kernel: Optional[Tuple[int, int]] = None):
+        super().__init__(c, plain, sca_kernel)
         self.mlp = nn.Sequential(SimpleGate(), Linear(time_emb_dim // 2, c * 4))
 
     def tensors(self) -> dict:
@@ -170,13 +201,19 @@ class ConditionalNAFNet(NAFNetPyramid):
         enc_blk_nums: Sequence[int] = (),
         dec_blk_nums: Sequence[int] = (),
         conditional: bool = True,
+        tlsc_train_size: Optional[Tuple[int, int]] = None,
         dtype: torch.dtype = torch.float32,
         plain: bool = False,
     ):
         time_dim = width * 4
         in_ch = img_channel * 2 if conditional else img_channel
-        super().__init__(in_ch, img_channel, width, middle_blk_num, enc_blk_nums, dec_blk_nums,
-                         lambda chan: NAFBlock(chan, time_dim, plain=plain))
+
+        def make_block(chan):
+            level = (chan // width).bit_length() - 1
+            window = None if tlsc_train_size is None else tlsc_kernel(tlsc_train_size, level)
+            return NAFBlock(chan, time_dim, plain=plain, sca_kernel=window)
+
+        super().__init__(in_ch, img_channel, width, middle_blk_num, enc_blk_nums, dec_blk_nums, make_block)
         self.conditional, self.dtype, self.plain = conditional, dtype, plain
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(width), Linear(width, time_dim * 2), SimpleGate(), Linear(time_dim, time_dim)
@@ -185,7 +222,7 @@ class ConditionalNAFNet(NAFNetPyramid):
     def _block_run(self, blocks: nn.ModuleList, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """A level's blocks: fused through the NAF stack where ``fuses``
         says so, else one by one."""
-        if not fuses(blocks):
+        if not fuses(blocks, x.shape[2:]):
             return run_blocks(blocks, x, t)
         # float32 weights, read in place (``fused_param_names``)
         params = [blk.tensors() for blk in blocks]
@@ -198,10 +235,11 @@ class ConditionalNAFNet(NAFNetPyramid):
         return out.permute(0, 3, 1, 2)
 
     def fused_param_names(self) -> list:
-        """Names of the parameters that fused levels read.  The fused math
-        takes them in float32, so a caller casting the net's parameters
-        (``sampling.make_noise_fn``) keeps these in float32 storage: cast
-        once, not on every forward."""
+        """Names of the parameters that fused levels read (a TLSC level's
+        where it fuses on some map).  The fused math takes them in float32,
+        so a caller casting the net's parameters (``sampling.make_noise_fn``)
+        keeps these in float32 storage: cast once, not on every forward; a
+        level that then runs block by block casts them as it goes."""
         levels = [f"encoders.{j}" for j in range(len(self.encoders))] + ["middle_blks"]
         levels += [f"decoders.{j}" for j in range(len(self.decoders))]
         names = []

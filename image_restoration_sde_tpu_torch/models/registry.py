@@ -19,9 +19,20 @@ from .nafnet import ConditionalNAFNet
 from .stereo_nafnet import StereoConditionalNAFNet
 from .unet import ConditionalUNet
 
+
+
+def cnafnet_local(train_size=(1, 3, 128, 128), fast_imp: bool = False, **setting) -> ConditionalNAFNet:
+    """The reference's ``CNAFNetLocal``: ConditionalNAFNet with TLSC windows
+    pinned to the train crop, ``train_size``'s last two entries.
+    ``fast_imp`` selects the reference's other code for the same windowed
+    mean; it is ignored, as in the JAX package."""
+    return ConditionalNAFNet(tlsc_train_size=(int(train_size[-2]), int(train_size[-1])), **setting)
+
+
 _REGISTRY: Dict[str, Any] = {
     "ConditionalUNet": ConditionalUNet,
     "ConditionalNAFNet": ConditionalNAFNet,
+    "CNAFNetLocal": cnafnet_local,
     "StereoConditionalNAFNet": StereoConditionalNAFNet,
     "BokehConditionalNAFNet": BokehConditionalNAFNet,
     "UNet": UNet,

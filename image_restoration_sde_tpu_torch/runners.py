@@ -15,9 +15,14 @@ Counterpart of the tasks of ``image_restoration_sde_tpu/runners.py``:
 
 Each runner owns its net, SDE, schedule and train state and exposes
 ``step(state, batch, gen)`` (host-side degradation prep, then one train
-step), ``validate(state, loader, gen, out_dir, step)`` (PSNR through the
-port's samplers), ``params_trees(state)`` (label -> ``state_dict`` for
-checkpoints) and ``maybe_load_pretrained(state)``.
+step), ``infer(batch, gen)`` (one batch restored through the task's own
+sampler: ``(restored NHWC float32, LQ used)``, both numpy),
+``validate(state, loader, gen, out_dir, step)`` (PSNR of ``infer``'s
+outputs), ``params_trees(state)`` (label -> ``state_dict`` for checkpoints)
+and ``maybe_load_pretrained(state)``; the samplers that restore tiles also
+``prepare_lq(batch, gen)`` (the LQ ``infer`` feeds its sampler) and
+``sample_batch(tiles, gens)``, the ``sample_fn`` of
+``tiling.tiled_restore`` and ``tiled_restore_device``.
 
 The net's initial weights are torch's default initialisation of the
 reference's modules, drawn from the run's seed; so are a latent task's
@@ -45,6 +50,15 @@ from .training.checkpoint import ema_state_dict, load_params
 from .utils import metrics, options
 from .utils.degradations import add_noise, mask_to, upscale
 from .utils.img_utils import split_eyes, tensor2img
+
+
+def resolve_device(name: str) -> torch.device:
+    """The entry points' ``--device``: the card unless ``cpu`` is asked for;
+    without a card, ``cuda`` raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+    return device
 
 
 def effective_distortion(opt) -> str:
@@ -170,9 +184,22 @@ class _Base:
             for eye, img in split_eyes(out_img):
                 save_img(img, os.path.join(out_dir, f"{step}_{i}{eye}.png"))
 
-    def _validate(self, loader, restore, out_dir, step) -> Dict[str, float]:
-        """PSNR of ``restore(batch) -> (restored, gt)`` over the first
-        ``max_images`` validation batches, the net in eval mode."""
+    def _sample(self, x: torch.Tensor, gen, batch) -> torch.Tensor:
+        """The task's sampler on the padded LQ ``x`` of ``batch``: by default
+        its ``sample_batch``."""
+        return self.sample_batch(x, gen)
+
+    def infer(self, batch, gen) -> Tuple[np.ndarray, np.ndarray]:
+        """(restored NHWC float32, LQ used): ``prepare_lq``, padded to the
+        64 bucket, through the task's sampler, unpadded."""
+        lq = self.prepare_lq(batch, gen)
+        vlq, hw = pad_to_bucket(lq, 64)
+        return unpad(self._sample(self._tensor(vlq), gen, batch), hw).cpu().numpy(), lq
+
+    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
+        """PSNR of ``infer`` (every image drawing from ``gen``) against the
+        GT over the first ``max_images`` validation batches, the net in eval
+        mode."""
         max_val = self.opt["datasets"]["val"]["max_images"] or 16
         avg_psnr, n = 0.0, 0
         self.net.eval()
@@ -180,9 +207,9 @@ class _Base:
             for i, vb in enumerate(loader):
                 if i >= max_val:
                     break
-                out, gt = restore(vb)
+                out, _ = self.infer(vb, gen)
                 out_img = tensor2img(out[0])
-                avg_psnr += metrics.calculate_psnr(out_img, tensor2img(gt[0]))
+                avg_psnr += metrics.calculate_psnr(out_img, tensor2img(vb["GT"][0]))
                 n += 1
                 self._save_val_images(out_img, out_dir, step, i)
         finally:
@@ -221,13 +248,15 @@ class PixelDiffusionTask(_Base):
         lq, gt = self.prepare_pair(batch)
         return self._train_step(state, self._tensor(lq), self._tensor(gt), gen)
 
-    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
-        def restore(vb):
-            lq, gt = self.prepare_pair(vb)
-            vlq, hw = pad_to_bucket(np.asarray(lq), 64)
-            return unpad(self.sampler(self._tensor(vlq), gen), hw), gt
+    def prepare_lq(self, batch, gen=None) -> np.ndarray:
+        """The sampler's LQ: the pair's (an LQ-only batch stands in for its
+        GT), made from the GT for inpainting (the mask), SR upscaled."""
+        if "GT" not in batch:
+            batch = {**batch, "GT": batch["LQ"]}
+        return np.asarray(self.prepare_pair(batch)[0])
 
-        return self._validate(loader, restore, out_dir, step)
+    def sample_batch(self, tiles: torch.Tensor, gens) -> torch.Tensor:
+        return self.sampler(tiles, gens)
 
 
 class GaussianDenoisingTask(_Base):
@@ -251,13 +280,15 @@ class GaussianDenoisingTask(_Base):
     def step(self, state, batch, gen: torch.Generator):
         return self._train_step(state, self._tensor(batch["GT"]), gen)
 
-    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
-        def restore(vb):
-            gt = self._tensor(vb["GT"])
-            vlq, hw = pad_to_bucket(add_noise(gt, gen, self.sigma).cpu().numpy(), 64)
-            return unpad(self.sampler(self._tensor(vlq)), hw), vb["GT"]
+    def prepare_lq(self, batch, gen) -> np.ndarray:
+        """The batch's noisy LQ, else its GT plus noise of ``sigma`` drawn
+        from ``gen``."""
+        if "LQ" in batch:
+            return np.asarray(batch["LQ"], np.float32)
+        return add_noise(self._tensor(batch["GT"]), gen, self.sigma).cpu().numpy()
 
-        return self._validate(loader, restore, out_dir, step)
+    def sample_batch(self, tiles: torch.Tensor, gens=None) -> torch.Tensor:
+        return self.sampler(tiles)  # the reverse ODE draws nothing
 
 
 class CompressorTask(_Base):
@@ -291,16 +322,15 @@ class CompressorTask(_Base):
     def step(self, state, batch, gen: torch.Generator):
         return self._train_step(state, self._tensor(batch["LQ"]), self._tensor(batch["GT"]), gen)
 
-    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
-        @torch.inference_mode()
-        def restore(vb):
-            lq, hw = pad_to_bucket(np.asarray(vb["LQ"]), 64)
-            gt, _ = pad_to_bucket(np.asarray(vb["GT"]), 64)
-            _, h_lq = self.net.encode(self._tensor(lq))
-            l_gt, _ = self.net.encode(self._tensor(gt))
-            return unpad(self.net.decode(l_gt, h_lq), hw), vb["GT"]
-
-        return self._validate(loader, restore, out_dir, step)
+    @torch.inference_mode()
+    def infer(self, batch, gen=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The cross decode: the GT's latent (the LQ's where the batch has
+        no GT) decoded with the LQ's skips.  Draws nothing."""
+        lq, hw = pad_to_bucket(np.asarray(batch["LQ"]), 64)
+        gt, _ = pad_to_bucket(np.asarray(batch.get("GT", batch["LQ"])), 64)
+        _, h_lq = self.net.encode(self._tensor(lq))
+        l_gt, _ = self.net.encode(self._tensor(gt))
+        return unpad(self.net.decode(l_gt, h_lq), hw).cpu().numpy(), np.asarray(batch["LQ"])
 
 
 class LatentDiffusionTask(_Base):
@@ -334,12 +364,14 @@ class LatentDiffusionTask(_Base):
     def step(self, state, batch, gen: torch.Generator):
         return self._train_step(state, self._tensor(batch["LQ"]), self._tensor(batch["GT"]), gen, self._cond(batch))
 
-    def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
-        def restore(vb):
-            vlq, hw = pad_to_bucket(np.asarray(vb["LQ"]), 64)
-            return unpad(self.sampler(self._tensor(vlq), gen, self._cond(vb)), hw), vb["GT"]
+    def prepare_lq(self, batch, gen=None) -> np.ndarray:
+        return np.asarray(batch["LQ"], np.float32)
 
-        return self._validate(loader, restore, out_dir, step)
+    def sample_batch(self, tiles: torch.Tensor, gens) -> torch.Tensor:
+        return self.sampler(tiles, gens)
+
+    def _sample(self, x: torch.Tensor, gen, batch) -> torch.Tensor:
+        return self.sampler(x, gen, self._cond(batch))
 
 
 class BokehLatentDiffusionTask(LatentDiffusionTask):
@@ -350,6 +382,9 @@ class BokehLatentDiffusionTask(LatentDiffusionTask):
     update out)."""
 
     keeps_ema = False
+    # an image's lens values condition the whole image: its tiles have none
+    # of their own, so the task restores no tiles (as in the JAX package)
+    sample_batch = None
 
     @staticmethod
     def _score_network(opt) -> tuple:

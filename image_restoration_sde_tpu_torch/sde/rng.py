@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 GeneratorLike = Union[torch.Generator, Sequence[torch.Generator]]
@@ -42,6 +43,13 @@ def generator(seed: int, device="cuda") -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     return g
+
+
+def fold_seed(seed: int, index: int) -> int:
+    """The seed of item ``index`` (a tile of an image, an image of a test
+    set) of a run seeded with ``seed``: items draw independent noise, and
+    an item's noise does not depend on how the items are batched."""
+    return int(np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)[0])
 
 
 def generators_for_seeds(seeds: Sequence[int], device="cuda") -> list:

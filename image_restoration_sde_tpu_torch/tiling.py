@@ -53,11 +53,6 @@ def tile_grid(length: int, tile: int, overlap: int) -> List[int]:
     return list(dict.fromkeys(starts))  # the clamp can repeat the last start
 
 
-def tile_seed(seed: int, index: int) -> int:
-    """The generator seed of tile ``index`` (its place in the whole grid)."""
-    return int(np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)[0])
-
-
 def _layout(H: int, W: int, tile: int, overlap: int) -> Tuple[int, int, Coords, np.ndarray]:
     """Tile height and width, tile corners, and the (th, tw, 1) blend weights."""
     th, tw = min(tile, H), min(tile, W)
@@ -72,7 +67,7 @@ def _restored_chunks(sample_fn: Callable, tiles_at: Callable, coords: Coords, ti
     """(corners, restored tiles) for each chunk of ``tile_batch`` tiles."""
     for i in range(0, len(coords), tile_batch):
         chunk = coords[i : i + tile_batch]
-        gens = None if seed is None else [rng.generator(tile_seed(seed, i + j), device) for j in range(len(chunk))]
+        gens = None if seed is None else [rng.generator(rng.fold_seed(seed, i + j), device) for j in range(len(chunk))]
         yield chunk, sample_fn(tiles_at(chunk), gens)
 
 

@@ -28,18 +28,11 @@ import numpy as np
 import torch
 
 from .data import create_dataloader, create_dataset
-from .runners import build_task
+from .runners import build_task, resolve_device
 from .sde import rng
 from .training.checkpoint import load_training_state, save_checkpoint
 from .utils import options
 from .utils.logging_utils import TensorboardWriter, mkdir_and_rename, mkdirs, setup_logger
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: no CUDA device; pass --device cpu to train on the CPU")
-    return device
 
 
 def train(opt_path: str, device="cuda"):

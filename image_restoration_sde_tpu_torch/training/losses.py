@@ -44,9 +44,9 @@ def perceptual_matching_loss(
     Parity: ref config/unet-latent/models/modules/loss.py:34-58
     (PerceptualMatchingLoss; the shipped code path uses the plain
     MatchingLoss).  ``lpips_fn(predict, target)`` is injectable and returns
-    the batch mean; without it the perceptual term is skipped, which is the
-    reference's effective behaviour.  LPIPS itself is not in the port yet
-    (ROADMAP, Queue 1)."""
+    the batch mean, e.g. ``utils.lpips.make_perceptual_loss_fn(pth)``
+    (differentiable); without it the perceptual term is skipped, which is
+    the reference's effective behaviour."""
     loss = matching_loss(predict, target, loss_type, weights)
     if lpips_fn is not None:
         loss = loss + lpips_weight * lpips_fn(predict, target)

@@ -780,3 +780,50 @@ def test_new_nets_kernel_path_matches_plain_path(cuda_device, name, dtype):
         assert err <= 1e-4 * ref.abs().max().item()
     else:
         assert err <= 2 * (ref - f32).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_test_entry_point_on_the_card(cuda_device, tmp_path):
+    """``python -m image_restoration_sde_tpu_torch.test`` on a tiny deraining
+    YAML (UNet nf 8 depth 2, 3 sde steps, two LQ/GT pairs of odd sizes) on
+    the card: exactly 3 x (10 K1, 5 K2a, 5 K2b) launches an image, finite
+    metrics, the output PNGs, and the same YAML's plain path within 2
+    levels of 255 of the kernel path's outputs (TF32 off; the two
+    paths draw the same noise)."""
+    from image_restoration_sde_tpu_torch import runners, test
+    from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8
+    from image_restoration_sde_tpu_torch.data.synthetic import write_pairs
+    from image_restoration_sde_tpu_torch.utils import options
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = write_pairs(str(tmp_path / "data"), 2, seed=1, min_size=37, max_size=61)
+    ymls = {}
+    for plain in (False, True):
+        ymls[plain] = str(tmp_path / f"{plain}.yml")
+        with open(ymls[plain], "w") as f:
+            f.write(f"""name: tiny
+model: denoising
+distortion: derain
+sde: {{max_sigma: 10, T: 100, schedule: cosine, eps: 0.005, sample_T: 3, sampling_mode: sde}}
+degradation: {{sigma: 25, noise_type: G, scale: 4}}
+datasets:
+  test1: {{name: pairs, mode: LQGT, dataroot_GT: {data}/GT, dataroot_LQ: {data}/LQ}}
+network_G: {{which_model_G: ConditionalUNet, setting: {{in_nc: 3, out_nc: 3, nf: 8, depth: 2, plain: {plain}}}}}
+path: {{root: {tmp_path}/{plain}, pretrain_model_G: {tmp_path}/net.pth}}
+""")
+    opt = options.dict_to_nonedict(options.parse(ymls[False], is_train=False))
+    opt["path"]["pretrain_model_G"] = None
+    torch.save(runners.build_task(opt, 3, "cpu").net.state_dict(), tmp_path / "net.pth")
+    counted = (layernorm.LAYERNORM, linear_attention.LA_CTX, linear_attention.LA_APPLY, naf_stack.NAF_STACK)
+    counts = [k.launches for k in counted]
+    result = test.evaluate(ymls[False], "cuda")["pairs"]
+    assert [k.launches - c for k, c in zip(counted, counts)] == [2 * 3 * 10, 2 * 3 * 5, 2 * 3 * 5, 0]
+    assert len(result["images"]) == 2 and np.isfinite(result["psnr"]) and result["peak_memory_bytes"] > 0
+    assert result["held_memory_bytes"] > 0  # the net's weights, on the card before the set began
+    test.evaluate(ymls[True], "cuda")
+    assert [k.launches - c for k, c in zip(counted, counts)] == [2 * 3 * 10, 2 * 3 * 5, 2 * 3 * 5, 0]
+    outs = {plain: sorted(tmp_path.glob(f"{plain}/results/*/tiny/pairs/????.png")) for plain in (False, True)}
+    assert len(outs[False]) == 2 and [p.name for p in outs[False]] == [p.name for p in outs[True]]
+    for a, b in zip(outs[False], outs[True]):
+        assert np.abs(read_img_uint8(str(a)).astype(int) - read_img_uint8(str(b)).astype(int)).max() <= 2

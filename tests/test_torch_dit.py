@@ -279,7 +279,8 @@ def test_latent_chain_through_dit_matches_jax(tiny_weights, compressor_weights, 
 # ---------------------------------------------------------------- registry
 def test_registry_names_and_its_error():
     ladder = {f"DiT_{s}_{p}" for s in ("S", "B", "L", "XL") for p in (2, 4, 8)}
-    nets = {"ConditionalUNet", "ConditionalNAFNet", "StereoConditionalNAFNet", "BokehConditionalNAFNet", "UNet", "DiT"}
+    nets = {"ConditionalUNet", "ConditionalNAFNet", "CNAFNetLocal", "StereoConditionalNAFNet", "BokehConditionalNAFNet",
+            "UNet", "DiT"}
     assert set(available()) == nets | ladder
     net = build_network("DiT_S_4", {"in_channels": 8, "dtype": "bfloat16", "depth": 1})
     assert isinstance(net, DiT) and net.dtype == torch.bfloat16 and net.patch_size == 4

@@ -99,7 +99,7 @@ def test_each_tile_draws_its_own_noise_whatever_the_chunking(entry):
     np.testing.assert_array_equal(one, two)
     left, right = one[0, :, :20], one[0, :, 20:]
     assert np.abs(left - right).max() > 1e-3
-    want = torch.randn((20, 20, 3), generator=rng.generator(tiling.tile_seed(7, 1), "cpu")).numpy()
+    want = torch.randn((20, 20, 3), generator=rng.generator(rng.fold_seed(7, 1), "cpu")).numpy()
     np.testing.assert_array_equal(right, want)
     assert not np.array_equal(one, entry(_noise_sampler, img, 8, tile=20, overlap=0, device="cpu"))
 
