@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K1 and K5 of two checkouts of the port on one NVIDIA GPU, in turns.
 
-    python3 chip_compare.py OTHER_CHECKOUT
+    python3 chip_compare.py OTHER_CHECKOUT [--enqueue]
 
 OTHER_CHECKOUT is another checkout of this repository (the parent commit,
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -22,6 +22,12 @@ Measured, bf16 unless named, each from a CUDA graph of 20 back-to-back calls
   ``linear_attention_apply_heads_cuda``) at ``chip_smoke.LIN_ATTN_SHAPES``,
   float32 and bfloat16, beside half the op's bound each.
 
+With ``--enqueue`` it times instead the host enqueue per score-net forward
+on the six sampler paths: this checkout's ``chip_profile.py --sampling``
+run on each checkout's package (``--package``), in the same turns repeated
+three times, and the table gives each side's median and quartiles of its
+six runs a path.
+
 The kernels are held against their plain versions by ``chip_smoke.py``;
 this script only times them.  Without CUDA it exits at once.
 """
@@ -40,6 +46,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = ("other", "this", "this", "other")
+ENQUEUE_ROUNDS = ROUNDS * 3
 
 
 def smoke():
@@ -117,13 +124,44 @@ def side(tree):
     print(json.dumps({"k1": [[C, rows, *t] for (C, rows), t in k1.items()], "k5": k5}))
 
 
+def compare_enqueue(trees) -> int:
+    """Host enqueue per forward of each sampler path, the two checkouts'
+    packages in turns under this checkout's ``chip_profile.py --sampling``
+    (ENQUEUE_ROUNDS: one process's median moves ~30% between processes, so
+    a side takes six runs)."""
+    import re
+
+    line = re.compile(r"^\[([\w-]+)\] wall ([\d.]+) ms/step; host enqueue ([\d.]+) ms/forward")
+    runs = {"other": [], "this": []}
+    for name in ENQUEUE_ROUNDS:
+        out = subprocess.run([sys.executable, os.path.join(REPO, "chip_profile.py"), "--sampling", "--package",
+                              trees[name]], stdout=subprocess.PIPE, text=True, check=True).stdout
+        runs[name].append({m[1]: (float(m[2]), float(m[3])) for m in map(line.match, out.splitlines()) if m})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    n = ENQUEUE_ROUNDS.count("this")
+    print(f"[enqueue] other = {trees['other']}; host enqueue ms per forward (median and quartiles of {n} runs a "
+          f"side, in turns other, this, this, other) and wall ms per step (median); pairs: the k-th run of each "
+          f"side; card: {smi}")
+    for path in runs["this"][0]:
+        enq = {name: [r[path][1] for r in runs[name]] for name in runs}
+        q = {name: np.percentile(v, [25, 50, 75]) for name, v in enq.items()}
+        wall = {name: statistics.median(r[path][0] for r in runs[name]) for name in runs}
+        wins = sum(t < o for t, o in zip(enq["this"], enq["other"]))
+        print(f"[enqueue] {path}: other {q['other'][1]:.3f} [{q['other'][0]:.3f}, {q['other'][2]:.3f}] this "
+              f"{q['this'][1]:.3f} [{q['this'][0]:.3f}, {q['this'][2]:.3f}] "
+              f"({100 * (q['this'][1] / q['other'][1] - 1):+.1f}%; this lower in {wins} of {n} pairs); wall other "
+              f"{wall['other']:.3f} this {wall['this']:.3f}")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--side":
         side(sys.argv[2])
         return 0
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--enqueue"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -143,6 +181,8 @@ def main() -> int:
               for tree in trees.values()]
     if any(b.wait() != 0 for b in builds):
         return 1
+    if "--enqueue" in sys.argv[2:]:
+        return compare_enqueue(trees)
 
     sites = record_sites(cs, torch.device("cuda", 0))
     distinct = sorted({s for path in sites.values() for s in path})

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one sampler step goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--sampling] [--package CHECKOUT]
 
 For each of the port's sampler paths (the configurations of
 ``chip_smoke.py``: IR-SDE deraining, ConditionalUNet at batch 8, 128 px;
@@ -44,6 +44,9 @@ nasde.yml``, kernel path and plain path) and DiT-L/2
 attention keeps B H N^2 float32 scores a block for its backward, past the
 card's memory at batch 8), with the step's peak memory.
 
+``--sampling`` stops after the sampler paths; ``--package CHECKOUT`` imports
+the port from another checkout of the repository (``chip_compare.py
+--enqueue`` times two checkouts' host enqueue with the same script).
 Without CUDA it exits at once.
 """
 
@@ -279,15 +282,21 @@ def profile_train(dev, gen):
             torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sampling", action="store_true", help="the sampler paths only, no train step")
+    parser.add_argument("--package", default=REPO, help="the checkout whose port is imported")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import yaml
 
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.package))
     from image_restoration_sde_tpu_torch.models import (
         ConditionalNAFNet, ConditionalUNet, UNet, build_network, init_params_,
     )
@@ -357,7 +366,8 @@ def main() -> int:
     profile_steps("bokeh", *posterior(lambda x, m, t: bokeh(x, m, t, lens), latent + 0.1, latent, make_sde(opt)))
     del bokeh, compressor
     torch.cuda.empty_cache()
-    profile_train(dev, gen)
+    if not args.sampling:
+        profile_train(dev, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")

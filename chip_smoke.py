@@ -65,9 +65,18 @@ seed or trained here:
   network, else seeded weights, on synthetic test sets near the public
   sets' sizes (EVAL_PATHS); plus TLSC (CNAFNetLocal), a tiled run, the
   inference and restore entry points, LPIPS and FID, and Gaussian
-  denoising's kernel path against its plain path.
+  denoising's kernel path against its plain path;
+- serving: the kernels as ``irsde::`` operators under
+  ``torch.library.opcheck``; the deraining, latent and denoising samplers
+  exported (``exporting.py``) and loaded in a fresh process; the port's
+  HTTP server (``python -m image_restoration_sde_tpu_torch.serve``) on the
+  deraining artifact under the port's ``bench_serve``; ``bench_cuda.py``
+  (the main path's bench) and a batch sweep.
 
-Phases, each printing its lines and its seconds:
+Phases, each printing its lines and its seconds (the serving phases ops,
+export *, artifacts, serve and bench run where their nets are built: ops
+after phase 3, export deraining after 5, export latent after 7, export
+denoising, artifacts, serve and bench after 14):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
@@ -194,14 +203,43 @@ Phases, each printing its lines and its seconds:
    phase 3's bounds for K1 and K2 (K2a's ctx against the float64
    composition) and phase 5's for K3.
 
+ops: ``torch.library.opcheck`` (schema, autograd registration, the fake
+   implementation against the kernel's output, the dynamic-shape autograd
+   trace) of each operator on CUDA tensors at one site of a path that
+   launches it (phase_ops);
+export deraining / latent / denoising: the deraining sampler (posterior,
+   bf16 on parameters cast to bf16, per-sample seeds) at a fixed batch of 8
+   and at a symbolic batch, the nasde latent sampler at 4 x 512 px and the
+   Gaussian denoising sampler at 8 x 128 px, each with its seconds, bytes
+   and header, and the eager sampler's outputs for the same inputs and
+   generators (K1 and K2 held against their plain versions at the sites of
+   the deraining runs, batches 1, 3 and 8);
+artifacts: each artifact loaded in a fresh process that builds no net and
+   reads no YAML (``--artifact-child``), each call (the symbolic one at
+   batches 1, 3 and 8) against the eager sampler within EXPORT_BOUND
+   (bit-equality reported), with exact launches per call;
+serve: the server on the fixed-batch per-sample-seed deraining artifact,
+   port 0: /health, SERVE_N requests at SERVE_CONCURRENCY through the port's
+   ``bench_serve`` (req/s, p50, p99, mean device batch; one batch's launches
+   per device call), the same (image, seed) in two batch compositions with
+   the same bytes, every response a PNG of its input's size, seeds -1 and
+   2**32 refused with 400 while their companion is served,
+   ``seed_reproducible`` as the run showed;
+bench: ``python3 bench_cuda.py`` in its own process (batch 8), its line
+   checked and printed, then its sampler at batches BENCH_SWEEP (exact
+   launches), and K1 and K2 held against their plain versions at each
+   sweep batch's sites.
+
 K1 is also timed over one bf16 forward of each path's score net (phases 3,
 6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
 F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
 ``by_path`` on K1's entry of the JSON line.
 
 Launch counts are set to 0 just before each main path and read just after.
-Then a ``[train]`` JSON line with the train paths' times, an ``[eval]`` one
-with the test YAMLs' seconds per image, peak memory and metrics, one JSON line
+Then a ``[serving]`` JSON line with the exports, loaded calls, served
+requests and bench, a ``[train]`` JSON line with the train paths' times, an
+``[eval]`` one with the test YAMLs' seconds per image, peak memory and
+metrics, one JSON line
 with each kernel's launches, error, times and bound, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the
 script exits non-zero and prints no result.  Without CUDA it exits at once.
@@ -314,6 +352,24 @@ FLASH_BWD_BUFFERS, FLASH_BWD_ROWS = 4, 10
 # bf16 K4 against flash_mha_tiled_plain: the share of elements that may lie
 # past two ulps (a p whose rounding a float32 difference in s flips)
 FLASH_FLIP_SHARE = 5e-4
+# serving (phases ops, export, artifacts, serve, bench): opcheck's
+# dynamic-shape autograd test (test_aot_dispatch_dynamic) traces K3's plain
+# backward, which at 28 blocks takes minutes of host time; K3 takes it at
+# this many blocks of the same map (its other tests at 28)
+OPCHECK_NAF_DYNAMIC_K = 1
+# the latent path's fused level at 512 px: blocks, channels, H, W
+LATENT_NAF_LEVEL = (28, 512, 8, 8)
+# the symbolic deraining artifact's batches; a loaded call against the eager
+# sampler with the same generators: max|d| within this share of max|eager|
+# (the step programs run the eager samplers' operators in their order)
+EXPORT_SYMBOLIC_BATCHES = (1, 3, 8)
+EXPORT_BOUND = 1e-3
+# the HTTP server on the fixed-batch deraining artifact: its collection
+# window (long enough for a group of concurrent requests to share a call),
+# the bench's requests, concurrency and untimed warm-up requests
+SERVE_WINDOW_MS, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP = 50.0, 32, 8, 8
+# bench_cuda.py's batch sweep at 128 px, reps per batch (after two warm-ups)
+BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 4, 16, 32), 3  # batch 8: bench_cuda.py's own line
 # NVIDIA H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s for
 # bfloat16 on the tensor cores and float32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -2899,6 +2955,382 @@ def eval_plain_paths(dev, root, smi):
     return runs["kernel"], {"max_levels": int(diff), "share_differing": float(share), "seconds": secs}
 
 
+# ---------------------------------------------------------------- serving
+def phase_ops(dev):
+    """``torch.library.opcheck`` on CUDA tensors for each ``irsde::``
+    operator at one site of a path that launches it (its schema, autograd
+    registration, fake implementation against the kernel's output, and the
+    dynamic-shape autograd trace against eager): K1 at the deraining UNet's
+    128 px level, K2 at its 128 px attention, K3 at the latent path's
+    28-block level (the dynamic-shape test at OPCHECK_NAF_DYNAMIC_K blocks
+    of it), K4 at a DiT-L/2 site, K5 at the deraining UNet's first level."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+    from image_restoration_sde_tpu_torch.ops import layernorm as LN
+    from image_restoration_sde_tpu_torch.ops import linear_attention as LA
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+
+    gen = rng_generator(dev, SEED + 90)
+
+    def leaf(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype).requires_grad_()
+
+    C = LATENT_NAF_LEVEL[1]
+    x, blocks, tmod, _ = naf_stack_inputs((LATENT_BATCH, *LATENT_NAF_LEVEL[2:], C), LATENT_NAF_LEVEL[0], dev, gen)
+    tensors = [blk[k].requires_grad_() for blk in blocks for k in NS.PARAM_ORDER]
+    naf = (x.bfloat16().requires_grad_(), tmod.requires_grad_(), 1e-3, tensors)
+    k = OPCHECK_NAF_DYNAMIC_K
+    naf_small = (naf[0], tmod[:k].detach().requires_grad_(), 1e-3, tensors[: k * len(NS.PARAM_ORDER)])
+    B, N, H, D = FLASH_SHAPES[0]
+    sites = [
+        ("K1", LN.OP, (leaf(BATCH, SIZE, SIZE, 64, scale=2.0), leaf(64, dtype=torch.float32), 1e-3), None),
+        ("K2", LA.PACKED_OP, (leaf(BATCH, SIZE * SIZE, 384), 4, 32), None),
+        ("K3", NS.OP, naf, ("test_schema", "test_autograd_registration", "test_faketensor")),
+        ("K3", NS.OP, naf_small, ("test_aot_dispatch_dynamic",)),
+        ("K4", FA.OP, (leaf(B, N, H, D), leaf(B, N, H, D), leaf(B, N, H, D), D**-0.5), None),
+        ("K5", LA.HEADS_OP, tuple(leaf(*LIN_ATTN_SHAPES[0]) for _ in range(3)), None),
+    ]
+    for name, op, args, tests in sites:
+        t0 = time.perf_counter()
+        kw = {} if tests is None else {"test_utils": tests}
+        result = torch.library.opcheck(op, args, **kw)
+        torch.cuda.synchronize()
+        shapes = [tuple(a.shape) if hasattr(a, "shape") else (f"{len(a)} tensors" if isinstance(a, list) else a)
+                  for a in args]
+        check(all(v == "SUCCESS" for v in result.values()), f"opcheck {name}: {result}")
+        print(f"[ops] {name} {op}: {shapes}: {', '.join(result)} SUCCESS ({time.perf_counter() - t0:.1f} s)")
+
+
+def export_to(workdir, name, export, **kw):
+    """Export one artifact to ``workdir``; prints its seconds, bytes and
+    header; returns (path, header, record)."""
+    from image_restoration_sde_tpu_torch import exporting
+
+    t0 = time.perf_counter()
+    data = export(**kw)
+    seconds = time.perf_counter() - t0
+    path = os.path.join(workdir, f"{name}.irsdet")
+    with open(path, "wb") as f:
+        f.write(data)
+    header = exporting.read_header(path)
+    check(header["format"] == "torch.export" and header["program"] == "step" and header["kernels"],
+          f"{name}: header {header}")
+    shown = {k: header[k] for k in ("kind", "mode", "steps", "size", "batch", "seed", "n_params", "custom_ops")
+             if k in header}
+    print(f"[export] {name}: exported in {seconds:.1f} s, {len(data)} bytes; {json.dumps(shown)}")
+    return path, header, {"export_s": seconds, "bytes": len(data)}
+
+
+def export_job(workdir, name, path, want, runs):
+    """An artifact for ``artifact_child``: each run (lq, seed, eager output)
+    saved beside it; ``want`` the launches per call."""
+    job = {"name": name, "path": path, "want": want, "runs": []}
+    for i, (lq, seed, eager) in enumerate(runs):
+        stem = os.path.join(workdir, f"{name}.{i}")
+        np.save(stem + ".lq.npy", lq.cpu().numpy())
+        np.save(stem + ".eager.npy", eager.cpu().numpy())
+        job["runs"].append({"lq": stem + ".lq.npy", "seed": seed, "out": stem + ".out.npy",
+                            "eager": stem + ".eager.npy"})
+    return job
+
+
+def phase_export_deraining(dev, net, sde_opt, workdir, stats):
+    """The deraining sampler (posterior, bf16 compute on parameters cast to
+    bf16, per-sample seeds) exported at a fixed batch of 8 and at a symbolic
+    batch, with the eager sampler's outputs for the same lq and seeds.  The
+    eager runs record the K1 and K2 sites of every batch the artifacts are
+    called at (EXPORT_SYMBOLIC_BATCHES), and each kernel is held against
+    its plain version there (``hold_sites``)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import exporting
+    from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
+    from image_restoration_sde_tpu_torch.sde import IRSDE, rng
+
+    sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+    kw = dict(sde=sde, net=net, size=(SIZE, SIZE), mode="posterior", cast_params=torch.bfloat16,
+              per_sample_seed=True)
+    eager = make_restoration_sampler(sde, net, mode="posterior", cast_params=torch.bfloat16)
+    gen = rng_generator(dev, SEED + 92)
+    want = counts(LAYERNORM=LN_PER_FORWARD * sde.T, LA_CTX=ATTN_PER_FORWARD * sde.T, LA_APPLY=ATTN_PER_FORWARD * sde.T)
+    jobs, record, sites = [], {}, ([], [])
+    for name, batch, batches in (("deraining_b8", BATCH, (BATCH,)), ("deraining_sym", None, EXPORT_SYMBOLIC_BATCHES)):
+        path, header, record[name] = export_to(workdir, name, exporting.export_restoration_sampler, batch=batch, **kw)
+        check(header["batch"] == ("symbolic" if batch is None else batch) and header["seed"] == "per_sample",
+              f"{name}: header batch {header['batch']}, seed {header['seed']}")
+        runs = []
+        for b in batches:
+            lq = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev)
+            seeds = [SEED + 100 + 7 * i for i in range(b)]
+            with recorded_sites() as (ln, attn):
+                runs.append((lq, seeds, eager(lq, rng.generators_for_seeds(seeds, dev))))
+            sites[0].extend(ln)
+            sites[1].extend(attn)
+        jobs.append(export_job(workdir, name, path, want, runs))
+    hold_sites("export", dev, *sites, stats, {})
+    return jobs, record
+
+
+def phase_export_latent(dev, net, compressor, latent_opt, workdir):
+    """The nasde latent sampler (the YAML's mode and steps, the score net's
+    parameters cast to bf16, a scalar seed) exported at a fixed batch of 4,
+    512 px, with the eager sampler's output for the same lq and seed."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import exporting
+    from image_restoration_sde_tpu_torch.sde import IRSDE, rng
+    from image_restoration_sde_tpu_torch.training import make_latent_sampler
+
+    sde_opt = latent_opt["sde"]
+    sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
+    steps, mode = sde_opt["sample_T"], sde_opt["sampling_mode"]
+    path, header, record = export_to(workdir, "nasde_b4", exporting.export_latent_sampler, sde=sde, net=net,
+                                     compressor=compressor, size=(LATENT_SIZE, LATENT_SIZE), mode=mode, steps=steps,
+                                     batch=LATENT_BATCH, cast_params=torch.bfloat16)
+    check("irsde::naf_stack" in header["custom_ops"], f"nasde: custom ops {header['custom_ops']}")
+    lq = torch.rand(LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3, generator=rng_generator(dev, SEED + 93), device=dev)
+    eager = make_latent_sampler(sde, net, compressor, mode=mode, steps=steps, cast_params=torch.bfloat16)
+    want = counts(LAYERNORM=NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
+                  LA_APPLY=COMPRESSOR_ATTN, NAF_STACK=steps)
+    seed = SEED + 94
+    job = export_job(workdir, "nasde_b4", path, want, [(lq, seed, eager(lq, rng.generator(seed, dev)))])
+    return [job], {"nasde_b4": record}
+
+
+def phase_export_denoising(dev, net, opt, workdir):
+    """The Gaussian denoising sampler (sigma 50: 414 reverse-ODE steps; bf16
+    compute on parameters cast to bf16) exported at a fixed batch of 8,
+    128 px, with the eager sampler's output for the same noisy batch."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import exporting
+    from image_restoration_sde_tpu_torch.sampling import make_denoising_sampler
+    from image_restoration_sde_tpu_torch.sde import DenoisingSDE
+
+    sde_opt, sigma = opt["sde"], float(opt["degradation"]["sigma"])
+    sde = DenoisingSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], device=dev)
+    path, header, record = export_to(workdir, "denoising_b8", exporting.export_denoising_sampler, sde=sde, net=net,
+                                     size=(SIZE, SIZE), sigma=sigma, batch=BATCH, cast_params=torch.bfloat16)
+    check(header["steps"] == DENOISE_T0 and header["seed"] == "ignored", f"denoising: header {header}")
+    gen = rng_generator(dev, SEED + 95)
+    noisy = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen, device=dev)
+    noisy = noisy + sigma / 255 * torch.randn(noisy.shape, generator=gen, device=dev)
+    eager = make_denoising_sampler(sde, net, sigma, cast_params=torch.bfloat16)
+    want = counts(LAYERNORM=DENOISE_LN_PER_FORWARD * DENOISE_T0, LA_CTX=DENOISE_ATTN_PER_FORWARD * DENOISE_T0,
+                  LA_APPLY=DENOISE_ATTN_PER_FORWARD * DENOISE_T0)
+    job = export_job(workdir, "denoising_b8", path, want, [(noisy, 0, eager(noisy))])
+    return [job], {"denoising_b8": record}
+
+
+def artifact_child(manifest: str) -> int:
+    """``chip_smoke.py --artifact-child <manifest>``: in a fresh process that
+    builds no net and reads no YAML, load each artifact of the manifest
+    (``exporting.load_artifact``) and call it on each run's lq and seed,
+    the launch counts set to 0 just before each call and read just after;
+    the outputs go beside the runs, the report (load and call seconds,
+    launches) to ``<manifest>.out.json``.  TF32 is off, as in the parent
+    process that ran the eager samplers."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, REPO)
+    from image_restoration_sde_tpu_torch import exporting
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    with open(manifest) as f:
+        jobs = json.load(f)
+    report = {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        call, _ = exporting.load_artifact(job["path"], "cuda")
+        entry = {"load_s": time.perf_counter() - t0, "runs": []}
+        for run in job["runs"]:
+            lq = torch.from_numpy(np.load(run["lq"])).cuda()
+            for k in KERNELS:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(lq, run["seed"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            np.save(run["out"], out.cpu().numpy())
+            entry["runs"].append({"batch": lq.shape[0], "seconds": seconds,
+                                  "launches": {k.symbol: k.launches for k in KERNELS}})
+        report[job["name"]] = entry
+    with open(manifest + ".out.json", "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def phase_artifacts(dev, workdir, jobs, smi):
+    """Every exported artifact loaded and called in a fresh process
+    (``artifact_child``): each call's output against the eager sampler's
+    with the same generators (EXPORT_BOUND of max|eager|; bit-equality
+    reported) and its exact launches."""
+    import torch
+
+    manifest = os.path.join(workdir, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--artifact-child", manifest], check=True,
+                   timeout=900)
+    print(f"[artifacts] the loading process took {time.perf_counter() - t0:.1f} s")
+    with open(manifest + ".out.json") as f:
+        report = json.load(f)
+    launches, record = {}, {}
+    for job in jobs:
+        entry = report[job["name"]]
+        rec = record[job["name"]] = {"load_s": entry["load_s"], "runs": []}
+        for run, got in zip(job["runs"], entry["runs"]):
+            out, eager = np.load(run["out"]), np.load(run["eager"])
+            check(out.shape == eager.shape and np.isfinite(out).all(), f"{job['name']}: output {out.shape}")
+            err = float(np.abs(out - eager).max() / max(np.abs(eager).max(), 1e-12))
+            same = bool(np.array_equal(out, eager))
+            check(err <= EXPORT_BOUND, f"{job['name']} batch {got['batch']}: {err:.3g} of max|eager| from eager")
+            check(got["launches"] == job["want"], f"{job['name']}: launches {got['launches']}, want {job['want']}")
+            for sym, n in got["launches"].items():
+                launches.setdefault(sym, 0)
+                launches[sym] += n
+            rec["runs"].append({"batch": got["batch"], "seconds": got["seconds"], "rel_err": err, "bit_equal": same})
+            print(f"[artifacts] {job['name']} batch {got['batch']}: loaded call {got['seconds']:.3f} s, "
+                  f"{err:.3g} of max|eager| from the eager sampler ({'bit-equal' if same else 'not bit-equal'}), "
+                  f"launches {got['launches']} (load {entry['load_s']:.1f} s; card: {smi})")
+    return launches, record
+
+
+def post_group(addr, requests):
+    """``(status, body)`` of each (image PNG, seed) request, all sent at
+    once from their own threads."""
+    import threading
+
+    from image_restoration_sde_tpu_torch import bench_serve
+
+    out = [None] * len(requests)
+    gate = threading.Barrier(len(requests))
+
+    def one(i):
+        gate.wait()
+        out[i] = bench_serve.post(addr, *requests[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(all(r is not None for r in out), "serve: a request got no answer")
+    return out
+
+
+def phase_serve(dev, artifact, smi):
+    """``python -m image_restoration_sde_tpu_torch.serve`` on the fixed-batch
+    per-sample-seed deraining artifact, port 0: ``/health``; SERVE_N
+    requests at SERVE_CONCURRENCY through the port's ``bench_serve``, every
+    device call launching exactly one batch's kernels; the same (image,
+    seed) in two batches of other companions, at other positions, gives the
+    same bytes, every response a PNG of its input's size; seeds -1 and 2**32
+    get 400 while their companion gets 200; ``seed_reproducible`` is what
+    the run showed."""
+    from image_restoration_sde_tpu_torch import bench_serve
+    from image_restoration_sde_tpu_torch.data.io_utils import decode_img_bytes
+
+    per_call = counts(LAYERNORM=LN_PER_FORWARD * 100, LA_CTX=ATTN_PER_FORWARD * 100, LA_APPLY=ATTN_PER_FORWARD * 100)
+    proc, addr = bench_serve.spawn_server(artifact, BATCH, SERVE_WINDOW_MS, device="cuda")
+    try:
+        health = bench_serve.health(addr)
+        serving = health["serving"]
+        check(health["kind"] == "restoration_sampler" and serving["fixed_batch"] == BATCH
+              and health["seed"] == "per_sample", f"serve: /health {serving}")
+        before = serving
+        result = bench_serve.bench(addr, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP)
+        after = bench_serve.health(addr)["serving"]
+        calls = after["batches"] - before["batches"]
+        grew = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+        check(grew == {k: n * calls for k, n in per_call.items()}, f"serve: {grew} launches in {calls} calls")
+        print(f"[serve] {SERVE_N} requests at concurrency {SERVE_CONCURRENCY} (after {SERVE_WARMUP} untimed): "
+              f"{result['requests_per_s']:.4f} req/s, latency p50 {result['latency_ms']['p50']:.1f} ms, p99 "
+              f"{result['latency_ms']['p99']:.1f} ms, mean device batch {result['mean_device_batch']:.3f} riders in "
+              f"{result['device_calls']} calls of {BATCH}; launches {grew} (card: {smi})")
+
+        images = [bench_serve.make_png((SIZE, SIZE), 3, seed=SEED + 200 + i) for i in range(5)]
+        groups = [[(images[0], 7), (images[1], 3), (images[2], 5)], [(images[3], 9), (images[4], 11), (images[0], 7)]]
+        answers = []
+        for group in groups:
+            b0 = bench_serve.health(addr)["serving"]
+            got = post_group(addr, group)
+            b1 = bench_serve.health(addr)["serving"]
+            check((b1["batches"] - b0["batches"], b1["requests"] - b0["requests"]) == (1, len(group)),
+                  f"serve: a group of {len(group)} took {b1['batches'] - b0['batches']} calls")
+            for (status, body), (png, _) in zip(got, group):
+                check(status == 200, f"serve: HTTP {status}: {body[:200]!r}")
+                check(decode_img_bytes(body).shape == decode_img_bytes(png).shape, "serve: output size")
+            answers.append(got)
+        same = answers[0][0][1] == answers[1][2][1]
+        differ = answers[0][0][1] != answers[0][1][1]
+        check(same and differ, f"serve: same (image, seed) bytes equal {same}; other seeds differ {differ}")
+        check(serving["seed_reproducible"] is same, f"serve: seed_reproducible {serving['seed_reproducible']}")
+        b0 = bench_serve.health(addr)["serving"]
+        bad = post_group(addr, [(images[0], -1), (images[1], 2**32), (images[2], 5)])
+        b1 = bench_serve.health(addr)["serving"]
+        check([status for status, _ in bad] == [400, 400, 200], f"serve: bad seeds {[s for s, _ in bad]}")
+        check(b1["requests"] - b0["requests"] == 1, "serve: a bad seed reached a batch")
+        print(f"[serve] (image, seed) = (0, 7) in a call with seeds (7, 3, 5) and one with (9, 11, 7): the same "
+              f"bytes ({same}); seed_reproducible {serving['seed_reproducible']}; seeds -1 and 2**32: 400, their "
+              f"companion 200")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    return grew, result
+
+
+def phase_bench(dev, smi, stats):
+    """``python3 bench_cuda.py`` in its own process (batch 8), its line
+    checked and printed; then its sampler at each other batch of
+    BENCH_SWEEP at 128 px (BENCH_SWEEP_REPS timed calls after two warm-ups),
+    with exact launches.  Then one forward of the bench's net at each sweep
+    batch records its K1 and K2 sites, and each kernel is held against its
+    plain version there (``hold_sites``; these launches are not the
+    path's)."""
+    import torch
+
+    import bench_cuda
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    run = subprocess.run([sys.executable, os.path.join(REPO, "bench_cuda.py")], capture_output=True, text=True,
+                         timeout=600)
+    check(run.returncode == 0, f"bench_cuda.py exited {run.returncode}: {run.stderr[-2000:]}")
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    check(set(line) >= {"metric", "value", "unit", "vs_baseline", "baseline_kind"} and line["unit"] == "img/s/GPU"
+          and line["value"] > 0 and line["device"] == torch.cuda.get_device_name(0), f"bench line {line}")
+    print(f"[bench] bench_cuda.py: {json.dumps(line)} (card: {smi})")
+    net = bench_cuda.make_net(dev)
+    sampler = bench_cuda.make_sampler(net, 100, False, dev)
+    sweep = {BATCH: {"img_s": line["value"], "from": "bench_cuda.py"}}
+    for k in KERNELS:
+        k.launches = 0
+    for b in BENCH_SWEEP:
+        before = {k.symbol: k.launches for k in KERNELS}
+        times = bench_cuda.run(sampler, b, SIZE, BENCH_SWEEP_REPS, dev)
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        calls = 2 + BENCH_SWEEP_REPS
+        want = counts(LAYERNORM=LN_PER_FORWARD * 100 * calls, LA_CTX=ATTN_PER_FORWARD * 100 * calls,
+                      LA_APPLY=ATTN_PER_FORWARD * 100 * calls)
+        check(grew == want, f"bench batch {b}: launches {grew}")
+        sweep[b] = {"img_s": b / statistics.median(times), "seconds": times}
+        print(f"[bench] batch {b} at {SIZE}px, 100 sde steps: {sweep[b]['img_s']:.4f} img/s (median of "
+              f"{BENCH_SWEEP_REPS}: {', '.join(f'{t:.3f}' for t in times)} s; card: {smi})")
+    launched = {k.symbol: k.launches for k in KERNELS}
+    gen = rng_generator(dev, SEED + 96)
+    with recorded_sites() as (ln, attn), torch.inference_mode():
+        for b in BENCH_SWEEP:
+            x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev)
+            net(x, x, torch.full((b,), 50, dtype=torch.int32, device=dev))
+    hold_sites("bench", dev, ln, attn, stats, {})
+    return launched, {"bench_cuda": line, "sweep": sweep}
+
+
 def load_yaml(path):
     import yaml
 
@@ -2940,12 +3372,18 @@ def main() -> int:
         stats[k]["event_ms"] = 0.0
     stats[KERNELS[0]].update(library_ms=0.0, by_path={})  # K1: F.layer_norm; K1 per path
     timed("kernels", phase_kernels, dev, stats, latent_opt, dit_opt)
+    timed("ops", phase_ops, dev)
+    serving_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
     net = timed("net", phase_net, dev, setting, sde_opt)
     launches = {"deraining": timed("main path", phase_main_path, dev, net, sde_opt, smi)}
+    jobs, exports = timed("export deraining", phase_export_deraining, dev, net, sde_opt, serving_dir.name, stats)
     del net
     latent_net, compressor = timed("latent net", phase_latent_net, dev, latent_opt, refusion_setting, stats)
     launches["latent_dehazing"] = timed("latent main path", phase_latent_main_path, dev, latent_net, compressor,
                                         latent_opt, smi)
+    more = timed("export latent", phase_export_latent, dev, latent_net, compressor, latent_opt, serving_dir.name)
+    jobs += more[0]
+    exports.update(more[1])
     del latent_net, compressor
     timed("dit kernels", phase_flash, dev, stats, dit_opt)
     dit_net, dit_compressor = timed("dit net", phase_dit_net, dev, dit_opt)
@@ -2960,7 +3398,16 @@ def main() -> int:
     denoise_opt, stereo_opt, bokeh_opt = (load_yaml(p) for p in (DENOISE_CONFIG, STEREO_CONFIG, BOKEH_CONFIG))
     denoise_net = timed("denoise net", phase_denoise_net, dev, denoise_opt, stats)
     launches["denoising"] = timed("denoise main path", phase_denoise_main_path, dev, denoise_net, denoise_opt, smi)
+    more = timed("export denoising", phase_export_denoising, dev, denoise_net, denoise_opt, serving_dir.name)
+    jobs += more[0]
+    exports.update(more[1])
     del denoise_net
+    torch.cuda.empty_cache()
+    launches["artifacts"], loaded = timed("artifacts", phase_artifacts, dev, serving_dir.name, jobs, smi)
+    launches["serve"], served = timed("serve", phase_serve, dev, jobs[0]["path"], smi)
+    serving_dir.cleanup()
+    launches["bench"], benched = timed("bench", phase_bench, dev, smi, stats)
+    print(f"[serving] {json.dumps({'export': exports, 'artifacts': loaded, 'serve': served, 'bench': benched})}")
     stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt, stats)
     launches["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net, stereo_opt, smi)
     del stereo_net
@@ -3020,4 +3467,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--artifact-child"]:
+        sys.exit(artifact_child(sys.argv[2]))
     sys.exit(main())

@@ -102,3 +102,45 @@ def save_img(img: np.ndarray, img_path: str) -> None:
         from PIL import Image
 
         Image.fromarray(img).save(img_path)
+
+
+def decode_img_bytes(data: bytes) -> np.ndarray:
+    """An encoded image (PNG, JPEG, ...) -> uint8 HWC **RGB** (HW1 for grey),
+    as :func:`read_img_uint8` reads a file."""
+    if _HAS_CV2:
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise ValueError("not a decodable image")
+        if img.ndim == 3 and img.shape[2] >= 3:
+            img = cv2.cvtColor(img[:, :, :3], cv2.COLOR_BGR2RGB)
+    else:  # pragma: no cover
+        import io
+
+        from PIL import Image, UnidentifiedImageError
+
+        try:
+            img = np.asarray(Image.open(io.BytesIO(data)))
+        except UnidentifiedImageError as e:
+            raise ValueError("not a decodable image") from e
+    if img.ndim == 2:
+        img = img[:, :, None]
+    return img
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A uint8 HWC RGB (or HW, HW1) image -> PNG bytes."""
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if _HAS_CV2:
+        ok, buf = cv2.imencode(".png", img[:, :, ::-1] if img.ndim == 3 else img)
+        if not ok:
+            raise ValueError("PNG encoding failed")
+        return buf.tobytes()
+    else:  # pragma: no cover
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return buf.getvalue()

@@ -9,6 +9,13 @@ runs from its own sources.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and counts
 the launches that went through.
+
+Each public op of ``../ops`` is one operator of the ``irsde`` library
+(:func:`define_op`): a CUDA implementation that launches the kernels, a CPU
+implementation that is the plain version, a fake implementation that gives
+the CUDA output's shape, dtype and strides (what ``torch.export`` traces
+with), and its autograd.  Eager code and exported programs reach the kernels
+through these operators alone.
 """
 
 from __future__ import annotations
@@ -153,6 +160,34 @@ def ptr(t) -> ctypes.c_void_p:
 
 def current_stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+LIBRARY = torch.library.Library("irsde", "DEF")
+
+
+def define_op(schema: str, *, cpu, cuda, fake, backward, setup_context) -> torch._ops.OpOverload:
+    """Define ``irsde::<schema>`` with its CPU, CUDA, fake and autograd
+    implementations; returns the operator's default overload.  There is no
+    implementation for any other device: a tensor there raises."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    qualname = f"irsde::{name}"
+    torch.library.register_fake(qualname, fake, lib=LIBRARY)
+    torch.library.register_autograd(qualname, backward, setup_context=setup_context, lib=LIBRARY)
+    return getattr(torch.ops.irsde, name).default
+
+
+def plain_grads(plain, saved, grad, *args) -> tuple:
+    """The gradients of ``plain(*saved, *args)`` with respect to the saved
+    tensors for the output cotangent ``grad``: the backward of an operator
+    whose kernel has none of its own is the autograd of its plain version
+    on the saved inputs."""
+    inputs = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        out = plain(*inputs, *args)
+    return torch.autograd.grad(out, inputs, grad)
 
 
 # C dtype codes shared with csrc/common.cuh

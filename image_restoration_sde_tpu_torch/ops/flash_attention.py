@@ -16,15 +16,16 @@ head dim 64, ``mma.sync`` with 64-key tiles at 72), FMA in float32, any N,
 q/k/v with any batch and token stride (the (B, N, 3, H, D) view of a
 packed qkv product goes in as it is).
 
-:func:`flash_mha` launches the kernel on CUDA tensors and runs the plain
-version on CPU tensors.  On CUDA tensors it is differentiable
-(:class:`_FlashMHA`): the backward is :func:`flash_mha_backward`, the
+:func:`flash_mha` is the operator ``irsde::flash_mha``: it launches the
+kernel on CUDA tensors and runs the plain version on CPU tensors.  It is
+differentiable on both: the backward is :func:`flash_mha_backward`, the
 gradient of the JAX package's ``_ref_mha`` (:func:`ref_mha_plain`) streamed
 over blocks of ``BWD_BLOCK`` query rows, as ``_blocked_mha``'s
 ``lax.map`` over checkpointed blocks transposes to: peak extra memory
-O(B·H·BWD_BLOCK·N), never N².  The backward is a torch composition (cuBLAS
-products and elementwise kernels), as the JAX package's backward is no
-Pallas kernel.
+O(B·H·BWD_BLOCK·N), never N².  The forward saves q, k and v as they are
+(strided views included, no copies).  The backward is a torch composition
+(cuBLAS products and elementwise kernels), as the JAX package's backward is
+no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -113,23 +114,6 @@ def flash_mha_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: 
     return dq, dk, dv
 
 
-class _FlashMHA(torch.autograd.Function):
-    """K4 with a backward: the forward launches the kernel and saves q, k
-    and v as they are (strided views included, no copies); the backward is
-    :func:`flash_mha_backward` and launches no kernel of the port."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return flash_mha_cuda(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        return (*flash_mha_backward(q, k, v, dout, ctx.scale), None)
-
-
 def flash_mha_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                           block: int | None = None) -> torch.Tensor:
     """The same function in the kernel's order of operations: keys in tiles
@@ -187,12 +171,33 @@ def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     return out
 
 
+def _cuda(q, k, v, scale):
+    return flash_mha_cuda(q, k, v, scale)
+
+
+def _cpu(q, k, v, scale):
+    return flash_mha_plain(q, k, v, scale).contiguous()
+
+
+def _fake(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, dout):
+    return (*flash_mha_backward(*ctx.saved_tensors, dout, ctx.scale), None)
+
+
+OP = kernels.define_op("flash_mha(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup)
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """(B, N, H, D) attention, softmax over the keys.  The kernel for CUDA
-    tensors (differentiable through :class:`_FlashMHA`), the plain version
-    for CPU tensors."""
-    if q.is_cuda:
-        return _FlashMHA.apply(q, k, v, scale)
-    if q.device.type == "cpu":
-        return flash_mha_plain(q, k, v, scale)
-    raise ValueError(f"flash_mha: no implementation for device {q.device}")
+    """(B, N, H, D) attention, softmax over the keys; differentiable (the
+    streamed backward).  The kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    return OP(q, k, v, scale)

@@ -7,10 +7,11 @@ with ``y`` in ``x``'s dtype.  Counterpart of
 ``image_restoration_sde_tpu/ops/layernorm.py`` (``channel_layernorm``); the
 kernel is ``csrc/layernorm.cu``.
 
-:func:`channel_layernorm` launches the kernel on a CUDA tensor and runs the
-plain version on a CPU tensor.  It is differentiable: its backward is the
-autograd of the plain version on the saved ``(x, g)``, as the JAX op's
-custom_vjp takes the vjp of its jnp composition.
+:func:`channel_layernorm` is the operator ``irsde::channel_layernorm``: it
+launches the kernel on a CUDA tensor and runs the plain version on a CPU
+tensor.  It is differentiable: its backward is the autograd of the plain
+version on the saved ``(x, g)``, as the JAX op's custom_vjp takes the vjp of
+its jnp composition.
 """
 
 from __future__ import annotations
@@ -61,30 +62,32 @@ def channel_layernorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float) -> torc
     return y
 
 
-def _forward(x, g, eps):
-    if x.is_cuda:
-        return channel_layernorm_cuda(x, g, eps)
-    if x.device.type == "cpu":
-        return channel_layernorm_plain(x, g, eps)
-    raise ValueError(f"channel_layernorm: no implementation for device {x.device}")
+def _cuda(x, g, eps):
+    return channel_layernorm_cuda(x, g, eps)
 
 
-class _ChannelLayerNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, g, eps):
-        ctx.save_for_backward(x, g)
-        ctx.eps = eps
-        return _forward(x, g, eps)
+def _cpu(x, g, eps):
+    return channel_layernorm_plain(x, g, eps).contiguous()
 
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y = channel_layernorm_plain(*inputs, ctx.eps)
-        return (*torch.autograd.grad(y, inputs, grad), None)
+
+def _fake(x, g, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _setup(ctx, inputs, output):
+    x, g, ctx.eps = inputs
+    ctx.save_for_backward(x, g)
+
+
+def _backward(ctx, grad):
+    return (*kernels.plain_grads(channel_layernorm_plain, ctx.saved_tensors, grad, ctx.eps), None)
+
+
+OP = kernels.define_op("channel_layernorm(Tensor x, Tensor g, float eps) -> Tensor",
+                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup)
 
 
 def channel_layernorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x: (..., C), g: (C,); differentiable.  The kernel for a CUDA tensor,
     the plain version for a CPU tensor."""
-    return _ChannelLayerNorm.apply(x, g, eps)
+    return OP(x, g, eps)

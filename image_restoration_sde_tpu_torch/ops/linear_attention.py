@@ -29,8 +29,10 @@ N.  ``linear_attention`` is differentiable: its backward is the autograd of
 the plain composition on the saved inputs, as the JAX op's custom_vjp is
 ``jax.vjp`` of its jnp composition.
 
-:func:`linear_attention_packed` and :func:`linear_attention` launch the
-kernels on CUDA tensors and run the plain versions on CPU tensors.
+:func:`linear_attention_packed` (the operator
+``irsde::linear_attention_packed``) and :func:`linear_attention`
+(``irsde::linear_attention``) launch the kernels on CUDA tensors and run the
+plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -138,34 +140,38 @@ def linear_attention_apply_cuda(
     return out
 
 
-def _packed_forward(qkv, heads, dim_head):
-    if qkv.is_cuda:
-        ctx = linear_attention_ctx_cuda(qkv, heads, dim_head)
-        return linear_attention_apply_cuda(qkv, ctx, heads, dim_head)
-    if qkv.device.type == "cpu":
-        return linear_attention_packed_plain(qkv, heads, dim_head)
-    raise ValueError(f"linear_attention_packed: no implementation for device {qkv.device}")
+def _packed_cuda(qkv, heads, dim_head):
+    ctx = linear_attention_ctx_cuda(qkv, heads, dim_head)
+    return linear_attention_apply_cuda(qkv, ctx, heads, dim_head)
 
 
-class _LinearAttentionPacked(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, heads, dim_head):
-        ctx.save_for_backward(qkv)
-        ctx.heads, ctx.dim_head = heads, dim_head
-        return _packed_forward(qkv, heads, dim_head)
+def _packed_cpu(qkv, heads, dim_head):
+    return linear_attention_packed_plain(qkv, heads, dim_head).contiguous()
 
-    @staticmethod
-    def backward(ctx, grad):
-        qkv = ctx.saved_tensors[0].detach().requires_grad_()
-        with torch.enable_grad():
-            out = linear_attention_packed_plain(qkv, ctx.heads, ctx.dim_head)
-        return torch.autograd.grad(out, qkv, grad)[0], None, None
+
+def _packed_fake(qkv, heads, dim_head):
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1], heads * dim_head))
+
+
+def _packed_setup(ctx, inputs, output):
+    qkv, ctx.heads, ctx.dim_head = inputs
+    ctx.save_for_backward(qkv)
+
+
+def _packed_backward(ctx, grad):
+    (gqkv,) = kernels.plain_grads(linear_attention_packed_plain, ctx.saved_tensors, grad, ctx.heads, ctx.dim_head)
+    return gqkv, None, None
+
+
+PACKED_OP = kernels.define_op(
+    "linear_attention_packed(Tensor qkv, int heads, int dim_head) -> Tensor",
+    cpu=_packed_cpu, cuda=_packed_cuda, fake=_packed_fake, backward=_packed_backward, setup_context=_packed_setup)
 
 
 def linear_attention_packed(qkv: torch.Tensor, heads: int = 4, dim_head: int = 32) -> torch.Tensor:
     """(B, N, 3*heads*dim_head) -> (B, N, heads*dim_head); differentiable.
     The kernels for a CUDA tensor, the plain versions for a CPU tensor."""
-    return _LinearAttentionPacked.apply(qkv, heads, dim_head)
+    return PACKED_OP(qkv, heads, dim_head)
 
 
 # ------------------------------------------------- per-slice op (K5)
@@ -238,30 +244,33 @@ def linear_attention_apply_heads_cuda(q: torch.Tensor, ctx: torch.Tensor) -> tor
     return out
 
 
-def _linear_attention_forward(q, k, v):
-    if q.is_cuda:
-        _check_heads(q, k, v)
-        return linear_attention_apply_heads_cuda(q, linear_attention_context_cuda(k, v))
-    if q.device.type == "cpu":
-        return linear_attention_plain(q, k, v)
-    raise ValueError(f"linear_attention: no implementation for device {q.device}")
+def _heads_cuda(q, k, v):
+    _check_heads(q, k, v)
+    return linear_attention_apply_heads_cuda(q, linear_attention_context_cuda(k, v))
 
 
-class _LinearAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _linear_attention_forward(q, k, v)
+def _heads_cpu(q, k, v):
+    return linear_attention_plain(q, k, v).contiguous()
 
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = linear_attention_plain(*inputs)
-        return torch.autograd.grad(out, inputs, grad)
+
+def _heads_fake(q, k, v):
+    return q.new_empty(q.shape)
+
+
+def _heads_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _heads_backward(ctx, grad):
+    return kernels.plain_grads(linear_attention_plain, ctx.saved_tensors, grad)
+
+
+HEADS_OP = kernels.define_op(
+    "linear_attention(Tensor q, Tensor k, Tensor v) -> Tensor",
+    cpu=_heads_cpu, cuda=_heads_cuda, fake=_heads_fake, backward=_heads_backward, setup_context=_heads_setup)
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(BH, N, d) q, k, v -> (BH, N, d) in q's dtype; differentiable.  The
     K5 kernels for CUDA tensors, the plain version for CPU tensors."""
-    return _LinearAttention.apply(q, k, v)
+    return HEADS_OP(q, k, v)

@@ -13,11 +13,13 @@ The kernel reads them in place through a device table of pointers;
 :func:`stack_middle_params` builds the stacked (K, ...) layout of the JAX
 package, which only the plain version and the tests use.
 
-:func:`naf_stack` launches the kernel on a CUDA tensor and runs the plain
-version on a CPU tensor.  It is differentiable: ``tmod`` is computed outside
-the kernel's autograd Function, whose backward recomputes the plain version
-from the saved ``x``, ``tmod`` and block tensors, as the JAX op's custom_vjp
-does; the gradient of ``temb`` flows through :func:`time_modulation`.
+:func:`naf_stack` computes ``tmod`` and calls the operator
+``irsde::naf_stack(x, tmod, eps, tensors)`` (every block's tensors in
+``PARAM_ORDER``), which launches the kernel on a CUDA tensor and runs the
+plain version on a CPU tensor.  It is differentiable: the operator's
+backward recomputes the plain version from the saved ``x``, ``tmod`` and
+block tensors, as the JAX op's custom_vjp does; the gradient of ``temb``
+flows through :func:`time_modulation`.
 """
 
 from __future__ import annotations
@@ -208,26 +210,38 @@ def _unflatten(tensors: Sequence[torch.Tensor]) -> list:
     return [dict(zip(PARAM_ORDER, tensors[i : i + n])) for i in range(0, len(tensors), n)]
 
 
-class _NafStack(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, tmod, eps, *tensors):
-        ctx.save_for_backward(x, tmod, *tensors)
-        ctx.eps = eps
-        blocks = _unflatten(tensors)
-        if x.is_cuda:
-            return naf_stack_cuda(x, blocks, tmod, eps)
-        if x.device.type == "cpu":
-            return naf_stack_plain(x, stack_params(blocks, tmod), eps)
-        raise ValueError(f"naf_stack: no implementation for device {x.device}")
+def naf_stack_flat_plain(x, tmod, eps, tensors):
+    """:func:`naf_stack_plain` on the operator's arguments."""
+    return naf_stack_plain(x, stack_params(_unflatten(tensors), tmod), eps)
 
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        x, tmod, *tensors = inputs
-        with torch.enable_grad():
-            y = naf_stack_plain(x, stack_params(_unflatten(tensors), tmod), ctx.eps)
-        grads = torch.autograd.grad(y, inputs, grad)
-        return (grads[0], grads[1], None, *grads[2:])
+
+def _cuda(x, tmod, eps, tensors):
+    return naf_stack_cuda(x, _unflatten(tensors), tmod, eps)
+
+
+def _cpu(x, tmod, eps, tensors):
+    return naf_stack_flat_plain(x, tmod, eps, tensors).contiguous()
+
+
+def _fake(x, tmod, eps, tensors):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _setup(ctx, inputs, output):
+    x, tmod, ctx.eps, tensors = inputs
+    ctx.save_for_backward(x, tmod, *tensors)
+
+
+def _backward(ctx, grad):
+    def plain(x, tmod, *tensors):
+        return naf_stack_flat_plain(x, tmod, ctx.eps, tensors)
+
+    grads = kernels.plain_grads(plain, ctx.saved_tensors, grad)
+    return grads[0], grads[1], None, list(grads[2:])
+
+
+OP = kernels.define_op("naf_stack(Tensor x, Tensor tmod, float eps, Tensor[] tensors) -> Tensor",
+                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup)
 
 
 def naf_stack(x: torch.Tensor, blocks: Sequence[Block], temb: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -235,4 +249,4 @@ def naf_stack(x: torch.Tensor, blocks: Sequence[Block], temb: torch.Tensor, eps:
     differentiable in x, temb and every block tensor.  The kernel for a
     CUDA tensor, the plain version for a CPU tensor."""
     tensors = [blk[k] for blk in blocks for k in PARAM_ORDER]
-    return _NafStack.apply(x, time_modulation(blocks, temb), eps, *tensors)
+    return OP(x, time_modulation(blocks, temb), eps, tensors)

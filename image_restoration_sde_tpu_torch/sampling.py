@@ -59,16 +59,23 @@ def reverse(sde: IRSDE, noise_fn, noisy, mu, gen, mode: str, steps: Optional[int
     return samplers.reverse_ode(sde, noise_fn, noisy, mu, steps=steps)
 
 
-def make_noise_fn(net: nn.Module, cast_params) -> Callable:
-    """``net``, or ``net`` with its float32 parameters and buffers cast to
-    ``cast_params`` (cast once, here).  Parameters the net names in
-    ``fused_param_names()`` take the cast's values in float32 storage, as
-    its fused levels read them."""
-    if cast_params is None:
-        return net
+def cast_net_params(net: nn.Module, cast_params) -> dict:
+    """``net``'s parameters and buffers by name, the float32 ones cast to
+    ``cast_params``.  Parameters the net names in ``fused_param_names()``
+    take the cast's values in float32 storage, as its fused levels read
+    them."""
     params = cast_f32_leaves({**dict(net.named_parameters()), **dict(net.named_buffers())}, cast_params)
     for k in getattr(net, "fused_param_names", list)():
         params[k] = params[k].float()
+    return params
+
+
+def make_noise_fn(net: nn.Module, cast_params) -> Callable:
+    """``net``, or ``net`` with its parameters and buffers cast to
+    ``cast_params`` (cast once, here: :func:`cast_net_params`)."""
+    if cast_params is None:
+        return net
+    params = cast_net_params(net, cast_params)
 
     def noise_fn(*args):
         return functional_call(net, params, args)

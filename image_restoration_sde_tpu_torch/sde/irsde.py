@@ -22,6 +22,11 @@ from .rng import GeneratorLike, normal_like
 from .schedules import ScheduleTables, build_tables
 
 
+def noisy_start(x: torch.Tensor, z: torch.Tensor, max_sigma: torch.Tensor) -> torch.Tensor:
+    """A reverse chain's initial state: x + max_sigma * z."""
+    return x + z * max_sigma
+
+
 @dataclass(frozen=True)
 class IRSDE:
     tables: ScheduleTables
@@ -161,4 +166,4 @@ class IRSDE:
     def noise_state(self, gen: GeneratorLike, x: torch.Tensor) -> torch.Tensor:
         """Test-time init: x + max_sigma * eps (per sample with a generator
         sequence)."""
-        return x + normal_like(gen, x) * self.max_sigma
+        return noisy_start(x, normal_like(gen, x), self.max_sigma)

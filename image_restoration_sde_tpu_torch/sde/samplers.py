@@ -32,11 +32,50 @@ CondNoiseFn = Callable[[Tensor, Tensor, Tensor], Tensor]
 UncondNoiseFn = Callable[[Tensor, Tensor], Tensor]
 
 
-def _tvec(batch: int, t: int, device) -> Tensor:
+def tvec(batch: int, t: int, device) -> Tensor:
+    """The (batch,) int32 timesteps the score nets take."""
     return torch.full((batch,), t, dtype=torch.int32, device=device)
 
 
-def _loop(step, x, ts, return_all):
+def _times(x: Tensor, t):
+    """``t`` as the net's (b,) timesteps and the schedule's index: ``t`` is
+    an int (the eager loops) or the (b,) int32 timesteps (an exported
+    step program, where each row indexes the tables)."""
+    if isinstance(t, Tensor):
+        return t, t.long().view(-1, 1, 1, 1)
+    return tvec(x.shape[0], t, x.device), t
+
+
+# One reverse step of each chain: the eager samplers below and the exported
+# step programs (``exporting.RestorationStep`` / ``DenoisingStep``) run these.
+def sde_step(sde: IRSDE, noise_fn: CondNoiseFn, x: Tensor, mu: Tensor, t, z: Tensor) -> Tensor:
+    """Euler–Maruyama reverse step."""
+    tv, ti = _times(x, t)
+    return sde.reverse_sde_step(x, mu, sde.score_from_noise(noise_fn(x, mu, tv), ti), ti, z)
+
+
+def posterior_step(sde: IRSDE, noise_fn: CondNoiseFn, x: Tensor, mu: Tensor, t, z: Tensor) -> Tensor:
+    """DDPM-style ancestral (posterior) step."""
+    tv, ti = _times(x, t)
+    return sde.reverse_posterior_step(x, mu, noise_fn(x, mu, tv), ti, z)
+
+
+def ode_step(sde: IRSDE, noise_fn: CondNoiseFn, x: Tensor, mu: Tensor, t, z: Optional[Tensor] = None) -> Tensor:
+    """Probability-flow ODE step (``z`` unused)."""
+    tv, ti = _times(x, t)
+    return sde.reverse_ode_step(x, mu, sde.score_from_noise(noise_fn(x, mu, tv), ti), ti)
+
+
+REVERSE_STEPS = {"sde": sde_step, "posterior": posterior_step, "ode": ode_step}
+
+
+def dsde_ode_step(sde: DenoisingSDE, noise_fn: UncondNoiseFn, x: Tensor, t) -> Tensor:
+    """The denoising SDE's reverse-ODE step."""
+    tv, ti = _times(x, t)
+    return sde.reverse_ode_step(x, sde.score_from_noise(noise_fn(x, tv), ti), ti)
+
+
+def loop(step, x, ts, return_all=False):
     """Run ``step(x, t) -> x`` over the timesteps ``ts``."""
     states = []
     for t in ts:
@@ -46,14 +85,14 @@ def _loop(step, x, ts, return_all):
     return (x, torch.stack(states)) if return_all else x
 
 
-def _loop_with_noise(step, x, T, gen, noise_seq, return_all, ts=None):
+def loop_with_noise(step, x, T, gen, noise_seq, return_all=False, ts=None):
     """Run ``step(x, t, z) -> x`` for t = T..1 (or over ``ts``), with ``z``
     from ``noise_seq`` (row i for the i-th timestep) or drawn from ``gen``."""
     ts = range(T, 0, -1) if ts is None else ts
     if noise_seq is not None and noise_seq.shape[0] != T:
         raise ValueError(f"noise_seq has {noise_seq.shape[0]} steps, expected {T}")
     zs = iter(noise_seq) if noise_seq is not None else None
-    return _loop(lambda x, t: step(x, t, next(zs) if zs is not None else normal_like(gen, x)),
+    return loop(lambda x, t: step(x, t, next(zs) if zs is not None else normal_like(gen, x)),
                  x, ts, return_all)
 
 
@@ -68,7 +107,7 @@ def forward_sde(
 ):
     """The forward mean-reverting SDE x0 -> x_T, t = 1..T (no network)."""
     T = sde.T if steps is None else steps
-    return _loop_with_noise(lambda x, t, z: sde.forward_step(x, mu, t, z), x0, T, gen, noise_seq,
+    return loop_with_noise(lambda x, t, z: sde.forward_step(x, mu, t, z), x0, T, gen, noise_seq,
                             return_all, ts=range(1, T + 1))
 
 
@@ -84,14 +123,7 @@ def reverse_sde(
 ):
     """Euler–Maruyama reverse SDE, one net call per step."""
     T = sde.T if steps is None else steps
-    batch = xt.shape[0]
-
-    def step(x, t, z):
-        noise_pred = noise_fn(x, mu, _tvec(batch, t, x.device))
-        score = sde.score_from_noise(noise_pred, t)
-        return sde.reverse_sde_step(x, mu, score, t, z)
-
-    return _loop_with_noise(step, xt, T, gen, noise_seq, return_all)
+    return loop_with_noise(lambda x, t, z: sde_step(sde, noise_fn, x, mu, t, z), xt, T, gen, noise_seq, return_all)
 
 
 def reverse_ode(
@@ -104,13 +136,7 @@ def reverse_ode(
 ):
     """Deterministic probability-flow ODE sampler."""
     T = sde.T if steps is None else steps
-    batch = xt.shape[0]
-
-    def step(x, t):
-        score = sde.score_from_noise(noise_fn(x, mu, _tvec(batch, t, x.device)), t)
-        return sde.reverse_ode_step(x, mu, score, t)
-
-    return _loop(step, xt, range(T, 0, -1), return_all)
+    return loop(lambda x, t: ode_step(sde, noise_fn, x, mu, t), xt, range(T, 0, -1), return_all)
 
 
 def reverse_posterior(
@@ -125,13 +151,8 @@ def reverse_posterior(
 ):
     """DDPM-style ancestral sampler (posterior sampling)."""
     T = sde.T if steps is None else steps
-    batch = xt.shape[0]
-
-    def step(x, t, z):
-        noise_pred = noise_fn(x, mu, _tvec(batch, t, x.device))
-        return sde.reverse_posterior_step(x, mu, noise_pred, t, z)
-
-    return _loop_with_noise(step, xt, T, gen, noise_seq, return_all)
+    return loop_with_noise(lambda x, t, z: posterior_step(sde, noise_fn, x, mu, t, z), xt, T, gen, noise_seq,
+                           return_all)
 
 
 def optimal_reverse(
@@ -144,7 +165,7 @@ def optimal_reverse(
 ):
     """The closed-form posterior-mean rollout from x_T to x_0 (no network)."""
     T = sde.T if steps is None else steps
-    return _loop(lambda x, t: sde.reverse_optimum_step(x, x0, mu, t), xt, range(T, 0, -1), return_all)
+    return loop(lambda x, t: sde.reverse_optimum_step(x, x0, mu, t), xt, range(T, 0, -1), return_all)
 
 
 def ode_sampler(
@@ -169,7 +190,7 @@ def ode_sampler(
     def ode_func(t, x_flat):
         t = int(t)
         x = torch.from_numpy(x_flat.reshape(shape)).to(device=xt.device, dtype=torch.float32)
-        score = sde.score_from_noise(noise_fn(x, mu, _tvec(batch, t, xt.device)), t)
+        score = sde.score_from_noise(noise_fn(x, mu, tvec(batch, t, xt.device)), t)
         return sde.ode_reverse_drift(x, mu, score, t).cpu().numpy().reshape(-1)
 
     x0 = xt.detach().cpu().numpy().reshape(-1).astype(np.float64)
@@ -197,10 +218,10 @@ def dsde_reverse_sde(
         if x0 is not None:
             score = sde.get_real_score(x, x0, t)
         else:
-            score = sde.score_from_noise(noise_fn(x, _tvec(batch, t, x.device)), t)
+            score = sde.score_from_noise(noise_fn(x, tvec(batch, t, x.device)), t)
         return sde.reverse_sde_step(x, score, t, z)
 
-    return _loop_with_noise(step, xt, T, gen, noise_seq, return_all)
+    return loop_with_noise(step, xt, T, gen, noise_seq, return_all)
 
 
 def dsde_reverse_ode(
@@ -213,13 +234,7 @@ def dsde_reverse_ode(
     """Deterministic reverse ODE of the denoising SDE: the denoising task's
     sampler, started at the optimal timestep for the input's noise level."""
     T = sde.T if steps is None else steps
-    batch = xt.shape[0]
-
-    def step(x, t):
-        score = sde.score_from_noise(noise_fn(x, _tvec(batch, t, x.device)), t)
-        return sde.reverse_ode_step(x, score, t)
-
-    return _loop(step, xt, range(T, 0, -1), return_all)
+    return loop(lambda x, t: dsde_ode_step(sde, noise_fn, x, t), xt, range(T, 0, -1), return_all)
 
 
 def dsde_optimal_reverse(
@@ -231,4 +246,4 @@ def dsde_optimal_reverse(
 ):
     """The denoising SDE's closed-form posterior-mean rollout (no network)."""
     T = sde.T if steps is None else steps
-    return _loop(lambda x, t: sde.reverse_optimum_step(x, x0, t), xt, range(T, 0, -1), return_all)
+    return loop(lambda x, t: sde.reverse_optimum_step(x, x0, t), xt, range(T, 0, -1), return_all)

@@ -827,3 +827,35 @@ path: {{root: {tmp_path}/{plain}, pretrain_model_G: {tmp_path}/net.pth}}
     assert len(outs[False]) == 2 and [p.name for p in outs[False]] == [p.name for p in outs[True]]
     for a, b in zip(outs[False], outs[True]):
         assert np.abs(read_img_uint8(str(a)).astype(int) - read_img_uint8(str(b)).astype(int)).max() <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, None], ids=["fixed", "symbolic"])
+def test_exported_artifact_on_the_card(cuda_device, batch):
+    """A tiny deraining artifact (UNet nf 8 depth 2, bf16 compute on
+    parameters cast to bf16, 3 posterior steps, per-sample seeds) exported
+    and loaded on the card: the loaded call equals the eager sampler's
+    with the same generators within 1e-3 of max|eager| (the programs run
+    its operators in its order), and launches exactly 3 x (10 K1, 5 K2a,
+    5 K2b) per call, at batch 2 and, symbolic, also at 3."""
+    from image_restoration_sde_tpu_torch import exporting, sampling
+    from image_restoration_sde_tpu_torch.models import ConditionalUNet, init_params_
+    from image_restoration_sde_tpu_torch.sde import IRSDE, rng
+
+    net = ConditionalUNet(in_nc=3, out_nc=3, nf=8, depth=2, dtype=torch.bfloat16)
+    net = init_params_(net, torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    sde = IRSDE.create(10.0, 100, "cosine", 0.005, device=cuda_device)
+    data = exporting.export_restoration_sampler(sde, net, (16, 16), mode="posterior", steps=3, batch=batch,
+                                                cast_params=torch.bfloat16, per_sample_seed=True)
+    call, header = exporting.load_artifact(data, cuda_device)
+    assert header["custom_ops"] == ["irsde::channel_layernorm", "irsde::linear_attention_packed"]
+    eager = sampling.make_restoration_sampler(sde, net, mode="posterior", steps=3, cast_params=torch.bfloat16)
+    counted = (layernorm.LAYERNORM, linear_attention.LA_CTX, linear_attention.LA_APPLY, naf_stack.NAF_STACK)
+    for b in (2,) if batch else (2, 3):
+        lq = torch.rand(b, 16, 16, 3, generator=torch.Generator().manual_seed(b)).to(cuda_device)
+        seeds = list(range(10, 10 + b))
+        before = [k.launches for k in counted]
+        got = call(lq, seeds)
+        assert [k.launches - c for k, c in zip(counted, before)] == [3 * 10, 3 * 5, 3 * 5, 0]
+        want = eager(lq, rng.generators_for_seeds(seeds, cuda_device))
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()

@@ -3,8 +3,9 @@ package's ``_ref_mha``; the streamed ``flash_mha_backward`` against
 ``jax.vjp`` of the JAX ``flash_mha`` (its Pallas forward in interpret mode;
 its backward the gradient of ``_ref_mha``, streamed over 512-row q blocks
 by ``_blocked_mha`` from N = 2048, un-tiled below) and against autograd
-through the un-tiled ``ref_mha_plain``; the wiring of ``_FlashMHA``, whose
-forward is the kernel on the card, with the plain forward in its place."""
+through the un-tiled ``ref_mha_plain``; the wiring of the operator
+``irsde::flash_mha``, whose forward is the kernel on the card and the plain
+version on the CPU, and whose backward is the streamed one on both."""
 
 import jax
 import jax.numpy as jnp
@@ -86,13 +87,12 @@ def test_streamed_backward_is_the_untiled_gradient(N, block):
 
 
 def test_function_saves_the_views_and_backs_through_the_streamed_backward(monkeypatch):
-    """``_FlashMHA`` with the plain forward in the kernel's place (the kernel
-    runs only on the card): q, k, v the strided views of one packed
+    """The operator on the CPU, whose forward is the plain version (the
+    kernel runs only on the card): q, k, v the strided views of one packed
     (B, N, 3, H, D) product; the gradient that reaches the packed tensor is
     ``flash_mha_backward``'s dq, dk, dv stacked on its axis 2, bit for bit,
-    and the Function saved the views themselves, not copies."""
+    and the operator's autograd saved the views themselves, not copies."""
     saved = []
-    monkeypatch.setattr(FA, "flash_mha_cuda", FA.flash_mha_plain)
     orig = torch.autograd.function.FunctionCtx.save_for_backward
 
     def spy(ctx, *tensors):
@@ -104,7 +104,7 @@ def test_function_saves_the_views_and_backs_through_the_streamed_backward(monkey
     qkv = torch.from_numpy((1.5 * r.standard_normal((2, 300, 3, 2, 64))).astype(np.float32)).requires_grad_()
     g = torch.from_numpy(r.standard_normal((2, 300, 2, 64)).astype(np.float32))
     q, k, v = qkv.unbind(2)
-    out = FA._FlashMHA.apply(q, k, v, 0.125)
+    out = FA.flash_mha(q, k, v, 0.125)
     assert out.grad_fn is not None and torch.equal(out, FA.flash_mha_plain(q, k, v, 0.125))
     assert [t.data_ptr() for t in saved] == [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     assert all(t.stride() == q.stride() for t in saved)

@@ -31,7 +31,7 @@ from image_restoration_sde_tpu_torch import train as ptrain
 from image_restoration_sde_tpu_torch.data import datasets
 from image_restoration_sde_tpu_torch.data.bokeh_datasets import lenstr2float
 from image_restoration_sde_tpu_torch.data.synthetic import write_bokeh, write_pairs, write_stereo
-from image_restoration_sde_tpu_torch.models import BokehConditionalNAFNet, ConditionalNAFNet, DiT, UNet, dit
+from image_restoration_sde_tpu_torch.models import BokehConditionalNAFNet, ConditionalNAFNet, DiT, UNet
 from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 from image_restoration_sde_tpu_torch.ops import naf_stack as pns
 from image_restoration_sde_tpu_torch.sde import IRSDE
@@ -155,7 +155,7 @@ def _jax_latent(jsde, apply, comp_weights, params, lq, gt, cond=None, **kw):
 def test_latent_nafnet_step_matches_jax(comp_weights, monkeypatch):
     """The frozen compressor encodes LQ and GT in one 2B batch; the
     ConditionalNAFNet (width 8, enc (1, 4): its 4-block level fuses on both
-    sides, K3's Function here, flax's Pallas kernel in interpret mode
+    sides, K3's operator here, flax's Pallas kernel in interpret mode
     there) takes one IR-SDE step on the latents with the injected states.
     The compressor's weights do not move and take no gradient."""
     monkeypatch.setenv("IRSDE_NAF_FUSE_INTERPRET", "1")
@@ -170,8 +170,8 @@ def test_latent_nafnet_step_matches_jax(comp_weights, monkeypatch):
     comp = _compressor(comp_weights)
     comp_before = {k: v.clone() for k, v in comp.state_dict().items()}
     calls = []
-    orig = pns._NafStack.apply
-    monkeypatch.setattr(pns._NafStack, "apply", lambda *a: calls.append(1) or orig(*a))
+    orig = pns.OP
+    monkeypatch.setattr(pns, "OP", lambda *a: calls.append(1) or orig(*a))
     got = _port_run(make_latent_train_step(psde, comp), net,
                     (torch.from_numpy(lq), torch.from_numpy(gt), torch.Generator().manual_seed(0)))
     assert calls == [1]
@@ -182,10 +182,10 @@ def test_latent_nafnet_step_matches_jax(comp_weights, monkeypatch):
 
 def test_dit_step_matches_jax(comp_weights, monkeypatch):
     """A DiT (hidden 128, depth 2, 2 heads of 64) on the 8x8x4 latents (16
-    tokens: flax's einsum branch).  Its attention goes through
-    ``_FlashMHA`` (the plain forward in the kernel's place, which runs only
-    on the card) and so through the streamed backward, in blocks of 4 query
-    rows: the gradient reaches ``qkv.weight`` and ``qkv.bias`` through the
+    tokens: flax's einsum branch).  Its attention goes through the
+    operator ``irsde::flash_mha`` (the plain forward on the CPU; the kernel
+    runs only on the card) and so through the streamed backward, in blocks
+    of 4 query rows: the gradient reaches ``qkv.weight`` and ``qkv.bias`` through the
     three strided views of the packed product."""
     z = jnp.zeros((1, HW // 2, HW // 2, TINY_DIT["in_channels"]))
     weights = randomize(flatten(jax.jit(FlaxDiT(**TINY_DIT).init)(jax.random.PRNGKey(3), z, z, jnp.array([1.0]))),
@@ -194,8 +194,6 @@ def test_dit_step_matches_jax(comp_weights, monkeypatch):
     want = _jax_latent(jsde, FlaxDiT(**TINY_DIT).apply, comp_weights, unflatten(weights), lq, gt)
     blocks = []
     backward = FA.flash_mha_backward
-    monkeypatch.setattr(FA, "flash_mha_cuda", FA.flash_mha_plain)
-    monkeypatch.setattr(dit, "flash_mha", FA._FlashMHA.apply)
     monkeypatch.setattr(FA, "flash_mha_backward",
                         lambda *a: blocks.append(a[0].shape) or backward(*a, block=4))
     net = DiT(**TINY_DIT)

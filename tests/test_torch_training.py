@@ -415,7 +415,7 @@ NAF = dict(img_channel=3, width=8, enc_blk_nums=(1, 4), middle_blk_num=1, dec_bl
 
 def test_denoising_train_step_matches_jax(monkeypatch):
     """ConditionalNAFNet(conditional=False), width 8, enc (1, 4): its
-    4-block level fuses on both sides (the port's K3 Function; flax's Pallas
+    4-block level fuses on both sides (the port's K3 operator; flax's Pallas
     kernel in interpret mode, custom_vjp); DenoisingSDE (max_sigma 70, T
     1000), sigma^2-weighted L1, Adam, batch 2 at 16 px."""
     monkeypatch.setenv("IRSDE_NAF_FUSE_INTERPRET", "1")
@@ -431,7 +431,7 @@ def test_denoising_train_step_matches_jax(monkeypatch):
     psde = Injected(DenoisingSDE.create(70, 1000, "cosine", device="cpu"), torch.from_numpy(t).long(),
                     torch.from_numpy(xt))
     calls = {"jax": 0, "port": 0}
-    j_orig, p_orig = jns.naf_stack, pns._NafStack.apply
+    j_orig, p_orig = jns.naf_stack, pns.OP
 
     def j_count(*a):
         calls["jax"] += 1
@@ -442,7 +442,7 @@ def test_denoising_train_step_matches_jax(monkeypatch):
         return p_orig(*a)
 
     monkeypatch.setattr(jns, "naf_stack", j_count)
-    monkeypatch.setattr(pns._NafStack, "apply", p_count)
+    monkeypatch.setattr(pns, "OP", p_count)
     want = _jax_step(jtrainer.make_denoising_train_step, jsde, lambda p, x, tv: fnet.apply(p, x, None, tv),
                      unflatten(weights), (jnp.asarray(gt),))
     net = ConditionalNAFNet(**NAF, conditional=False)
