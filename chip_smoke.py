@@ -71,12 +71,21 @@ seed or trained here:
   exported (``exporting.py``) and loaded in a fresh process; the port's
   HTTP server (``python -m image_restoration_sde_tpu_torch.serve``) on the
   deraining artifact under the port's ``bench_serve``; ``bench_cuda.py``
-  (the main path's bench) and a batch sweep.
+  (the main path's bench) and a batch sweep;
+- data parallelism: the deraining IR-SDE train YAML through the train
+  entry point under ``torchrun``, one NCCL rank and two gloo ranks on the
+  one card (and one NCCL rank a card where there are two or more), held
+  against the one-process run; the symbolic deraining artifact loaded over
+  two devices (``load_artifact(devices=...)``);
+- the benches: ``bench_train`` (the UNet and the Refusion latent NAFNet
+  train steps, img/s/GPU and MFU) and ``bench_refusion`` (the latent
+  pipeline at 1024 px, NAFNet and DiT-L/2).
 
 Phases, each printing its lines and its seconds (the serving phases ops,
 export *, artifacts, serve and bench run where their nets are built: ops
 after phase 3, export deraining after 5, export latent after 7, export
-denoising, artifacts, serve and bench after 14):
+denoising, artifacts, serve, bench, bench train and bench refusion after
+14; train dp after phase 21's IR-SDE run):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
@@ -140,14 +149,14 @@ denoising, artifacts, serve and bench after 14):
 15. stereo net: one forward at batch 4 pairs, 128 px, kernel path against
    plain path (144 K1 per forward, no K3), and K1 at its sites and those
    of the 140x200 request;
-16. stereo main path: the restoration sampler serves two posterior batches
+16. stereo main path: the restoration sampler serves a posterior batch
    of 4 pairs at 128 px and one 140x200 pair (the net pads it to 144x208:
    SCAM at 18x26 and 9x13); per request exactly 14400 K1 launches;
 17. bokeh net: the compressor's kernel path against its plain path at
    batch 4, 512 px and at 704x1024; the bokeh NAFNet's at batch 4 on
    128x128x4 latents (72 K1 per forward, no K3); K1, K2 at both nets' sites;
-18. bokeh main path: the latent sampler with seeded lens values serves two
-   posterior batches of 4 at 512 px and one 700x1000 image (padded to
+18. bokeh main path: the latent sampler with seeded lens values serves a
+   posterior batch of 4 at 512 px and one 700x1000 image (padded to
    704x1024); per request exactly 7204 K1, 2 K2a and 2 K2b launches;
 19. train kernels: K1's gradient (x and g) at each site of the deraining
    UNet's train step (batch 4, 128 px) and K3's (x, temb and every block
@@ -228,7 +237,27 @@ serve: the server on the fixed-batch per-sample-seed deraining artifact,
 bench: ``python3 bench_cuda.py`` in its own process (batch 8), its line
    checked and printed, then its sampler at batches BENCH_SWEEP (exact
    launches), and K1 and K2 held against their plain versions at each
-   sweep batch's sites.
+   sweep batch's sites;
+artifacts also loads the symbolic deraining artifact over
+   DP_ARTIFACT_DEVICES (``[dp-artifact]``): at DP_ARTIFACT_BATCHES, a chain
+   for each row block with its own seeds, bit-equal to the one-device
+   loader on the same blocks, within DP_ARTIFACT_BOUND of the eager
+   sampler on the whole batch, exact launches;
+bench train: ``bench_train`` at BENCH_TRAIN (UNet nf 64 depth 4, batch 32
+   at 128 px; the Refusion NAFNet on 64x64x8 latents, batch 32), its line
+   (img/s/GPU, MFU against the card's bf16 peak, step ms, peak GiB) and
+   exact launches on every step;
+bench refusion: ``bench_refusion`` for nafnet and dit at 1024 px, 100
+   steps, BENCH_REFUSION_REPS timed calls after two warm-ups, its line and
+   exact launches; before each, one one-step call records the sites of
+   K1, K2, K3 and K4 and each is held against its plain version there;
+train dp (after phase 21's IR-SDE run, in its directory): the train entry
+   point under ``torchrun`` (``--dp-child``), DP_STEPS steps of batch 4,
+   for each of dp_runs, against phase 21's first DP_STEPS steps: one rank
+   bit-equal; more ranks their first step's loss within 1e-6 and the
+   parameters after it within 2 lr_G; each rank exactly the one-process
+   step's launches, the ranks equal, rank 0 alone logging the
+   data-parallel line.
 
 K1 is also timed over one bf16 forward of each path's score net (phases 3,
 6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
@@ -237,7 +266,9 @@ F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
 
 Launch counts are set to 0 just before each main path and read just after.
 Then a ``[serving]`` JSON line with the exports, loaded calls, served
-requests and bench, a ``[train]`` JSON line with the train paths' times, an
+requests and bench, a ``[benches]`` one with the two benches' lines, a
+``[train]`` JSON line with the train paths' times (and the data-parallel
+runs'), an
 ``[eval]`` one with the test YAMLs' seconds per image, peak memory and
 metrics, one JSON line
 with each kernel's launches, error, times and bound, and last
@@ -304,17 +335,19 @@ BOKEH_BATCH, BOKEH_SIZE, BOKEH_ODD_HW, BOKEH_LN_PER_FORWARD = 4, 512, (700, 1000
 # kind of data (TRAIN_DATA), and the cuts: steps, the checkpoint interval
 # (the resumed run starts there), plain-path steps (none for the DiT: its
 # plain attention keeps B H N^2 float32 scores a block for the backward,
-# 8.6 GB a block at batch 8) and validation images.  The compressor runs
+# 8.6 GB a block at batch 8; none for the latent, bokeh and stereo paths,
+# cut to the script's time limit: phase 20 holds their nets' plain path)
+# and validation images.  The compressor runs
 # first: its last checkpoint is the latent and DiT paths' frozen compressor
 # (stage 2); the bokeh path's compressor (ch 64) is seeded
 TRAIN_PATHS = {
-    "ir-sde": (("deraining", "train", "ir-sde.yml"), "pixel", 24, 12, 8, 2),
-    "refusion": (("deraining", "train", "refusion.yml"), "pixel", 24, 12, 8, 2),
-    "compressor": (("unet-latent", "train", "train_haze.yml"), "compressor", 12, 6, 4, 2),
-    "latent": (("latent-dehazing", "train", "nasde.yml"), "latent", 8, 4, 4, 1),
-    "dit": (("latent-dehazing", "train", "dit.yml"), "latent", 4, 2, 0, 1),
-    "bokeh": (("latent-bokeh", "train", "refusion.yml"), "bokeh", 8, 4, 4, 1),
-    "stereo": (("stereo-sr", "train", "refusion.yml"), "stereo", 8, 4, 4, 1),
+    "ir-sde": (("deraining", "train", "ir-sde.yml"), "pixel", 24, 12, 4, 2),
+    "refusion": (("deraining", "train", "refusion.yml"), "pixel", 24, 12, 4, 2),
+    "compressor": (("unet-latent", "train", "train_haze.yml"), "compressor", 12, 6, 3, 2),
+    "latent": (("latent-dehazing", "train", "nasde.yml"), "latent", 8, 4, 0, 1),
+    "dit": (("latent-dehazing", "train", "dit.yml"), "latent", 3, 2, 0, 1),
+    "bokeh": (("latent-bokeh", "train", "refusion.yml"), "bokeh", 8, 4, 0, 1),
+    "stereo": (("stereo-sr", "train", "refusion.yml"), "stereo", 8, 4, 0, 1),
 }
 LATENT_TRAIN = ("latent", "dit", "bokeh")  # frozen compressor, score net on its latents
 TRAIN_BIT_EQUAL = ("compressor", "latent", "dit")  # resumed runs held bit-equal to uninterrupted ones
@@ -369,7 +402,29 @@ EXPORT_BOUND = 1e-3
 # the bench's requests, concurrency and untimed warm-up requests
 SERVE_WINDOW_MS, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP = 50.0, 32, 8, 8
 # bench_cuda.py's batch sweep at 128 px, reps per batch (after two warm-ups)
-BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 4, 16, 32), 3  # batch 8: bench_cuda.py's own line
+BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 4, 16, 32), 2  # batch 8: bench_cuda.py's own line
+# data parallelism (phase train dp): steps of the deraining train YAML
+# under torchrun; the data-parallel artifact's batches (phase artifacts)
+DP_STEPS = 3
+DP_ARTIFACT_BATCHES = (3, 8)
+DP_ARTIFACT_DEVICES = ["cuda:0", "cuda:0"]
+# the data-parallel artifact against the eager sampler on the whole batch:
+# its blocks run the bf16 chain at other batch sizes, where cuDNN picks
+# other algorithms, so a row rounds otherwise; within one bf16 ulp of
+# max|eager| (each block is held bit for bit against the one-device loader
+# on the same rows)
+DP_ARTIFACT_BOUND = 2.0**-8
+# the benches (phases bench train, bench refusion): bench_train's workloads
+# (arch, pipe, batch, crop) at its defaults and its timed steps;
+# bench_refusion's arches, image size, steps and timed calls
+BENCH_TRAIN = (("unet", "latent", 32, 128), ("refusion", "latent", 32, 1024))
+BENCH_TRAIN_STEPS = 5
+BENCH_REFUSION, BENCH_REFUSION_SIZE, BENCH_REFUSION_STEPS, BENCH_REFUSION_REPS = ("nafnet", "dit"), 1024, 100, 2
+# timing, cut to the script's time limit: the events a measurement may
+# spend before it stops at 3 reps (cuda_ms), and the call time above which
+# graph_ms times by events (a plain composition of tens of milliseconds;
+# a kernel's launch, which events around one call would read, is far below)
+TIMING_BUDGET_MS, GRAPH_MS_ABOVE = 200.0, 10.0
 # NVIDIA H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s for
 # bfloat16 on the tensor cores and float32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -381,20 +436,30 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events."""
+def event_ms(fn) -> float:
+    """Milliseconds of one call of ``fn`` on the card, by CUDA events."""
     import torch
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn`` on the card, by CUDA events: ``reps``
+    timed calls after ``warmup``, or fewer (at least 3) once the timed
+    calls have taken TIMING_BUDGET_MS, for the plain compositions that run
+    for tens or hundreds of milliseconds a call."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(event_ms(fn))
+        if len(times) >= 3 and sum(times) > TIMING_BUDGET_MS:
+            break
     return statistics.median(times)
 
 
@@ -402,9 +467,14 @@ def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
     """Milliseconds per call of ``fn`` on the card: ``n`` back-to-back calls
     captured in one CUDA graph and replayed (median of ``reps`` replays,
     CUDA events) over ``n``.  For kernels shorter than the host's ~40 us
-    per launch, where ``cuda_ms`` around one launch reads the host."""
+    per launch, where ``cuda_ms`` around one launch reads the host; a call
+    that takes over GRAPH_MS_ABOVE hides the host's launch, and is timed
+    by ``cuda_ms``."""
     import torch
 
+    fn()
+    if event_ms(fn) > GRAPH_MS_ABOVE:
+        return cuda_ms(fn, warmup=0)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1684,8 +1754,10 @@ def phase_stereo_net(dev, opt, stats):
 def phase_stereo_main_path(dev, net, opt, smi):
     """The IR-SDE restoration sampler with the stereo net (max_sigma 50,
     T 100, cosine, eps 0.005; posterior, 100 steps; bf16 net): a batch of 4
-    pairs at 128 px, twice, and one 140x200 pair (zero-padded by the net to
-    144x208: SCAM at 18x26 and 9x13); per request exactly 144 x 100 K1."""
+    pairs at 128 px and one 140x200 pair (zero-padded by the net to
+    144x208: SCAM at 18x26 and 9x13); per request exactly 144 x 100 K1.
+    (The second batch of 4 pairs, 10 s of a host-bound chain, was cut to
+    the script's time limit.)"""
     from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
@@ -1696,7 +1768,7 @@ def phase_stereo_main_path(dev, net, opt, smi):
     gen = rng_generator(dev, SEED + 19)
     rng = np.random.default_rng(SEED + 19)
     full = (STEREO_BATCH, SIZE, SIZE, 6)
-    requests = [(mode, rng.random(full, np.float32), (gen,)), (mode, rng.random(full, np.float32), (gen,)),
+    requests = [(mode, rng.random(full, np.float32), (gen,)),
                 (mode, rng.random((1, *STEREO_ODD_HW, 6), np.float32), (gen,))]
     return serve("stereo-main", dev, requests, sampler, counts(LAYERNORM=STEREO_LN_PER_FORWARD * sde.T), smi,
                  STEREO_BATCH)
@@ -1783,9 +1855,10 @@ def bokeh_lens(rng, batch, dev):
 def phase_bokeh_main_path(dev, net, compressor, opt, smi):
     """The latent sampler with the bokeh net (max_sigma 50, T 100, cosine,
     eps 0.005; posterior, 100 steps; bf16 score net, f32 compressor; lens
-    values from the seed as the per-sample cond): a batch of 4 at 512 px,
-    twice, and one 700x1000 image (padded to 704x1024); per request exactly
-    72 x 100 + 4 K1 and 2 K2a, K2b launches."""
+    values from the seed as the per-sample cond): a batch of 4 at 512 px and
+    one 700x1000 image (padded to 704x1024); per request exactly 72 x 100 +
+    4 K1 and 2 K2a, K2b launches.  (The second batch of 4, a host-bound
+    chain, was cut to the script's time limit.)"""
     from image_restoration_sde_tpu_torch.sde import IRSDE
     from image_restoration_sde_tpu_torch.training import make_latent_sampler
 
@@ -1797,7 +1870,6 @@ def phase_bokeh_main_path(dev, net, compressor, opt, smi):
     rng = np.random.default_rng(SEED + 22)
     full = (BOKEH_BATCH, BOKEH_SIZE, BOKEH_SIZE, 3)
     requests = [(mode, rng.random(full, np.float32), (gen, bokeh_lens(rng, BOKEH_BATCH, dev))),
-                (mode, rng.random(full, np.float32), (gen, bokeh_lens(rng, BOKEH_BATCH, dev))),
                 (mode, rng.random((1, *BOKEH_ODD_HW, 3), np.float32), (gen, bokeh_lens(rng, 1, dev)))]
     want = counts(LAYERNORM=BOKEH_LN_PER_FORWARD * sde.T + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
                   LA_APPLY=COMPRESSOR_ATTN)
@@ -2223,18 +2295,19 @@ def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, r
 
 
 @contextlib.contextmanager
-def recorded_steps(snapshot_at=None):
+def recorded_steps(snapshot_at=()):
     """Record every train step and validation the train tasks make inside
     the block: per step its launches by kernel symbol, card milliseconds
     (host clock between synchronisations) and loss, and the net's
-    parameters (on the host) after step ``snapshot_at``; per validation its
-    launches and image count."""
+    parameters (on the host) after each step of ``snapshot_at``
+    (``snapshots``, by step); per validation its launches and image
+    count."""
     import torch
 
     from image_restoration_sde_tpu_torch import runners
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
-    rec = {"steps": [], "vals": [], "snapshot": None}
+    rec = {"steps": [], "vals": [], "snapshots": {}}
     classes = [c for c in (runners.PixelDiffusionTask, runners.GaussianDenoisingTask, runners.CompressorTask,
                            runners.LatentDiffusionTask) if "step" in vars(c)]
     originals = {c: (c.step, c.validate) for c in classes}
@@ -2249,8 +2322,8 @@ def recorded_steps(snapshot_at=None):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             rec["steps"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, ms, loss))
-            if state.step == snapshot_at:
-                rec["snapshot"] = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+            if state.step in snapshot_at:
+                rec["snapshots"][state.step] = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
             return state, metrics
 
         def validate_rec(self, state, loader, gen, out_dir, at):
@@ -2270,7 +2343,7 @@ def recorded_steps(snapshot_at=None):
             c.step, c.validate = step, validate
 
 
-def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None):
+def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None, keep=None):
     """The port's train entry point (``train.train``, what ``python -m
     image_restoration_sde_tpu_torch.train -opt=<yml>`` runs) on the train
     path ``label``'s YAML (TRAIN_PATHS), float32 with torch's default TF32
@@ -2292,18 +2365,20 @@ def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None):
     gradients the card may sum in another order); and the path's
     plain-path steps (no kernel launches) for their time.  Returns the
     launches of the first run by kernel symbol and a record of the times
-    and peak memory."""
+    and peak memory; ``keep`` (a dict) gets the first run's losses and
+    milliseconds by step and its parameters after steps 1 and DP_STEPS,
+    which phase train dp holds its runs against."""
     import torch
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True  # torch's default
     try:
-        return train_main_path(dev, label, opt, workdir, smi, pretrain_l)
+        return train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
 
 
-def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
+def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     import gc
     import statistics as stats_
 
@@ -2327,10 +2402,13 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with recorded_steps(snapshot_at=save + 1) as rec:
+    with recorded_steps(snapshot_at=(1, DP_STEPS, save + 1) if keep is not None else (save + 1,)) as rec:
         t0 = time.perf_counter()
         state = train.train(yml, dev)
         seconds = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(losses=[r[2] for r in rec["steps"]], ms=[r[1] for r in rec["steps"]],
+                    params={at: rec["snapshots"][at] for at in (1, DP_STEPS)}, lr=float(opt["train"]["lr_G"]))
     peak = torch.cuda.max_memory_allocated()
     launches = {k.symbol: k.launches for k in KERNELS}
     keeps_ema = state.ema is not None
@@ -2358,7 +2436,7 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
     state_file = os.path.join(exp, "training_state", f"{save}.state")
     yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), label, opt, root, data, steps, save, steps,
                                   resume=state_file, pretrain_l=pretrain_l)
-    with recorded_steps(snapshot_at=save + 1) as rec_resume:
+    with recorded_steps(snapshot_at=(save + 1,)) as rec_resume:
         state = train.train(yml_resume, dev)
     resumed_final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
     del state
@@ -2369,7 +2447,7 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
     first_loss, first_want = rec_resume["steps"][0][2], rec["steps"][save][2]
     loss_rel = abs(first_loss - first_want) / abs(first_want)
     lr = float(opt["train"]["lr_G"])
-    snapshot, resumed = rec["snapshot"], rec_resume["snapshot"]
+    snapshot, resumed = rec["snapshots"][save + 1], rec_resume["snapshots"][save + 1]
     dparam = max((resumed[k] - v).abs().max().item() for k, v in snapshot.items())
     equal_losses = [a[2] for a in rec_resume["steps"]] == losses[save:]
     equal_final = all(torch.equal(resumed_final[k], v) for k, v in final.items())
@@ -2381,7 +2459,7 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
         check(equal_losses and equal_final and dparam == 0, f"train {label}: the resumed run is not bit-equal")
     else:
         check(loss_rel <= 1e-6 and dparam <= 2 * lr, f"train {label}: the resumed step differs")
-    del snapshot, resumed, final, resumed_final
+    del snapshot, resumed, final, resumed_final, rec
 
     p_ms = None
     if plain_steps:
@@ -2416,7 +2494,7 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l):
 # set's, or a range for bokeh and stereo), and the train path of phase 21
 # whose last checkpoint it loads where phase 21 trained its network (the
 # same class and setting), else None: a seeded .pth the phase writes.
-# Cuts, each to the time budget: one or two images a set; GoPro's 720x1280
+# Cuts, each to the time budget: one image a set; GoPro's 720x1280
 # kept, the shadow set's 1440x1920 cut to 720x960, bokeh's to 512-768 px,
 # Flickr1024's pairs to 256-384 px HR
 EVAL_PATHS = {
@@ -2424,8 +2502,8 @@ EVAL_PATHS = {
     ("deblurring", "refusion.yml"): ("pairs", 1, (720, 1280), "refusion"),
     ("denoising", "ir-sde.yml"): ("gt", 1, (500, 500), None),
     ("denoising", "refusion.yml"): ("gt", 1, (500, 500), None),
-    ("deraining", "ir-sde.yml"): ("pairs", 2, (321, 481), "ir-sde"),
-    ("deraining", "refusion.yml"): ("pairs", 2, (321, 481), "refusion"),
+    ("deraining", "ir-sde.yml"): ("pairs", 1, (321, 481), "ir-sde"),
+    ("deraining", "refusion.yml"): ("pairs", 1, (321, 481), "refusion"),
     ("deshadow", "ir-sde.yml"): ("pairs", 1, (720, 960), None),
     ("deshadow", "refusion.yml"): ("pairs", 1, (720, 960), "refusion"),
     ("inpainting", "ir-sde.yml"): ("gt", 1, (256, 256), "ir-sde"),
@@ -3068,6 +3146,11 @@ def phase_export_deraining(dev, net, sde_opt, workdir, stats):
             sites[0].extend(ln)
             sites[1].extend(attn)
         jobs.append(export_job(workdir, name, path, want, runs))
+    # the symbolic artifact on DP_ARTIFACT_DEVICES at DP_ARTIFACT_BATCHES
+    # (phase artifacts): the same runs, their own outputs
+    dp_runs = [{**run, "out": run["out"][: -len(".out.npy")] + ".dp.out.npy"}
+               for run, b in zip(jobs[-1]["runs"], EXPORT_SYMBOLIC_BATCHES) if b in DP_ARTIFACT_BATCHES]
+    jobs.append({**jobs[-1], "name": "deraining_sym_dp", "devices": DP_ARTIFACT_DEVICES, "runs": dp_runs})
     hold_sites("export", dev, *sites, stats, {})
     return jobs, record
 
@@ -3129,8 +3212,11 @@ def artifact_child(manifest: str) -> int:
     (``exporting.load_artifact``) and call it on each run's lq and seed,
     the launch counts set to 0 just before each call and read just after;
     the outputs go beside the runs, the report (load and call seconds,
-    launches) to ``<manifest>.out.json``.  TF32 is off, as in the parent
-    process that ran the eager samplers."""
+    launches) to ``<manifest>.out.json``.  A job with ``devices`` loads
+    the artifact over those devices (``load_artifact(devices=...)``) and
+    also holds each call bit for bit against the one-device loader (the
+    artifact's earlier job) called on the same row blocks.  TF32 is off, as
+    in the parent process that ran the eager samplers."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3141,10 +3227,11 @@ def artifact_child(manifest: str) -> int:
 
     with open(manifest) as f:
         jobs = json.load(f)
-    report = {}
+    report, one_device = {}, {}
     for job in jobs:
         t0 = time.perf_counter()
-        call, _ = exporting.load_artifact(job["path"], "cuda")
+        call, _ = exporting.load_artifact(job["path"], "cuda", devices=job.get("devices"))
+        one_device.setdefault(job["path"], call)
         entry = {"load_s": time.perf_counter() - t0, "runs": []}
         for run in job["runs"]:
             lq = torch.from_numpy(np.load(run["lq"])).cuda()
@@ -3158,6 +3245,10 @@ def artifact_child(manifest: str) -> int:
             np.save(run["out"], out.cpu().numpy())
             entry["runs"].append({"batch": lq.shape[0], "seconds": seconds,
                                   "launches": {k.symbol: k.launches for k in KERNELS}})
+            if "devices" in job:
+                one, blocks = one_device[job["path"]], [rows for _, rows in call.blocks(lq.shape[0])]
+                by_block = torch.cat([one(lq[rows], run["seed"][rows]) for rows in blocks])
+                entry["runs"][-1].update(blocks=len(blocks), blocks_bit_equal=bool(torch.equal(out, by_block)))
         report[job["name"]] = entry
     with open(manifest + ".out.json", "w") as f:
         json.dump(report, f)
@@ -3168,7 +3259,12 @@ def phase_artifacts(dev, workdir, jobs, smi):
     """Every exported artifact loaded and called in a fresh process
     (``artifact_child``): each call's output against the eager sampler's
     with the same generators (EXPORT_BOUND of max|eager|; bit-equality
-    reported) and its exact launches."""
+    reported) and its exact launches.  The data-parallel job (the symbolic
+    artifact over DP_ARTIFACT_DEVICES, a chain for each row block): one
+    call's launches for each block, bit-equal to the one-device loader on
+    the same blocks, and against the eager sampler on the whole batch
+    within DP_ARTIFACT_BOUND (bit-equality reported).  Returns the
+    launches, the data-parallel job's apart, and the record."""
     import torch
 
     manifest = os.path.join(workdir, "manifest.json")
@@ -3180,7 +3276,7 @@ def phase_artifacts(dev, workdir, jobs, smi):
     print(f"[artifacts] the loading process took {time.perf_counter() - t0:.1f} s")
     with open(manifest + ".out.json") as f:
         report = json.load(f)
-    launches, record = {}, {}
+    launches, dp_launches, record = {}, {}, {}
     for job in jobs:
         entry = report[job["name"]]
         rec = record[job["name"]] = {"load_s": entry["load_s"], "runs": []}
@@ -3189,16 +3285,25 @@ def phase_artifacts(dev, workdir, jobs, smi):
             check(out.shape == eager.shape and np.isfinite(out).all(), f"{job['name']}: output {out.shape}")
             err = float(np.abs(out - eager).max() / max(np.abs(eager).max(), 1e-12))
             same = bool(np.array_equal(out, eager))
-            check(err <= EXPORT_BOUND, f"{job['name']} batch {got['batch']}: {err:.3g} of max|eager| from eager")
-            check(got["launches"] == job["want"], f"{job['name']}: launches {got['launches']}, want {job['want']}")
+            limit = DP_ARTIFACT_BOUND if "devices" in job else EXPORT_BOUND
+            check(err <= limit, f"{job['name']} batch {got['batch']}: {err:.3g} of max|eager| from eager")
+            want = {sym: n * got.get("blocks", 1) for sym, n in job["want"].items()}
+            check(got["launches"] == want, f"{job['name']}: launches {got['launches']}, want {want}")
+            into = dp_launches if "devices" in job else launches
             for sym, n in got["launches"].items():
-                launches.setdefault(sym, 0)
-                launches[sym] += n
+                into[sym] = into.get(sym, 0) + n
             rec["runs"].append({"batch": got["batch"], "seconds": got["seconds"], "rel_err": err, "bit_equal": same})
-            print(f"[artifacts] {job['name']} batch {got['batch']}: loaded call {got['seconds']:.3f} s, "
-                  f"{err:.3g} of max|eager| from the eager sampler ({'bit-equal' if same else 'not bit-equal'}), "
-                  f"launches {got['launches']} (load {entry['load_s']:.1f} s; card: {smi})")
-    return launches, record
+            tag, more = "artifacts", ""
+            if "devices" in job:
+                check(got["blocks_bit_equal"], f"{job['name']} batch {got['batch']}: not the one-device blocks")
+                rec["runs"][-1].update(devices=job["devices"], blocks=got["blocks"])
+                tag, more = "dp-artifact", (f"; on {job['devices']} in {got['blocks']} row blocks, bit-equal to "
+                                            f"the one-device loader on the same blocks")
+            print(f"[{tag}] {job['name']} batch {got['batch']}: loaded call {got['seconds']:.3f} s, "
+                  f"{err:.3g} of max|eager| from the eager sampler on the whole batch "
+                  f"({'bit-equal' if same else 'not bit-equal'}), launches {got['launches']}{more} "
+                  f"(load {entry['load_s']:.1f} s; card: {smi})")
+    return launches, dp_launches, record
 
 
 def post_group(addr, requests):
@@ -3331,6 +3436,301 @@ def phase_bench(dev, smi, stats):
     return launched, {"bench_cuda": line, "sweep": sweep}
 
 
+# ---------------------------------------------------------------- data parallelism
+def dp_child(yml: str, out: str, backend: str) -> int:
+    """``torchrun ... chip_smoke.py --dp-child <yml> <out> <backend>``: one
+    rank of the port's train entry point (``train.train``, what ``python -m
+    image_restoration_sde_tpu_torch.train`` runs under torchrun) with its
+    steps recorded (``recorded_steps``: launches, milliseconds, loss, the
+    parameters after steps 1 and DP_STEPS); the record goes to
+    ``<out>.<rank>.pt``.
+    torch's default TF32 settings, as the one-process run of phase 21."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from image_restoration_sde_tpu_torch import train
+
+    with recorded_steps(snapshot_at=(1, DP_STEPS)) as rec:
+        train.train(yml, "cuda", backend)
+    torch.save({"steps": rec["steps"], "params": rec["snapshots"]}, f"{out}.{os.environ['RANK']}.pt")
+    return 0
+
+
+def dp_in_process(yml: str, out: str, backend: str) -> str:
+    """``dp_child`` in this process, as torchrun's one rank (RANK 0 of
+    WORLD_SIZE 1 on a free port; the group is left at the end), its log
+    read from the run's log file; returns the log."""
+    import glob
+
+    from image_restoration_sde_tpu_torch.parallel import dist
+    from image_restoration_sde_tpu_torch.utils import options
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(dist.free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dp_child(yml, out, backend)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    log_dir = options.parse(yml)["path"]["log"]
+    with open(max(glob.glob(os.path.join(log_dir, "train_*.log")), key=os.path.getmtime)) as f:
+        return f.read()
+
+
+def dp_runs():
+    """(tag, ranks, backend) of phase train dp: (a) one NCCL rank (in this
+    process: ``dp_in_process``); (b) two gloo ranks on the one card (NCCL
+    takes one rank a card); (c) one NCCL rank a card where there are two or
+    more, as many as divide the global batch (None on one card)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    many = max((n for n in (2, 4) if n <= cards and TRAIN_BATCH % n == 0), default=None)
+    return [("a", 1, "nccl"), ("b", 2, "gloo"), ("c", many, "nccl") if many else ("c", None, "nccl")]
+
+
+def phase_train_dp(dev, label, opt, workdir, smi, reference):
+    """The deraining IR-SDE train YAML's first DP_STEPS steps (batch 4 of
+    128 px crops, full width, the synthetic folders of phase 21) through
+    the train entry point under ``torchrun`` (``dp_child``), for each run of
+    ``dp_runs``, held against phase 21's one-process run of the same YAML
+    and seed (``reference``: its losses and step milliseconds, its
+    parameters after steps 1 and DP_STEPS).  Rank 0 alone logs the
+    data-parallel line; every rank takes exactly the one-process step's
+    launches per step (at its per-rank batch, none in the backward); the
+    ranks end with the same parameters and report the same (global)
+    losses.  (a), one rank, is bit-equal to the one-process run: every
+    loss and the parameters after every recorded step.  (b) and (c) split
+    the batch, so the gradients sum in another order: their first step's
+    loss within 1e-6 of the one-process step's and the parameters after it
+    within 2 lr_G (phase_train_main_path's bounds for the first step of a
+    resumed run; Adam's sign-sensitive first step); the later steps start
+    from those parameters, and their losses and the parameters after step
+    DP_STEPS are reported.  Returns the launches of all ranks and runs and
+    a record of step times against the one-process run's."""
+    import torch
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, which the torchrun ranks and phase 21 run with
+    try:
+        return train_dp(dev, label, opt, workdir, smi, reference)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def train_dp(dev, label, opt, workdir, smi, reference):
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    root, data = os.path.join(workdir, f"{label}_dp"), os.path.join(workdir, "data")
+    os.makedirs(root, exist_ok=True)
+    want, lr = train_counts(label), reference["lr"]
+    ref_losses, ref_ms = reference["losses"][:DP_STEPS], reference["ms"][:DP_STEPS]
+    launches, record = {k.symbol: 0 for k in KERNELS}, {"one_process_ms_per_step": ref_ms, "card": smi}
+    for tag, n, backend in dp_runs():
+        if n is None:
+            print(f"[train-dp] ({tag}) one NCCL rank a card: not run, this machine has "
+                  f"{torch.cuda.device_count()} card(s)")
+            record[tag] = None
+            continue
+        yml = write_train_yaml(os.path.join(root, f"{tag}.yml"), label, opt, root, data, DP_STEPS, 10 * DP_STEPS,
+                               10 * DP_STEPS, name=f"{opt['name']}_dp_{tag}")  # the final save alone
+        out = os.path.join(root, tag)
+        t0 = time.perf_counter()
+        if n == 1:  # in this process, under the environment torchrun gives its one rank
+            logged = dp_in_process(yml, out, backend)
+        else:
+            run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                  str(n), os.path.abspath(__file__), "--dp-child", yml, out, backend],
+                                 capture_output=True, text=True, timeout=600)
+            check(run.returncode == 0, f"train dp ({tag}): torchrun exited {run.returncode}: {run.stderr[-3000:]}")
+            logged = run.stderr
+        seconds = time.perf_counter() - t0
+        line = f"Data parallel: {n} process(es), global batch {TRAIN_BATCH}, per-process batch {TRAIN_BATCH // n}"
+        check(logged.count(line) == 1, f"train dp ({tag}): rank 0's line {line!r} not logged once")
+        ranks = [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(n)]
+        for r, rank in enumerate(ranks):
+            check(len(rank["steps"]) == DP_STEPS, f"train dp ({tag}) rank {r}: {len(rank['steps'])} steps")
+            for i, (grew, _, loss) in enumerate(rank["steps"]):
+                check(grew == want, f"train dp ({tag}) rank {r} step {i + 1}: launches {grew}, expected {want}")
+                for sym, c in grew.items():
+                    launches[sym] += c
+            check([st[2] for st in rank["steps"]] == [st[2] for st in ranks[0]["steps"]]
+                  and all(torch.equal(v, ranks[0]["params"][at][k]) for at, p in rank["params"].items()
+                          for k, v in p.items()), f"train dp ({tag}): rank {r} differs from rank 0")
+        losses = [st[2] for st in ranks[0]["steps"]]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        dparam = {at: max((v - reference["params"][at][k]).abs().max().item() for k, v in p.items())
+                  for at, p in ranks[0]["params"].items()}
+        bit_equal = losses == ref_losses and all(d == 0 for d in dparam.values())
+        ms = [st[1] for st in ranks[0]["steps"]]
+        record[tag] = {"ranks": n, "backend": backend, "ms_per_step": ms, "seconds": seconds, "loss_rel": loss_rel,
+                       "param_max_abs": dparam, "bit_equal": bit_equal}
+        print(f"[train-dp] ({tag}) {n} {backend} rank(s) on {'one card' if tag != 'c' else f'{n} cards'}: "
+              f"{DP_STEPS} steps of batch {TRAIN_BATCH} ({TRAIN_BATCH // n} a rank), losses {losses} against "
+              f"{ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}); parameters max|d| "
+              f"after step 1 {dparam[1]:.3g}, after step {DP_STEPS} {dparam[DP_STEPS]:.3g} (2 lr_G = {2 * lr:.3g}); "
+              f"bit-equal: {bit_equal}; launches per rank and step {want}; ms by step (rank 0) "
+              f"{', '.join(f'{x:.1f}' for x in ms)} against {', '.join(f'{x:.1f}' for x in ref_ms)} in one process; "
+              f"torchrun {seconds:.1f} s (card: {smi})")
+        if n == 1:
+            check(bit_equal, f"train dp ({tag}): one rank is not bit-equal to one process")
+        else:
+            check(loss_rel[0] <= 1e-6 and dparam[1] <= 2 * lr, f"train dp ({tag}): the first step differs")
+    return launches, record
+
+
+# ---------------------------------------------------------------- the benches
+@contextlib.contextmanager
+def recorded_flash_sites():
+    """Record the (shape, dtype) of every K4 launch made inside the block."""
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    sites, cuda = [], FA.flash_mha_cuda
+
+    def rec(q, k, v, scale):
+        sites.append((tuple(q.shape), q.dtype))
+        return cuda(q, k, v, scale)
+
+    FA.flash_mha_cuda = rec
+    try:
+        yield sites
+    finally:
+        FA.flash_mha_cuda = cuda
+
+
+def hold_flash_sites(tag, dev, sites, stats):
+    """K4 against its plain version at each recorded (shape, dtype) site,
+    on seeded contiguous inputs, with phase 8's bounds: float32 1e-5 of
+    max|ref|; bfloat16 twice the plain bf16 result's distance from the
+    plain float32 one, and against flash_mha_tiled_plain at most
+    FLASH_FLIP_SHARE of the elements past two ulps, none past the flip
+    allowance."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    for shape, dtype in sorted(set(sites), key=str):
+        scale = shape[-1] ** -0.5
+        q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 1.5).to(dtype) for _ in range(3))
+        out, ref = FA.flash_mha_cuda(q, k, v, scale), FA.flash_mha_plain(q, k, v, scale)
+        err = (out.float() - ref.float()).abs().max().item()
+        share, worst = 0.0, 0.0
+        if dtype == torch.float32:
+            limit = 1e-5 * ref.abs().max().item()
+        else:
+            limit = 2 * (ref.float() - FA.flash_mha_plain(q.float(), k.float(), v.float(), scale)).abs().max().item()
+            share, worst = flash_bf16_agreement(out, FA.flash_mha_tiled_plain(q, k, v, scale), q, k, v, scale)
+        stats[FLASH_ATTN]["err"] = max(stats[FLASH_ATTN]["err"], err)
+        print(f"[{tag}] K4 {str(dtype)[6:]} {shape}: max|dy|={err:.3g} (bound {limit:.3g}); vs tiled plain "
+              f"{share:.3g} past two ulps, worst {worst:.3g} of the flip allowance")
+        check(err <= limit and share <= FLASH_FLIP_SHARE and worst <= 1, f"{tag}: K4 {dtype} {shape} disagrees")
+        del q, k, v, out, ref
+
+
+def bench_launches(before):
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    return {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+
+
+def phase_bench_train(dev, smi):
+    """``bench_train`` (what ``python -m image_restoration_sde_tpu_torch.
+    bench_train`` runs) on each workload of BENCH_TRAIN at full width,
+    BENCH_TRAIN_STEPS timed steps, torch's default TF32 settings: its line
+    printed and checked (img/s/GPU, an MFU against the card's bf16 peak,
+    the card's name), exactly the forward's launches on every step (the
+    first, the timed ones and the FLOP-counting one), none in the
+    backward.  Returns the launches and the lines."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import bench_train
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    per_step = {"unet": train_counts("ir-sde"), "refusion": train_counts("refusion")}
+    launches, lines = {k.symbol: 0 for k in KERNELS}, {}
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench runs alone
+    try:
+        for arch, pipe, batch, size in BENCH_TRAIN:
+            before = {k.symbol: k.launches for k in KERNELS}
+            line = bench_train.run(dev, arch, pipe, batch, size, BENCH_TRAIN_STEPS)
+            grew = bench_launches(before)
+            want = {sym: n * (BENCH_TRAIN_STEPS + 2) for sym, n in per_step[arch].items()}
+            check(grew == want, f"bench train {arch}: launches {grew}, expected {want}")
+            check(line["unit"] == "img/s/GPU" and line["value"] > 0 and 0 < line["mfu"] < 1
+                  and line["device"] == torch.cuda.get_device_name(0), f"bench train {arch}: line {line}")
+            for sym, n in grew.items():
+                launches[sym] += n
+            lines[arch] = line
+            print(f"[bench-train] {arch} {pipe}: {json.dumps(line)} (card: {smi})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    return launches, lines
+
+
+def phase_bench_refusion(dev, smi, stats):
+    """``bench_refusion`` (what ``python -m image_restoration_sde_tpu_torch.
+    bench_refusion`` runs) for each arch of BENCH_REFUSION at
+    BENCH_REFUSION_SIZE px, BENCH_REFUSION_STEPS steps, BENCH_REFUSION_REPS
+    timed calls, torch's default TF32 settings.  Before the bench, one
+    one-step call of its sampler on the same input records the sites of
+    K1, K2 (the compressor), K3 (nafnet) and K4 (dit), and each kernel is
+    held against its plain version there (``hold_sites``,
+    ``hold_naf_sites``, ``hold_flash_sites``; these launches are not the
+    path's); then the bench, with exactly its calls' launches, its line
+    printed and checked.  Returns the launches and the lines."""
+    import torch
+
+    from image_restoration_sde_tpu_torch import bench_refusion
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.sde import rng
+
+    steps, calls = BENCH_REFUSION_STEPS, 2 + BENCH_REFUSION_REPS  # two warm-up calls
+    enc = counts(LAYERNORM=COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN, LA_APPLY=COMPRESSOR_ATTN)
+    per_step = {"nafnet": counts(LAYERNORM=NAF_LN_PER_FORWARD, NAF_STACK=1), "dit": counts(FLASH_ATTN=DIT_DEPTH)}
+    launches, lines = {k.symbol: 0 for k in KERNELS}, {}
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for arch in BENCH_REFUSION:
+            score, compressor, label = bench_refusion.build(arch, dev)
+            one_step = bench_refusion.make_sampler(score, compressor, steps, True, dev, run_steps=1)
+            lq = torch.rand(1, BENCH_REFUSION_SIZE, BENCH_REFUSION_SIZE, 3, generator=rng.generator(SEED + 97, dev),
+                            device=dev)
+            with recorded_sites() as (ln, attn), recorded_naf_sites() as naf, recorded_flash_sites() as fl:
+                one_step(lq, rng.generator(SEED + 98, dev))
+            hold_sites(f"bench-refusion-{arch}", dev, ln, attn, stats, {})
+            hold_naf_sites(f"bench-refusion-{arch}", dev, naf, stats)
+            hold_flash_sites(f"bench-refusion-{arch}", dev, fl, stats)
+            check(bool(naf) == (arch == "nafnet") and bool(fl) == (arch == "dit"), f"bench {arch}: sites {naf} {fl}")
+            sampler = bench_refusion.make_sampler(score, compressor, steps, True, dev)
+            before = {k.symbol: k.launches for k in KERNELS}
+            line = bench_refusion.bench(dev, sampler, label, 1, BENCH_REFUSION_SIZE, steps, BENCH_REFUSION_REPS)
+            grew = bench_launches(before)
+            want = {sym: calls * (steps * per_step[arch][sym] + enc[sym]) for sym in grew}
+            check(grew == want, f"bench refusion {arch}: launches {grew}, expected {want}")
+            check(line["unit"] == "img/s/GPU" and line["value"] > 0 and line["peak_gib"] > 0
+                  and line["device"] == torch.cuda.get_device_name(0), f"bench refusion {arch}: line {line}")
+            for sym, n in grew.items():
+                launches[sym] += n
+            lines[arch] = line
+            print(f"[bench-refusion] {arch}: {json.dumps(line)} (card: {smi})")
+            del score, compressor, sampler, one_step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    return launches, lines
+
+
 def load_yaml(path):
     import yaml
 
@@ -3403,11 +3803,16 @@ def main() -> int:
     exports.update(more[1])
     del denoise_net
     torch.cuda.empty_cache()
-    launches["artifacts"], loaded = timed("artifacts", phase_artifacts, dev, serving_dir.name, jobs, smi)
+    launches["artifacts"], launches["dp_artifact"], loaded = timed("artifacts", phase_artifacts, dev,
+                                                                    serving_dir.name, jobs, smi)
     launches["serve"], served = timed("serve", phase_serve, dev, jobs[0]["path"], smi)
     serving_dir.cleanup()
     launches["bench"], benched = timed("bench", phase_bench, dev, smi, stats)
     print(f"[serving] {json.dumps({'export': exports, 'artifacts': loaded, 'serve': served, 'bench': benched})}")
+    launches["bench_train"], benched = timed("bench train", phase_bench_train, dev, smi)
+    more = timed("bench refusion", phase_bench_refusion, dev, smi, stats)
+    launches["bench_refusion"] = more[0]
+    print(f"[benches] {json.dumps({'bench_train': benched, 'bench_refusion': more[1]})}")
     stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt, stats)
     launches["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net, stereo_opt, smi)
     del stereo_net
@@ -3429,8 +3834,13 @@ def main() -> int:
         timed("train data", write_train_data, os.path.join(workdir, "data"))
         for label, o in train_opts.items():
             pretrain_l = trained["compressor"] if label in ("latent", "dit") else None
+            keep = {} if label == "ir-sde" else None
             launches[f"train_{label}"], train_record[label], trained[label] = timed(
-                f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi, pretrain_l)
+                f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi, pretrain_l, keep)
+            if keep:
+                launches["train_dp"], train_record["dp"] = timed("train dp", phase_train_dp, dev, label, o,
+                                                                 workdir, smi, keep)
+                del keep
         print(f"[train] {json.dumps(train_record)}")
         eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats)
     launches.update(eval_launches)
@@ -3469,4 +3879,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--artifact-child"]:
         sys.exit(artifact_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(dp_child(*sys.argv[2:5]))
     sys.exit(main())

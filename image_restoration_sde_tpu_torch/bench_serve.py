@@ -2,7 +2,7 @@
 
     python -m image_restoration_sde_tpu_torch.bench_serve --artifact m.irsdet \\
         [--n 64] [--concurrency 16] [--warmup 16] [--max-batch 8] [--window-ms 5] \\
-        [--max-wait-ms MS] [--device cuda|cpu] [--addr HOST:PORT]
+        [--max-wait-ms MS] [--device cuda|cpu] [--devices cuda:0,cuda:1] [--addr HOST:PORT]
 
 Counterpart of ``tools/bench_serve.py``: it spawns ``python -m
 image_restoration_sde_tpu_torch.serve`` on the artifact (or, with
@@ -98,15 +98,19 @@ def fire(addr, body, n, concurrency, timeout=600.0):
     return wall, [x for x in lat if x is not None]
 
 
-def spawn_server(artifact: str, max_batch: int, window_ms: float, max_wait_ms=None, device: str = "cuda"):
-    """Start the port's server on a free port; returns (process, address)
-    once it prints its address (warm and bound)."""
+def spawn_server(artifact: str, max_batch: int, window_ms: float, max_wait_ms=None, device: str = "cuda",
+                 devices=None):
+    """Start the port's server on a free port (``devices``: comma-separated,
+    the server's ``--devices``); returns (process, address) once it prints
+    its address (warm and bound)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "image_restoration_sde_tpu_torch.serve", "--artifact", artifact, "--port", "0",
            "--max-batch", str(max_batch), "--window-ms", str(window_ms), "--device", device]
     if max_wait_ms is not None:
         cmd += ["--max-wait-ms", str(max_wait_ms)]
+    if devices:
+        cmd += ["--devices", devices]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
     line = proc.stdout.readline()
     if not line.startswith("serving on "):
@@ -151,6 +155,7 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--window-ms", type=float, default=5.0)
     parser.add_argument("--max-wait-ms", type=float, default=None)
     parser.add_argument("--device", default="cuda", help="the spawned server's device: cuda (default) or cpu")
+    parser.add_argument("--devices", default=None, help="the spawned server's --devices (e.g. cuda:0,cuda:1)")
     args = parser.parse_args(argv)
     if not args.artifact and not args.addr:
         parser.error("--artifact or --addr required")
@@ -160,7 +165,8 @@ def main(argv: Optional[list] = None) -> int:
         if args.addr:
             addr = args.addr
         else:
-            proc, addr = spawn_server(args.artifact, args.max_batch, args.window_ms, args.max_wait_ms, args.device)
+            proc, addr = spawn_server(args.artifact, args.max_batch, args.window_ms, args.max_wait_ms, args.device,
+                                      args.devices)
         print(json.dumps(bench(addr, args.n, args.concurrency, args.warmup)), flush=True)
     finally:
         if proc is not None:

@@ -1,10 +1,11 @@
 """Input pipeline: sharded, seeded, thread-prefetched batch iterators.
 
-A copy of ``image_restoration_sde_tpu/data/loader.py`` with two changes:
+A copy of ``image_restoration_sde_tpu/data/loader.py`` with three changes:
 the process index and count come from ``torch.distributed`` when it is
-initialised (else 0 of 1), and a train loader can start at any step
-(``start_step``), so a resumed run reads the batches an uninterrupted run
-would have read.
+initialised (else 0 of 1); a process takes a contiguous block of each
+global batch's rows, not every N-th sample; and a train loader can start at
+any step (``start_step``), so a resumed run reads the batches an
+uninterrupted run would have read.
 
 Replaces torch DataLoader + DistIterSampler (ref data/__init__.py:8-33,
 data/data_sampler.py:13-68) with a host-side pipeline that feeds the
@@ -16,9 +17,12 @@ accelerator:
 - **Determinism**: shuffles are seeded by (seed, epoch); per-sample
   augmentation RNG is seeded by (seed, epoch, index-position) through
   ``dataset.set_epoch_seed``.
-- **Host sharding**: each process takes a rank-strided slice
-  (``process_index :: process_count``), per-host batch =
-  global_batch / process_count (ref data/__init__.py:11-16).
+- **Host sharding**: per-process batch = global_batch / process_count
+  (ref data/__init__.py:11-16); process r takes rows r * local ..
+  (r + 1) * local of each global batch of the one-process loader, so the
+  processes' batches, put together in rank order, are the one-process
+  batch row for row (the train step's draws, made for the global batch on
+  every process, pair with the same images).
 - **Thread-pool decode + prefetch**: cv2/numpy release the GIL; a small
   executor decodes ahead of the train step so the card never waits.
 """
@@ -60,7 +64,7 @@ class TrainLoader:
         start_step: int = 0,
     ):
         if batch_size % process_count != 0:
-            raise ValueError("global batch size must divide process count")
+            raise ValueError(f"the global batch {batch_size} does not divide by {process_count} processes")
         self.dataset = dataset
         self.global_batch = batch_size
         self.local_batch = batch_size // process_count
@@ -77,9 +81,9 @@ class TrainLoader:
         total = n * self.ratio
         rng = np.random.default_rng((self.seed, epoch))
         idx = rng.permutation(total) % n  # DistIterSampler: shuffled, mod n
-        idx = idx[self.process_index :: self.process_count]
-        usable = (len(idx) // self.local_batch) * self.local_batch
-        return idx[:usable].reshape(-1, self.local_batch)
+        usable = (len(idx) // self.global_batch) * self.global_batch
+        first = self.process_index * self.local_batch
+        return idx[:usable].reshape(-1, self.global_batch)[:, first : first + self.local_batch]
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         stop = threading.Event()
@@ -125,11 +129,15 @@ class EvalLoader:
     def __len__(self):
         return len(self.dataset)
 
-    def __iter__(self):
+    def batch(self, i: int) -> Dict[str, Any]:
+        """Image ``i`` as a batch of one."""
         if hasattr(self.dataset, "set_epoch_seed"):
             self.dataset.set_epoch_seed(None)
+        return _collate([self.dataset[i]])
+
+    def __iter__(self):
         for i in range(len(self.dataset)):
-            yield _collate([self.dataset[i]])
+            yield self.batch(i)
 
 
 def process_index_and_count() -> tuple:

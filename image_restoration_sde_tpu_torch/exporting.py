@@ -36,10 +36,12 @@ dimension.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -385,7 +387,10 @@ class LoadedSampler:
                           if "max_sigma" in header else None)
 
     def _input(self, lq) -> torch.Tensor:
-        lq = torch.as_tensor(lq, dtype=torch.float32).to(self.device)
+        return self._check(lq).to(self.device)
+
+    def _check(self, lq) -> torch.Tensor:
+        lq = torch.as_tensor(lq, dtype=torch.float32)
         H, W = self.header["size"]
         want = (H, W, self.header.get("channels", 3))
         if lq.dim() != 4 or tuple(lq.shape[1:]) != want:
@@ -450,22 +455,87 @@ class LoadedSampler:
             return x
 
 
-def load_artifact(data_or_path, device="cuda") -> Tuple[LoadedSampler, dict]:
+def on_device(device: torch.device):
+    """The context a thread runs a device's work in: that card made the
+    thread's current CUDA device (the kernels' launchers and the CUDA
+    runtime act on the current device), nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class DataParallelSampler:
+    """``call(lq, seeds) -> restored`` over several devices: the batch split
+    into contiguous row blocks, one a device (the first devices take one
+    row more where it does not divide; a device with no row sits out),
+    each block's per-sample seeds with its rows, the blocks run at once
+    (one thread a device, each under :func:`on_device`), the rows put back
+    in order on the first device.  A row's output depends on its own seed
+    alone, so a call is the one-device call's row for row where the device
+    computes a row alike at any batch."""
+
+    def __init__(self, samplers: Sequence[LoadedSampler]):
+        self.samplers = list(samplers)
+        self.header = self.samplers[0].header
+        self.devices = [s.device for s in self.samplers]
+        self.device = self.devices[0]
+
+    def blocks(self, batch: int) -> list:
+        """``(sampler, rows)`` of each device that takes rows of ``batch``."""
+        n = len(self.samplers)
+        sizes = [batch // n + (i < batch % n) for i in range(n)]
+        starts = np.cumsum([0] + sizes)
+        return [(s, slice(int(a), int(a) + k)) for s, a, k in zip(self.samplers, starts, sizes) if k]
+
+    def __call__(self, lq, seed=0) -> torch.Tensor:
+        lq = self.samplers[0]._check(lq)
+        seeds = None
+        if self.header["seed"] == "per_sample":
+            seeds = [int(v) for v in torch.as_tensor(seed).reshape(-1).tolist()]
+            if len(seeds) != lq.shape[0]:
+                raise ValueError(f"{len(seeds)} seeds for a batch of {lq.shape[0]}")
+
+        def run(sampler, rows):
+            with on_device(sampler.device):
+                x = lq[rows].to(sampler.device)
+                gen = sampler._generators(seed if seeds is None else seeds[rows], x.shape[0])
+                return sampler.run(x, gen=gen).to(self.device)
+
+        blocks = self.blocks(lq.shape[0])
+        with ThreadPoolExecutor(len(blocks)) as pool:
+            futures = [pool.submit(run, s, rows) for s, rows in blocks]
+            return torch.cat([f.result() for f in futures])
+
+
+def load_artifact(data_or_path, device="cuda", devices: Optional[Sequence] = None) -> tuple:
     """``(call, header)``: the artifact's programs loaded onto ``device``
-    (the card by default; it raises where there is none)."""
+    (the card by default; it raises where there is none).  ``devices``
+    (e.g. ``["cuda:0", "cuda:1"]``): one copy of the programs on each, and
+    ``call`` a :class:`DataParallelSampler` over them; more than one device
+    takes a symbolic batch and no single scalar seed (N blocks cannot draw
+    one generator's noise)."""
     from torch.export.passes import move_to_device_pass
 
     from .runners import resolve_device
 
-    device = resolve_device(str(device))
     if isinstance(data_or_path, (bytes, bytearray)):
         data = bytes(data_or_path)
     else:
         with open(data_or_path, "rb") as f:
             data = f.read()
     header, payload = unpack_artifact(data)
-    programs = {}
-    for name, (off, n) in header["programs"].items():
-        ep = torch.export.load(io.BytesIO(payload[off : off + n]))
-        programs[name] = move_to_device_pass(ep, device).module()
-    return LoadedSampler(header, programs, device), header
+    targets = [resolve_device(str(d)) for d in (devices if devices else [device])]
+    if len(targets) > 1 and header["batch"] != "symbolic":
+        raise ValueError(f"a batch split over {len(targets)} devices needs a symbolic-batch artifact; this one takes "
+                         f"a batch of {header['batch']}")
+    if len(targets) > 1 and header["seed"] == "scalar":
+        raise ValueError(f"a scalar seed draws one generator's noise for the whole batch, which {len(targets)} "
+                         f"devices cannot split: export with per-sample seeds")
+    # each program read once; the pass moves a program in place, so every
+    # device but the last moves a copy
+    eps = {name: torch.export.load(io.BytesIO(payload[off : off + n]))
+           for name, (off, n) in header["programs"].items()}
+    samplers = [LoadedSampler(header, {name: move_to_device_pass(ep if i == len(targets) - 1 else copy.deepcopy(ep),
+                                                                 target).module()
+                                       for name, ep in eps.items()}, target) for i, target in enumerate(targets)]
+    if devices:
+        return DataParallelSampler(samplers), header
+    return samplers[0], header

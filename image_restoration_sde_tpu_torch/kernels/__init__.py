@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -129,7 +130,10 @@ class Kernel:
 
     ``launches`` goes up by one for each launch that the CUDA runtime
     accepted, and nowhere else.  ``source`` is the file in the repository,
-    ``replaces`` the TPU kernel it ports (``file:line``).
+    ``replaces`` the TPU kernel it ports (``file:line``).  Threads that
+    drive several cards (``exporting.DataParallelSampler``) launch one at a
+    time: ctypes releases the interpreter lock during the call, and the
+    launchers keep host-side caches (K4's tensor maps).
     """
 
     def __init__(self, symbol: str, argtypes: list, source: str, replaces: str):
@@ -147,11 +151,16 @@ class Kernel:
         return fn
 
     def __call__(self, *args) -> None:
-        err = self._fn(*args)
+        with _LAUNCH_LOCK:
+            err = self._fn(*args)
+            if err == 0:
+                self.launches += 1
         if err != 0:
             msg = load_library().irsde_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+
+
+_LAUNCH_LOCK = threading.Lock()
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -165,10 +174,18 @@ def current_stream(device) -> ctypes.c_void_p:
 LIBRARY = torch.library.Library("irsde", "DEF")
 
 
-def define_op(schema: str, *, cpu, cuda, fake, backward, setup_context) -> torch._ops.OpOverload:
+def define_op(schema: str, *, cpu, cuda, fake, backward, setup_context, flops) -> torch._ops.OpOverload:
     """Define ``irsde::<schema>`` with its CPU, CUDA, fake and autograd
-    implementations; returns the operator's default overload.  There is no
-    implementation for any other device: a tensor there raises."""
+    implementations and its FLOP count; returns the operator's default
+    overload.  There is no implementation for any other device: a tensor
+    there raises.
+
+    ``flops(*input shapes, out_shape=...)`` is the work of one call
+    (``torch.utils.flop_counter.register_flop_formula``): what
+    ``FlopCounterMode`` counts for the operator, whose kernel it cannot see
+    into; the same arithmetic as ``chip_smoke.py``'s bounds."""
+    from torch.utils.flop_counter import register_flop_formula
+
     name = schema.split("(", 1)[0]
     LIBRARY.define(schema)
     LIBRARY.impl(name, cpu, "CPU")
@@ -176,7 +193,9 @@ def define_op(schema: str, *, cpu, cuda, fake, backward, setup_context) -> torch
     qualname = f"irsde::{name}"
     torch.library.register_fake(qualname, fake, lib=LIBRARY)
     torch.library.register_autograd(qualname, backward, setup_context=setup_context, lib=LIBRARY)
-    return getattr(torch.ops.irsde, name).default
+    packet = getattr(torch.ops.irsde, name)
+    register_flop_formula(packet)(flops)
+    return packet.default
 
 
 def plain_grads(plain, saved, grad, *args) -> tuple:

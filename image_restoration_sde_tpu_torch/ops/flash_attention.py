@@ -192,8 +192,14 @@ def _backward(ctx, dout):
     return (*flash_mha_backward(*ctx.saved_tensors, dout, ctx.scale), None)
 
 
+def flops(q_shape, k_shape, v_shape, scale, out_shape=None) -> int:
+    """q k^T and p v: 2 B H Nq Nk D FLOP each."""
+    B, Nq, H, D = q_shape
+    return 4 * B * H * Nq * k_shape[1] * D
+
+
 OP = kernels.define_op("flash_mha(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
-                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup)
+                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup, flops=flops)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:

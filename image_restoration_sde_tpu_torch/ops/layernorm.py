@@ -17,6 +17,7 @@ its jnp composition.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -83,8 +84,13 @@ def _backward(ctx, grad):
     return (*kernels.plain_grads(channel_layernorm_plain, ctx.saved_tensors, grad, ctx.eps), None)
 
 
+def flops(x_shape, g_shape, eps, out_shape=None) -> int:
+    """~8 FLOP an element: the mean, the centred square, the scale."""
+    return 8 * math.prod(x_shape)
+
+
 OP = kernels.define_op("channel_layernorm(Tensor x, Tensor g, float eps) -> Tensor",
-                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup)
+                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup, flops=flops)
 
 
 def channel_layernorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -163,9 +163,17 @@ def _packed_backward(ctx, grad):
     return gqkv, None, None
 
 
+def packed_flops(qkv_shape, heads, dim_head, out_shape=None) -> int:
+    """K2a and K2b: each a head's dim_head x dim_head product a row (2 FLOP
+    a term) and 4 FLOP for each exponential and sum of its softmax."""
+    B, N = qkv_shape[0], qkv_shape[1]
+    return 2 * (2 * B * N * heads * dim_head * dim_head + 4 * B * N * heads * dim_head)
+
+
 PACKED_OP = kernels.define_op(
     "linear_attention_packed(Tensor qkv, int heads, int dim_head) -> Tensor",
-    cpu=_packed_cpu, cuda=_packed_cuda, fake=_packed_fake, backward=_packed_backward, setup_context=_packed_setup)
+    cpu=_packed_cpu, cuda=_packed_cuda, fake=_packed_fake, backward=_packed_backward, setup_context=_packed_setup,
+    flops=packed_flops)
 
 
 def linear_attention_packed(qkv: torch.Tensor, heads: int = 4, dim_head: int = 32) -> torch.Tensor:
@@ -265,9 +273,17 @@ def _heads_backward(ctx, grad):
     return kernels.plain_grads(linear_attention_plain, ctx.saved_tensors, grad)
 
 
+def heads_flops(q_shape, k_shape, v_shape, out_shape=None) -> int:
+    """K5a and K5b: the d x d context's outer products and the apply's
+    product, 2 N d^2 FLOP each a slice."""
+    BH, N, d = q_shape
+    return 4 * BH * N * d * d
+
+
 HEADS_OP = kernels.define_op(
     "linear_attention(Tensor q, Tensor k, Tensor v) -> Tensor",
-    cpu=_heads_cpu, cuda=_heads_cuda, fake=_heads_fake, backward=_heads_backward, setup_context=_heads_setup)
+    cpu=_heads_cpu, cuda=_heads_cuda, fake=_heads_fake, backward=_heads_backward, setup_context=_heads_setup,
+    flops=heads_flops)
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

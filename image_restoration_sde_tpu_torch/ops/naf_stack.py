@@ -240,8 +240,17 @@ def _backward(ctx, grad):
     return grads[0], grads[1], None, list(grads[2:])
 
 
+def flops(x_shape, tmod_shape, eps, tensor_shapes, out_shape=None) -> int:
+    """Per pixel and block the four 1x1 products (12 C^2), the depthwise
+    conv (36 C), norms, gates and residuals (~30 C); per sample and block
+    the SCA product (2 C^2)."""
+    B, H, W, C = x_shape
+    K = len(tensor_shapes) // len(PARAM_ORDER)
+    return K * (B * H * W * (12 * C * C + 36 * C + 30 * C) + B * 2 * C * C)
+
+
 OP = kernels.define_op("naf_stack(Tensor x, Tensor tmod, float eps, Tensor[] tensors) -> Tensor",
-                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup)
+                       cpu=_cpu, cuda=_cuda, fake=_fake, backward=_backward, setup_context=_setup, flops=flops)
 
 
 def naf_stack(x: torch.Tensor, blocks: Sequence[Block], temb: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -42,11 +42,14 @@ import torch
 
 from .data.io_utils import save_img
 from .models import build_network
+from .parallel import dist
 from .sampling import make_denoising_sampler, make_restoration_sampler, pad_to_bucket, unpad
 from .sde import DenoisingSDE, IRSDE
 from .training import build_from_options, build_lr_schedule, create_train_state, make_compressor_train_step, \
     make_denoising_train_step, make_latent_sampler, make_latent_train_step, make_train_step
 from .training.checkpoint import ema_state_dict, load_params
+from .training.latent import CrossDecode
+from .training.trainer import Remat, data_parallel
 from .utils import metrics, options
 from .utils.degradations import add_noise, mask_to, upscale
 from .utils.img_utils import split_eyes, tensor2img
@@ -137,6 +140,13 @@ class _Base:
         self.net = _seeded_network(which, setting, seed).to(self.device).train()
         optimizer = build_from_options(self.train_opt, self.net.parameters(), self.lr_schedule)
         self.state = create_train_state(self.net, optimizer, ema=self.keeps_ema)
+        if dist.is_initialized():  # under torchrun: the step through DDP; self.net stays bare
+            data_parallel(self.state, self._step_module())
+
+    def _step_module(self):
+        """The module a train step calls: the net, recomputed in the
+        backward where ``train.remat`` says so."""
+        return Remat(self.net) if self._loss_kwargs()["remat"] else self.net
 
     def _loss_kwargs(self):
         t = self.train_opt
@@ -231,11 +241,13 @@ class PixelDiffusionTask(_Base):
         self._train_step = make_train_step(self.sde, **self._loss_kwargs())
         self.sampler = make_restoration_sampler(self.sde, self.net, **_sampler_options(opt["sde"]))
 
-    def prepare_pair(self, batch) -> Tuple[np.ndarray, np.ndarray]:
+    def prepare_pair(self, batch, shard=None) -> Tuple[np.ndarray, np.ndarray]:
+        """(LQ, GT) of ``batch``; a train step's ``shard`` (rank, world)
+        draws the global batch's inpainting masks and keeps its rows'."""
         distortion = effective_distortion(self.opt)
         if distortion == "inpainting":
             gt = batch["GT"]
-            lq = mask_to(gt, self.opt["degradation"]["mask_root"], rng=self.deg_rng)
+            lq = mask_to(gt, self.opt["degradation"]["mask_root"], rng=self.deg_rng, shard=shard)
             return lq.astype(np.float32), gt
         if distortion == "sr":
             return (
@@ -245,7 +257,7 @@ class PixelDiffusionTask(_Base):
         return batch["LQ"], batch["GT"]
 
     def step(self, state, batch, gen: torch.Generator):
-        lq, gt = self.prepare_pair(batch)
+        lq, gt = self.prepare_pair(batch, state.shard)
         return self._train_step(state, self._tensor(lq), self._tensor(gt), gen)
 
     def prepare_lq(self, batch, gen=None) -> np.ndarray:
@@ -318,6 +330,9 @@ class CompressorTask(_Base):
             load = path["pretrain_model_G"]
         if load:
             self._load(state.net, load)
+
+    def _step_module(self):
+        return CrossDecode(self.net)
 
     def step(self, state, batch, gen: torch.Generator):
         return self._train_step(state, self._tensor(batch["LQ"]), self._tensor(batch["GT"]), gen)

@@ -13,10 +13,11 @@ Images are NHWC float32.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from .rng import draw_rows
 from .schedules import ScheduleTables, tables_for
 
 
@@ -138,11 +139,13 @@ class DenoisingSDE:
         """sigma_t^2 loss weights."""
         return self.sigma(t) ** 2
 
-    def generate_random_states(self, gen: torch.Generator, x0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-example t ~ U{1..T} and x_t = x0 + sigma_bar_t * noise.
+    def generate_random_states(self, gen: torch.Generator, x0: torch.Tensor,
+                               shard: Optional[tuple] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-example t ~ U{1..T} and x_t = x0 + sigma_bar_t * noise;
+        ``shard`` as in :meth:`IRSDE.generate_random_states`.
 
         Returns ``(timesteps (B,1,1,1) int64, noisy_states NHWC f32)``."""
-        batch = x0.shape[0]
-        timesteps = torch.randint(1, self.T + 1, (batch, 1, 1, 1), generator=gen, device=x0.device)
-        noises = torch.randn(x0.shape, generator=gen, dtype=torch.float32, device=x0.device)
+        rows, batch = draw_rows(x0.shape[0], shard)
+        timesteps = torch.randint(1, self.T + 1, (batch, 1, 1, 1), generator=gen, device=x0.device)[rows]
+        noises = torch.randn((batch, *x0.shape[1:]), generator=gen, dtype=torch.float32, device=x0.device)[rows]
         return timesteps, noises * self.sigma_bar(timesteps) + x0

@@ -14,11 +14,11 @@ Images are NHWC float32.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .rng import GeneratorLike, normal_like
+from .rng import GeneratorLike, draw_rows, normal_like
 from .schedules import ScheduleTables, build_tables
 
 
@@ -146,20 +146,24 @@ class IRSDE:
         return torch.exp(-self.theta_cumsum(t) * self.dt)
 
     def generate_random_states(
-        self, gen: torch.Generator, x0: torch.Tensor, mu: torch.Tensor
+        self, gen: torch.Generator, x0: torch.Tensor, mu: torch.Tensor, shard: Optional[tuple] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sample per-example t ~ U{1..T} and the matching noisy state x_t.
 
+        ``shard = (rank, world)``: ``x0`` and ``mu`` are rank's rows of a
+        global batch of ``world`` times as many; the draws are the global
+        batch's (what one process would draw), of which these rows are kept.
+
         Returns ``(timesteps (B,1,1,1) int64, noisy_states NHWC f32)``.
         """
-        batch = x0.shape[0]
+        rows, batch = draw_rows(x0.shape[0], shard)
         timesteps = torch.randint(
             1, self.T + 1, (batch, 1, 1, 1), generator=gen, device=x0.device
-        )
+        )[rows]
         state_mean = self.mu_bar(x0, mu, timesteps)
         noises = torch.randn(
-            state_mean.shape, generator=gen, dtype=torch.float32, device=x0.device
-        )
+            (batch, *state_mean.shape[1:]), generator=gen, dtype=torch.float32, device=x0.device
+        )[rows]
         noisy_states = noises * self.sigma_bar(timesteps) + state_mean
         return timesteps, noisy_states.float()
 

@@ -52,6 +52,18 @@ def fold_seed(seed: int, index: int) -> int:
     return int(np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)[0])
 
 
+def draw_rows(local: int, shard=None) -> tuple:
+    """``(rows kept, batch drawn)`` for a train step whose batch holds
+    ``local`` rows: all of them alone; with ``shard = (rank, world)`` the
+    draws cover the global batch of ``world * local`` rows, what one process
+    would draw, and rank keeps its contiguous block.  Every rank then draws
+    the same, so their generators stay equal."""
+    if shard is None:
+        return slice(None), local
+    rank, world = shard
+    return slice(rank * local, (rank + 1) * local), world * local
+
+
 def generators_for_seeds(seeds: Sequence[int], device="cuda") -> list:
     """One seeded generator per sample."""
     return [generator(s, device) for s in seeds]

@@ -2,10 +2,14 @@
 
     python -m image_restoration_sde_tpu_torch.serve --artifact m.irsdet [--host 127.0.0.1]
         [--port 0] [--max-batch 8] [--window-ms 5] [--max-wait-ms MS] [--device cuda|cpu]
+        [--devices cuda:0,cuda:1]
 
 Counterpart of ``tools/serve.py``, with the same protocol.  The server holds
 no model code: ``exporting.load_artifact`` and image IO only.  It runs on
 the card unless ``--device cpu`` is given; without a card it raises.
+``--devices`` splits each call's batch over several devices
+(``exporting.DataParallelSampler``: a symbolic-batch, per-sample-seed
+artifact), and ``/health`` lists them under ``serving.devices``.
 
 Endpoints:
 
@@ -252,8 +256,9 @@ $("go").addEventListener("click",async()=>{
 </script></body></html>"""
 
 
-def build_handler(call, header, *, max_batch=8, window_ms=5.0, max_wait_ms=None):
-    """``(handler class, restore(img uint8 HWC, seed) -> uint8 HWC, batcher)``."""
+def build_handler(call, header, *, max_batch=8, window_ms=5.0, max_wait_ms=None, devices=None):
+    """``(handler class, restore(img uint8 HWC, seed) -> uint8 HWC, batcher)``;
+    ``devices``, the devices ``call`` runs on, for ``/health``."""
     H, W = header["size"]
     channels = header.get("channels", 3)
     fixed = header.get("batch")
@@ -269,6 +274,7 @@ def build_handler(call, header, *, max_batch=8, window_ms=5.0, max_wait_ms=None)
         "max_wait_ms": None if max_wait_ms is None else float(max_wait_ms),
         "fixed_batch": batcher.fixed,
         "seed_reproducible": seed_reproducible(header, batcher.max_batch),
+        "devices": [str(d) for d in devices or []],
     }
 
     def restore(img: np.ndarray, seed: int) -> np.ndarray:
@@ -347,13 +353,17 @@ def main(argv: Optional[list] = None) -> int:
                         help="the longest a request waits while the device is busy before a partial batch "
                              "is dispatched (default: collect until the device is free)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--devices", default=None,
+                        help="comma-separated devices (e.g. cuda:0,cuda:1) to split each call's batch over, in place "
+                             "of --device: a symbolic-batch, per-sample-seed artifact")
     args = parser.parse_args(argv)
 
     from .exporting import load_artifact
 
-    call, header = load_artifact(args.artifact, args.device)
+    devices = args.devices.split(",") if args.devices else None
+    call, header = load_artifact(args.artifact, args.device, devices=devices)
     handler, _, _ = build_handler(call, header, max_batch=args.max_batch, window_ms=args.window_ms,
-                                  max_wait_ms=args.max_wait_ms)
+                                  max_wait_ms=args.max_wait_ms, devices=devices or [args.device])
     # warm the full-batch call before accepting traffic
     H, W = header["size"]
     b = header["batch"] if isinstance(header["batch"], int) else args.max_batch

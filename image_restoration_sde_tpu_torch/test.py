@@ -22,7 +22,10 @@ i).  The YAML's ``tile`` (with ``tile_overlap``, ``tile_batch`` and
 The nets compute as the runner's validation does (float32).
 
 It runs on the card unless ``--device cpu`` is given; without a card it
-raises.
+raises.  Under ``torchrun --nproc_per_node N`` each rank restores its
+share of each set (image i on rank i mod N) and rank 0 gathers the images,
+writes every PNG, computes the metrics and logs, so the result equals a
+one-process run's but for the seconds.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from .data import create_dataloader, create_dataset
 from .data.io_utils import save_img
 from .data.transforms import rgb2ycbcr
+from .parallel import dist
 from .runners import build_task, resolve_device
 from .sde import rng
 from .tiling import tiled_restore, tiled_restore_device
@@ -110,17 +114,49 @@ def evaluate(opt_path: str, device="cuda", lpips_pth: Optional[str] = None, fid_
     card, ``peak_memory_bytes`` (the set's own: the peak less
     ``held_memory_bytes``, what was allocated when the set began)."""
     device = resolve_device(str(device))
+    joined = not dist.is_initialized() and dist.launched()
+    device = dist.init(device)
+    try:
+        return _evaluate(opt_path, device, lpips_pth, fid_pth)
+    finally:
+        if joined:
+            dist.shutdown()
+
+
+def restored_images(task, opt, loader, seed: int, device: torch.device):
+    """``(i, record)`` for every image of ``loader``'s set, in order, on rank
+    0 (nothing on the others): each rank restores its share (``dist.
+    gathered``); a record holds the image's name, its seconds, the uint8
+    output, LQ and GT (None without one)."""
+
+    def one(i):
+        batch = loader.batch(i)
+        path_key = "LQ_path" if "LQ_path" in batch else "GT_path"
+        t0 = time.perf_counter()
+        out, lq = restore(task, opt, batch, rng.fold_seed(seed, i), device)
+        seconds = time.perf_counter() - t0
+        return {"base": os.path.splitext(os.path.basename(batch[path_key][0]))[0], "seconds": seconds,
+                "out": tensor2img(out[0]), "lq": tensor2img(lq[0]),
+                "gt": tensor2img(batch["GT"][0]) if "GT" in batch else None}
+
+    return dist.gathered(range(len(loader)), one)
+
+
+def _evaluate(opt_path: str, device: torch.device, lpips_pth, fid_pth) -> dict:
+    primary = dist.process_is_primary()
     opt = options.dict_to_nonedict(options.parse(opt_path, is_train=False))
-    mkdirs([opt["path"]["results_root"], opt["path"]["log"]])
-    setup_logger("base", opt["path"]["log"], "test_" + opt["name"], screen=True, tofile=True)
+    if primary:
+        mkdirs([opt["path"]["results_root"], opt["path"]["log"]])
+    setup_logger("base", opt["path"]["log"], "test_" + opt["name"], screen=primary, tofile=primary)
     logger = logging.getLogger("base")
     logger.info(options.dict2str(opt))
     seed = int(opt["seed"] or 0)
     task = load_task(opt, device, seed)
     logger.info(f"Task {type(task).__name__}: {task.n_params():,d} parameters; device {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    lpips_fn = lpips_fn_from_env_or_arg(lpips_pth, device)
-    fid_metric = fid_metric_from_env_or_arg(fid_pth, device)
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + f"; {dist.world_size()} process(es)")
+    lpips_fn = lpips_fn_from_env_or_arg(lpips_pth, device) if primary else None
+    fid_metric = fid_metric_from_env_or_arg(fid_pth, device) if primary else None
     suffix = opt["suffix"] or ""
     scale = opt["degradation"]["scale"] if opt["distortion"] == "sr" else 0
     crop = int(opt["crop_border"] or scale or 0)  # the reference's default: the SR scale
@@ -132,30 +168,25 @@ def evaluate(opt_path: str, device="cuda", lpips_pth: Optional[str] = None, fid_
         name = dataset_opt["name"]
         logger.info(f"Testing [{name}] : {len(test_set)} images")
         out_dir = os.path.join(opt["path"]["results_root"], name)
-        mkdirs(out_dir)
+        if primary:
+            mkdirs(out_dir)
         if fid_metric:
             fid_metric.reset()  # FID is per test set
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
             held = torch.cuda.memory_allocated(device)
         images = []
-        for i, batch in enumerate(loader):
-            path_key = "LQ_path" if "LQ_path" in batch else "GT_path"
-            base = os.path.splitext(os.path.basename(batch[path_key][0]))[0] + suffix
-            t0 = time.perf_counter()
-            out, lq = restore(task, opt, batch, rng.fold_seed(seed, i), device)
-            seconds = time.perf_counter() - t0
-            out_img = tensor2img(out[0])
-            save_eyes(out_img, out_dir, base)
-            save_eyes(tensor2img(lq[0]), out_dir, f"{base}_LQ")
+        for i, img in restored_images(task, opt, loader, seed, device):
+            base, seconds = img["base"] + suffix, img["seconds"]
+            save_eyes(img["out"], out_dir, base)
+            save_eyes(img["lq"], out_dir, f"{base}_LQ")
             record = {"name": base, "seconds": seconds}
-            if "GT" not in batch:
+            if img["gt"] is None:
                 logger.info(f"{i + 1:3d} - {base:20s} | (no GT) | {seconds:.2f}s")
                 images.append(record)
                 continue
-            gt_img = tensor2img(batch["GT"][0])
-            save_eyes(gt_img, out_dir, f"{base}_GT")
-            record.update(image_metrics(out_img, gt_img, crop, lpips_fn, fid_metric))
+            save_eyes(img["gt"], out_dir, f"{base}_GT")
+            record.update(image_metrics(img["out"], img["gt"], crop, lpips_fn, fid_metric))
             images.append(record)
             lp = "n/a" if record["lpips"] is None else f"{record['lpips']:.4f}"
             logger.info(f"{i + 1:3d} - {base:20s} | PSNR {record['psnr']:.4f} SSIM {record['ssim']:.4f} | "

@@ -11,7 +11,15 @@ latent_denoising``, whose frozen compressor loads from
 ``path.pretrain_model_L``, e.g. a compressor run's ``{iter}_G.pth``).
 
 It runs on the card unless ``--device cpu`` is given; without a card it
-raises.  One process, one card (data parallelism: ROADMAP, Queue 1).
+raises.  Data parallelism: under
+
+    torchrun --nproc_per_node N -m image_restoration_sde_tpu_torch.train -opt=<yml> [--device cuda|cpu]
+
+each of N processes (one a card; NCCL on the card, gloo on the CPU, or
+``--dist-backend gloo`` for ranks that share a card) trains its block of
+the YAML's global batch through DDP, and the run takes the one-process
+steps at the global batch.  Rank 0 alone logs, validates (on the bare net,
+while the others wait) and writes checkpoints; every rank resumes.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from .data import create_dataloader, create_dataset
+from .parallel import dist
 from .runners import build_task, resolve_device
 from .sde import rng
 from .training.checkpoint import load_training_state, save_checkpoint
@@ -35,10 +44,23 @@ from .utils import options
 from .utils.logging_utils import TensorboardWriter, mkdir_and_rename, mkdirs, setup_logger
 
 
-def train(opt_path: str, device="cuda"):
+def train(opt_path: str, device="cuda", backend: Optional[str] = None):
     """Run the YAML's training to ``train.niter`` iterations; returns the
-    final ``TrainState``."""
+    final ``TrainState``.  Started by ``torchrun``, the process joins its
+    process group (``backend``: ``parallel.dist.init``'s default by
+    device) and leaves it at the end."""
     device = resolve_device(str(device))
+    joined = not dist.is_initialized() and dist.launched()
+    device = dist.init(device, backend)
+    try:
+        return _train(opt_path, device)
+    finally:
+        if joined:
+            dist.shutdown()
+
+
+def _train(opt_path: str, device: torch.device):
+    primary = dist.process_is_primary()
     opt = options.parse(opt_path, is_train=True)
     resume_state_path = opt["path"].get("resume_state")
     resume_iter = 0
@@ -47,19 +69,21 @@ def train(opt_path: str, device="cuda"):
         options.check_resume(opt, resume_iter)
     opt = options.dict_to_nonedict(opt)
 
-    if not resume_state_path:
-        mkdir_and_rename(opt["path"]["experiments_root"])
-    mkdirs([opt["path"][k] for k in ("models", "training_state", "log", "val_images")])
-    setup_logger("base", opt["path"]["log"], "train_" + opt["name"], screen=True, tofile=True)
-    setup_logger("val", opt["path"]["log"], "val_" + opt["name"], screen=True, tofile=True)
+    if primary:
+        if not resume_state_path:
+            mkdir_and_rename(opt["path"]["experiments_root"])
+        mkdirs([opt["path"][k] for k in ("models", "training_state", "log", "val_images")])
+    # the other ranks log nowhere (ref train.py:95)
+    setup_logger("base", opt["path"]["log"], "train_" + opt["name"], screen=primary, tofile=primary)
+    setup_logger("val", opt["path"]["log"], "val_" + opt["name"], screen=primary, tofile=primary)
     logger, logger_val = logging.getLogger("base"), logging.getLogger("val")
     logger.info(options.dict2str(opt))
-    tb = TensorboardWriter(os.path.join(opt["path"]["experiments_root"], "tb_logger")) if opt["use_tb_logger"] \
-        else None
+    tb = TensorboardWriter(os.path.join(opt["path"]["experiments_root"], "tb_logger")) \
+        if primary and opt["use_tb_logger"] else None
 
     seed = opt["train"]["manual_seed"]
     if seed is None:
-        seed = random.randint(1, 10000)
+        seed = dist.broadcast(random.randint(1, 10000))
     logger.info(f"Random seed: {seed}; device {device}"
                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     np.random.seed(seed)
@@ -92,6 +116,8 @@ def train(opt_path: str, device="cuda"):
             steps_per_epoch = train_loader.steps_per_epoch()
             logger.info(f"Train set: {len(train_set)} images, {steps_per_epoch} iters/epoch, "
                         f"target {total_iters} iters, batch {dataset_opt['batch_size']}")
+            logger.info(f"Data parallel: {dist.world_size()} process(es), global batch "
+                        f"{train_loader.global_batch}, per-process batch {train_loader.local_batch}")
         elif phase == "val":
             val_set = create_dataset(dataset_opt)
             val_loader = create_dataloader(val_set, dataset_opt, opt)
@@ -119,33 +145,39 @@ def train(opt_path: str, device="cuda"):
             if current_step % print_freq == 0:
                 loss = float(train_metrics["loss"])
                 now = time.perf_counter()
-                bsz = len(next(iter(batch.values())))
+                bsz = len(next(iter(batch.values()))) * dist.world_size()
                 ips = (current_step - steps_last) * bsz / (now - t_last)
                 t_last, steps_last = now, current_step
                 lr = float(task.lr_schedule(current_step))
                 logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, lr:{lr:.3e}, "
-                            f"img/s:{ips:.1f}> loss: {loss:.4e}")
+                            f"img/s:{ips:.1f}> loss: {loss:.8e}")
                 if tb:
                     tb.add_scalar("loss", loss, current_step)
                     tb.add_scalar("img_per_sec", ips, current_step)
 
             if val_loader is not None and current_step % val_freq == 0:
-                vm = task.validate(state, val_loader, rng.generator(seed + current_step, device),
-                                   opt["path"]["val_images"], current_step)
-                if vm["psnr"] > best_psnr:
-                    best_psnr, best_iter = vm["psnr"], current_step
-                logger_val.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, psnr: {vm['psnr']:.6f}, "
-                                f"best psnr: {best_psnr:.6f} @ iter {best_iter:,d}>")
-                if tb:
-                    tb.add_scalar("val_psnr", vm["psnr"], current_step)
+                # rank 0 alone, on the bare net (no collective); the others
+                # wait, then take its degradation generator, which the
+                # validation drew from as one process's would
+                if primary:
+                    vm = task.validate(state, val_loader, rng.generator(seed + current_step, device),
+                                       opt["path"]["val_images"], current_step)
+                    if vm["psnr"] > best_psnr:
+                        best_psnr, best_iter = vm["psnr"], current_step
+                    logger_val.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, psnr: {vm['psnr']:.6f}, "
+                                    f"best psnr: {best_psnr:.6f} @ iter {best_iter:,d}>")
+                    if tb:
+                        tb.add_scalar("val_psnr", vm["psnr"], current_step)
+                task.load_extra_state(dist.broadcast(task.extra_state()))
 
             if current_step % save_freq == 0:
                 logger.info("Saving models and training states.")
                 save_checkpoint(opt["path"], state, epoch, current_step, gen, task.extra_state())
     finally:
         batch_iter.close()  # stop the prefetch thread
-    logger.info("Saving the final model.")
-    save_checkpoint(opt["path"], state, epoch, current_step, gen, task.extra_state())
+    if current_step % save_freq:  # else the last save point wrote this very state
+        logger.info("Saving the final model.")
+        save_checkpoint(opt["path"], state, epoch, current_step, gen, task.extra_state())
     logger.info("End of training.")
     if tb:
         tb.close()
@@ -157,8 +189,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where to train (default: the card)")
+    parser.add_argument("--dist-backend", default=None, choices=dist.BACKENDS,
+                        help="under torchrun: the process group's backend (default: nccl on the card, gloo on the "
+                             "CPU; gloo lets ranks share a card)")
     args = parser.parse_args(argv)
-    train(args.opt, args.device)
+    train(args.opt, args.device, args.dist_backend)
     return 0
 
 

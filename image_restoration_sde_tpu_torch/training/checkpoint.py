@@ -14,7 +14,9 @@ save point writes
   run's generator and whatever the task adds (``extra``).
 
 A run resumed from ``{iter}.state`` (with ``{iter}_G.pth`` loaded into the
-net) continues as the uninterrupted run would.
+net) continues as the uninterrupted run would.  Under data parallelism rank
+0 writes (every rank holds the same state) and every rank loads, so a
+checkpoint does not depend on the world size it was written at.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel import dist
 from .ema import EMA
 from .trainer import TrainState
 
@@ -82,8 +85,11 @@ def load_training_state(path: str, state: TrainState, generator: torch.Generator
 
 def save_checkpoint(opt_path: dict, state: TrainState, epoch: int, iter_step: int,
                     generator: torch.Generator, extra: Optional[dict] = None) -> None:
-    """Full save point (ref train.py:305-309): weights, EMA, trainer state."""
-    save_params(opt_path["models"], state.net.state_dict(), f"{iter_step}_G")
-    if state.ema is not None:
-        save_params(opt_path["models"], ema_state_dict(state), "lastest_EMA")
-    save_training_state(opt_path["training_state"], state, epoch, iter_step, generator, extra)
+    """Full save point (ref train.py:305-309): weights, EMA, trainer state;
+    written by rank 0 while the other ranks wait at a barrier."""
+    if dist.process_is_primary():
+        save_params(opt_path["models"], state.net.state_dict(), f"{iter_step}_G")
+        if state.ema is not None:
+            save_params(opt_path["models"], ema_state_dict(state), "lastest_EMA")
+        save_training_state(opt_path["training_state"], state, epoch, iter_step, generator, extra)
+    dist.barrier()

@@ -32,7 +32,7 @@ from ..sampling import check_mode, make_noise_fn, reverse, run_chunks
 from ..sde import IRSDE
 from ..sde.rng import GeneratorLike
 from .losses import matching_loss
-from .trainer import TrainState, _apply_update, make_train_step
+from .trainer import TrainState, _apply_update, make_train_step, step_metrics
 
 
 def make_compressor_train_step(loss_type: str = "l1", weight: float = 1.0, reg_weight: float = 0.001) -> Callable:
@@ -43,18 +43,33 @@ def make_compressor_train_step(loss_type: str = "l1", weight: float = 1.0, reg_w
     ``loss_rep``, ``loss_reg``."""
 
     def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen=None):
-        net = state.net
-        l_lq, h_lq = net.encode(lq)
-        l_gt, _ = net.encode(gt)
-        loss_rec = matching_loss(net.decode(l_lq, h_lq), lq, loss_type)
-        loss_rep = matching_loss(net.decode(l_gt, h_lq), gt, loss_type)
+        rec, rep, l_lq = (state.ddp if state.ddp is not None else CrossDecode(state.net))(lq, gt)
+        loss_rec = matching_loss(rec, lq, loss_type)
+        loss_rep = matching_loss(rep, gt, loss_type)
         loss_reg = ((l_lq.mean() - lq.mean()).abs()
                     + (l_lq.std(correction=0) - lq.std(correction=0) * 0.5).abs())
         loss = weight * (loss_rec + loss_rep + reg_weight * loss_reg)
         metrics = {"loss": loss, "loss_rec": loss_rec, "loss_rep": loss_rep, "loss_reg": loss_reg}
-        return _apply_update(state, loss), {k: v.detach() for k, v in metrics.items()}
+        return _apply_update(state, loss), step_metrics(state, metrics)
 
     return train_step
+
+
+class CrossDecode(nn.Module):
+    """The compressor's forward in its train step, ``(lq, gt) -> (LQ
+    reconstructed, GT's latent decoded with the LQ's skips, LQ's latent)``:
+    one module call, so DDP sees the step's forward (``data_parallel``).
+    Under data parallelism ``loss_reg``'s mean and std are each rank's own
+    rows', as in the reference's DDP."""
+
+    def __init__(self, compressor: UNet):
+        super().__init__()
+        self.compressor = compressor
+
+    def forward(self, lq: torch.Tensor, gt: torch.Tensor):
+        l_lq, h_lq = self.compressor.encode(lq)
+        l_gt, _ = self.compressor.encode(gt)
+        return self.compressor.decode(l_lq, h_lq), self.compressor.decode(l_gt, h_lq), l_lq
 
 
 def make_latent_train_step(sde: IRSDE, compressor: UNet, loss_type: str = "l1", is_weighted: bool = False,

@@ -18,6 +18,14 @@ streamed ``flash_mha_backward``.
 Draws come from the run's ``torch.Generator`` through
 ``sde.generate_random_states``, in sequence; the generator's state is part
 of a checkpoint, so a resumed run draws what an uninterrupted one would.
+
+Data parallelism (:func:`data_parallel`): the step's forward runs through a
+``DistributedDataParallel`` wrapper of the net, which averages the
+gradients over the ranks; every rank draws the global batch's timesteps and
+noise and keeps its own rows (``state.shard``), so N ranks take the
+one-process step at the global batch, and the loss they report is the
+global batch's (the ranks' mean).  The optimizer, the EMA and checkpoints
+read the bare net's parameters.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..parallel import dist
 from .ema import EMA
 from .losses import matching_loss
 from .optimizers import ScheduledOptimizer
@@ -40,18 +49,58 @@ class TrainState:
     net: nn.Module  # its parameters are the trained ones, updated in place
     optimizer: ScheduledOptimizer
     ema: Optional[EMA]  # None: a task that keeps no EMA (the compressor, latent bokeh)
+    # data parallelism (data_parallel): the DDP wrapper the step's forward
+    # runs through, and (rank, world size), whose rows of the global draws
+    # the step keeps; None in one process
+    ddp: Optional[nn.Module] = None
+    shard: Optional[tuple] = None
 
 
 def create_train_state(net: nn.Module, optimizer: ScheduledOptimizer, ema: bool = True) -> TrainState:
     return TrainState(step=0, net=net, optimizer=optimizer, ema=EMA(dict(net.named_parameters())) if ema else None)
 
 
-def _score_net(net: nn.Module, remat: bool) -> Callable:
-    """``net``, or ``net`` whose activations are recomputed in the backward
-    pass (``torch.utils.checkpoint``: device memory for FLOPs)."""
+class Remat(nn.Module):
+    """``net`` whose activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``: device memory for FLOPs)."""
+
+    def __init__(self, net: nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, *args):
+        return torch.utils.checkpoint.checkpoint(self.net, *args, use_reentrant=False)
+
+
+def data_parallel(state: TrainState, module: Optional[nn.Module] = None) -> TrainState:
+    """Run ``state``'s steps data-parallel over the process group
+    (``parallel.dist.init``): the module the step calls (``state.net`` by
+    default; :class:`Remat` of it where the step recomputes, the
+    compressor's :class:`~.latent.CrossDecode`) wrapped in DDP.  DDP
+    broadcasts rank 0's parameters once; ``static_graph``: every step uses
+    the same parameters, which DDP learns at the first step, so a parameter
+    that no step uses (none gets a gradient) needs no search of the graph
+    each step, and a recomputed forward reduces each gradient once.  The
+    nets hold no buffers, so DDP broadcasts none in a forward."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    module = state.net if module is None else module
+    device = next(state.net.parameters()).device
+    state.ddp = DistributedDataParallel(module, device_ids=[device] if device.type == "cuda" else None,
+                                        static_graph=True)
+    state.shard = dist.shard()
+    return state
+
+
+def _score_net(state: TrainState, remat: bool) -> Callable:
+    """The module the step's forward runs: the DDP wrapper under data
+    parallelism (of :class:`Remat` where the step recomputes), else the
+    net, recomputed in the backward pass where ``remat``."""
+    if state.ddp is not None:
+        return state.ddp
     if not remat:
-        return net
-    return lambda *args: torch.utils.checkpoint.checkpoint(net, *args, use_reentrant=False)
+        return state.net
+    return Remat(state.net)
 
 
 def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
@@ -62,6 +111,13 @@ def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
         state.ema.update(dict(state.net.named_parameters()))
     state.step += 1
     return state
+
+
+def step_metrics(state: TrainState, metrics: dict) -> dict:
+    """The step's metrics, detached; under data parallelism the global
+    batch's (each the ranks' mean)."""
+    mean = dist.mean if state.ddp is not None else (lambda v: v)
+    return {k: mean(v.detach()) for k, v in metrics.items()}
 
 
 def make_train_step(
@@ -80,15 +136,15 @@ def make_train_step(
 
     def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen: torch.Generator,
                    cond: Optional[Tuple] = None):
-        timesteps, xt = sde.generate_random_states(gen, gt, lq)
+        timesteps, xt = sde.generate_random_states(gen, gt, lq, state.shard)
         tvec = timesteps.reshape(-1)
-        noise = _score_net(state.net, remat)(xt, lq, tvec, *(() if cond is None else (cond,)))
+        noise = _score_net(state, remat)(xt, lq, tvec, *(() if cond is None else (cond,)))
         score = sde.score_from_noise(noise, timesteps)
         pred = sde.reverse_sde_step_mean(xt, lq, score, timesteps)
         target = sde.reverse_optimum_step(xt, gt, lq, timesteps)
         w = sde.weights(tvec) if is_weighted else None
         loss = weight * matching_loss(pred, target, loss_type, w)
-        return _apply_update(state, loss), {"loss": loss.detach()}
+        return _apply_update(state, loss), step_metrics(state, {"loss": loss})
 
     return train_step
 
@@ -106,14 +162,14 @@ def make_denoising_train_step(
     Parity: ref config/denoising-sde/models/denoising_model.py:136-160."""
 
     def train_step(state: TrainState, gt: torch.Tensor, gen: torch.Generator):
-        timesteps, xt = sde.generate_random_states(gen, gt)
+        timesteps, xt = sde.generate_random_states(gen, gt, state.shard)
         tvec = timesteps.reshape(-1)
-        noise = _score_net(state.net, remat)(xt, None, tvec)
+        noise = _score_net(state, remat)(xt, None, tvec)
         score = sde.score_from_noise(noise, timesteps)
         pred = sde.reverse_sde_step_mean(xt, score, timesteps)
         target = sde.reverse_optimum_step(xt, gt, timesteps)
         w = sde.weights(tvec) if is_weighted else None
         loss = weight * matching_loss(pred, target, loss_type, w)
-        return _apply_update(state, loss), {"loss": loss.detach()}
+        return _apply_update(state, loss), step_metrics(state, {"loss": loss})
 
     return train_step

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.imresize import torch_bicubic_resize
+from ..sde.rng import draw_rows
 
 
 def add_noise(x: torch.Tensor, gen: torch.Generator, sigma: float) -> torch.Tensor:
@@ -62,10 +63,13 @@ def mask_to(
     mask_id: int = -1,
     n: int = 100,
     rng: Optional[np.random.Generator] = None,
+    shard: Optional[tuple] = None,
 ) -> np.ndarray:
     """Apply inpainting masks: keep masked-in pixels, fill the rest with 1.0.
 
-    ``mask_id < 0`` draws a random mask per batch element.
+    ``mask_id < 0`` draws a random mask per batch element; with ``shard =
+    (rank, world)`` (``x`` rank's rows of a global batch) the draws are the
+    global batch's, of which these rows' are kept.
     """
     x = np.asarray(x)
     batch = x.shape[0]
@@ -73,7 +77,8 @@ def mask_to(
     avail = len(bank)
     if mask_id < 0:
         rng = rng or np.random.default_rng()
-        ids = rng.integers(0, min(n, avail), size=batch)
+        rows, drawn = draw_rows(batch, shard)
+        ids = rng.integers(0, min(n, avail), size=drawn)[rows]
     else:
         ids = np.full(batch, mask_id % avail)
     out = np.empty_like(x)
