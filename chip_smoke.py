@@ -63,9 +63,10 @@ seed or trained here:
   (configs/*/test/*.yml) as shipped, float32 as the runners' validation,
   with the training paths' last checkpoints where they trained the YAML's
   network, else seeded weights, on synthetic test sets near the public
-  sets' sizes (EVAL_PATHS); plus TLSC (CNAFNetLocal), a tiled run, the
-  inference and restore entry points, LPIPS and FID, and Gaussian
-  denoising's kernel path against its plain path;
+  sets' sizes (EVAL_PATHS), the samplers cut to EVAL_SAMPLE_T steps; plus
+  TLSC (CNAFNetLocal), a tiled run, the inference and restore entry
+  points, LPIPS and FID, and Gaussian denoising's kernel path against its
+  plain path;
 - serving: the kernels as ``irsde::`` operators under
   ``torch.library.opcheck``; the deraining, latent and denoising samplers
   exported (``exporting.py``) and loaded in a fresh process; the port's
@@ -183,10 +184,11 @@ denoising, artifacts, serve, bench, bench train and bench refusion after
    the task's sampler or, for the compressor, its cross decode), exactly
    ``train_counts`` launches per step (none in the backward) and
    ``val_counts`` per validation image; a finite loss; the run resumed
-   from the half-way checkpoint bit-equal to the uninterrupted one
-   (compressor, latent, DiT) or, for the pixel, bokeh and stereo paths, its
-   first step's loss within 1e-6 and the parameters after it within 2 lr; then
-   the path's plain-path steps; train ms/step, img/s and peak memory,
+   from the half-way checkpoint (no validation, no checkpoint written)
+   bit-equal to the uninterrupted one (compressor, latent, DiT) or, for
+   the pixel, bokeh and stereo paths, its first step's loss within 1e-6
+   and the parameters after it within 2 lr; then the path's plain-path
+   steps (none launching a kernel; no checkpoint written); train ms/step, img/s and peak memory,
    kernel path and plain path (a record);
 22. eval (``phase_eval``, in phase 21's temporary directory, cuDNN TF32 on
    as a user's run has it): each test YAML of EVAL_PATHS through
@@ -254,8 +256,11 @@ bench refusion: ``bench_refusion`` for nafnet and dit at 1024 px, 100
 train dp (after phase 21's IR-SDE run, in its directory): the train entry
    point under ``torchrun`` (``--dp-child``), DP_STEPS steps of batch 4,
    for each of dp_runs, against phase 21's first DP_STEPS steps: one rank
-   bit-equal; more ranks their first step's loss within 1e-6 and the
-   parameters after it within 2 lr_G; each rank exactly the one-process
+   bit-equal; more ranks their first step's loss within 1e-6, its
+   all-reduced gradients within DP_GRAD_REL of max|grad| of the same
+   ranks' gradients averaged in the script's process and the
+   parameters after it within 2 lr_G, the later steps' losses within
+   DP_LATER_LOSS; each rank exactly the one-process
    step's launches, the ranks equal, rank 0 alone logging the
    data-parallel line.
 
@@ -333,23 +338,25 @@ BOKEH_BATCH, BOKEH_SIZE, BOKEH_ODD_HW, BOKEH_LN_PER_FORWARD = 4, 512, (700, 1000
 # for niter, the checkpoint interval and its data, synthetic folders written
 # from the seed (the repository holds no dataset).  Per path: its YAML, its
 # kind of data (TRAIN_DATA), and the cuts: steps, the checkpoint interval
-# (the resumed run starts there), plain-path steps (none for the DiT: its
-# plain attention keeps B H N^2 float32 scores a block for the backward,
-# 8.6 GB a block at batch 8; none for the latent, bokeh and stereo paths,
-# cut to the script's time limit: phase 20 holds their nets' plain path)
-# and validation images.  The compressor runs
-# first: its last checkpoint is the latent and DiT paths' frozen compressor
-# (stage 2); the bokeh path's compressor (ch 64) is seeded
+# (the resumed run starts there; it runs no validation), plain-path steps
+# (none for the DiT: its plain attention keeps B H N^2 float32 scores a
+# block for the backward, 8.6 GB a block at batch 8; 3 for the others but
+# the pixel paths' 4, cut to the script's time limit: the third step is
+# timed) and validation images; the validation's sampler cut to
+# TRAIN_VAL_SAMPLE_T steps (sample_T, else T, of the YAML).  The compressor
+# runs first: its last checkpoint is the latent and DiT paths' frozen
+# compressor (stage 2); the bokeh path's compressor (ch 64) is seeded
 TRAIN_PATHS = {
     "ir-sde": (("deraining", "train", "ir-sde.yml"), "pixel", 24, 12, 4, 2),
     "refusion": (("deraining", "train", "refusion.yml"), "pixel", 24, 12, 4, 2),
     "compressor": (("unet-latent", "train", "train_haze.yml"), "compressor", 12, 6, 3, 2),
-    "latent": (("latent-dehazing", "train", "nasde.yml"), "latent", 8, 4, 0, 1),
+    "latent": (("latent-dehazing", "train", "nasde.yml"), "latent", 8, 4, 3, 1),
     "dit": (("latent-dehazing", "train", "dit.yml"), "latent", 3, 2, 0, 1),
-    "bokeh": (("latent-bokeh", "train", "refusion.yml"), "bokeh", 8, 4, 0, 1),
-    "stereo": (("stereo-sr", "train", "refusion.yml"), "stereo", 8, 4, 0, 1),
+    "bokeh": (("latent-bokeh", "train", "refusion.yml"), "bokeh", 8, 4, 3, 1),
+    "stereo": (("stereo-sr", "train", "refusion.yml"), "stereo", 8, 4, 3, 1),
 }
 LATENT_TRAIN = ("latent", "dit", "bokeh")  # frozen compressor, score net on its latents
+TRAIN_VAL_SAMPLE_T = 25
 TRAIN_BIT_EQUAL = ("compressor", "latent", "dit")  # resumed runs held bit-equal to uninterrupted ones
 # the synthetic data by kind: (writer, train images, their side range, the
 # validation images' side range): 128-256 px pairs for the 128 px pixel
@@ -406,6 +413,13 @@ BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 4, 16, 32), 2  # batch 8: bench_cuda.py's ow
 # data parallelism (phase train dp): steps of the deraining train YAML
 # under torchrun; the data-parallel artifact's batches (phase artifacts)
 DP_STEPS = 3
+# (b) and (c): step 1's gradients after the all-reduce against the same
+# ranks' gradients averaged in this process (block_mean_grads), each
+# tensor within this share of its max|grad| (the CPU tests' bound for the
+# port's gradients against JAX's); the losses of steps 2..DP_STEPS against
+# the one-process run's, which start from parameters that differ within
+# 2 lr_G (1.33e-5 measured)
+DP_GRAD_REL, DP_LATER_LOSS = 2e-4, 1e-4
 DP_ARTIFACT_BATCHES = (3, 8)
 DP_ARTIFACT_DEVICES = ["cuda:0", "cuda:0"]
 # the data-parallel artifact against the eager sampler on the whole batch:
@@ -2266,9 +2280,10 @@ def write_train_data(data):
 def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, resume=None, plain=False, name=None,
                      pretrain_l=None):
     """``opt`` (a train YAML) with its data on the synthetic folders, its
-    iteration count and frequencies cut to this run and, for a latent path,
-    its frozen compressor's ``.pth`` (``pretrain_l``, or None: seeded),
-    written to ``path``; ``plain`` the plain path of every net."""
+    iteration count and frequencies cut to this run, its validation's
+    sampler to ``val_steps`` and, for a latent path, its frozen
+    compressor's ``.pth`` (``pretrain_l``, or None: seeded), written to
+    ``path``; ``plain`` the plain path of every net."""
     import copy
 
     import yaml
@@ -2285,6 +2300,8 @@ def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, r
         opt["path"]["pretrain_model_L"] = pretrain_l
     opt["train"].update(niter=niter, val_freq=val_freq)
     opt["logger"].update(print_freq=4, save_checkpoint_freq=save_freq)
+    if opt.get("sde"):
+        opt["sde"]["sample_T"] = val_steps(opt)
     if plain:
         for key in ("network_G", "network_L"):
             if key in opt:
@@ -2294,26 +2311,57 @@ def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, r
     return path
 
 
+def val_steps(opt):
+    """Reverse steps of a train YAML's validation sampler: its sample_T
+    (else T) cut to TRAIN_VAL_SAMPLE_T."""
+    return min(TRAIN_VAL_SAMPLE_T, int(opt["sde"].get("sample_T") or opt["sde"]["T"]))
+
+
 @contextlib.contextmanager
-def recorded_steps(snapshot_at=()):
+def no_checkpoints():
+    """The train entry point writes no checkpoint inside the block (the
+    resumed and plain-path runs of phase 21: nothing reads their files, and
+    the machine's disk counts every byte written, ~2 GB a checkpoint of the
+    pixel nets and ~7 GB of the DiT's)."""
+    from image_restoration_sde_tpu_torch import train
+
+    save = train.save_checkpoint
+    train.save_checkpoint = lambda *args: None
+    try:
+        yield
+    finally:
+        train.save_checkpoint = save
+
+
+@contextlib.contextmanager
+def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
     """Record every train step and validation the train tasks make inside
     the block: per step its launches by kernel symbol, card milliseconds
-    (host clock between synchronisations) and loss, and the net's
-    parameters (on the host) after each step of ``snapshot_at``
-    (``snapshots``, by step); per validation its launches and image
-    count."""
+    (host clock between synchronisations) and loss, the net's parameters
+    (on the host) after each step of ``snapshot_at`` (``snapshots``, by
+    step) and the gradients the optimizer stepped on (under DDP the ranks'
+    mean) at each step of ``grads_at`` (``grads``, by step); what step
+    ``control_at`` begins with (``control``: the task, its batch, the
+    generators' states and the parameters; ``block_mean_grads``); per
+    validation its launches and image count."""
+    import copy
+
     import torch
 
     from image_restoration_sde_tpu_torch import runners
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
-    rec = {"steps": [], "vals": [], "snapshots": {}}
+    rec = {"steps": [], "vals": [], "snapshots": {}, "grads": {}}
     classes = [c for c in (runners.PixelDiffusionTask, runners.GaussianDenoisingTask, runners.CompressorTask,
                            runners.LatentDiffusionTask) if "step" in vars(c)]
     originals = {c: (c.step, c.validate) for c in classes}
 
     def recording(step, validate):
         def step_rec(self, state, batch, gen):
+            if control_at == state.step + 1:
+                rec["control"] = {"task": self, "step": step, "batch": batch, "gen": gen.get_state(),
+                                  "device": gen.device, "deg": copy.deepcopy(self.deg_rng.bit_generator.state),
+                                  "params": {k: v.detach().clone() for k, v in state.net.named_parameters()}}
             before = {k.symbol: k.launches for k in KERNELS}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2324,6 +2372,9 @@ def recorded_steps(snapshot_at=()):
             rec["steps"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, ms, loss))
             if state.step in snapshot_at:
                 rec["snapshots"][state.step] = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+            if state.step in grads_at:
+                rec["grads"][state.step] = {k: v.grad.detach().cpu() for k, v in state.net.named_parameters()
+                                            if v.grad is not None}
             return state, metrics
 
         def validate_rec(self, state, loader, gen, out_dir, at):
@@ -2341,6 +2392,49 @@ def recorded_steps(snapshot_at=()):
     finally:
         for c, (step, validate) in originals.items():
             c.step, c.validate = step, validate
+
+
+def block_mean_grads(control, state, n):
+    """The gradients that n data-parallel ranks average at the step that
+    ``control`` recorded (``recorded_steps``): rank r's step on its rows
+    of the batch and of the global batch's draws (``state.shard``), from
+    the step's parameters and generators, backward only; each divided by
+    n and summed in rank order, as DDP's all-reduce of two ranks sums
+    them.  Leaves ``state.net`` at the step's parameters, without
+    gradients; returns the mean on the host."""
+    import copy
+
+    import torch
+
+    from image_restoration_sde_tpu_torch.training import trainer
+
+    task, batch, net = control["task"], control["batch"], state.net
+    local = len(next(iter(batch.values()))) // n
+    apply, total = trainer._apply_update, None
+
+    def backward_only(state, loss):
+        loss.backward()
+        return state
+
+    trainer._apply_update = backward_only
+    try:
+        for r in range(n):
+            with torch.no_grad():
+                for k, v in net.named_parameters():
+                    v.copy_(control["params"][k])
+                    v.grad = None
+            gen = torch.Generator(device=control["device"])
+            gen.set_state(control["gen"])
+            task.deg_rng.bit_generator.state = copy.deepcopy(control["deg"])
+            state.shard = (r, n)
+            control["step"](task, state, {k: v[r * local:(r + 1) * local] for k, v in batch.items()}, gen)
+            grads = {k: v.grad.detach() / n for k, v in net.named_parameters() if v.grad is not None}
+            total = grads if total is None else {k: total[k] + g for k, g in grads.items()}
+    finally:
+        trainer._apply_update, state.shard = apply, None
+        for v in net.parameters():
+            v.grad = None
+    return {k: v.cpu() for k, v in total.items()}
 
 
 def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None, keep=None):
@@ -2366,8 +2460,11 @@ def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None, keep=N
     plain-path steps (no kernel launches) for their time.  Returns the
     launches of the first run by kernel symbol and a record of the times
     and peak memory; ``keep`` (a dict) gets the first run's losses and
-    milliseconds by step and its parameters after steps 1 and DP_STEPS,
-    which phase train dp holds its runs against."""
+    milliseconds by step, its parameters after steps 1 and DP_STEPS, its
+    step-1 gradients and, for each world size of ``dp_runs`` past 1, the
+    step-1 gradients that that many ranks average (``block_mean_grads``,
+    computed after the path's launches were read), which phase train dp
+    holds its runs against."""
     import torch
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
@@ -2402,17 +2499,22 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with recorded_steps(snapshot_at=(1, DP_STEPS, save + 1) if keep is not None else (save + 1,)) as rec:
+    with recorded_steps(snapshot_at=(1, DP_STEPS, save + 1) if keep is not None else (save + 1,),
+                        grads_at=(1,) if keep is not None else (), control_at=1 if keep is not None else None) as rec:
         t0 = time.perf_counter()
         state = train.train(yml, dev)
         seconds = time.perf_counter() - t0
     if keep is not None:
         keep.update(losses=[r[2] for r in rec["steps"]], ms=[r[1] for r in rec["steps"]],
-                    params={at: rec["snapshots"][at] for at in (1, DP_STEPS)}, lr=float(opt["train"]["lr_G"]))
+                    params={at: rec["snapshots"][at] for at in (1, DP_STEPS)}, grads=rec["grads"][1],
+                    lr=float(opt["train"]["lr_G"]))
     peak = torch.cuda.max_memory_allocated()
     launches = {k.symbol: k.launches for k in KERNELS}
     keeps_ema = state.ema is not None
     final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+    if keep is not None:  # after the path's launches were read: its control's do not count
+        keep["block_grads"] = {n: block_mean_grads(rec["control"], state, n) for _, n, _ in dp_runs() if n and n > 1}
+        del rec["control"]
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2421,9 +2523,8 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     for i, (grew, _, loss) in enumerate(rec["steps"]):
         check(grew == want, f"train {label} step {i + 1}: launches {grew}, expected {want}")
         check(np.isfinite(loss), f"train {label} step {i + 1}: loss {loss}")
-    t_val = opt["sde"].get("sample_T") or opt["sde"]["T"]
     check(len(rec["vals"]) == 1, f"train {label}: {len(rec['vals'])} validations")
-    per_image = val_counts(label, t_val)
+    per_image = val_counts(label, val_steps(opt))
     for grew, vm in rec["vals"]:
         sampler = {sym: n * val_images for sym, n in per_image.items()}
         check(grew == sampler and np.isfinite(vm["psnr"]), f"train {label} validation: {grew}, psnr {vm['psnr']}")
@@ -2434,15 +2535,16 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     losses = [r[2] for r in rec["steps"]]
 
     state_file = os.path.join(exp, "training_state", f"{save}.state")
-    yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), label, opt, root, data, steps, save, steps,
-                                  resume=state_file, pretrain_l=pretrain_l)
-    with recorded_steps(snapshot_at=(save + 1,)) as rec_resume:
+    yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), label, opt, root, data, steps, save,
+                                  steps * 10, resume=state_file, pretrain_l=pretrain_l)  # no validation
+    with recorded_steps(snapshot_at=(save + 1,)) as rec_resume, no_checkpoints():
         state = train.train(yml_resume, dev)
     resumed_final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    check(len(rec_resume["steps"]) == steps - save, f"train {label} resumed: {len(rec_resume['steps'])}")
+    check(len(rec_resume["steps"]) == steps - save and not rec_resume["vals"],
+          f"train {label} resumed: {len(rec_resume['steps'])} steps, {len(rec_resume['vals'])} validations")
     check(all(grew == want for grew, _, _ in rec_resume["steps"]), f"train {label} resumed steps: launches")
     first_loss, first_want = rec_resume["steps"][0][2], rec["steps"][save][2]
     loss_rel = abs(first_loss - first_want) / abs(first_want)
@@ -2467,7 +2569,7 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
                                      steps * 10, steps * 10, plain=True, name=f"{opt['name']}_plain",
                                      pretrain_l=pretrain_l)
         before = sum(k.launches for k in KERNELS)
-        with recorded_steps() as rec_plain:
+        with recorded_steps() as rec_plain, no_checkpoints():
             train.train(yml_plain, dev)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2489,14 +2591,17 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
 
 # ---------------------------------------------------------------- evaluation
 # The test YAMLs (configs/<task>/test/<file>), each through the test entry
-# point at its own full width and sampling steps: per YAML its synthetic
+# point at its own full width (its sampling steps cut): per YAML its synthetic
 # test set (a kind of EVAL data, the images, their (H, W): near the public
 # set's, or a range for bokeh and stereo), and the train path of phase 21
 # whose last checkpoint it loads where phase 21 trained its network (the
 # same class and setting), else None: a seeded .pth the phase writes.
 # Cuts, each to the time budget: one image a set; GoPro's 720x1280
 # kept, the shadow set's 1440x1920 cut to 720x960, bokeh's to 512-768 px,
-# Flickr1024's pairs to 256-384 px HR
+# Flickr1024's pairs to 256-384 px HR; the samplers that run the YAML's
+# sample_T (or T) steps cut to EVAL_SAMPLE_T (the Gaussian denoising YAMLs
+# keep their optimal timestep's ODE steps, DENOISE_STEPS)
+EVAL_SAMPLE_T = 25
 EVAL_PATHS = {
     ("deblurring", "ir-sde.yml"): ("pairs", 1, (720, 1280), "ir-sde"),
     ("deblurring", "refusion.yml"): ("pairs", 1, (720, 1280), "refusion"),
@@ -2538,6 +2643,15 @@ EVAL_PLAIN_HW, EVAL_PLAIN_LEVELS = (60, 90), 1
 # LPIPS and FID on the card against the same modules on the CPU (TF32 off):
 # LPIPS within 1e-4 of each distance, pool3 features within 1e-4 of max|f|
 LPIPS_FID_IMAGES, LPIPS_FID_BOUND = 3, 1e-4
+
+
+def eval_yaml(parts):
+    """configs/<task>/test/<file>, its sampler cut to EVAL_SAMPLE_T steps
+    where it runs sample_T (or T) of them."""
+    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    if opt.get("sde") and opt.get("distortion") != "denoising":
+        opt["sde"]["sample_T"] = min(EVAL_SAMPLE_T, int(opt["sde"].get("sample_T") or opt["sde"]["T"]))
+    return opt
 
 
 def eval_steps(opt):
@@ -2795,7 +2909,7 @@ def eval_main_path(dev, root, smi, trained):
     launches, record = {}, {}
     for i, (parts, (kind, n, hw, label)) in enumerate(EVAL_PATHS.items()):
         key = "/".join(parts)
-        opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+        opt = eval_yaml(parts)
         data = write_eval_data(os.path.join(root, "data", key.replace("/", "_")), kind, n, hw, SEED + 60 + i)
         top = {}
         if (opt.get("degradation") or {}).get("mask_root"):
@@ -2825,7 +2939,7 @@ def eval_tlsc(dev, root, smi, trained):
     28-block level's window covers its map, none where it does not (there
     the level's 28 blocks launch 2 K1 each)."""
     parts = ("deraining", "refusion.yml")
-    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    opt = eval_yaml(parts)
     opt["network_G"] = {"which_model_G": "CNAFNetLocal",
                         "setting": {**opt["network_G"]["setting"], "train_size": [1, 3, TLSC_TRAIN, TLSC_TRAIN]}}
     root = os.path.join(root, "tlsc")
@@ -2852,7 +2966,7 @@ def eval_tiled(dev, root, smi, trained):
     from image_restoration_sde_tpu_torch.tiling import tile_grid
 
     parts, hw = ("deraining", "ir-sde.yml"), (321, 481)
-    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    opt = eval_yaml(parts)
     root = os.path.join(root, "tiled")
     data = write_eval_data(os.path.join(root, "data"), "pairs", 1, hw, SEED + 85)
     tile, overlap, tile_batch = EVAL_TILE
@@ -2876,8 +2990,8 @@ def eval_inference(dev, root, smi):
     from image_restoration_sde_tpu_torch import inference
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
-    parts, sigma, n = ("denoising", "ir-sde.yml"), 25, 2
-    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    parts, sigma, n = ("denoising", "ir-sde.yml"), 25, 1  # one image: a depth cut to the time limit
+    opt = eval_yaml(parts)
     root = os.path.join(root, "inference")
     data = write_eval_data(os.path.join(root, "data"), "gt", n, (500, 500), SEED + 86)
     yml = write_eval_yaml(root, parts, opt, test_set(opt, data), trained_or_seeded(root, opt, None, {}),
@@ -2930,7 +3044,7 @@ def eval_lpips_fid(dev, root, smi, trained):
     from image_restoration_sde_tpu_torch.utils import fid, lpips
 
     parts, n, hw = ("unet-latent", "test_latent.yml"), LPIPS_FID_IMAGES, (321, 481)
-    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    opt = eval_yaml(parts)
     root = os.path.join(root, "lpips_fid")
     data = write_eval_data(os.path.join(root, "data"), "pairs", n, hw, SEED + 87)
     lpips_pth, fid_pth = os.path.join(root, "lpips_alex.pth"), os.path.join(root, "fid_inception.pth")
@@ -3001,7 +3115,7 @@ def eval_plain_paths(dev, root, smi):
     from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8, save_img
 
     parts = ("denoising", "ir-sde.yml")
-    opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
+    opt = eval_yaml(parts)
     root = os.path.join(root, "plain")
     data = write_eval_data(os.path.join(root, "data"), "gt", 1, EVAL_PLAIN_HW, SEED + 88)
     noise = np.random.default_rng(SEED + 89)
@@ -3212,7 +3326,7 @@ def artifact_child(manifest: str) -> int:
     (``exporting.load_artifact``) and call it on each run's lq and seed,
     the launch counts set to 0 just before each call and read just after;
     the outputs go beside the runs, the report (load and call seconds,
-    launches) to ``<manifest>.out.json``.  A job with ``devices`` loads
+    launches, each job's seconds in all) to ``<manifest>.out.json``.  A job with ``devices`` loads
     the artifact over those devices (``load_artifact(devices=...)``) and
     also holds each call bit for bit against the one-device loader (the
     artifact's earlier job) called on the same row blocks.  TF32 is off, as
@@ -3229,7 +3343,7 @@ def artifact_child(manifest: str) -> int:
         jobs = json.load(f)
     report, one_device = {}, {}
     for job in jobs:
-        t0 = time.perf_counter()
+        t_job = t0 = time.perf_counter()
         call, _ = exporting.load_artifact(job["path"], "cuda", devices=job.get("devices"))
         one_device.setdefault(job["path"], call)
         entry = {"load_s": time.perf_counter() - t0, "runs": []}
@@ -3249,6 +3363,7 @@ def artifact_child(manifest: str) -> int:
                 one, blocks = one_device[job["path"]], [rows for _, rows in call.blocks(lq.shape[0])]
                 by_block = torch.cat([one(lq[rows], run["seed"][rows]) for rows in blocks])
                 entry["runs"][-1].update(blocks=len(blocks), blocks_bit_equal=bool(torch.equal(out, by_block)))
+        entry["job_s"] = time.perf_counter() - t_job
         report[job["name"]] = entry
     with open(manifest + ".out.json", "w") as f:
         json.dump(report, f)
@@ -3273,13 +3388,15 @@ def phase_artifacts(dev, workdir, jobs, smi):
     t0 = time.perf_counter()
     subprocess.run([sys.executable, os.path.abspath(__file__), "--artifact-child", manifest], check=True,
                    timeout=900)
-    print(f"[artifacts] the loading process took {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t0
     with open(manifest + ".out.json") as f:
         report = json.load(f)
+    print(f"[artifacts] the loading process took {seconds:.1f} s, by job (load, calls and block holds): "
+          f"{', '.join(f'{name} {entry['job_s']:.1f}' for name, entry in report.items())} s")
     launches, dp_launches, record = {}, {}, {}
     for job in jobs:
         entry = report[job["name"]]
-        rec = record[job["name"]] = {"load_s": entry["load_s"], "runs": []}
+        rec = record[job["name"]] = {"load_s": entry["load_s"], "job_s": entry["job_s"], "runs": []}
         for run, got in zip(job["runs"], entry["runs"]):
             out, eager = np.load(run["out"]), np.load(run["eager"])
             check(out.shape == eager.shape and np.isfinite(out).all(), f"{job['name']}: output {out.shape}")
@@ -3442,24 +3559,27 @@ def dp_child(yml: str, out: str, backend: str) -> int:
     rank of the port's train entry point (``train.train``, what ``python -m
     image_restoration_sde_tpu_torch.train`` runs under torchrun) with its
     steps recorded (``recorded_steps``: launches, milliseconds, loss, the
-    parameters after steps 1 and DP_STEPS); the record goes to
-    ``<out>.<rank>.pt``.
+    parameters after steps 1 and DP_STEPS, the gradients of step 1: under
+    DDP the ranks' mean); the record goes to ``<out>.<rank>.pt``.
     torch's default TF32 settings, as the one-process run of phase 21."""
     import torch
 
     sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch import train
 
-    with recorded_steps(snapshot_at=(1, DP_STEPS)) as rec:
+    with recorded_steps(snapshot_at=(1, DP_STEPS), grads_at=(1,)) as rec:
         train.train(yml, "cuda", backend)
-    torch.save({"steps": rec["steps"], "params": rec["snapshots"]}, f"{out}.{os.environ['RANK']}.pt")
+    torch.save({"steps": rec["steps"], "params": rec["snapshots"], "grads": rec["grads"][1]},
+               f"{out}.{os.environ['RANK']}.pt")
     return 0
 
 
 def dp_in_process(yml: str, out: str, backend: str) -> str:
     """``dp_child`` in this process, as torchrun's one rank (RANK 0 of
     WORLD_SIZE 1 on a free port; the group is left at the end), its log
-    read from the run's log file; returns the log."""
+    read from the run's log file; returns the log.  A torchrun process for
+    (a) took 37.3 s on a slow host against 8.3 s here, the script's time
+    limit is tight, and torchrun's own start is run by (b) and (c)."""
     import glob
 
     from image_restoration_sde_tpu_torch.parallel import dist
@@ -3499,19 +3619,26 @@ def phase_train_dp(dev, label, opt, workdir, smi, reference):
     the train entry point under ``torchrun`` (``dp_child``), for each run of
     ``dp_runs``, held against phase 21's one-process run of the same YAML
     and seed (``reference``: its losses and step milliseconds, its
-    parameters after steps 1 and DP_STEPS).  Rank 0 alone logs the
-    data-parallel line; every rank takes exactly the one-process step's
-    launches per step (at its per-rank batch, none in the backward); the
-    ranks end with the same parameters and report the same (global)
-    losses.  (a), one rank, is bit-equal to the one-process run: every
-    loss and the parameters after every recorded step.  (b) and (c) split
-    the batch, so the gradients sum in another order: their first step's
-    loss within 1e-6 of the one-process step's and the parameters after it
-    within 2 lr_G (phase_train_main_path's bounds for the first step of a
-    resumed run; Adam's sign-sensitive first step); the later steps start
-    from those parameters, and their losses and the parameters after step
-    DP_STEPS are reported.  Returns the launches of all ranks and runs and
-    a record of step times against the one-process run's."""
+    parameters after steps 1 and DP_STEPS, its step-1 gradients).  Rank 0
+    alone logs the data-parallel line; every rank takes exactly the
+    one-process step's launches per step (at its per-rank batch, none in
+    the backward); the ranks end with the same parameters and gradients
+    and report the same (global) losses.  (a), one rank, is bit-equal to
+    the one-process run: every loss, the step-1 gradients and the
+    parameters after every recorded step.  (b) and (c) split the batch, so
+    the gradients sum in another order: their first step's loss within
+    1e-6 of the one-process step's, its gradients (after the all-reduce:
+    the ranks' mean) each within DP_GRAD_REL of its tensor's max|grad| from
+    the same ranks' gradients averaged in this process
+    (``block_mean_grads``; from the whole batch's, which cuDNN's TF32
+    convolutions round otherwise, reported), and the parameters after it within 2 lr_G (phase_train_main_path's bounds
+    for the first step of a resumed run; Adam's sign-sensitive first step
+    moves an element by at most lr_G whatever its gradient, so only the
+    gradients show the mean); the later steps start from those parameters,
+    their losses within DP_LATER_LOSS of the one-process run's, and the
+    parameters after step DP_STEPS are reported.  Returns the launches of
+    all ranks and runs and a record of step times against the one-process
+    run's."""
     import torch
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
@@ -3525,6 +3652,7 @@ def phase_train_dp(dev, label, opt, workdir, smi, reference):
 def train_dp(dev, label, opt, workdir, smi, reference):
     import torch
 
+    from image_restoration_sde_tpu_torch.dryrun import grad_rel
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
     root, data = os.path.join(workdir, f"{label}_dp"), os.path.join(workdir, "data")
@@ -3562,18 +3690,29 @@ def train_dp(dev, label, opt, workdir, smi, reference):
                     launches[sym] += c
             check([st[2] for st in rank["steps"]] == [st[2] for st in ranks[0]["steps"]]
                   and all(torch.equal(v, ranks[0]["params"][at][k]) for at, p in rank["params"].items()
-                          for k, v in p.items()), f"train dp ({tag}): rank {r} differs from rank 0")
+                          for k, v in p.items())
+                  and all(torch.equal(v, ranks[0]["grads"][k]) for k, v in rank["grads"].items()),
+                  f"train dp ({tag}): rank {r} differs from rank 0")
         losses = [st[2] for st in ranks[0]["steps"]]
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
         dparam = {at: max((v - reference["params"][at][k]).abs().max().item() for k, v in p.items())
                   for at, p in ranks[0]["params"].items()}
-        bit_equal = losses == ref_losses and all(d == 0 for d in dparam.values())
+        check(sorted(ranks[0]["grads"]) == sorted(reference["grads"]), f"train dp ({tag}): gradients' keys")
+        # one rank against the one-process step; more against the same
+        # ranks' gradients averaged in this process (and, reported, the step's
+        # on the whole batch, where cuDNN's TF32 convolutions round otherwise)
+        dgrad = grad_rel(ranks[0]["grads"], reference["grads"] if n == 1 else reference["block_grads"][n])
+        dgrad_whole = grad_rel(ranks[0]["grads"], reference["grads"])
+        bit_equal = losses == ref_losses and dgrad_whole == 0 and all(d == 0 for d in dparam.values())
         ms = [st[1] for st in ranks[0]["steps"]]
         record[tag] = {"ranks": n, "backend": backend, "ms_per_step": ms, "seconds": seconds, "loss_rel": loss_rel,
-                       "param_max_abs": dparam, "bit_equal": bit_equal}
+                       "grad_rel": dgrad, "grad_rel_whole_batch": dgrad_whole, "param_max_abs": dparam,
+                       "bit_equal": bit_equal}
         print(f"[train-dp] ({tag}) {n} {backend} rank(s) on {'one card' if tag != 'c' else f'{n} cards'}: "
               f"{DP_STEPS} steps of batch {TRAIN_BATCH} ({TRAIN_BATCH // n} a rank), losses {losses} against "
-              f"{ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}); parameters max|d| "
+              f"{ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}); step 1's gradients "
+              f"{dgrad:.3g} of max|grad| from {'the' if n == 1 else f'{n} row blocks averaged in'} one process's "
+              f"(bound {DP_GRAD_REL}), {dgrad_whole:.3g} from the whole batch's; parameters max|d| "
               f"after step 1 {dparam[1]:.3g}, after step {DP_STEPS} {dparam[DP_STEPS]:.3g} (2 lr_G = {2 * lr:.3g}); "
               f"bit-equal: {bit_equal}; launches per rank and step {want}; ms by step (rank 0) "
               f"{', '.join(f'{x:.1f}' for x in ms)} against {', '.join(f'{x:.1f}' for x in ref_ms)} in one process; "
@@ -3581,7 +3720,9 @@ def train_dp(dev, label, opt, workdir, smi, reference):
         if n == 1:
             check(bit_equal, f"train dp ({tag}): one rank is not bit-equal to one process")
         else:
-            check(loss_rel[0] <= 1e-6 and dparam[1] <= 2 * lr, f"train dp ({tag}): the first step differs")
+            check(loss_rel[0] <= 1e-6 and dgrad <= DP_GRAD_REL and dparam[1] <= 2 * lr,
+                  f"train dp ({tag}): the first step differs")
+            check(all(x <= DP_LATER_LOSS for x in loss_rel[1:]), f"train dp ({tag}): a later step's loss differs")
     return launches, record
 
 

@@ -14,6 +14,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -32,7 +33,7 @@ from image_restoration_sde_tpu_torch.parallel import dist
 from image_restoration_sde_tpu_torch.sde import IRSDE, rng
 from image_restoration_sde_tpu_torch.training import checkpoint
 from image_restoration_sde_tpu_torch.utils import state_dict_from_flax, unet_flax_keys
-from test_torch_training import Injected, _tiny_yaml
+from test_torch_training import Injected, _keep_grads, _rel, _tiny_yaml
 from test_torch_unet import flatten, unflatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,13 +94,15 @@ def test_ranks_rows_in_rank_order_are_the_global_batch(world):
 
 # ------------------------------------------------------- train entry point
 def _torchrun(yml, log_dir, cwd, entry="train"):
-    """``torchrun --nproc_per_node 2 -m image_restoration_sde_tpu_torch.<entry>
-    -opt=<yml> --device cpu``; returns each rank's stderr (its log lines)."""
+    """``torchrun --standalone --nproc_per_node 2 -m
+    image_restoration_sde_tpu_torch.<entry> -opt=<yml> --device cpu`` (its
+    rendezvous on a free port); returns each rank's stderr (its log
+    lines)."""
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--log-dir",
-                           str(log_dir), "--redirects", "3", "-m", f"image_restoration_sde_tpu_torch.{entry}",
-                           f"-opt={yml}", "--device", "cpu"], cwd=str(cwd), env=env, capture_output=True, text=True,
-                          timeout=300)
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                           "--log-dir", str(log_dir), "--redirects", "3", "-m",
+                           f"image_restoration_sde_tpu_torch.{entry}", f"-opt={yml}", "--device", "cpu"],
+                          cwd=str(cwd), env=env, capture_output=True, text=True, timeout=300)
     logs = [sorted(glob.glob(str(log_dir / "*" / "attempt_0" / str(r) / "stderr.log"))) for r in range(2)]
     outs = [open(files[-1]).read() if files else "" for files in logs]
     assert proc.returncode == 0, (proc.stderr[-2000:], outs[0][-3000:], outs[1][-3000:])
@@ -231,9 +234,12 @@ def test_dryrun_and_the_ddp_step_against_the_jax_data_parallel_step(capsys):
     flax-made weights (the port's through ``utils/flax_import.py``), batch
     and draws: the port draws the global batch's (timesteps, x_t) on each
     rank from the run's generator, JAX gets those through the stub SDE
-    ``Injected``.  Bounds of ``test_train_step_matches_jax``: the loss
-    within 1e-4 of itself, the updated parameters and the EMA (a copy on its
-    first call) elementwise within 2 lr."""
+    ``Injected``.  Bounds of ``test_train_step_matches_jax`` (``_hold``):
+    the loss within 1e-4 of itself; each gradient the optimizer stepped on
+    (the port's after DDP's all-reduce, the ranks' mean; JAX's over the
+    sharded batch, kept by ``_keep_grads``) within 2e-4 of its tensor's
+    max|grad|; the updated parameters and the EMA (a copy on its first call)
+    elementwise within 2 lr."""
     batch, lr = 4, dryrun.TRAIN_OPT["lr_G"]
     weights = _flax_weights(11)
     got = dryrun.dryrun_multichip(2, state_dict_from_flax(weights, dryrun.DEPTH))
@@ -245,16 +251,20 @@ def test_dryrun_and_the_ddp_step_against_the_jax_data_parallel_step(capsys):
     jsde = Injected(JaxIRSDE.create(max_sigma=10, T=dryrun.T, schedule="cosine", eps=0.005),
                     jnp.asarray(t.numpy().astype(np.int32)), jnp.asarray(xt.numpy()))
     mesh = make_mesh(jax.devices()[:2])
-    tx = jopt.build_from_options(dryrun.TRAIN_OPT, jlr.build_lr_schedule(dryrun.TRAIN_OPT))
+    tx = optax.chain(_keep_grads(), jopt.build_from_options(dryrun.TRAIN_OPT, jlr.build_lr_schedule(dryrun.TRAIN_OPT)))
     fnet = FlaxUNet(in_nc=3, out_nc=3, nf=dryrun.NF, depth=dryrun.DEPTH)
     state = replicate(jax_create_train_state(unflatten(weights), tx), mesh)
     jlq, jgt = shard_batch((lq.numpy(), gt.numpy()), mesh)
     assert jlq.sharding.spec[0] == "data" and jlq.addressable_shards[0].data.shape[0] == batch // 2
     state, metrics = jax.jit(jtrainer.make_train_step(jsde, fnet.apply, tx))(state, jlq, jgt, jax.random.PRNGKey(0))
     keys = unet_flax_keys(dryrun.DEPTH)
+    want_grads = state_dict_from_flax(flatten(state.opt_state[0]["g"]), keys=keys)
     want_params = state_dict_from_flax(flatten(state.params), keys=keys)
     want_ema = state_dict_from_flax(flatten(state.ema.params), keys=keys)
     assert abs(got["loss"] - float(metrics["loss"])) <= 1e-4 * abs(float(metrics["loss"]))
+    assert sorted(got["grads"]) == sorted(want_grads)
+    for k, g in got["grads"].items():
+        assert want_grads[k].abs().max() > 0 and _rel(g.numpy(), want_grads[k].numpy()) <= 2e-4, k
     for k, v in got["params"].items():
         assert (v - want_params[k]).abs().max().item() <= 2 * lr, k
         assert (got["ema"][k] - want_ema[k]).abs().max().item() <= 2 * lr, k
