@@ -78,6 +78,12 @@ seed or trained here:
   one card (and one NCCL rank a card where there are two or more), held
   against the one-process run; the symbolic deraining artifact loaded over
   two devices (``load_artifact(devices=...)``);
+- tensor parallelism: the DiT-L/2 train YAML through the train entry
+  point with ``train.model_parallel: 2`` under ``torchrun``, two gloo
+  ranks sharing the card, one model group splitting the net (K4 on each
+  rank's 8 heads), its batch cut from 8 to 2; held against the
+  one-process step; and ``dryrun 2`` (ConditionalUNet nf 16 split over two
+  gloo ranks on the card: K1 and K2 at full width on each);
 - the benches: ``bench_train`` (the UNet and the Refusion latent NAFNet
   train steps, img/s/GPU and MFU) and ``bench_refusion`` (the latent
   pipeline at 1024 px, NAFNet and DiT-L/2).
@@ -86,7 +92,8 @@ Phases, each printing its lines and its seconds (the serving phases ops,
 export *, artifacts, serve and bench run where their nets are built: ops
 after phase 3, export deraining after 5, export latent after 7, export
 denoising, artifacts, serve, bench, bench train and bench refusion after
-14; train dp after phase 21's IR-SDE run):
+14; train dp after phase 21's IR-SDE run; train tp and dryrun tp after
+its DiT run):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
@@ -262,7 +269,28 @@ train dp (after phase 21's IR-SDE run, in its directory): the train entry
    parameters after it within 2 lr_G, the later steps' losses within
    DP_LATER_LOSS; each rank exactly the one-process
    step's launches, the ranks equal, rank 0 alone logging the
-   data-parallel line.
+   data-parallel line;
+train tp (after phase 21's DiT run, in its directory, with its last
+   compressor checkpoint): the DiT YAML at batch TP_BATCH first in this
+   process (TP_STEPS steps, no validation, no checkpoint; its losses, step
+   times and step-1 gradients kept on the host), then with
+   ``train.model_parallel: TP_RANKS`` under ``torchrun`` (``--tp-child``,
+   TP_RANKS gloo ranks on the card), cuDNN TF32 off on both sides: rank 0
+   alone logs the mesh, every rank exactly the one-process step's
+   launches (DIT_DEPTH K4 a step on its heads at TP_SITE, float32, each
+   output with a grad_fn), the ranks' losses equal, step 1's loss within
+   TP_LOSS_REL and its gradients assembled from the ranks within
+   TP_GRAD_REL of max|grad| of the one-process step's, the later losses
+   within DP_LATER_LOSS, more than 90% of the parameter bytes split; ms
+   per step on rank 0 against one process, peak memory a rank, parameter
+   bytes a rank; then K4 held at TP_SITE against its plain version and
+   timed beside it, SDPA and the bound;
+dryrun tp: ``dryrun.dryrun_multichip(2)``, two gloo ranks
+   sharing the card as one model group (ConditionalUNet nf 16 split: time
+   and ResBlock MLPs, convolutions at least 64 channels wide), the dry
+   run's checks (the one-process step's loss, gradients within 2e-4 of
+   max|grad|, parameters within 2 lr, each rank the one-process step's
+   launches, K1, K2a and K2b among them).
 
 K1 is also timed over one bf16 forward of each path's score net (phases 3,
 6, 13, 15 and 17: each site from a CUDA graph of 20 calls, beside
@@ -356,7 +384,7 @@ TRAIN_PATHS = {
     "stereo": (("stereo-sr", "train", "refusion.yml"), "stereo", 8, 4, 3, 1),
 }
 LATENT_TRAIN = ("latent", "dit", "bokeh")  # frozen compressor, score net on its latents
-TRAIN_VAL_SAMPLE_T = 25
+TRAIN_VAL_SAMPLE_T = 15
 TRAIN_BIT_EQUAL = ("compressor", "latent", "dit")  # resumed runs held bit-equal to uninterrupted ones
 # the synthetic data by kind: (writer, train images, their side range, the
 # validation images' side range): 128-256 px pairs for the 128 px pixel
@@ -422,6 +450,22 @@ DP_STEPS = 3
 DP_GRAD_REL, DP_LATER_LOSS = 2e-4, 1e-4
 DP_ARTIFACT_BATCHES = (3, 8)
 DP_ARTIFACT_DEVICES = ["cuda:0", "cuda:0"]
+# tensor parallelism (phase train tp): the DiT YAML's first TP_STEPS steps
+# through the train entry point with train.model_parallel TP_RANKS, on
+# TP_RANKS gloo ranks sharing the card (NCCL takes one rank a card), its
+# batch cut from 8 to TP_BATCH (the cut that pays for the two ranks'
+# activation all-reduces through the host: 33.5 MB each at batch 2, four a
+# block and step); K4 then runs on a rank's 8 of the 16 heads (TP_SITE).
+# Step 1 against the one-process step at that batch, rows and generator,
+# cuDNN TF32 off on both sides: the loss within TP_LOSS_REL of itself,
+# each gradient assembled from the ranks within TP_GRAD_REL of its
+# tensor's max|grad| (float32 GEMMs whose sums a row split cuts in two,
+# the halves added by the all-reduce); the later steps' losses within
+# DP_LATER_LOSS (Lion's first update moves an element by lr_G either way
+# where its gradient's sign flips)
+TP_STEPS, TP_BATCH, TP_RANKS = 3, 2, 2
+TP_LOSS_REL, TP_GRAD_REL = 1e-5, 2e-4
+TP_SITE = (TP_BATCH, 4096, 16 // TP_RANKS, 64)
 # the data-parallel artifact against the eager sampler on the whole batch:
 # its blocks run the bf16 chain at other batch sizes, where cuDNN picks
 # other algorithms, so a row rounds otherwise; within one bf16 ulp of
@@ -2278,12 +2322,13 @@ def write_train_data(data):
 
 
 def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, resume=None, plain=False, name=None,
-                     pretrain_l=None):
+                     pretrain_l=None, batch=None, train=None):
     """``opt`` (a train YAML) with its data on the synthetic folders, its
     iteration count and frequencies cut to this run, its validation's
     sampler to ``val_steps`` and, for a latent path, its frozen
     compressor's ``.pth`` (``pretrain_l``, or None: seeded), written to
-    ``path``; ``plain`` the plain path of every net."""
+    ``path``; ``plain`` the plain path of every net; ``batch`` in place of
+    its batch size, ``train`` keys added to its ``train`` section."""
     import copy
 
     import yaml
@@ -2298,7 +2343,9 @@ def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, r
     opt["path"].update(root=root, resume_state=resume)
     if "pretrain_model_L" in opt["path"]:
         opt["path"]["pretrain_model_L"] = pretrain_l
-    opt["train"].update(niter=niter, val_freq=val_freq)
+    opt["train"].update(niter=niter, val_freq=val_freq, **(train or {}))
+    if batch:
+        ds["train"]["batch_size"] = batch
     opt["logger"].update(print_freq=4, save_checkpoint_freq=save_freq)
     if opt.get("sde"):
         opt["sde"]["sample_T"] = val_steps(opt)
@@ -2343,7 +2390,8 @@ def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
     mean) at each step of ``grads_at`` (``grads``, by step); what step
     ``control_at`` begins with (``control``: the task, its batch, the
     generators' states and the parameters; ``block_mean_grads``); per
-    validation its launches and image count."""
+    validation its launches and image count.  A split net's gradients are
+    assembled from its model group (a collective of its ranks)."""
     import copy
 
     import torch
@@ -2373,8 +2421,10 @@ def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
             if state.step in snapshot_at:
                 rec["snapshots"][state.step] = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
             if state.step in grads_at:
-                rec["grads"][state.step] = {k: v.grad.detach().cpu() for k, v in state.net.named_parameters()
-                                            if v.grad is not None}
+                grads = {k: v.grad.detach() for k, v in state.net.named_parameters() if v.grad is not None}
+                if state.layout is not None:
+                    grads = state.layout.whole(grads)
+                rec["grads"][state.step] = {k: v.cpu() for k, v in grads.items()}
             return state, metrics
 
         def validate_rec(self, state, loader, gen, out_dir, at):
@@ -2600,8 +2650,9 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
 # kept, the shadow set's 1440x1920 cut to 720x960, bokeh's to 512-768 px,
 # Flickr1024's pairs to 256-384 px HR; the samplers that run the YAML's
 # sample_T (or T) steps cut to EVAL_SAMPLE_T (the Gaussian denoising YAMLs
-# keep their optimal timestep's ODE steps, DENOISE_STEPS)
-EVAL_SAMPLE_T = 25
+# keep their optimal timestep's ODE steps, DENOISE_STEPS); 15 steps pay,
+# with TRAIN_VAL_SAMPLE_T's, for the tensor-parallel phases
+EVAL_SAMPLE_T = 15
 EVAL_PATHS = {
     ("deblurring", "ir-sde.yml"): ("pairs", 1, (720, 1280), "ir-sde"),
     ("deblurring", "refusion.yml"): ("pairs", 1, (720, 1280), "refusion"),
@@ -3726,6 +3777,180 @@ def train_dp(dev, label, opt, workdir, smi, reference):
     return launches, record
 
 
+# ---------------------------------------------------------------- tensor parallelism
+def tp_child(yml: str, out: str) -> int:
+    """``torchrun ... chip_smoke.py --tp-child <yml> <out>``: one gloo rank
+    of the port's train entry point on a YAML with ``train.model_parallel``
+    (cuDNN TF32 off, as the one-process step it is held against), writing
+    no checkpoint, its steps recorded (``recorded_steps``: launches,
+    milliseconds, loss; step 1's gradients assembled from the model group)
+    and each attention call's K4 site, whether its output carries a
+    grad_fn; the record, with the rank's peak memory and the layout's split
+    share and bytes a rank, goes to ``<out>.<rank>.pt`` (rank 0 alone keeps
+    the gradients)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from image_restoration_sde_tpu_torch import train
+    from image_restoration_sde_tpu_torch.models import dit
+
+    torch.backends.cudnn.allow_tf32 = False
+    sites, attend = [], dit.flash_mha
+
+    def recorded(q, k, v, scale):
+        out_ = attend(q, k, v, scale)
+        sites.append((tuple(q.shape), q.dtype, out_.grad_fn is not None))
+        return out_
+
+    dit.flash_mha = recorded
+    with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
+        state = train.train(yml, "cuda", "gloo")
+    rank = int(os.environ["RANK"])
+    torch.save({"steps": rec["steps"], "grads": rec["grads"][1] if rank == 0 else None, "sites": sites,
+                "peak": torch.cuda.max_memory_allocated(), "share": state.layout.share,
+                "shard_bytes": state.layout.shard_bytes(state.net)}, f"{out}.{rank}.pt")
+    return 0
+
+
+def phase_train_tp(dev, opt, workdir, smi, pretrain_l, stats):
+    """The DiT train YAML (DiT-L/2 at full width, 1024 px crops: 4096
+    tokens; phase 21's compressor as its frozen ``pretrain_model_L``, its
+    synthetic folders) through the train entry point with
+    ``train.model_parallel: TP_RANKS`` under ``torchrun`` (``tp_child``):
+    TP_RANKS gloo ranks sharing the card, one model group splitting the net
+    (qkv by head, so K4 runs on each rank's heads; the MLPs and adaLN
+    modulations), TP_STEPS steps of batch TP_BATCH, no validation, no
+    checkpoint.  Held against the one-process run of the same YAML without
+    the key, run first in this process (its results kept on the host):
+    rank 0 alone logs the mesh; every rank takes exactly the one-process
+    step's launches per step (``train_counts``: DIT_DEPTH K4 on its heads,
+    the frozen compressor's K1/K2) and reports the same losses; every K4
+    call of the ranks at TP_SITE in float32, its output with a grad_fn;
+    step 1's loss within TP_LOSS_REL and its gradients, assembled from the
+    ranks, within TP_GRAD_REL of max|grad| of the one-process step's; the
+    later steps' losses within DP_LATER_LOSS.  Then K4 at TP_SITE against
+    its plain version (``hold_flash_sites``), and its time beside the
+    plain version's, SDPA's and the bound.  Returns the ranks' launches
+    and a record (ms per step on rank 0 against one process, peak memory a
+    rank, the split share and bytes a rank)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_sde_tpu_torch import train
+    from image_restoration_sde_tpu_torch.dryrun import grad_rel
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    label, data = "dit", os.path.join(workdir, "data")
+    root = os.path.join(workdir, f"{label}_tp")
+    os.makedirs(root, exist_ok=True)
+    want, lr = train_counts(label), float(opt["train"]["lr_G"])
+    never = 10 * TP_STEPS
+    one_yml = write_train_yaml(os.path.join(root, "one.yml"), label, opt, root, data, TP_STEPS, never, never,
+                               name=f"{opt['name']}_one", pretrain_l=pretrain_l, batch=TP_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
+        train.train(one_yml, dev)
+    ref_losses, ref_ms = [st[2] for st in rec["steps"]], [st[1] for st in rec["steps"]]
+    ref_grads, ref_peak = rec["grads"][1], torch.cuda.max_memory_allocated()
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    yml = write_train_yaml(os.path.join(root, "tp.yml"), label, opt, root, data, TP_STEPS, never, never,
+                           name=f"{opt['name']}_tp", pretrain_l=pretrain_l, batch=TP_BATCH,
+                           train={"model_parallel": TP_RANKS})
+    out = os.path.join(root, "tp")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                          str(TP_RANKS), os.path.abspath(__file__), "--tp-child", yml, out],
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(run.returncode == 0, f"train tp: torchrun exited {run.returncode}: {run.stderr[-3000:]}")
+    line = f"Tensor parallel: mesh {{'data': 1, 'model': {TP_RANKS}}} (data 1 x model {TP_RANKS})"
+    check(run.stderr.count(line) == 1, f"train tp: rank 0's line {line!r} not logged once")
+    ranks = [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+    launches = {k.symbol: 0 for k in KERNELS}
+    for r, rank in enumerate(ranks):
+        check(len(rank["steps"]) == TP_STEPS, f"train tp rank {r}: {len(rank['steps'])} steps")
+        for i, (grew, _, _) in enumerate(rank["steps"]):
+            check(grew == want, f"train tp rank {r} step {i + 1}: launches {grew}, expected {want}")
+            for sym, c in grew.items():
+                launches[sym] += c
+        check([st[2] for st in rank["steps"]] == [st[2] for st in ranks[0]["steps"]],
+              f"train tp: rank {r}'s losses differ from rank 0's")
+        check(len(rank["sites"]) == TP_STEPS * DIT_DEPTH
+              and all(shape == TP_SITE and dtype == torch.float32 and grad for shape, dtype, grad in rank["sites"]),
+              f"train tp rank {r}: K4 calls {sorted(set(rank['sites']), key=str)}")
+    losses = [st[2] for st in ranks[0]["steps"]]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    check(sorted(ranks[0]["grads"]) == sorted(ref_grads), "train tp: gradients' keys")
+    dgrad = grad_rel(ranks[0]["grads"], ref_grads)
+    del ranks[0]["grads"], ref_grads
+    ms = [st[1] for st in ranks[0]["steps"]]
+    peaks = [rank["peak"] / 2**30 for rank in ranks]
+    share, shard_bytes = ranks[0]["share"], ranks[0]["shard_bytes"]
+    print(f"[train-tp] {TP_RANKS} gloo ranks on one card, mesh {{'data': 1, 'model': {TP_RANKS}}}: DiT-L/2 "
+          f"{TP_STEPS} steps of batch {TP_BATCH} at 1024px (4096 tokens), float32, cuDNN TF32 off; losses {losses} "
+          f"against {ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}; bounds "
+          f"{TP_LOSS_REL}, then {DP_LATER_LOSS}); step 1's gradients assembled from the ranks {dgrad:.3g} of "
+          f"max|grad| from one process's (bound {TP_GRAD_REL}); launches per rank and step {want}; K4 on each "
+          f"rank's heads at {TP_SITE} float32 with a grad_fn, {DIT_DEPTH} a step; card: {smi}")
+    print(f"[train-tp] ms by step (rank 0) {', '.join(f'{x:.1f}' for x in ms)} against "
+          f"{', '.join(f'{x:.1f}' for x in ref_ms)} in one process; peak memory a rank "
+          f"{', '.join(f'{p:.2f}' for p in peaks)} GiB (one process {ref_peak / 2**30:.2f}); {share:.4%} of the "
+          f"parameter bytes split, {shard_bytes / 2**20:.1f} MiB of parameters a rank; torchrun {seconds:.1f} s")
+    check(loss_rel[0] <= TP_LOSS_REL and dgrad <= TP_GRAD_REL, "train tp: the first step differs")
+    check(all(x <= DP_LATER_LOSS for x in loss_rel[1:]), "train tp: a later step's loss differs")
+    check(share > 0.9, f"train tp: {share:.2%} of DiT-L/2's parameter bytes split")
+
+    hold_flash_sites("train-tp", dev, [(TP_SITE, torch.float32)], stats)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    q, k, v = (torch.randn(TP_SITE, generator=gen, device=dev) * 1.5 for _ in range(3))
+    scale = TP_SITE[-1] ** -0.5
+    k_ms = cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=10)
+    p_ms = cuda_ms(lambda: FA.flash_mha_plain(q, k, v, scale), reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=10)
+    nbytes, flops, _ = flash_work(TP_SITE, 4)
+    b_ms, by = bound(nbytes, flops, "float32")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    print(f"[train-tp] K4 float32 {TP_SITE}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, least "
+          f"{b_ms:.4f} ms ({by}); card: {smi}")
+    stats[FLASH_ATTN]["train_tp"] = {"shape": list(TP_SITE), "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                     "bound_ms": b_ms, "bound_by": by, "launches_per_rank_step": DIT_DEPTH}
+    record = {"ranks": TP_RANKS, "batch": TP_BATCH, "ms_per_step": ms, "one_process_ms_per_step": ref_ms,
+              "loss_rel": loss_rel, "grad_rel": dgrad, "peak_memory_gib": peaks,
+              "one_process_peak_memory_gib": ref_peak / 2**30, "split_share": share,
+              "shard_bytes": shard_bytes, "seconds": seconds, "card": smi}
+    return launches, record
+
+
+def phase_dryrun_tp(dev, smi):
+    """``dryrun 2`` (what ``python -m image_restoration_sde_tpu_torch.dryrun
+    2`` runs here): two gloo ranks sharing the card as one model group
+    (``model_parallel`` 2), one train step of ConditionalUNet nf 16 split
+    between them (its channel LayerNorms and linear attention at full width
+    on each rank: K1, K2a and K2b launch on both), held by the dry run
+    against the one-process step on the card, each rank exactly its
+    launches.  Returns the ranks' launches."""
+    from image_restoration_sde_tpu_torch import dryrun
+    from image_restoration_sde_tpu_torch.ops import LA_APPLY, LA_CTX, LAYERNORM
+
+    got = dryrun.dryrun_multichip(2)
+    grew = got["launches"]
+    check(all(grew[k.symbol] > 0 for k in (LAYERNORM, LA_CTX, LA_APPLY)), f"dryrun tp: launches {grew}")
+    print(f"[dryrun-tp] 2 gloo ranks on one card, mesh {{'data': 1, 'model': 2}}, {len(got['split'])} parameters "
+          f"split; launches a rank {grew}; card: {smi}")
+    return {k: 2 * n for k, n in grew.items()}
+
+
 # ---------------------------------------------------------------- the benches
 @contextlib.contextmanager
 def recorded_flash_sites():
@@ -3982,6 +4207,10 @@ def main() -> int:
                 launches["train_dp"], train_record["dp"] = timed("train dp", phase_train_dp, dev, label, o,
                                                                  workdir, smi, keep)
                 del keep
+            if label == "dit":
+                launches["train_tp"], train_record["tp"] = timed("train tp", phase_train_tp, dev, o, workdir, smi,
+                                                                 trained["compressor"], stats)
+                launches["dryrun_tp"] = timed("dryrun tp", phase_dryrun_tp, dev, smi)
         print(f"[train] {json.dumps(train_record)}")
         eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats)
     launches.update(eval_launches)
@@ -4003,6 +4232,8 @@ def main() -> int:
             report[-1]["by_path"] = stats[k]["by_path"]
         if "train" in stats[k]:  # K4 at the DiT-L/2 train shape: forward, streamed backward, sweep
             report[-1]["train"] = stats[k]["train"]
+        if "train_tp" in stats[k]:  # K4 on a tensor-parallel rank's heads of the DiT-L/2 train step
+            report[-1]["train_tp"] = stats[k]["train_tp"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
           f"of 20 calls (event_ms: one launch between CUDA events, the earlier figure); K3 one call at "
@@ -4022,4 +4253,6 @@ if __name__ == "__main__":
         sys.exit(artifact_child(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(dp_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -1,8 +1,9 @@
 """Input pipeline: sharded, seeded, thread-prefetched batch iterators.
 
 A copy of ``image_restoration_sde_tpu/data/loader.py`` with three changes:
-the process index and count come from ``torch.distributed`` when it is
-initialised (else 0 of 1); a process takes a contiguous block of each
+the process index and count are the data axis's (``parallel.dist``:
+``torch.distributed``'s rank and world size when it is initialised, else 0
+of 1; under tensor parallelism the ranks of a model group share one); a process takes a contiguous block of each
 global batch's rows, not every N-th sample; and a train loader can start at
 any step (``start_step``), so a resumed run reads the batches an
 uninterrupted run would have read.
@@ -141,13 +142,13 @@ class EvalLoader:
 
 
 def process_index_and_count() -> tuple:
-    """(rank, world size) of ``torch.distributed`` when it is initialised,
-    else (0, 1)."""
-    import torch.distributed as dist
+    """(index, length) of this process on the data axis (``parallel.dist``:
+    the rank and world size of ``torch.distributed`` when it is initialised
+    and no tensor-parallel layout is set, else (0, 1)); the ranks of a model
+    group load the same rows."""
+    from ..parallel import dist
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return dist.data_rank(), dist.data_size()
 
 
 def create_dataloader(dataset, dataset_opt, opt=None, seed: int = 0, ratio: int = 1, start_step: int = 0):

@@ -19,6 +19,14 @@ in the compute ``dtype``, except the timestep MLP, which computes in
 float32 on float32 copies of its weights (a dtype-less flax Dense), also
 when a caller has cast the parameters (``sampling.make_noise_fn``).
 ``forward`` takes and returns NHWC float32.
+
+Tensor parallelism (:meth:`DiT.tensor_parallel_plan`, Megatron's splits;
+``parallel/tensor.py``): each block's attention by head (``qkv`` by column
+inside each of q, k and v, so K4 runs unchanged on each rank's heads;
+``proj`` by row), its MLP column then row, its adaLN modulation by column
+inside each of its 6 chunks and gathered; the timestep MLP column then
+row, the final layer's modulation as the blocks'.  The patch embedding and
+the final linear stay whole.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_mha, flash_mha_plain
+from ..parallel.tensor import COLUMN, ROW, Split
 from .modules import Conv2d, Linear, check_image_size
 
 MLP_RATIO = 4
@@ -54,21 +63,23 @@ def _token_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """timm-style: fused qkv (with bias), per-head scaling, output proj."""
+    """timm-style: fused qkv (with bias), per-head scaling, output proj.  The
+    heads are as many as ``qkv``'s output holds: all of them, or a model
+    rank's under tensor parallelism."""
 
     def __init__(self, hidden: int, heads: int, plain: bool = False):
         super().__init__()
-        self.heads, self.plain = heads, plain
+        self.heads, self.head_dim, self.plain = heads, hidden // heads, plain
         self.qkv = Linear(hidden, 3 * hidden)
         self.proj = Linear(hidden, hidden)
 
     def forward(self, x):
-        B, N, D = x.shape
-        dh = D // self.heads
+        B, N, _ = x.shape
+        dh = self.head_dim
         # q, k, v are strided views of the packed product: no copies
-        q, k, v = self.qkv(x).view(B, N, 3, self.heads, dh).unbind(2)
+        q, k, v = self.qkv(x).view(B, N, 3, -1, dh).unbind(2)
         attn = flash_mha_plain if self.plain else flash_mha
-        return self.proj(attn(q, k, v, dh**-0.5).reshape(B, N, D))
+        return self.proj(attn(q, k, v, dh**-0.5).reshape(B, N, -1))
 
 
 class Mlp(nn.Module):
@@ -110,12 +121,11 @@ class FinalLayer(nn.Module):
 class TimestepEmbedder(nn.Module):
     def __init__(self, hidden: int):
         super().__init__()
-        self.mlp = nn.Sequential(nn.Linear(FREQ_DIM, hidden), nn.SiLU(), nn.Linear(hidden, hidden))
+        self.mlp = nn.Sequential(Linear(FREQ_DIM, hidden), nn.SiLU(), Linear(hidden, hidden))
 
     def forward(self, t):
-        fc1, fc2 = self.mlp[0], self.mlp[2]
-        h = F.linear(glide_timestep_embedding(t), fc1.weight.float(), fc1.bias.float())
-        return F.linear(F.silu(h), fc2.weight.float(), fc2.bias.float())
+        # float32 input: each layer computes on float32 copies of its weights
+        return self.mlp(glide_timestep_embedding(t))
 
 
 class PatchEmbed(nn.Module):
@@ -160,6 +170,21 @@ class DiT(nn.Module):
 
         x = x.reshape(B, gh, gw, p, p, out_ch).permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, out_ch)
         return x[:, :H, :W, :].float()
+
+    def tensor_parallel_plan(self, size: int) -> dict:
+        """The Megatron splits over ``size`` model ranks (module name ->
+        ``Split``); the heads must divide by ``size``."""
+        heads = self.blocks[0].attn.heads if len(self.blocks) else size
+        if heads % size:
+            raise ValueError(f"tensor parallelism: DiT's {heads} heads do not divide by model_parallel={size}")
+        plan = {"t_embedder.mlp.0": Split(COLUMN), "t_embedder.mlp.2": Split(ROW),
+                "final_layer.adaLN_modulation.1": Split(COLUMN, 2, gather=True)}
+        for i in range(len(self.blocks)):
+            b = f"blocks.{i}"
+            plan.update({f"{b}.adaLN_modulation.1": Split(COLUMN, 6, gather=True),
+                         f"{b}.attn.qkv": Split(COLUMN, 3), f"{b}.attn.proj": Split(ROW),
+                         f"{b}.mlp.fc1": Split(COLUMN), f"{b}.mlp.fc2": Split(ROW)})
+        return plan
 
 
 def _sized(hidden: int, depth: int, heads: int, patch: int):

@@ -51,6 +51,23 @@ class SinusoidalPosEmb(nn.Module):
         return sinusoidal_pos_emb(t, self.dim)
 
 
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Fourier features of the timestep on ``dim // 2`` frequencies
+    ``weights`` (drawn N(0, 1); learned, or frozen where ``is_random``):
+    ``[t, sin(2 pi t w), cos(2 pi t w)]``, ``dim + 1`` channels, float32."""
+
+    def __init__(self, dim: int, is_random: bool = False):
+        super().__init__()
+        if dim % 2:
+            raise ValueError(f"RandomOrLearnedSinusoidalPosEmb: dim {dim} is odd")
+        self.weights = nn.Parameter(torch.randn(dim // 2), requires_grad=not is_random)
+
+    def forward(self, t):
+        t = t.float()[:, None]
+        freqs = t * self.weights.float()[None, :] * 2 * math.pi
+        return torch.cat([t, freqs.sin(), freqs.cos()], dim=-1)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 parameters are cast to the input's dtype."""
 

@@ -12,7 +12,19 @@ reflect-padded at the bottom/right to a multiple of 2^depth and cropped back.
 
 ``forward`` takes and returns NHWC float32, like the flax module.  Inside,
 activations are NCHW in ``channels_last`` memory in the compute ``dtype``;
-parameters stay float32.
+parameters stay float32.  ``random_or_learned_sinusoidal_cond`` replaces
+the sinusoidal time embedding by learned (or, with
+``random_fourier_features``, frozen random) Fourier features of
+``learned_sinusoidal_dim`` frequencies, the time MLP's input then
+``learned_sinusoidal_dim + 1`` wide.
+
+Tensor parallelism (:meth:`ConditionalUNet.tensor_parallel_plan`;
+``parallel/tensor.py``): the time MLP column then row, each ResBlock's
+scale/shift MLP by column inside each half and gathered, and every
+convolution at least TP_MIN_CHANNELS channels wide at its input by input
+channel (the partial convolutions all-reduced).  Activations stay whole
+between those layers, so the channel LayerNorms (K1) and the packed linear
+attention (K2, four heads) run at full width on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.tensor import COLUMN, ROW, Split
 from .modules import (
     Attention,
     Conv2d,
@@ -29,11 +42,16 @@ from .modules import (
     Linear,
     LinearAttention,
     PreNormResidual,
+    RandomOrLearnedSinusoidalPosEmb,
     ResBlock,
     SinusoidalPosEmb,
     Upsample,
     check_image_size,
 )
+
+# the narrowest input a convolution is split at under tensor parallelism
+# (the JAX rule's min_last, which it applies to the output axis)
+TP_MIN_CHANNELS = 64
 
 
 class ConditionalUNet(nn.Module):
@@ -44,6 +62,9 @@ class ConditionalUNet(nn.Module):
         nf: int = 64,
         depth: int = 4,
         conditional: bool = True,
+        random_or_learned_sinusoidal_cond: bool = False,
+        learned_sinusoidal_dim: int = 16,
+        random_fourier_features: bool = False,
         dtype: torch.dtype = torch.float32,
         plain: bool = False,
     ):
@@ -56,9 +77,12 @@ class ConditionalUNet(nn.Module):
             return PreNormResidual(dim, LinearAttention(dim, plain=plain), plain=plain)
 
         self.init_conv = Conv2d(in_nc * 2 if conditional else in_nc, nf, 7, padding=3, bias=False)
-        self.time_mlp = nn.Sequential(
-            SinusoidalPosEmb(nf), Linear(nf, time_dim), nn.GELU(), Linear(time_dim, time_dim)
-        )
+        if random_or_learned_sinusoidal_cond:
+            pos_emb, fourier_dim = (RandomOrLearnedSinusoidalPosEmb(learned_sinusoidal_dim, random_fourier_features),
+                                    learned_sinusoidal_dim + 1)
+        else:
+            pos_emb, fourier_dim = SinusoidalPosEmb(nf), nf
+        self.time_mlp = nn.Sequential(pos_emb, Linear(fourier_dim, time_dim), nn.GELU(), Linear(time_dim, time_dim))
 
         self.downs = nn.ModuleList()
         self.ups = nn.ModuleList()
@@ -123,6 +147,17 @@ class ConditionalUNet(nn.Module):
         x = self.final_res_block(torch.cat([x, stem], dim=1), t)
         x = self.final_conv(x)
         return x.permute(0, 2, 3, 1)[:, :H, :W, :].float()
+
+    def tensor_parallel_plan(self, size: int) -> dict:
+        """The splits over ``size`` model ranks (module name -> ``Split``);
+        the Fourier features' ``weights`` stay whole."""
+        plan = {"time_mlp.1": Split(COLUMN), "time_mlp.3": Split(ROW)}
+        for name, m in self.named_modules():
+            if isinstance(m, ResBlock) and m.mlp is not None:
+                plan[f"{name}.mlp.1"] = Split(COLUMN, 2, gather=True)  # scale half, shift half
+            elif isinstance(m, nn.Conv2d) and m.in_channels >= TP_MIN_CHANNELS and m.in_channels % size == 0:
+                plan[name] = Split(ROW)
+        return plan
 
 
 def init_params_(net: nn.Module, generator: torch.Generator) -> nn.Module:

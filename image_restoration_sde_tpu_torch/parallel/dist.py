@@ -13,6 +13,13 @@ contiguous block of the global batch's rows, and DDP averages the gradients.
 them.  Without them a process is alone: no process group, rank 0 of 1.
 NCCL joins ranks on the card (one rank a card), gloo on the CPU; gloo also
 all-reduces CUDA tensors, so ranks may share a card over gloo.
+
+Under tensor parallelism (``parallel/mesh.py``) the ranks of one model
+group hold one copy of the net between them: they load the same rows, draw
+the same noise and report the same loss.  So the batch's rows
+(:func:`rows`, :func:`shard`) and the mean of a metric (:func:`mean`) go
+by the *data* axis of the layout :func:`use_mesh` set; without one, every
+rank is a data rank.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ import torch.distributed as tdist
 # validate or save alone while the others wait at a barrier
 TIMEOUT = datetime.timedelta(hours=1)
 BACKENDS = ("nccl", "gloo")
+# the (data, model) layout of parallel.mesh.make_mesh; None: every rank a
+# data rank of the whole world
+_MESH = None
 
 
 def launched() -> bool:
@@ -54,20 +64,37 @@ def process_is_primary() -> bool:
     return rank() == 0
 
 
+def use_mesh(mesh) -> None:
+    """Make ``mesh`` (a ``parallel.mesh.Mesh``, or None) this process's
+    layout: its data axis sets the rows and the means below."""
+    global _MESH
+    _MESH = mesh
+
+
+def data_rank() -> int:
+    """This rank's index on the data axis (its rank without a mesh)."""
+    return rank() if _MESH is None else _MESH.data_rank
+
+
+def data_size() -> int:
+    """The data axis's length: the copies of the net that split the batch."""
+    return world_size() if _MESH is None else _MESH.data_size
+
+
 def rows(global_batch: int) -> slice:
     """This rank's rows of a global batch: the contiguous block
-    ``r * G / N .. (r + 1) * G / N``.  Raises where ``G`` does not divide by
-    the world size."""
-    n = world_size()
+    ``d * G / D .. (d + 1) * G / D`` of its data index d of D.  Raises where
+    ``G`` does not divide by D."""
+    n, d = data_size(), data_rank()
     if global_batch % n:
         raise ValueError(f"the global batch {global_batch} does not divide by {n} processes")
     local = global_batch // n
-    return slice(rank() * local, (rank() + 1) * local)
+    return slice(d * local, (d + 1) * local)
 
 
 def shard() -> Optional[tuple]:
-    """``(rank, world size)`` inside a process group, else None."""
-    return (rank(), world_size()) if is_initialized() else None
+    """``(data rank, data size)`` inside a process group, else None."""
+    return (data_rank(), data_size()) if is_initialized() else None
 
 
 def barrier() -> None:
@@ -115,17 +142,19 @@ def init(device: torch.device, backend: Optional[str] = None) -> torch.device:
 
 
 def shutdown() -> None:
+    use_mesh(None)
     if is_initialized():
         tdist.destroy_process_group()
 
 
 def mean(value: torch.Tensor) -> torch.Tensor:
-    """``value`` averaged over the ranks (itself alone in one process)."""
-    if not is_initialized():
+    """``value`` averaged over the data axis (itself alone in one process;
+    the ranks of a model group hold the same value)."""
+    if not is_initialized() or data_size() == 1:
         return value
     total = value.detach().clone()
-    tdist.all_reduce(total)
-    return total / world_size()
+    tdist.all_reduce(total, group=None if _MESH is None else _MESH.data_group)
+    return total / data_size()
 
 
 def broadcast(obj):

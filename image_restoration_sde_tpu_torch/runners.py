@@ -30,6 +30,12 @@ compressor's, unless ``path.pretrain_model_L`` names a ``.pth`` (a
 compressor run's ``{iter}_G.pth`` or a reference file), which it loads on
 every start, resumed ones included: the compressor is not part of the train
 state.
+
+Under tensor parallelism (a ``mesh`` whose model axis is longer than 1)
+the trained net is split over its model group (``training.trainer.
+tensor_parallel``; DiT and ConditionalUNet have plans, the other nets
+raise) before the step goes through DDP over the data group; a ``.pth``
+loads whole and each rank keeps its slice, and ``params_trees`` is whole.
 """
 
 from __future__ import annotations
@@ -47,9 +53,9 @@ from .sampling import make_denoising_sampler, make_restoration_sampler, pad_to_b
 from .sde import DenoisingSDE, IRSDE
 from .training import build_from_options, build_lr_schedule, create_train_state, make_compressor_train_step, \
     make_denoising_train_step, make_latent_sampler, make_latent_train_step, make_train_step
-from .training.checkpoint import ema_state_dict, load_params
+from .training.checkpoint import ema_state_dict, load_params, whole_state
 from .training.latent import CrossDecode
-from .training.trainer import Remat, data_parallel
+from .training.trainer import Remat, data_parallel, tensor_parallel
 from .utils import metrics, options
 from .utils.degradations import add_noise, mask_to, upscale
 from .utils.img_utils import split_eyes, tensor2img
@@ -81,18 +87,20 @@ def effective_distortion(opt) -> str:
     return opt["distortion"] or "paired"
 
 
-def build_task(opt, seed: int, device):
+def build_task(opt, seed: int, device, mesh=None):
+    """The YAML's task on ``device``; ``mesh`` (``parallel.mesh.make_mesh``'s)
+    splits its net over the model axis where that is longer than 1."""
     model_type = opt["model"]
     if model_type == "denoising" and effective_distortion(opt) == "denoising":
-        return GaussianDenoisingTask(opt, seed, device)
+        return GaussianDenoisingTask(opt, seed, device, mesh)
     if model_type in ("denoising", "sde"):
-        return PixelDiffusionTask(opt, seed, device)
+        return PixelDiffusionTask(opt, seed, device, mesh)
     if model_type == "latent":
-        return CompressorTask(opt, seed, device)
+        return CompressorTask(opt, seed, device, mesh)
     if model_type == "latent_denoising":
         if _dataset_mode(opt).startswith("Bokeh"):
-            return BokehLatentDiffusionTask(opt, seed, device)
-        return LatentDiffusionTask(opt, seed, device)
+            return BokehLatentDiffusionTask(opt, seed, device, mesh)
+        return LatentDiffusionTask(opt, seed, device, mesh)
     raise NotImplementedError(f"model type {model_type!r}")
 
 
@@ -128,7 +136,7 @@ def _sampler_options(sde_opt) -> dict:
 class _Base:
     keeps_ema = True  # whether the train state keeps an EMA of the net
 
-    def __init__(self, opt, seed: int, device, which: str, setting: dict):
+    def __init__(self, opt, seed: int, device, which: str, setting: dict, mesh=None):
         self.opt, self.device = opt, torch.device(device)
         self.deg_rng = np.random.default_rng(seed + 77)
         # test-time configs carry no train: section; a zero-lr placeholder
@@ -140,6 +148,8 @@ class _Base:
         self.net = _seeded_network(which, setting, seed).to(self.device).train()
         optimizer = build_from_options(self.train_opt, self.net.parameters(), self.lr_schedule)
         self.state = create_train_state(self.net, optimizer, ema=self.keeps_ema)
+        if mesh is not None and mesh.model_size > 1:  # self.net split in place
+            tensor_parallel(self.state, mesh)
         if dist.is_initialized():  # under torchrun: the step through DDP; self.net stays bare
             data_parallel(self.state, self._step_module())
 
@@ -161,20 +171,27 @@ class _Base:
         return sum(p.numel() for p in self.net.parameters())
 
     def params_trees(self, state) -> Dict[str, dict]:
-        trees = {"G": state.net.state_dict()}
+        """label -> whole ``state_dict`` (under tensor parallelism a
+        collective of the model group)."""
+        whole = whole_state(state)
+        trees = {"G": whole["net"]}
         if state.ema is not None:
-            trees["EMA"] = ema_state_dict(state)
+            trees["EMA"] = ema_state_dict(state, whole)
         return trees
 
-    def _load(self, net, path: str) -> None:
-        net.load_state_dict(load_params(path), strict=self.opt["path"]["strict_load"] is not False)
+    def _load(self, net, path: str, layout=None) -> None:
+        """A whole ``.pth`` into ``net``; a split net (``layout``) keeps its
+        slices."""
+        sd = load_params(path)
+        net.load_state_dict(sd if layout is None else layout.shard(sd),
+                            strict=self.opt["path"]["strict_load"] is not False)
 
     def maybe_load_pretrained(self, state) -> None:
         """Load ``path.pretrain_model_G`` into the net.  On resume,
         ``options.check_resume`` points it at the resumed iteration's
         ``{iter}_G.pth`` (the reference's semantics)."""
         if self.opt["path"]["pretrain_model_G"]:
-            self._load(state.net, self.opt["path"]["pretrain_model_G"])
+            self._load(state.net, self.opt["path"]["pretrain_model_G"], state.layout)
 
     def extra_state(self) -> dict:
         """What a checkpoint keeps of the runner: its degradation generator."""
@@ -209,7 +226,8 @@ class _Base:
     def validate(self, state, loader, gen: torch.Generator, out_dir, step) -> Dict[str, float]:
         """PSNR of ``infer`` (every image drawing from ``gen``) against the
         GT over the first ``max_images`` validation batches, the net in eval
-        mode."""
+        mode; rank 0 alone saves images (a split net's model group samples
+        together)."""
         max_val = self.opt["datasets"]["val"]["max_images"] or 16
         avg_psnr, n = 0.0, 0
         self.net.eval()
@@ -221,7 +239,8 @@ class _Base:
                 out_img = tensor2img(out[0])
                 avg_psnr += metrics.calculate_psnr(out_img, tensor2img(vb["GT"][0]))
                 n += 1
-                self._save_val_images(out_img, out_dir, step, i)
+                if dist.process_is_primary():
+                    self._save_val_images(out_img, out_dir, step, i)
         finally:
             self.net.train()
         return {"psnr": avg_psnr / max(1, n)}
@@ -230,13 +249,13 @@ class _Base:
 class PixelDiffusionTask(_Base):
     """IR-SDE on pixels (ref DenoisingModel, denoising_model.py:25-199)."""
 
-    def __init__(self, opt, seed: int, device):
+    def __init__(self, opt, seed: int, device, mesh=None):
         which, setting = options.network_setting(opt)
         if _dataset_mode(opt).startswith("Ste") and which == "ConditionalNAFNet":
             # the stereo-sr task dir ships its own ConditionalNAFNet with
             # SCAM fusion under the same class name (SURVEY §2.2)
             which = "StereoConditionalNAFNet"
-        super().__init__(opt, seed, device, which, setting)
+        super().__init__(opt, seed, device, which, setting, mesh)
         self.sde = _make_irsde(opt["sde"], self.device)
         self._train_step = make_train_step(self.sde, **self._loss_kwargs())
         self.sampler = make_restoration_sampler(self.sde, self.net, **_sampler_options(opt["sde"]))
@@ -276,9 +295,9 @@ class GaussianDenoisingTask(_Base):
     noisy state is the input; sigma^2-weighted loss; validation is the
     reverse ODE from the optimal timestep for the degradation sigma."""
 
-    def __init__(self, opt, seed: int, device):
+    def __init__(self, opt, seed: int, device, mesh=None):
         which, setting = options.network_setting(opt)
-        super().__init__(opt, seed, device, which, {**setting, "conditional": False})
+        super().__init__(opt, seed, device, which, {**setting, "conditional": False}, mesh)
         sde_opt = opt["sde"]
         self.sde = DenoisingSDE.create(max_sigma=sde_opt["max_sigma"], T=int(sde_opt["T"]),
                                        schedule=sde_opt["schedule"], device=self.device)
@@ -311,9 +330,9 @@ class CompressorTask(_Base):
 
     keeps_ema = False
 
-    def __init__(self, opt, seed: int, device):
+    def __init__(self, opt, seed: int, device, mesh=None):
         which, setting = options.network_setting(opt, "network_L" if opt["network_L"] else "network_G")
-        super().__init__(opt, seed, device, which, setting)
+        super().__init__(opt, seed, device, which, setting, mesh)
         t = self.train_opt
         self._train_step = make_compressor_train_step(loss_type=t["loss_type"] or "l1",
                                                       weight=float(t["weight"] or 1.0))
@@ -329,7 +348,7 @@ class CompressorTask(_Base):
         if path["resume_state"]:
             load = path["pretrain_model_G"]
         if load:
-            self._load(state.net, load)
+            self._load(state.net, load, state.layout)
 
     def _step_module(self):
         return CrossDecode(self.net)
@@ -353,9 +372,9 @@ class LatentDiffusionTask(_Base):
     ``network_L`` (ref latent_denoising_model.py:26-236); validation through
     the latent sampler."""
 
-    def __init__(self, opt, seed: int, device):
+    def __init__(self, opt, seed: int, device, mesh=None):
         which, setting = self._score_network(opt)
-        super().__init__(opt, seed, device, which, setting)
+        super().__init__(opt, seed, device, which, setting, mesh)
         which_l, setting_l = options.network_setting(opt, "network_L")
         self.compressor = _seeded_network(which_l, setting_l, seed + 1).to(self.device)
         self.sde = _make_irsde(opt["sde"], self.device)

@@ -20,6 +20,17 @@ each of N processes (one a card; NCCL on the card, gloo on the CPU, or
 the YAML's global batch through DDP, and the run takes the one-process
 steps at the global batch.  Rank 0 alone logs, validates (on the bare net,
 while the others wait) and writes checkpoints; every rank resumes.
+
+Tensor parallelism: ``train.model_parallel: M`` in the YAML (or the
+environment's ``IRSDE_TP=M``) lays the N ranks out as a mesh of N / M data
+rows by M model ranks (``parallel.mesh``); the M ranks of a row split the
+net between them (DiT and ConditionalUNet; the other nets raise), load the
+same rows and draw the same noise, and DDP averages over the rows.  Rank
+0's model group validates together (the split net's forward is a
+collective), and assembles the whole tensors that rank 0 writes; a
+checkpoint resumes at any layout.  Ranks may share a card over gloo:
+
+    torchrun --nproc_per_node 2 -m image_restoration_sde_tpu_torch.train -opt=<yml> --dist-backend gloo
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 
 from .data import create_dataloader, create_dataset
 from .parallel import dist
+from .parallel.mesh import make_mesh
 from .runners import build_task, resolve_device
 from .sde import rng
 from .training.checkpoint import load_training_state, save_checkpoint
@@ -55,6 +67,7 @@ def train(opt_path: str, device="cuda", backend: Optional[str] = None):
     try:
         return _train(opt_path, device)
     finally:
+        dist.use_mesh(None)
         if joined:
             dist.shutdown()
 
@@ -90,9 +103,14 @@ def _train(opt_path: str, device: torch.device):
     random.seed(seed)
 
     # ---------------------------------------------------------------- task
-    task = build_task(opt, seed, device)
+    mesh = make_mesh(options.model_parallel(opt))
+    task = build_task(opt, seed, device, mesh)
     logger.info(f"Task {type(task).__name__}: {task.n_params():,d} parameters")
     state = task.state
+    if state.layout is not None:
+        logger.info(f"Tensor parallel: mesh {mesh.shape} (data {mesh.data_size} x model {mesh.model_size}); "
+                    f"{state.layout.share:.1%} of the parameter bytes split, "
+                    f"{state.layout.shard_bytes(state.net) / 2**20:.1f} MiB of parameters a rank")
     task.maybe_load_pretrained(state)
     gen = rng.generator(seed, device)  # the train step's draws
     start_epoch, current_step = 0, 0
@@ -145,7 +163,7 @@ def _train(opt_path: str, device: torch.device):
             if current_step % print_freq == 0:
                 loss = float(train_metrics["loss"])
                 now = time.perf_counter()
-                bsz = len(next(iter(batch.values()))) * dist.world_size()
+                bsz = len(next(iter(batch.values()))) * dist.data_size()
                 ips = (current_step - steps_last) * bsz / (now - t_last)
                 t_last, steps_last = now, current_step
                 lr = float(task.lr_schedule(current_step))
@@ -156,12 +174,14 @@ def _train(opt_path: str, device: torch.device):
                     tb.add_scalar("img_per_sec", ips, current_step)
 
             if val_loader is not None and current_step % val_freq == 0:
-                # rank 0 alone, on the bare net (no collective); the others
-                # wait, then take its degradation generator, which the
-                # validation drew from as one process's would
-                if primary:
+                # rank 0 alone, on the bare net (with the rest of its model
+                # group where the net is split: its forward is theirs); the
+                # others wait, then take its degradation generator, which
+                # the validation drew from as one process's would
+                if dist.data_rank() == 0:
                     vm = task.validate(state, val_loader, rng.generator(seed + current_step, device),
                                        opt["path"]["val_images"], current_step)
+                if primary:
                     if vm["psnr"] > best_psnr:
                         best_psnr, best_iter = vm["psnr"], current_step
                     logger_val.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, psnr: {vm['psnr']:.6f}, "

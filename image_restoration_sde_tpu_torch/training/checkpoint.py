@@ -16,7 +16,12 @@ save point writes
 A run resumed from ``{iter}.state`` (with ``{iter}_G.pth`` loaded into the
 net) continues as the uninterrupted run would.  Under data parallelism rank
 0 writes (every rank holds the same state) and every rank loads, so a
-checkpoint does not depend on the world size it was written at.
+checkpoint does not depend on the world size it was written at.  Under
+tensor parallelism (``state.layout``) rank 0's model group assembles the
+whole tensors (parameters, EMA, the optimizer's moments) and rank 0 writes
+them in the same key space; every rank reads the whole file and keeps its
+slice.  So checkpoints are layout-portable: one process's save resumes a
+split run and back.
 """
 
 from __future__ import annotations
@@ -35,9 +40,42 @@ def _cpu(sd: dict) -> dict:
     return {k: v.detach().cpu() for k, v in sd.items()}
 
 
-def ema_state_dict(state: TrainState) -> dict:
-    """The net's ``state_dict`` with the EMA's parameters in place of its own."""
-    return {k: state.ema.params.get(k, v) for k, v in state.net.state_dict().items()}
+def _optimizer_tensors(state: TrainState, sd: dict, convert) -> dict:
+    """The optimizer ``state_dict`` ``sd`` with its per-parameter tensors (the
+    moments, the accumulated gradients) converted by ``convert`` (``{name:
+    tensor} -> {name: tensor}``, a ``Layout``'s ``shard`` or ``whole``), the
+    step counts as they are.  The optimizer holds the net's parameters in
+    ``named_parameters``' order; the conversions go in one order on every
+    rank."""
+    names = [n for n, _ in state.net.named_parameters()]
+    per_param = {i: dict(st) for i, st in sd["inner"]["state"].items()}
+    for key in sorted({k for st in per_param.values() for k, v in st.items() if torch.is_tensor(v) and v.dim()}):
+        held = [i for i, st in per_param.items() if key in st]
+        converted = convert({names[i]: per_param[i][key] for i in held})
+        for i in held:
+            per_param[i][key] = converted[names[i]]
+    acc = None if sd["acc"] is None else list(convert(dict(zip(names, sd["acc"]))).values())
+    return {**sd, "inner": {**sd["inner"], "state": per_param}, "acc": acc}
+
+
+def whole_state(state: TrainState) -> dict:
+    """The train state's tensors in the whole (reference) key space: the
+    net's ``state_dict`` (``net``), the EMA's parameters (``ema``, None
+    without an EMA) and the optimizer's ``state_dict`` (``optimizer``).
+    Under tensor parallelism assembled from the model group: each of its
+    ranks calls this."""
+    layout = state.layout
+    whole = (lambda d: d) if layout is None else layout.whole
+    optimizer = state.optimizer.state_dict()
+    return {"net": whole(state.net.state_dict()), "ema": None if state.ema is None else whole(state.ema.params),
+            "optimizer": optimizer if layout is None else _optimizer_tensors(state, optimizer, whole)}
+
+
+def ema_state_dict(state: TrainState, whole: Optional[dict] = None) -> dict:
+    """The net's whole ``state_dict`` with the EMA's parameters in place of
+    its own (from ``whole``, :func:`whole_state`'s, where given)."""
+    whole = whole or whole_state(state)
+    return {k: whole["ema"].get(k, v) for k, v in whole["net"].items()}
 
 
 def save_params(models_dir: str, state_dict: dict, label: str) -> str:
@@ -56,13 +94,17 @@ def load_params(path: str) -> dict:
 
 
 def save_training_state(training_state_dir: str, state: TrainState, epoch: int, iter_step: int,
-                        generator: torch.Generator, extra: Optional[dict] = None) -> str:
+                        generator: torch.Generator, extra: Optional[dict] = None,
+                        whole: Optional[dict] = None) -> str:
+    """Write ``{iter}.state``, its tensors whole (``whole``, else
+    :func:`whole_state`'s)."""
+    whole = whole or whole_state(state)
     os.makedirs(training_state_dir, exist_ok=True)
     path = os.path.join(training_state_dir, f"{iter_step}.state")
     torch.save({
         "step": state.step, "epoch": epoch, "iter": iter_step,
-        "optimizer": state.optimizer.state_dict(),
-        "ema": None if state.ema is None else {"step": state.ema.step, "params": _cpu(state.ema.params)},
+        "optimizer": whole["optimizer"],
+        "ema": None if state.ema is None else {"step": state.ema.step, "params": _cpu(whole["ema"])},
         "generator": generator.get_state(),
         "extra": extra or {},
     }, path)
@@ -72,13 +114,17 @@ def save_training_state(training_state_dir: str, state: TrainState, epoch: int, 
 def load_training_state(path: str, state: TrainState, generator: torch.Generator) -> Tuple[int, int, dict]:
     """Restore ``state`` (step, optimizer, EMA) and ``generator`` in place
     from ``{iter}.state``; the net's own weights come from ``{iter}_G.pth``.
-    Returns ``(epoch, iter, extra)``."""
+    A split net's state keeps this rank's slices.  Returns ``(epoch, iter,
+    extra)``."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
+    layout = state.layout
     state.step = int(ck["step"])
-    state.optimizer.load_state_dict(ck["optimizer"])
+    optimizer = ck["optimizer"]
+    state.optimizer.load_state_dict(optimizer if layout is None else _optimizer_tensors(state, optimizer, layout.shard))
     device = next(state.net.parameters()).device
     if ck["ema"] is not None:
-        state.ema = EMA({k: v.to(device) for k, v in ck["ema"]["params"].items()}, int(ck["ema"]["step"]))
+        params = ck["ema"]["params"] if layout is None else layout.shard(ck["ema"]["params"])
+        state.ema = EMA({k: v.to(device) for k, v in params.items()}, int(ck["ema"]["step"]))
     generator.set_state(ck["generator"])
     return int(ck["epoch"]), int(ck["iter"]), ck["extra"]
 
@@ -86,10 +132,13 @@ def load_training_state(path: str, state: TrainState, generator: torch.Generator
 def save_checkpoint(opt_path: dict, state: TrainState, epoch: int, iter_step: int,
                     generator: torch.Generator, extra: Optional[dict] = None) -> None:
     """Full save point (ref train.py:305-309): weights, EMA, trainer state;
-    written by rank 0 while the other ranks wait at a barrier."""
-    if dist.process_is_primary():
-        save_params(opt_path["models"], state.net.state_dict(), f"{iter_step}_G")
-        if state.ema is not None:
-            save_params(opt_path["models"], ema_state_dict(state), "lastest_EMA")
-        save_training_state(opt_path["training_state"], state, epoch, iter_step, generator, extra)
+    written by rank 0 (its model group assembling the whole tensors with it)
+    while the other ranks wait at a barrier."""
+    if dist.data_rank() == 0:
+        whole = whole_state(state)
+        if dist.process_is_primary():
+            save_params(opt_path["models"], whole["net"], f"{iter_step}_G")
+            if state.ema is not None:
+                save_params(opt_path["models"], ema_state_dict(state, whole), "lastest_EMA")
+            save_training_state(opt_path["training_state"], state, epoch, iter_step, generator, extra, whole)
     dist.barrier()

@@ -26,6 +26,12 @@ noise and keeps its own rows (``state.shard``), so N ranks take the
 one-process step at the global batch, and the loss they report is the
 global batch's (the ranks' mean).  The optimizer, the EMA and checkpoints
 read the bare net's parameters.
+
+Tensor parallelism (:func:`tensor_parallel`): the net is split over the
+model group of a mesh (``parallel/tensor.py``), and the optimizer and the
+EMA hold this rank's shards; DDP then runs over the data group alone
+(the ranks holding the same shard), and ``state.shard`` is the data axis's
+(rank, size), so the ranks of a model group draw and keep the same rows.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..parallel import dist
+from ..parallel.tensor import parallelize
 from .ema import EMA
 from .losses import matching_loss
 from .optimizers import ScheduledOptimizer
@@ -50,10 +57,13 @@ class TrainState:
     optimizer: ScheduledOptimizer
     ema: Optional[EMA]  # None: a task that keeps no EMA (the compressor, latent bokeh)
     # data parallelism (data_parallel): the DDP wrapper the step's forward
-    # runs through, and (rank, world size), whose rows of the global draws
-    # the step keeps; None in one process
+    # runs through, and (data rank, data size), whose rows of the global
+    # draws the step keeps; None in one process
     ddp: Optional[nn.Module] = None
     shard: Optional[tuple] = None
+    # tensor parallelism (tensor_parallel): the layout of the split net's
+    # parameters (parallel.tensor.Layout); None: the net is whole
+    layout: Optional[object] = None
 
 
 def create_train_state(net: nn.Module, optimizer: ScheduledOptimizer, ema: bool = True) -> TrainState:
@@ -77,17 +87,42 @@ def data_parallel(state: TrainState, module: Optional[nn.Module] = None) -> Trai
     (``parallel.dist.init``): the module the step calls (``state.net`` by
     default; :class:`Remat` of it where the step recomputes, the
     compressor's :class:`~.latent.CrossDecode`) wrapped in DDP.  DDP
-    broadcasts rank 0's parameters once; ``static_graph``: every step uses
-    the same parameters, which DDP learns at the first step, so a parameter
-    that no step uses (none gets a gradient) needs no search of the graph
-    each step, and a recomputed forward reduces each gradient once.  The
-    nets hold no buffers, so DDP broadcasts none in a forward."""
+    broadcasts the group's first rank's parameters once; ``static_graph``:
+    every step uses the same parameters, which DDP learns at the first
+    step, so a parameter that no step uses (none gets a gradient) needs no
+    search of the graph each step, and a recomputed forward reduces each
+    gradient once.  The nets hold no buffers, so DDP broadcasts none in a
+    forward.  Under tensor parallelism DDP runs over the data group (the
+    ranks that hold the same shard), and not at all where that group is
+    this rank alone."""
     from torch.nn.parallel import DistributedDataParallel
 
+    state.shard = dist.shard()
+    mesh = None if state.layout is None else state.layout.mesh
+    if mesh is not None and mesh.data_size == 1:
+        return state
     module = state.net if module is None else module
     device = next(state.net.parameters()).device
     state.ddp = DistributedDataParallel(module, device_ids=[device] if device.type == "cuda" else None,
-                                        static_graph=True)
+                                        static_graph=True, process_group=None if mesh is None else mesh.data_group)
+    return state
+
+
+def tensor_parallel(state: TrainState, mesh) -> TrainState:
+    """Split ``state.net`` in place over ``mesh``'s model group by its plan
+    (``parallel.tensor.parallelize``; a net without one raises), then build
+    the optimizer (its class, settings, schedule and accumulation) and the
+    EMA anew on this rank's shards.  Call it on a fresh state, before
+    :func:`data_parallel`; a checkpoint then loads through ``state.layout``
+    (``training.checkpoint``)."""
+    opt = state.optimizer
+    if state.step or opt.updates or opt.mini_step or opt.inner.state:
+        raise ValueError("tensor_parallel: the train state has stepped; split a fresh one")
+    state.layout = parallelize(state.net, mesh)
+    inner = type(opt.inner)(list(state.net.parameters()), **opt.inner.defaults)
+    state.optimizer = ScheduledOptimizer(inner, opt.schedule, opt.every_k)
+    if state.ema is not None:
+        state.ema = EMA(dict(state.net.named_parameters()))
     state.shard = dist.shard()
     return state
 
@@ -106,6 +141,8 @@ def _score_net(state: TrainState, remat: bool) -> Callable:
 def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     state.optimizer.zero_grad()
     loss.backward()
+    if state.layout is not None:  # the whole parameters' replicas step on one gradient
+        state.layout.average_replicated_grads(state.net)
     state.optimizer.step()
     if state.ema is not None:
         state.ema.update(dict(state.net.named_parameters()))

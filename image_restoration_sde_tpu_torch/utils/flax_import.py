@@ -66,10 +66,12 @@ def _full_attn(tp: str, fp_attn: str, fp_wrap: str) -> Dict[str, Entry]:
     }
 
 
-def unet_flax_keys(depth: int = 4, conditional: bool = True) -> Dict[str, Entry]:
+def unet_flax_keys(depth: int = 4, conditional: bool = True, fourier: bool = False) -> Dict[str, Entry]:
     """torch ``state_dict`` key -> (flax path, transform kind) for
     ``ConditionalUNet``; the unconditional variant's mid block is full
-    attention."""
+    attention; ``fourier``: the net's random or learned Fourier time
+    features (``random_or_learned_sinusoidal_cond``), flax's
+    ``sinu_pos_emb``."""
     keys: Dict[str, Entry] = {
         "init_conv.weight": ("init_conv/kernel", "conv"),
         "time_mlp.1.weight": ("time_mlp_1/kernel", "dense"),
@@ -79,6 +81,8 @@ def unet_flax_keys(depth: int = 4, conditional: bool = True) -> Dict[str, Entry]
         "final_conv.weight": ("final_conv/kernel", "conv"),
         "final_conv.bias": ("final_conv/bias", "ident"),
     }
+    if fourier:
+        keys["time_mlp.0.weights"] = ("sinu_pos_emb/weights", "ident")
     keys.update(_resblock("final_res_block", "final_res_block", True))
     keys.update(_resblock("mid_block1", "mid_block1", False))
     keys.update(_resblock("mid_block2", "mid_block2", False))

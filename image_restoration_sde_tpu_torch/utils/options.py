@@ -44,6 +44,13 @@ def dict_to_nonedict(opt):
     return opt
 
 
+def model_parallel(opt) -> int:
+    """The tensor-parallel width of a train run: the environment's
+    ``IRSDE_TP``, else the YAML's ``train.model_parallel``, else 1 (as
+    ``tools/train.py`` reads it)."""
+    return int(os.environ.get("IRSDE_TP") or ((opt["train"] or {}).get("model_parallel") or 1)) or 1
+
+
 def dict2str(opt, indent_l: int = 1) -> str:
     """Pretty nested-dict printer for logs (ref options.py:91-100)."""
     msg = ""

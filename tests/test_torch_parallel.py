@@ -227,7 +227,7 @@ def _flax_weights(seed: int) -> dict:
 
 
 def test_dryrun_and_the_ddp_step_against_the_jax_data_parallel_step(capsys):
-    """``dryrun_multichip(2)`` on the CPU: two gloo ranks (DDP, each its
+    """``dryrun_multichip(2, model_parallel=1)`` on the CPU: two gloo ranks (DDP, each its
     rows of a global batch of 4) give the one-process step's loss; then
     rank 0's step against the JAX package's train step jitted over a
     2-device ``data`` mesh (``make_mesh``, ``shard_batch``), with the same
@@ -242,7 +242,7 @@ def test_dryrun_and_the_ddp_step_against_the_jax_data_parallel_step(capsys):
     elementwise within 2 lr."""
     batch, lr = 4, dryrun.TRAIN_OPT["lr_G"]
     weights = _flax_weights(11)
-    got = dryrun.dryrun_multichip(2, state_dict_from_flax(weights, dryrun.DEPTH))
+    got = dryrun.dryrun_multichip(2, state_dict_from_flax(weights, dryrun.DEPTH), model_parallel=1)
     out = capsys.readouterr().out
     assert "dryrun_multichip OK: world 2 (gloo, cpu), batch 4 (2 a process)" in out and "tp 1" in out
 
