@@ -221,6 +221,15 @@ its DiT run):
    phase 3's bounds for K1 and K2 (K2a's ctx against the float64
    composition) and phase 5's for K3.
 
+native (after the build): the native resampler (``data/native.py``)
+   built on the card's host from the checkout and taken by ``imresize``
+   (counted), matlab x1/4 and bicubic x2 of a NATIVE_SIDE px image within
+   NATIVE_BOUND of the numpy weights, both timed;
+tools (after eval): ``interpolation`` at TOOLS_SIDE px, T = TOOLS_T (its
+   PNGs; the card's states against the CPU's with the same noise),
+   ``app``'s restore callable and ``eval_parity`` (exit code 0 at
+   ``--target-psnr 0``) on the deraining net's seeded weights with exact
+   launches, ``trace_summary`` on a profiler capture of one restore;
 ops: ``torch.library.opcheck`` (schema, autograd registration, the fake
    implementation against the kernel's output, the dynamic-shape autograd
    trace) of each operator on CUDA tensors at one site of a path that
@@ -261,7 +270,8 @@ bench refusion: ``bench_refusion`` for nafnet and dit at 1024 px, 100
    exact launches; before each, one one-step call records the sites of
    K1, K2, K3 and K4 and each is held against its plain version there;
 train dp (after phase 21's IR-SDE run, in its directory): the train entry
-   point under ``torchrun`` (``--dp-child``), DP_STEPS steps of batch 4,
+   point under ``torchrun`` (``--dp-child``; run (b), two gloo ranks on the
+   card, in phase train tp's torchrun), DP_STEPS steps of batch 4,
    for each of dp_runs, against phase 21's first DP_STEPS steps: one rank
    bit-equal; more ranks their first step's loss within 1e-6, its
    all-reduced gradients within DP_GRAD_REL of max|grad| of the same
@@ -271,20 +281,25 @@ train dp (after phase 21's IR-SDE run, in its directory): the train entry
    step's launches, the ranks equal, rank 0 alone logging the
    data-parallel line;
 train tp (after phase 21's DiT run, in its directory, with its last
-   compressor checkpoint): the DiT YAML at batch TP_BATCH first in this
-   process (TP_STEPS steps, no validation, no checkpoint; its losses, step
-   times and step-1 gradients kept on the host), then with
-   ``train.model_parallel: TP_RANKS`` under ``torchrun`` (``--tp-child``,
-   TP_RANKS gloo ranks on the card), cuDNN TF32 off on both sides: rank 0
-   alone logs the mesh, every rank exactly the one-process step's
-   launches (DIT_DEPTH K4 a step on its heads at TP_SITE, float32, each
-   output with a grad_fn), the ranks' losses equal, step 1's loss within
-   TP_LOSS_REL and its gradients assembled from the ranks within
-   TP_GRAD_REL of max|grad| of the one-process step's, the later losses
-   within DP_LATER_LOSS, more than 90% of the parameter bytes split; ms
-   per step on rank 0 against one process, peak memory a rank, parameter
-   bytes a rank; then K4 held at TP_SITE against its plain version and
-   timed beside it, SDPA and the bound;
+   compressor checkpoint): the TP_PATHS YAMLs, each first in this process
+   (TP_STEPS steps, no validation, no checkpoint; its losses, step times
+   and step-1 gradients kept on the host), then all with
+   ``train.model_parallel: TP_RANKS`` in one ``torchrun`` (``--ranks-child``,
+   TP_RANKS gloo ranks on the card, after train dp's run (b)), cuDNN TF32
+   off on both sides: the
+   DiT YAML at batch TP_BATCH (DIT_DEPTH K4 a step on a rank's heads at
+   TP_SITE) and the deraining Refusion YAML (the flagship NAFNet, batch 4
+   of 128 px, Lion: 16 K1 and one K3 a step, the K3 at TP_NAF_SITE on the
+   28-block level's tensors gathered from the ranks, each launch held
+   against its plain version on them).  Rank 0 alone logs the mesh, every
+   rank exactly the one-process step's launches, each output with a
+   grad_fn, the ranks' losses equal, step 1's loss within TP_LOSS_REL and
+   its gradients assembled from the ranks within TP_GRAD_REL of max|grad|
+   of the one-process step's, the later losses within DP_LATER_LOSS, the
+   split share above TP_SHARE; ms per step on rank 0 against one process,
+   peak memory a rank, parameter bytes a rank; then K4 at TP_SITE and K3
+   at TP_NAF_SITE held against their plain versions and timed beside
+   them (K4 beside SDPA) and their bounds;
 dryrun tp: ``dryrun.dryrun_multichip(2)``, two gloo ranks
    sharing the card as one model group (ConditionalUNet nf 16 split: time
    and ResBlock MLPs, convolutions at least 64 channels wide), the dry
@@ -464,14 +479,33 @@ DP_ARTIFACT_DEVICES = ["cuda:0", "cuda:0"]
 # DP_LATER_LOSS (Lion's first update moves an element by lr_G either way
 # where its gradient's sign flips)
 TP_STEPS, TP_BATCH, TP_RANKS = 3, 2, 2
-TP_LOSS_REL, TP_GRAD_REL = 1e-5, 2e-4
+TP_GRAD_REL = 2e-4
 TP_SITE = (TP_BATCH, 4096, 16 // TP_RANKS, 64)
+# and the deraining Refusion YAML at its own batch (TRAIN_BATCH of
+# 128 px crops, Lion) in the same torchrun: the flagship NAFNet split (its
+# 28-block level's tensors gathered before K3, which runs on the whole
+# level at TP_NAF_SITE a rank and step); its step 1 within 1e-6 (a
+# NAFNet's partial sums are shorter), the later losses within
+# DP_LATER_LOSS (Lion's steps move an element by lr_G either way where a
+# near-zero gradient's sign flips); the split share above TP_SHARE (the
+# JAX package's bar for the flagship: tests/test_tp_scale.py)
+TP_PATHS = {"dit": TP_BATCH, "refusion": None}  # label -> batch (None: the YAML's)
+TP_LOSS_REL = {"dit": 1e-5, "refusion": 1e-6}
+TP_SHARE = {"dit": 0.9, "refusion": 0.85}
+TP_NAF_SITE = (TRAIN_BATCH, TRAIN_SIZE // 8, TRAIN_SIZE // 8, TRAIN_NAF_LEVEL[1])
 # the data-parallel artifact against the eager sampler on the whole batch:
 # its blocks run the bf16 chain at other batch sizes, where cuDNN picks
 # other algorithms, so a row rounds otherwise; within one bf16 ulp of
 # max|eager| (each block is held bit for bit against the one-device loader
 # on the same rows)
 DP_ARTIFACT_BOUND = 2.0**-8
+# the native resampler (phase native): the image side it resizes, and its
+# bound against the numpy weights (float64 sums in another order, each
+# rounded to float32: one float32 ulp of values in [0, 1] is 6e-8); the
+# tools (phase tools): the interpolation's and app's image side and the
+# interpolation's steps
+NATIVE_SIDE, NATIVE_BOUND = 1024, 1e-6
+TOOLS_SIDE, TOOLS_T, TOOLS_TRACE_T = 256, 100, 5
 # the benches (phases bench train, bench refusion): bench_train's workloads
 # (arch, pipe, batch, crop) at its defaults and its timed steps;
 # bench_refusion's arches, image size, steps and timed calls
@@ -2686,11 +2720,14 @@ TLSC_TRAIN, TLSC_SETS = 256, {"covered": (224, 240), "windowed": (321, 481)}
 # 4 a sampler call, on the card (tile_device)
 EVAL_TILE = (256, 32, 4)
 # the kernel path against the plain path: Gaussian denoising with its LQ
-# given (GT + noise of sigma 50: the reverse ODE, deterministic), TF32 off
-# (with TF32 on, a float32 difference in a conv's input can flip its TF32
-# rounding), the saved PNGs within EVAL_PLAIN_LEVELS of 255; a small image:
-# the plain K2's softmax over the tokens takes 90 s for 414 steps at 256x320
-EVAL_PLAIN_HW, EVAL_PLAIN_LEVELS = (60, 90), 1
+# given (GT + noise of EVAL_PLAIN_SIGMA: the reverse ODE, deterministic),
+# TF32 off (with TF32 on, a float32 difference in a conv's input can flip
+# its TF32 rounding), the saved PNGs within EVAL_PLAIN_LEVELS of 255; a
+# small image: the plain K2's softmax over the tokens takes 90 s for 414
+# steps at 256x320; sigma 15 (158 ODE steps; 50, the YAML's, takes 414),
+# a cut of ~9 s that pays for the native, tools and NAFNet tensor-parallel
+# phases
+EVAL_PLAIN_HW, EVAL_PLAIN_LEVELS, EVAL_PLAIN_SIGMA = (60, 90), 1, 15
 # LPIPS and FID on the card against the same modules on the CPU (TF32 off):
 # LPIPS within 1e-4 of each distance, pool3 features within 1e-4 of max|f|
 LPIPS_FID_IMAGES, LPIPS_FID_BOUND = 3, 1e-4
@@ -3146,7 +3183,7 @@ def eval_lpips_fid(dev, root, smi, trained):
 
 def eval_plain(dev, root, smi):
     """denoising/test/ir-sde.yml with its noisy LQ given (GT plus noise of
-    sigma 50, an LQGT set): the reverse ODE, deterministic, through the
+    EVAL_PLAIN_SIGMA, an LQGT set): the reverse ODE, deterministic, through the
     kernel path and the plain path (``plain: true``) of the same seeded
     net, TF32 off: the output PNGs within EVAL_PLAIN_LEVELS of 255; no
     launch on the plain path."""
@@ -3167,6 +3204,7 @@ def eval_plain_paths(dev, root, smi):
 
     parts = ("denoising", "ir-sde.yml")
     opt = eval_yaml(parts)
+    opt["degradation"]["sigma"] = EVAL_PLAIN_SIGMA
     root = os.path.join(root, "plain")
     data = write_eval_data(os.path.join(root, "data"), "gt", 1, EVAL_PLAIN_HW, SEED + 88)
     noise = np.random.default_rng(SEED + 89)
@@ -3667,7 +3705,8 @@ def dp_runs():
 def phase_train_dp(dev, label, opt, workdir, smi, reference):
     """The deraining IR-SDE train YAML's first DP_STEPS steps (batch 4 of
     128 px crops, full width, the synthetic folders of phase 21) through
-    the train entry point under ``torchrun`` (``dp_child``), for each run of
+    the train entry point under ``torchrun`` (``dp_child``; run (b) in
+    phase train tp's torchrun, ``ranks_child``), for each run of
     ``dp_runs``, held against phase 21's one-process run of the same YAML
     and seed (``reference``: its losses and step milliseconds, its
     parameters after steps 1 and DP_STEPS, its step-1 gradients).  Rank 0
@@ -3689,7 +3728,10 @@ def phase_train_dp(dev, label, opt, workdir, smi, reference):
     their losses within DP_LATER_LOSS of the one-process run's, and the
     parameters after step DP_STEPS are reported.  Returns the launches of
     all ranks and runs and a record of step times against the one-process
-    run's."""
+    run's (both filled in further when run (b) is held), and run (b)
+    pending: its YAML, which phase train tp's torchrun trains first
+    (``ranks_child``: one torchrun start for both phases), and ``finish``,
+    which holds it then."""
     import torch
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
@@ -3711,25 +3753,8 @@ def train_dp(dev, label, opt, workdir, smi, reference):
     want, lr = train_counts(label), reference["lr"]
     ref_losses, ref_ms = reference["losses"][:DP_STEPS], reference["ms"][:DP_STEPS]
     launches, record = {k.symbol: 0 for k in KERNELS}, {"one_process_ms_per_step": ref_ms, "card": smi}
-    for tag, n, backend in dp_runs():
-        if n is None:
-            print(f"[train-dp] ({tag}) one NCCL rank a card: not run, this machine has "
-                  f"{torch.cuda.device_count()} card(s)")
-            record[tag] = None
-            continue
-        yml = write_train_yaml(os.path.join(root, f"{tag}.yml"), label, opt, root, data, DP_STEPS, 10 * DP_STEPS,
-                               10 * DP_STEPS, name=f"{opt['name']}_dp_{tag}")  # the final save alone
-        out = os.path.join(root, tag)
-        t0 = time.perf_counter()
-        if n == 1:  # in this process, under the environment torchrun gives its one rank
-            logged = dp_in_process(yml, out, backend)
-        else:
-            run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-                                  str(n), os.path.abspath(__file__), "--dp-child", yml, out, backend],
-                                 capture_output=True, text=True, timeout=600)
-            check(run.returncode == 0, f"train dp ({tag}): torchrun exited {run.returncode}: {run.stderr[-3000:]}")
-            logged = run.stderr
-        seconds = time.perf_counter() - t0
+
+    def hold(tag, n, backend, out, logged, seconds):
         line = f"Data parallel: {n} process(es), global batch {TRAIN_BATCH}, per-process batch {TRAIN_BATCH // n}"
         check(logged.count(line) == 1, f"train dp ({tag}): rank 0's line {line!r} not logged once")
         ranks = [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(n)]
@@ -3774,65 +3799,153 @@ def train_dp(dev, label, opt, workdir, smi, reference):
             check(loss_rel[0] <= 1e-6 and dgrad <= DP_GRAD_REL and dparam[1] <= 2 * lr,
                   f"train dp ({tag}): the first step differs")
             check(all(x <= DP_LATER_LOSS for x in loss_rel[1:]), f"train dp ({tag}): a later step's loss differs")
-    return launches, record
+
+    pending = None
+    for tag, n, backend in dp_runs():
+        if n is None:
+            print(f"[train-dp] ({tag}) one NCCL rank a card: not run, this machine has "
+                  f"{torch.cuda.device_count()} card(s)")
+            record[tag] = None
+            continue
+        yml = write_train_yaml(os.path.join(root, f"{tag}.yml"), label, opt, root, data, DP_STEPS, 10 * DP_STEPS,
+                               10 * DP_STEPS, name=f"{opt['name']}_dp_{tag}")  # the final save alone
+        out = os.path.join(root, tag)
+        if tag == "b":  # in phase train tp's torchrun (ranks_child): its start is paid once
+            pending = {"yml": yml, "finish": lambda out_, logged, seconds, n=n, backend=backend:
+                       hold("b", n, backend, out_, logged, seconds)}
+            continue
+        t0 = time.perf_counter()
+        if n == 1:  # in this process, under the environment torchrun gives its one rank
+            logged = dp_in_process(yml, out, backend)
+        else:
+            run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                  str(n), os.path.abspath(__file__), "--dp-child", yml, out, backend],
+                                 capture_output=True, text=True, timeout=600)
+            check(run.returncode == 0, f"train dp ({tag}): torchrun exited {run.returncode}: {run.stderr[-3000:]}")
+            logged = run.stderr
+        hold(tag, n, backend, out, logged, time.perf_counter() - t0)
+    return launches, record, pending
 
 
 # ---------------------------------------------------------------- tensor parallelism
-def tp_child(yml: str, out: str) -> int:
-    """``torchrun ... chip_smoke.py --tp-child <yml> <out>``: one gloo rank
-    of the port's train entry point on a YAML with ``train.model_parallel``
-    (cuDNN TF32 off, as the one-process step it is held against), writing
-    no checkpoint, its steps recorded (``recorded_steps``: launches,
-    milliseconds, loss; step 1's gradients assembled from the model group)
-    and each attention call's K4 site, whether its output carries a
-    grad_fn; the record, with the rank's peak memory and the layout's split
-    share and bytes a rank, goes to ``<out>.<rank>.pt`` (rank 0 alone keeps
-    the gradients)."""
+def ranks_child(out: str, *ymls: str) -> int:
+    """``torchrun ... chip_smoke.py --ranks-child <out> <yml>...``: one gloo
+    rank of the port's train entry point on each YAML in turn (one process
+    group for all, joined here, so the runs share torchrun's start).  A
+    YAML without ``train.model_parallel`` is phase train dp's run (b), as
+    ``dp_child`` runs it: torch's default TF32 settings, its checkpoint
+    written, the parameters after steps 1 and DP_STEPS and step 1's
+    gradients (DDP's mean) recorded.  One with it: cuDNN TF32 off as the
+    one-process steps it is held against, writing no checkpoint, its steps
+    recorded (``recorded_steps``: launches, milliseconds, loss; step 1's
+    gradients assembled from the model group).  Each attention call's K4
+    site, and each fused NAFNet level's K3 site, whether it got its blocks'
+    whole tensors (gathered from the ranks) and whether its output carries
+    a grad_fn; every K3 launch is held against its plain version on the
+    same gathered weights and input (``hold_naf_stack``; those launches are
+    taken off the count: they are not the step's).  The record of YAML
+    ``<label>.yml``, with the rank's peak memory and the layout's split
+    share and bytes a rank, goes to ``<out>.<label>.<rank>.pt`` (rank 0
+    alone keeps the gradients)."""
+    import gc
+
     import torch
 
     sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch import train
-    from image_restoration_sde_tpu_torch.models import dit
+    from image_restoration_sde_tpu_torch.models import dit, nafnet
+    from image_restoration_sde_tpu_torch.ops import NAF_STACK
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
+    from image_restoration_sde_tpu_torch.parallel import dist
 
-    torch.backends.cudnn.allow_tf32 = False
-    sites, attend = [], dit.flash_mha
+    dist.init(torch.device("cuda"), "gloo")
+    rank = dist.rank()
+    sites = {"k4": [], "k3": [], "held": []}
+    attend, stack, cuda = dit.flash_mha, nafnet.naf_stack, NS.naf_stack_cuda
 
-    def recorded(q, k, v, scale):
+    def recorded_k4(q, k, v, scale):
         out_ = attend(q, k, v, scale)
-        sites.append((tuple(q.shape), q.dtype, out_.grad_fn is not None))
+        sites["k4"].append((tuple(q.shape), q.dtype, out_.grad_fn is not None))
         return out_
 
-    dit.flash_mha = recorded
-    with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
-        state = train.train(yml, "cuda", "gloo")
-    rank = int(os.environ["RANK"])
-    torch.save({"steps": rec["steps"], "grads": rec["grads"][1] if rank == 0 else None, "sites": sites,
-                "peak": torch.cuda.max_memory_allocated(), "share": state.layout.share,
-                "shard_bytes": state.layout.shard_bytes(state.net)}, f"{out}.{rank}.pt")
+    def recorded_k3(x, blocks, temb, eps):
+        out_ = stack(x, blocks, temb, eps)
+        C = x.shape[-1]
+        whole = all(tuple(b["conv1.weight"].shape) == (2 * C, C, 1, 1) and b["mlp.1.weight"].shape[0] == 4 * C
+                    for b in blocks)
+        sites["k3"].append((tuple(x.shape), x.dtype, len(blocks), whole, out_.grad_fn is not None))
+        return out_
+
+    def held_k3(x, blocks, tmod, eps):
+        y = cuda(x, blocks, tmod, eps)
+        launches, NS.naf_stack_cuda = NAF_STACK.launches, cuda
+        try:
+            sites["held"].append(hold_naf_stack("train-tp", x, blocks, tmod, NS.stack_params(blocks, tmod), eps))
+        finally:
+            NS.naf_stack_cuda, NAF_STACK.launches = held_k3, launches
+        return y
+
+    dit.flash_mha, nafnet.naf_stack, NS.naf_stack_cuda = recorded_k4, recorded_k3, held_k3
+    try:
+        for yml in ymls:
+            for v in sites.values():
+                v.clear()
+            torch.cuda.reset_peak_memory_stats()
+            path = f"{out}.{os.path.basename(yml)[:-len('.yml')]}.{rank}.pt"
+            if not load_yaml(yml)["train"].get("model_parallel"):
+                torch.backends.cudnn.allow_tf32 = True  # torch's default, as dp_child's fresh process has it
+                with recorded_steps(snapshot_at=(1, DP_STEPS), grads_at=(1,)) as rec:
+                    state = train.train(yml, "cuda", "gloo")
+                torch.save({"steps": rec["steps"], "params": rec["snapshots"], "grads": rec["grads"][1]}, path)
+                del state, rec
+                continue
+            torch.backends.cudnn.allow_tf32 = False
+            with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
+                state = train.train(yml, "cuda", "gloo")
+            torch.save({"steps": rec["steps"], "grads": rec["grads"][1] if rank == 0 else None,
+                        "k4": list(sites["k4"]), "k3": list(sites["k3"]), "held": list(sites["held"]),
+                        "peak": torch.cuda.max_memory_allocated(), "share": state.layout.share,
+                        "shard_bytes": state.layout.shard_bytes(state.net)}, path)
+            del state, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dit.flash_mha, nafnet.naf_stack, NS.naf_stack_cuda = attend, stack, cuda
+        dist.shutdown()
     return 0
 
 
-def phase_train_tp(dev, opt, workdir, smi, pretrain_l, stats):
-    """The DiT train YAML (DiT-L/2 at full width, 1024 px crops: 4096
-    tokens; phase 21's compressor as its frozen ``pretrain_model_L``, its
-    synthetic folders) through the train entry point with
-    ``train.model_parallel: TP_RANKS`` under ``torchrun`` (``tp_child``):
-    TP_RANKS gloo ranks sharing the card, one model group splitting the net
-    (qkv by head, so K4 runs on each rank's heads; the MLPs and adaLN
-    modulations), TP_STEPS steps of batch TP_BATCH, no validation, no
-    checkpoint.  Held against the one-process run of the same YAML without
-    the key, run first in this process (its results kept on the host):
-    rank 0 alone logs the mesh; every rank takes exactly the one-process
-    step's launches per step (``train_counts``: DIT_DEPTH K4 on its heads,
-    the frozen compressor's K1/K2) and reports the same losses; every K4
-    call of the ranks at TP_SITE in float32, its output with a grad_fn;
-    step 1's loss within TP_LOSS_REL and its gradients, assembled from the
-    ranks, within TP_GRAD_REL of max|grad| of the one-process step's; the
-    later steps' losses within DP_LATER_LOSS.  Then K4 at TP_SITE against
-    its plain version (``hold_flash_sites``), and its time beside the
-    plain version's, SDPA's and the bound.  Returns the ranks' launches
-    and a record (ms per step on rank 0 against one process, peak memory a
-    rank, the split share and bytes a rank)."""
+def phase_train_tp(dev, opts, workdir, smi, pretrain_l, stats, dp_pending=None):
+    """The TP_PATHS train YAMLs through the train entry point with
+    ``train.model_parallel: TP_RANKS``, all in one ``torchrun``
+    (``ranks_child``): TP_RANKS gloo ranks sharing the card, one model group
+    splitting the net, TP_STEPS steps, no validation, no checkpoint.  The
+    DiT YAML (DiT-L/2 at full width, 1024 px crops: 4096 tokens; phase
+    21's compressor as its frozen ``pretrain_model_L``) at batch TP_BATCH:
+    qkv by head, so K4 runs on each rank's heads; the deraining Refusion
+    YAML (the flagship NAFNet, batch 4 of 128 px crops, Lion): its
+    convolutions by input channel and its 28-block level's split tensors
+    gathered, so one K3 a rank and step runs on the whole level at
+    TP_NAF_SITE.  Each held against the one-process run of the same YAML
+    without the key, run first in this process (its results kept on the
+    host): rank 0 alone logs the mesh; every rank takes exactly the
+    one-process step's launches per step (``train_counts``) and reports
+    the same losses; every K4 call at TP_SITE in float32 and every K3 call
+    at TP_NAF_SITE in float32 on whole tensors, each output with a
+    grad_fn, and each K3 launch within ``hold_naf_stack``'s bounds of its
+    plain version on the rank's own gathered weights; step 1's loss within
+    TP_LOSS_REL and its gradients, assembled from the ranks, within
+    TP_GRAD_REL of max|grad| of the one-process step's; the later steps'
+    losses within DP_LATER_LOSS; the split share above TP_SHARE.  Then K4
+    at TP_SITE and K3 at TP_NAF_SITE against their plain versions, timed
+    beside them (K4 also beside SDPA) and their bounds.  Returns the ranks'
+    launches and a record per YAML (ms per step on rank 0 against one
+    process, peak memory a rank, the split share and bytes a rank).
+
+    ``dp_pending`` (phase train dp's run (b), two gloo ranks on the card
+    without a model axis): its YAML trains first in the same torchrun,
+    whose start it then shares, and its ``finish`` holds it as phase train
+    dp would have."""
     import gc
 
     import torch
@@ -3840,73 +3953,93 @@ def phase_train_tp(dev, opt, workdir, smi, pretrain_l, stats):
 
     from image_restoration_sde_tpu_torch import train
     from image_restoration_sde_tpu_torch.dryrun import grad_rel
-    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS, NAF_STACK
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+    from image_restoration_sde_tpu_torch.ops import naf_stack as NS
 
-    label, data = "dit", os.path.join(workdir, "data")
-    root = os.path.join(workdir, f"{label}_tp")
+    data, root = os.path.join(workdir, "data"), os.path.join(workdir, "tp")
     os.makedirs(root, exist_ok=True)
-    want, lr = train_counts(label), float(opt["train"]["lr_G"])
-    never = 10 * TP_STEPS
-    one_yml = write_train_yaml(os.path.join(root, "one.yml"), label, opt, root, data, TP_STEPS, never, never,
-                               name=f"{opt['name']}_one", pretrain_l=pretrain_l, batch=TP_BATCH)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
-        train.train(one_yml, dev)
-    ref_losses, ref_ms = [st[2] for st in rec["steps"]], [st[1] for st in rec["steps"]]
-    ref_grads, ref_peak = rec["grads"][1], torch.cuda.max_memory_allocated()
-    del rec
+    never, refs, ymls = 10 * TP_STEPS, {}, []
+    for label, batch in TP_PATHS.items():
+        opt, pl = opts[label], pretrain_l if label == "dit" else None
+        one_yml = write_train_yaml(os.path.join(root, f"{label}_one.yml"), label, opt, root, data, TP_STEPS, never,
+                                   never, name=f"{opt['name']}_one", pretrain_l=pl, batch=batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
+            train.train(one_yml, dev)
+        refs[label] = {"losses": [st[2] for st in rec["steps"]], "ms": [st[1] for st in rec["steps"]],
+                       "grads": rec["grads"][1], "peak": torch.cuda.max_memory_allocated()}
+        del rec
+        ymls.append(write_train_yaml(os.path.join(root, f"{label}.yml"), label, opt, root, data, TP_STEPS, never,
+                                     never, name=f"{opt['name']}_tp", pretrain_l=pl, batch=batch,
+                                     train={"model_parallel": TP_RANKS}))
     gc.collect()
     torch.cuda.empty_cache()
 
-    yml = write_train_yaml(os.path.join(root, "tp.yml"), label, opt, root, data, TP_STEPS, never, never,
-                           name=f"{opt['name']}_tp", pretrain_l=pretrain_l, batch=TP_BATCH,
-                           train={"model_parallel": TP_RANKS})
     out = os.path.join(root, "tp")
+    first = [] if dp_pending is None else [dp_pending["yml"]]
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-                          str(TP_RANKS), os.path.abspath(__file__), "--tp-child", yml, out],
-                         capture_output=True, text=True, timeout=600)
+                          str(TP_RANKS), os.path.abspath(__file__), "--ranks-child", out, *first, *ymls],
+                         capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0
     check(run.returncode == 0, f"train tp: torchrun exited {run.returncode}: {run.stderr[-3000:]}")
+    if dp_pending is not None:
+        dp_pending["finish"](f"{out}.{os.path.basename(first[0])[:-len('.yml')]}", run.stderr, seconds)
     line = f"Tensor parallel: mesh {{'data': 1, 'model': {TP_RANKS}}} (data 1 x model {TP_RANKS})"
-    check(run.stderr.count(line) == 1, f"train tp: rank 0's line {line!r} not logged once")
-    ranks = [torch.load(f"{out}.{r}.pt", weights_only=False) for r in range(TP_RANKS)]
-    launches = {k.symbol: 0 for k in KERNELS}
-    for r, rank in enumerate(ranks):
-        check(len(rank["steps"]) == TP_STEPS, f"train tp rank {r}: {len(rank['steps'])} steps")
-        for i, (grew, _, _) in enumerate(rank["steps"]):
-            check(grew == want, f"train tp rank {r} step {i + 1}: launches {grew}, expected {want}")
-            for sym, c in grew.items():
-                launches[sym] += c
-        check([st[2] for st in rank["steps"]] == [st[2] for st in ranks[0]["steps"]],
-              f"train tp: rank {r}'s losses differ from rank 0's")
-        check(len(rank["sites"]) == TP_STEPS * DIT_DEPTH
-              and all(shape == TP_SITE and dtype == torch.float32 and grad for shape, dtype, grad in rank["sites"]),
-              f"train tp rank {r}: K4 calls {sorted(set(rank['sites']), key=str)}")
-    losses = [st[2] for st in ranks[0]["steps"]]
-    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
-    check(sorted(ranks[0]["grads"]) == sorted(ref_grads), "train tp: gradients' keys")
-    dgrad = grad_rel(ranks[0]["grads"], ref_grads)
-    del ranks[0]["grads"], ref_grads
-    ms = [st[1] for st in ranks[0]["steps"]]
-    peaks = [rank["peak"] / 2**30 for rank in ranks]
-    share, shard_bytes = ranks[0]["share"], ranks[0]["shard_bytes"]
-    print(f"[train-tp] {TP_RANKS} gloo ranks on one card, mesh {{'data': 1, 'model': {TP_RANKS}}}: DiT-L/2 "
-          f"{TP_STEPS} steps of batch {TP_BATCH} at 1024px (4096 tokens), float32, cuDNN TF32 off; losses {losses} "
-          f"against {ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}; bounds "
-          f"{TP_LOSS_REL}, then {DP_LATER_LOSS}); step 1's gradients assembled from the ranks {dgrad:.3g} of "
-          f"max|grad| from one process's (bound {TP_GRAD_REL}); launches per rank and step {want}; K4 on each "
-          f"rank's heads at {TP_SITE} float32 with a grad_fn, {DIT_DEPTH} a step; card: {smi}")
-    print(f"[train-tp] ms by step (rank 0) {', '.join(f'{x:.1f}' for x in ms)} against "
-          f"{', '.join(f'{x:.1f}' for x in ref_ms)} in one process; peak memory a rank "
-          f"{', '.join(f'{p:.2f}' for p in peaks)} GiB (one process {ref_peak / 2**30:.2f}); {share:.4%} of the "
-          f"parameter bytes split, {shard_bytes / 2**20:.1f} MiB of parameters a rank; torchrun {seconds:.1f} s")
-    check(loss_rel[0] <= TP_LOSS_REL and dgrad <= TP_GRAD_REL, "train tp: the first step differs")
-    check(all(x <= DP_LATER_LOSS for x in loss_rel[1:]), "train tp: a later step's loss differs")
-    check(share > 0.9, f"train tp: {share:.2%} of DiT-L/2's parameter bytes split")
+    check(run.stderr.count(line) == len(TP_PATHS), f"train tp: rank 0's line {line!r} not logged once a run")
+    launches, record = {k.symbol: 0 for k in KERNELS}, {"torchrun_seconds": seconds, "card": smi}
+    for label in TP_PATHS:
+        want, ref = train_counts(label), refs.pop(label)
+        ranks = [torch.load(f"{out}.{label}.{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+        for r, rank in enumerate(ranks):
+            check(len(rank["steps"]) == TP_STEPS, f"train tp {label} rank {r}: {len(rank['steps'])} steps")
+            for i, (grew, _, _) in enumerate(rank["steps"]):
+                check(grew == want, f"train tp {label} rank {r} step {i + 1}: launches {grew}, expected {want}")
+                for sym, c in grew.items():
+                    launches[sym] += c
+            check([st[2] for st in rank["steps"]] == [st[2] for st in ranks[0]["steps"]],
+                  f"train tp {label}: rank {r}'s losses differ from rank 0's")
+            k4 = want[FLASH_ATTN.symbol] * TP_STEPS
+            check(len(rank["k4"]) == k4 and all(shape == TP_SITE and dtype == torch.float32 and grad
+                                                for shape, dtype, grad in rank["k4"]),
+                  f"train tp {label} rank {r}: K4 calls {sorted(set(rank['k4']), key=str)}")
+            k3 = want[NAF_STACK.symbol] * TP_STEPS
+            check(len(rank["k3"]) == len(rank["held"]) == k3
+                  and all(site == (TP_NAF_SITE, torch.float32, TRAIN_NAF_LEVEL[0], True, True) for site in rank["k3"]),
+                  f"train tp {label} rank {r}: K3 calls {sorted(set(rank['k3']), key=str)}, {len(rank['held'])} held")
+            for err, limit, _ in rank["held"]:
+                stats[NAF_STACK]["err"] = max(stats[NAF_STACK]["err"], err)
+        losses = [st[2] for st in ranks[0]["steps"]]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        check(sorted(ranks[0]["grads"]) == sorted(ref["grads"]), f"train tp {label}: gradients' keys")
+        dgrad = grad_rel(ranks[0]["grads"], ref["grads"])
+        del ranks[0]["grads"], ref["grads"]
+        ms = [st[1] for st in ranks[0]["steps"]]
+        peaks = [rank["peak"] / 2**30 for rank in ranks]
+        share, shard_bytes = ranks[0]["share"], ranks[0]["shard_bytes"]
+        held = max((h[0] / h[1] for rank in ranks for h in rank["held"]), default=0.0)
+        print(f"[train-tp] {label}: {TP_RANKS} gloo ranks on one card, mesh {{'data': 1, 'model': {TP_RANKS}}}, "
+              f"{TP_STEPS} steps, float32, cuDNN TF32 off; losses {losses} against {ref['losses']} in one process "
+              f"(rel {', '.join(f'{x:.3g}' for x in loss_rel)}; bounds {TP_LOSS_REL[label]}, then {DP_LATER_LOSS}); "
+              f"step 1's gradients assembled from the ranks {dgrad:.3g} of max|grad| from one process's (bound "
+              f"{TP_GRAD_REL}); launches per rank and step {want}; K4 calls a rank {len(ranks[0]['k4'])} at "
+              f"{TP_SITE}, K3 calls a rank {len(ranks[0]['k3'])} at {TP_NAF_SITE} on whole (gathered) tensors, "
+              f"each held against its plain version on them (worst {held:.3g} of its bound); card: {smi}")
+        print(f"[train-tp] {label}: ms by step (rank 0) {', '.join(f'{x:.1f}' for x in ms)} against "
+              f"{', '.join(f'{x:.1f}' for x in ref['ms'])} in one process; peak memory a rank "
+              f"{', '.join(f'{p:.2f}' for p in peaks)} GiB (one process {ref['peak'] / 2**30:.2f}); {share:.4%} of "
+              f"the parameter bytes split, {shard_bytes / 2**20:.1f} MiB of parameters a rank")
+        check(loss_rel[0] <= TP_LOSS_REL[label] and dgrad <= TP_GRAD_REL, f"train tp {label}: the first step differs")
+        check(all(x <= DP_LATER_LOSS for x in loss_rel[1:]), f"train tp {label}: a later step's loss differs")
+        check(share > TP_SHARE[label], f"train tp {label}: {share:.2%} of the parameter bytes split")
+        record[label] = {"ranks": TP_RANKS, "batch": TP_PATHS[label] or TRAIN_BATCH, "ms_per_step": ms,
+                         "one_process_ms_per_step": ref["ms"], "loss_rel": loss_rel, "grad_rel": dgrad,
+                         "peak_memory_gib": peaks, "one_process_peak_memory_gib": ref["peak"] / 2**30,
+                         "split_share": share, "shard_bytes": shard_bytes}
+    print(f"[train-tp] torchrun {seconds:.1f} s for {'train dp (b), ' if first else ''}{', '.join(TP_PATHS)}")
 
     hold_flash_sites("train-tp", dev, [(TP_SITE, torch.float32)], stats)
     gen = torch.Generator(device=dev)
@@ -3920,15 +4053,22 @@ def phase_train_tp(dev, opt, workdir, smi, pretrain_l, stats):
     nbytes, flops, _ = flash_work(TP_SITE, 4)
     b_ms, by = bound(nbytes, flops, "float32")
     del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
     print(f"[train-tp] K4 float32 {TP_SITE}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, least "
           f"{b_ms:.4f} ms ({by}); card: {smi}")
     stats[FLASH_ATTN]["train_tp"] = {"shape": list(TP_SITE), "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                                      "bound_ms": b_ms, "bound_by": by, "launches_per_rank_step": DIT_DEPTH}
-    record = {"ranks": TP_RANKS, "batch": TP_BATCH, "ms_per_step": ms, "one_process_ms_per_step": ref_ms,
-              "loss_rel": loss_rel, "grad_rel": dgrad, "peak_memory_gib": peaks,
-              "one_process_peak_memory_gib": ref_peak / 2**30, "split_share": share,
-              "shard_bytes": shard_bytes, "seconds": seconds, "card": smi}
+    x, blocks, tmod, stacked = naf_stack_inputs(TP_NAF_SITE, TRAIN_NAF_LEVEL[0], dev, gen)
+    k_ms = cuda_ms(lambda: NS.naf_stack_cuda(x, blocks, tmod, 1e-5), reps=10)
+    p_ms = cuda_ms(lambda: NS.naf_stack_plain(x, stacked, 1e-5), reps=10)
+    nbytes, flops = naf_stack_work(x, blocks)
+    b_ms, by = bound(nbytes, flops, "float32")
+    del x, blocks, tmod, stacked
+    torch.cuda.empty_cache()
+    print(f"[train-tp] K3 float32 {TP_NAF_SITE} K={TRAIN_NAF_LEVEL[0]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"least {b_ms:.4f} ms ({by}); card: {smi}")
+    stats[NAF_STACK]["train_tp"] = {"shape": list(TP_NAF_SITE), "blocks": TRAIN_NAF_LEVEL[0], "ms": k_ms,
+                                    "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+                                    "launches_per_rank_step": 1}
     return launches, record
 
 
@@ -3949,6 +4089,145 @@ def phase_dryrun_tp(dev, smi):
     print(f"[dryrun-tp] 2 gloo ranks on one card, mesh {{'data': 1, 'model': 2}}, {len(got['split'])} parameters "
           f"split; launches a rank {grew}; card: {smi}")
     return {k: 2 * n for k, n in grew.items()}
+
+
+# ---------------------------------------------------------------- the native resampler and the tools
+def phase_native(smi):
+    """The native resampler (``data/native.py``) on the card's host: ``g++``
+    found, the library built from the checkout's ``csrc/resize.cpp``, and
+    ``imresize`` taking it (one native call each, counted) for matlab's
+    antialiased x1/4 and torch-bicubic x2 of a NATIVE_SIDE px RGB image,
+    each within NATIVE_BOUND of the numpy weights it replaces (float64
+    sums in another order, rounded to float32), both timed."""
+    from image_restoration_sde_tpu_torch.data import imresize, native
+
+    check(native.available(), "native resampler: no g++ on the card's host")
+    t0 = time.perf_counter()
+    lib = native.build()
+    built = time.perf_counter() - t0
+    calls, call = [], native.resize_cubic_native
+
+    def counted(*args):
+        calls.append(args[1])
+        return call(*args)
+
+    img = np.random.default_rng(SEED + 30).random((NATIVE_SIDE, NATIVE_SIDE, 3)).astype(np.float32)
+    native.resize_cubic_native = counted
+    try:
+        for name, fn, scale, a, aa, boundary in (("matlab x1/4", imresize.imresize, 0.25, -0.5, True, "symmetric"),
+                                                 ("bicubic x2", imresize.torch_bicubic_resize, 2.0, -0.75, False,
+                                                  "replicate")):
+            t0 = time.perf_counter()
+            got = fn(img, scale)
+            n_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            plain = imresize._resize_axis(img, got.shape[0], scale, 0, a, aa, boundary)
+            plain = imresize._resize_axis(plain, got.shape[1], scale, 1, a, aa, boundary).astype(np.float32)
+            p_ms = (time.perf_counter() - t0) * 1e3
+            err = float(np.abs(got - plain).max())
+            print(f"[native] {name} {img.shape} -> {got.shape}: max|d| from the numpy weights {err:.3g} (bound "
+                  f"{NATIVE_BOUND}); native {n_ms:.1f} ms, numpy {p_ms:.1f} ms on the host")
+            check(got.shape == plain.shape and err <= NATIVE_BOUND, f"native resampler {name}: max|d| {err:.3g}")
+    finally:
+        native.resize_cubic_native = call
+    check(len(calls) == 2, f"native resampler: {len(calls)} native calls for 2 resizes")
+    print(f"[native] {lib} built in {built:.1f} s (g++ {native.compiler()}); imresize took the native path; "
+          f"card: {smi}")
+
+
+def phase_tools(dev, smi):
+    """The remaining tools on the card: ``interpolation`` (its entry point
+    at TOOLS_SIDE px, T = TOOLS_T: TOOLS_T PNGs; the states on the card
+    against the CPU's with the same injected noise within 1e-5 of max);
+    ``app``'s restore callable (no gradio) on one TOOLS_SIDE px image with
+    the deraining test YAML's seeded net (its sampler: exact launches);
+    ``eval_parity`` on two seeded synthetic pairs with the deraining net's
+    seeded weights in a ``.pth``, seeded LPIPS weights and
+    ``--target-psnr 0``: its exit code must be 0 (exact launches);
+    ``trace_summary`` on a ``torch.profiler`` capture of one restore of a
+    64 px crop by a callable whose YAML samples TOOLS_TRACE_T steps.
+    Returns the launches."""
+    import torch
+    import yaml
+
+    from image_restoration_sde_tpu_torch import app, eval_parity, interpolation, trace_summary
+    from image_restoration_sde_tpu_torch.data.io_utils import save_img
+    from image_restoration_sde_tpu_torch.data.synthetic import write_pairs
+    from image_restoration_sde_tpu_torch.models import ConditionalUNet, init_params_
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.utils import lpips, profiling
+
+    launches = {k.symbol: 0 for k in KERNELS}
+    r = np.random.default_rng(SEED + 31)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as root:
+        src, tgt = (os.path.join(root, f"{n}.png") for n in ("src", "tgt"))
+        for path in (src, tgt):
+            save_img((r.random((TOOLS_SIDE, TOOLS_SIDE, 3)) * 255).astype(np.uint8), path)
+        t0 = time.perf_counter()
+        rc = interpolation.main(["-s", src, "-t", tgt, "--save", os.path.join(root, "states"), "-T", str(TOOLS_T),
+                                 "--device", str(dev)])
+        seconds = time.perf_counter() - t0
+        check(rc == 0 and len(os.listdir(os.path.join(root, "states"))) == TOOLS_T, "interpolation: its PNGs")
+        a, b = (r.random((TOOLS_SIDE, TOOLS_SIDE, 3)).astype(np.float32) for _ in range(2))
+        noise = torch.from_numpy(r.standard_normal((TOOLS_T, 1, TOOLS_SIDE, TOOLS_SIDE, 3)).astype(np.float32))
+        card = interpolation.interpolate(a, b, T=TOOLS_T, device=dev, noise_seq=noise.to(dev)).cpu()
+        host = interpolation.interpolate(a, b, T=TOOLS_T, device="cpu", noise_seq=noise)
+        err = (card - host).abs().max().item() / host.abs().max().item()
+        print(f"[tools] interpolation {TOOLS_SIDE} px, T={TOOLS_T}: {TOOLS_T} states written in {seconds:.2f} s; "
+              f"the card's states against the CPU's with the same noise {err:.3g} of max (bound 1e-5)")
+        check(bool(torch.isfinite(card).all()) and err <= 1e-5, "interpolation: the card's states differ")
+
+        opt = load_yaml(CONFIG)
+        opt.update(datasets={}, path={"pretrain_model_G": None})
+        yml = os.path.join(root, "app.yml")
+        with open(yml, "w") as f:
+            yaml.safe_dump(opt, f)
+        steps = int(opt["sde"].get("sample_T") or opt["sde"]["T"])
+        want = counts(LAYERNORM=steps * LN_PER_FORWARD, LA_CTX=steps * ATTN_PER_FORWARD,
+                      LA_APPLY=steps * ATTN_PER_FORWARD)
+        restore = app.make_restore(yml, dev)
+        img = (r.random((TOOLS_SIDE, TOOLS_SIDE, 3)) * 255).astype(np.uint8)
+        before = {k.symbol: k.launches for k in KERNELS}
+        t0 = time.perf_counter()
+        out = restore(img)
+        seconds = time.perf_counter() - t0
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        print(f"[tools] app restore callable ({opt['name']}, seeded, {steps} steps): {img.shape} uint8 -> "
+              f"{out.shape} {out.dtype} in {seconds:.2f} s; launches {grew}")
+        check(out.shape == img.shape and out.dtype == np.uint8 and grew == want, f"app: launches {grew}, {want}")
+        for sym, c in grew.items():
+            launches[sym] += c
+        opt["sde"]["sample_T"] = TOOLS_TRACE_T
+        with open(yml, "w") as f:
+            yaml.safe_dump(opt, f)
+        traced = app.make_restore(yml, dev)
+        before = {k.symbol: k.launches for k in KERNELS}
+        with profiling.trace(os.path.join(root, "trace")):
+            traced(img[:64, :64])
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        traced_want = {k: n // steps * TOOLS_TRACE_T for k, n in want.items()}
+        check(grew == traced_want, f"app under the profiler: launches {grew}, {traced_want}")
+        for sym, c in grew.items():
+            launches[sym] += c
+        trace_rc = trace_summary.main([os.path.join(root, "trace"), "--top", "8", "--device", str(dev)])
+        check(trace_rc == 0, "trace_summary: no card events in the capture")
+
+        pth, lp = os.path.join(root, "seeded_G.pth"), os.path.join(root, "lpips.pth")
+        setting = opt["network_G"]["setting"]
+        torch.save(init_params_(ConditionalUNet(**setting), torch.Generator().manual_seed(SEED + 32)).state_dict(),
+                   pth)
+        torch.save(lpips.seeded_state_dict("alex", seed=SEED + 33), lp)
+        write_pairs(os.path.join(root, "pairs"), 2, SEED + 34, shape=(TOOLS_SIDE // 2, TOOLS_SIDE // 2))
+        want = {k: 2 * n for k, n in want.items()}
+        before = {k.symbol: k.launches for k in KERNELS}
+        rc = eval_parity.main(["--data", os.path.join(root, "pairs"), "--pth", pth, "--setting", json.dumps(setting),
+                               "--T", str(steps), "--lpips-pth", lp, "--target-psnr", "0", "--device", str(dev)])
+        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        print(f"[tools] eval_parity: exit {rc}; launches {grew}; card: {smi}")
+        check(rc == 0 and grew == want, f"eval_parity: exit {rc}, launches {grew} against {want}")
+        for sym, c in grew.items():
+            launches[sym] += c
+    return launches
 
 
 # ---------------------------------------------------------------- the benches
@@ -4132,6 +4411,7 @@ def main() -> int:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
+    timed("native", phase_native, smi)
     stats = {k: {"err": 0.0, "ms": 0.0, "event_ms": None, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
                  "library_ms": None} for k in KERNELS}
     for k in KERNELS[:3]:  # K1, K2a, K2b: summed over sites
@@ -4204,17 +4484,19 @@ def main() -> int:
             launches[f"train_{label}"], train_record[label], trained[label] = timed(
                 f"train main path {label}", phase_train_main_path, dev, label, o, workdir, smi, pretrain_l, keep)
             if keep:
-                launches["train_dp"], train_record["dp"] = timed("train dp", phase_train_dp, dev, label, o,
-                                                                 workdir, smi, keep)
+                launches["train_dp"], train_record["dp"], dp_pending = timed("train dp", phase_train_dp, dev, label,
+                                                                             o, workdir, smi, keep)
                 del keep
             if label == "dit":
-                launches["train_tp"], train_record["tp"] = timed("train tp", phase_train_tp, dev, o, workdir, smi,
-                                                                 trained["compressor"], stats)
+                launches["train_tp"], train_record["tp"] = timed("train tp", phase_train_tp, dev, train_opts,
+                                                                 workdir, smi, trained["compressor"], stats,
+                                                                 dp_pending)
                 launches["dryrun_tp"] = timed("dryrun tp", phase_dryrun_tp, dev, smi)
         print(f"[train] {json.dumps(train_record)}")
         eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats)
     launches.update(eval_launches)
     print(f"[eval] {json.dumps(eval_record)}")
+    launches["tools"] = timed("tools", phase_tools, dev, smi)
 
     report = []
     for k in KERNELS:
@@ -4232,7 +4514,7 @@ def main() -> int:
             report[-1]["by_path"] = stats[k]["by_path"]
         if "train" in stats[k]:  # K4 at the DiT-L/2 train shape: forward, streamed backward, sweep
             report[-1]["train"] = stats[k]["train"]
-        if "train_tp" in stats[k]:  # K4 on a tensor-parallel rank's heads of the DiT-L/2 train step
+        if "train_tp" in stats[k]:  # K4 on a rank's heads (DiT-L/2), K3 on the gathered level (NAFNet)
             report[-1]["train_tp"] = stats[k]["train_tp"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
@@ -4253,6 +4535,6 @@ if __name__ == "__main__":
         sys.exit(artifact_child(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(dp_child(*sys.argv[2:5]))
-    if sys.argv[1:2] == ["--tp-child"]:
-        sys.exit(tp_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--ranks-child"]:
+        sys.exit(ranks_child(*sys.argv[2:]))
     sys.exit(main())

@@ -1,8 +1,9 @@
 """Separable cubic resampling with matlab-imresize and torch-interpolate
 semantics (numpy, host-side data pipeline).
 
-A copy of ``image_restoration_sde_tpu/data/imresize.py`` without its native
-C++ fast path (``data/native.py``): the numpy weights only.
+A copy of ``image_restoration_sde_tpu/data/imresize.py``: the native C++
+resampler (``data/native.py``) wherever ``g++`` is found, which raises if
+it cannot build or run; the numpy weights only where no ``g++`` exists.
 
 One weight machinery covers both resamplers the reference relies on:
 
@@ -23,6 +24,8 @@ import math
 from typing import Tuple
 
 import numpy as np
+
+from . import native
 
 
 def _cubic(x: np.ndarray, a: float) -> np.ndarray:
@@ -92,6 +95,9 @@ def _resize(img: np.ndarray, scale_or_shape, a: float, antialias: bool, boundary
         s = float(scale_or_shape)
         out_h, out_w = int(math.ceil(H * s)), int(math.ceil(W * s))
         sh = sw = s
+    if native.available():
+        out = native.resize_cubic_native(img, (out_h, out_w), (sh, sw), a, antialias, boundary)
+        return out[:, :, 0] if squeeze else out
     out = _resize_axis(img, out_h, sh, 0, a, antialias, boundary)
     out = _resize_axis(out, out_w, sw, 1, a, antialias, boundary)
     out = out.astype(np.float32)

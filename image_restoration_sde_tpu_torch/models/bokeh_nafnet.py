@@ -11,6 +11,11 @@ No level goes through the fused NAF stack (K3), which has no camera
 modulation.  ``forward(inp, cond, time, lens_info)`` takes and returns NHWC
 float32, ``lens_info`` = (src, tgt, disparity), each of shape (B,) or a
 scalar.
+
+Tensor parallelism: the NAFNet family's plan (``NAFNetPyramid.
+tensor_parallel_plan``), with each block's ``time_mlp.1`` (four
+modulations) and ``cam_mlp.1`` (two) by column and gathered, and the net's
+time and camera MLPs column then row.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.tensor import COLUMN, ROW, Split
 from .modules import Linear, SimpleGate, check_image_size, sinusoidal_pos_emb
 from .nafnet import NAFBlockBody, NAFNetPyramid, run_blocks
 
@@ -42,6 +48,10 @@ class BokehNAFBlock(NAFBlockBody):
 
 
 class BokehConditionalNAFNet(NAFNetPyramid):
+    TP_NET = {"time_mlp.0": Split(COLUMN, 2), "time_mlp.2": Split(ROW),
+              "cam_mlp.0": Split(COLUMN, 2), "cam_mlp.2": Split(ROW)}
+    TP_BLOCK = {"time_mlp.1": Split(COLUMN, 4, gather=True), "cam_mlp.1": Split(COLUMN, 2, gather=True)}
+
     def __init__(
         self,
         img_channel: int = 3,

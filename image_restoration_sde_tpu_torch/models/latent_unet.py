@@ -14,6 +14,13 @@ The compressor runs in float32, as the JAX package's latent sampler keeps
 it.  Reference key space: ``init_conv``, ``encoder.{i}.{0..3}``,
 ``decoder.{k}.{0..3}`` (k = depth-1-i: the decoder list is built deepest
 first), ``latent_conv``, ``post_latent_conv``, ``final_conv``.
+
+Tensor parallelism (:meth:`UNet.tensor_parallel_plan`, the compressor
+task's): ConditionalUNet's rule without its time MLPs, every convolution
+at least 64 channels wide at its input split by input channel; the channel
+LayerNorms (K1) and the deepest level's linear attention (K2) run at full
+width on every rank.  A latent task's frozen compressor is not trained,
+so it stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.tensor import row_convs
 from .modules import (
     Conv2d,
     Downsample,
@@ -104,3 +112,8 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         latent, hs = self.encode(x)
         return self.decode(latent, hs, x.shape[1:3])
+
+    def tensor_parallel_plan(self, size: int) -> dict:
+        """The splits over ``size`` model ranks: the convolutions of
+        ``row_convs`` (those whose input divides by ``size``)."""
+        return row_convs(self, size)

@@ -25,6 +25,19 @@ in bf16, as in the JAX package; the gate decides which one, not the device.
 
 ``forward`` takes and returns NHWC float32; inside, activations are NCHW in
 ``channels_last`` memory in the compute ``dtype``; parameters stay float32.
+
+Tensor parallelism (:meth:`NAFNetPyramid.tensor_parallel_plan`;
+``parallel/tensor.py``): every non-grouped convolution at least 64
+channels wide at its input by input channel (in a block ``conv1``,
+``sca.1``, ``conv3``, ``conv4``, ``conv5``; ``downs``, ``ups`` and
+``ending``), each block's time Dense by column inside each of its four
+modulations and gathered, the time MLP column then row (its SimpleGate
+pairs each rank's part of the two halves); ``intro``, the depthwise
+``conv2``, the norms, ``beta`` and ``gamma`` stay whole.  A fused level
+stores its split tensors as this rank's slices like any other and makes
+them whole before K3 (``assemble_params``: one all-reduce a level and
+forward), so K3 runs on the whole level on every rank: a kernel on a
+channel shard would need an all-reduce between its grid barriers.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import torch
 from torch import nn
 
 from ..ops.naf_stack import CHANNEL_MULTIPLE, PARAM_ORDER, naf_stack, naf_stack_plain, stack_middle_params
+from ..parallel.tensor import COLUMN, ROW, Split, assemble_params, row_convs
 from .modules import (
     ChannelLayerNorm,
     Conv2d,
@@ -145,7 +159,11 @@ class NAFNetPyramid(nn.Module):
     by a 2x2 stride-2 downsample, the middle blocks, 1x1 + PixelShuffle
     upsamples with additive skips before each decoder level, a 3x3 ending
     conv.  ``make_block(chan)`` builds one block; :meth:`pyramid` runs the
-    levels with the caller's level runner."""
+    levels with the caller's level runner.  ``TP_NET`` and ``TP_BLOCK``:
+    the net's and each block's Linear splits under tensor parallelism."""
+
+    TP_NET = {"time_mlp.1": Split(COLUMN, 2), "time_mlp.3": Split(ROW)}  # 2: the SimpleGate's halves
+    TP_BLOCK = {"mlp.1": Split(COLUMN, 4, gather=True)}  # shift_att, scale_att, shift_ffn, scale_ffn
 
     def __init__(self, in_ch: int, out_ch: int, width: int, middle_blk_num: int,
                  enc_blk_nums: Sequence[int], dec_blk_nums: Sequence[int], make_block):
@@ -169,6 +187,16 @@ class NAFNetPyramid(nn.Module):
             self.ups.append(nn.Sequential(Conv2d(chan, chan * 2, 1, bias=False), PixelShuffle(2)))
             chan //= 2
             self.decoders.append(level(chan, num))
+
+    def tensor_parallel_plan(self, size: int) -> dict:
+        """The splits over ``size`` model ranks: ``row_convs`` (a width
+        that does not divide by ``size`` raises), ``TP_NET`` and each
+        block's ``TP_BLOCK``."""
+        plan = {**self.TP_NET, **row_convs(self)}
+        for name, m in self.named_modules():
+            if isinstance(m, NAFBlockBody):
+                plan.update({f"{name}.{k}": split for k, split in self.TP_BLOCK.items()})
+        return plan
 
     def pyramid(self, x: torch.Tensor, run) -> torch.Tensor:
         """``x`` (NCHW, channels_last) through the levels; ``run(blocks, x)``
@@ -224,8 +252,12 @@ class ConditionalNAFNet(NAFNetPyramid):
         says so, else one by one."""
         if not fuses(blocks, x.shape[2:]):
             return run_blocks(blocks, x, t)
-        # float32 weights, read in place (``fused_param_names``)
+        # float32 weights, read in place (``fused_param_names``); a split
+        # net's (TP_BLOCK splits every block's time Dense) made whole first
         params = [blk.tensors() for blk in blocks]
+        if hasattr(blocks[0].mlp[1], "splits"):
+            flat = assemble_params(blocks, {f"{i}.{k}": v for i, p in enumerate(params) for k, v in p.items()})
+            params = [{k: flat[f"{i}.{k}"] for k in _BLOCK_KEYS} for i in range(len(blocks))]
         eps = 1e-5 if x.dtype == torch.float32 else 1e-3
         rows = x.permute(0, 2, 3, 1)  # channels_last: contiguous (B, H, W, C)
         if self.plain:

@@ -10,9 +10,12 @@ back on channels.  Inputs are zero-padded at the bottom/right to a
 multiple of 2^len(enc_blk_nums) and cropped back.
 
 No level goes through the fused NAF stack (K3): a SCAM runs between any
-two blocks.  ``forward`` takes and returns NHWC float32; inside,
-activations are NCHW in ``channels_last`` memory in the compute ``dtype``;
-parameters stay float32.
+two blocks.  Tensor parallelism: the NAFNet family's plan
+(``NAFNetPyramid.tensor_parallel_plan``), which splits SCAM's four 1x1
+projections by input channel with the other convolutions; SCAM's norms,
+``beta`` and ``gamma`` stay whole.  ``forward`` takes and returns NHWC
+float32; inside, activations are NCHW in ``channels_last`` memory in the
+compute ``dtype``; parameters stay float32.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ the sinusoidal time embedding by learned (or, with
 Tensor parallelism (:meth:`ConditionalUNet.tensor_parallel_plan`;
 ``parallel/tensor.py``): the time MLP column then row, each ResBlock's
 scale/shift MLP by column inside each half and gathered, and every
-convolution at least TP_MIN_CHANNELS channels wide at its input by input
+convolution at least 64 channels wide at its input (``row_convs``) by input
 channel (the partial convolutions all-reduced).  Activations stay whole
 between those layers, so the channel LayerNorms (K1) and the packed linear
 attention (K2, four heads) run at full width on every rank.
@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..parallel.tensor import COLUMN, ROW, Split
+from ..parallel.tensor import COLUMN, ROW, Split, row_convs
 from .modules import (
     Attention,
     Conv2d,
@@ -48,11 +48,6 @@ from .modules import (
     Upsample,
     check_image_size,
 )
-
-# the narrowest input a convolution is split at under tensor parallelism
-# (the JAX rule's min_last, which it applies to the output axis)
-TP_MIN_CHANNELS = 64
-
 
 class ConditionalUNet(nn.Module):
     def __init__(
@@ -151,12 +146,10 @@ class ConditionalUNet(nn.Module):
     def tensor_parallel_plan(self, size: int) -> dict:
         """The splits over ``size`` model ranks (module name -> ``Split``);
         the Fourier features' ``weights`` stay whole."""
-        plan = {"time_mlp.1": Split(COLUMN), "time_mlp.3": Split(ROW)}
+        plan = {"time_mlp.1": Split(COLUMN), "time_mlp.3": Split(ROW), **row_convs(self, size)}
         for name, m in self.named_modules():
             if isinstance(m, ResBlock) and m.mlp is not None:
                 plan[f"{name}.mlp.1"] = Split(COLUMN, 2, gather=True)  # scale half, shift half
-            elif isinstance(m, nn.Conv2d) and m.in_channels >= TP_MIN_CHANNELS and m.in_channels % size == 0:
-                plan[name] = Split(ROW)
         return plan
 
 

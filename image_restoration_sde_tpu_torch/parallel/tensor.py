@@ -5,8 +5,9 @@ conversion between a whole state dict and one rank's shard.
 Counterpart of ``shape_based_tp_sharding`` and ``shard_tree`` of
 ``image_restoration_sde_tpu/parallel/mesh.py``.  There a shape rule marks
 which leaves are sharded and GSPMD inserts the collectives; here each net
-names its splits (``tensor_parallel_plan``: DiT, ConditionalUNet) and the
-split layers call the collectives themselves:
+names its splits (``tensor_parallel_plan``: DiT, ConditionalUNet, the
+NAFNet family, the compressor) and the split layers call the collectives
+themselves:
 
 - :class:`ColumnLinear`: this rank's output features (for a ``chunks``-way
   output such as ``[q; k; v]`` or adaLN's six modulations, its part of each
@@ -17,7 +18,13 @@ split layers call the collectives themselves:
   summed by :func:`reduce_from_model` (all-reduce forward, identity
   backward), the bias added once after;
 - :class:`RowConv2d`: a convolution whose input channels are split, its
-  whole input scattered to this rank's channels first.
+  whole input scattered to this rank's channels first;
+- :func:`assemble_params`: a split layer's tensors made whole where a
+  module reads them itself rather than through the layer (a NAFNet level
+  fused into kernel K3, which needs every channel of a block): stored as
+  this rank's slices like any other split parameter, assembled in one
+  all-reduce before the read; backward, this rank's slice of the whole
+  gradient, which is the same on every rank (activations are whole).
 
 Activations are whole and equal on every rank of a model group outside
 the split layers, so every module between them (norms, the port's
@@ -32,6 +39,7 @@ this rank's slices, for checkpoints, the optimizer's moments and the EMA.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Mapping, Tuple
 
@@ -41,6 +49,12 @@ import torch.nn.functional as F
 from torch import nn
 
 COLUMN, ROW = "column", "row"
+# the nets with a ``tensor_parallel_plan`` (named in plan_of's refusal)
+PLANNED = ("DiT", "ConditionalUNet", "ConditionalNAFNet", "StereoConditionalNAFNet", "BokehConditionalNAFNet",
+           "UNet (the compressor)")
+# the narrowest input a convolution is split at (the JAX rule's min_last,
+# which it applies to the output axis)
+MIN_ROW_CHANNELS = 64
 
 
 @dataclass(frozen=True)
@@ -77,16 +91,29 @@ def take_slice(whole: torch.Tensor, dim: int, chunks: int, rank: int, size: int)
     return _slot(whole, dim, chunks, rank, size).flatten(dim % whole.dim(), dim % whole.dim() + 1).contiguous()
 
 
+def assemble_many(local, specs, rank: int, size: int, group) -> list:
+    """The whole tensors from every rank's slices (``specs``: each one's
+    (dim, chunks)) in one all-reduce: each rank writes its slices into one
+    zero-filled buffer, a contiguous segment a whole tensor, and the model
+    group sums the buffers (exact: every element is one slice's value plus
+    zeros)."""
+    shapes = []
+    for t, (dim, _) in zip(local, specs):
+        shape = list(t.shape)
+        shape[dim % t.dim()] *= size
+        shapes.append(shape)
+    sizes = [math.prod(s) for s in shapes]
+    flat = local[0].new_zeros(sum(sizes))
+    wholes = [seg.view(s) for seg, s in zip(flat.split(sizes), shapes)]
+    for whole, t, (dim, chunks) in zip(wholes, local, specs):
+        _slot(whole, dim, chunks, rank, size).copy_(t.unflatten(dim % t.dim(), (chunks, -1)))
+    tdist.all_reduce(flat, group=group)
+    return wholes
+
+
 def assemble(local: torch.Tensor, dim: int, chunks: int, rank: int, size: int, group) -> torch.Tensor:
-    """The whole tensor from every rank's slice: each writes its slice into a
-    zero-filled whole buffer, and the model group sums the buffers (exact:
-    every element is one slice's value plus zeros)."""
-    shape = list(local.shape)
-    shape[dim % local.dim()] *= size
-    whole = local.new_zeros(shape)
-    _slot(whole, dim, chunks, rank, size).copy_(local.unflatten(dim % local.dim(), (chunks, -1)))
-    tdist.all_reduce(whole, group=group)
-    return whole
+    """The whole tensor from every rank's slice (:func:`assemble_many` of one)."""
+    return assemble_many([local], [(dim, chunks)], rank, size, group)[0]
 
 
 # each takes the mesh (parallel.mesh.Mesh) whose model group it runs over
@@ -135,6 +162,19 @@ class _ScatterToModel(torch.autograd.Function):
         return assemble(grad, ctx.dim, 1, m.model_rank, m.model_size, m.model_group), None, None
 
 
+class _AssembleParams(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, specs, *local):
+        ctx.mesh, ctx.specs = mesh, specs
+        return tuple(assemble_many(local, specs, mesh.model_rank, mesh.model_size, mesh.model_group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        m = ctx.mesh
+        return (None, None, *(None if g is None else take_slice(g, d, c, m.model_rank, m.model_size)
+                              for g, (d, c) in zip(grads, ctx.specs)))
+
+
 def copy_to_model(x, mesh):
     """Identity forward; the gradient summed over the model group."""
     return _CopyToModel.apply(x, mesh)
@@ -164,7 +204,8 @@ def _param(t: torch.Tensor, like: nn.Parameter) -> nn.Parameter:
 
 class ColumnLinear(nn.Module):
     """A ``Linear`` holding this rank's output features (its part of each of
-    ``chunks`` blocks); parameters float32, cast to the input's dtype."""
+    ``chunks`` blocks); parameters float32, cast to the input's dtype.
+    Each split layer's ``splits``: ``layer_splits`` of its split."""
 
     def __init__(self, linear: nn.Linear, split: Split, mesh):
         super().__init__()
@@ -173,6 +214,7 @@ class ColumnLinear(nn.Module):
         self.weight = _param(take_slice(linear.weight.detach(), 0, split.chunks, r, n), linear.weight)
         self.bias = None if linear.bias is None else \
             _param(take_slice(linear.bias.detach(), 0, split.chunks, r, n), linear.bias)
+        self.splits = layer_splits(split, self.bias is not None)
 
     def forward(self, x):
         x = copy_to_model(x, self.mesh)
@@ -190,6 +232,7 @@ class RowLinear(nn.Module):
         self.weight = _param(take_slice(linear.weight.detach(), 1, 1, mesh.model_rank, mesh.model_size),
                              linear.weight)
         self.bias = None if linear.bias is None else _param(linear.bias.detach().clone(), linear.bias)
+        self.splits = layer_splits(split, self.bias is not None)
 
     def forward(self, x):
         y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.mesh)
@@ -209,6 +252,7 @@ class RowConv2d(nn.Module):
         self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
         self.weight = _param(take_slice(conv.weight.detach(), 1, 1, mesh.model_rank, mesh.model_size), conv.weight)
         self.bias = None if conv.bias is None else _param(conv.bias.detach().clone(), conv.bias)
+        self.splits = layer_splits(split, self.bias is not None)
 
     def forward(self, x):
         x = scatter_to_model(x, self.mesh, 1)
@@ -217,15 +261,48 @@ class RowConv2d(nn.Module):
         return y if self.bias is None else y + self.bias.to(y.dtype)[None, :, None, None]
 
 
+def assemble_params(module: nn.Module, tensors: Mapping[str, torch.Tensor]) -> dict:
+    """``tensors`` (names under ``module`` -> the tensors in use, which
+    ``torch.func.functional_call`` may have swapped in) with each one that
+    a split layer holds assembled whole from the model group, all in one
+    all-reduce; the others as they are, and no collective where none is
+    split.  Differentiable: each split tensor gets this rank's slice of its
+    whole gradient."""
+    held = []
+    for name, t in tensors.items():
+        owner, _, attr = name.rpartition(".")
+        layer = module.get_submodule(owner) if owner else module
+        if attr in getattr(layer, "splits", {}):
+            held.append((name, layer.mesh, layer.splits[attr]))
+    if not held:
+        return dict(tensors)
+    mesh = held[0][1]
+    wholes = _AssembleParams.apply(mesh, tuple(spec for _, _, spec in held), *(tensors[n] for n, _, _ in held))
+    return {**tensors, **{n: w for (n, _, _), w in zip(held, wholes)}}
+
+
+def row_convs(net: nn.Module, size: int = 0) -> Dict[str, Split]:
+    """Row splits of every non-grouped convolution of ``net`` at least
+    MIN_ROW_CHANNELS wide at its input; with ``size``, only those whose
+    input divides by it (the UNets' rule; without, a width that does not
+    divide raises in :func:`check_plan`)."""
+    return {name: Split(ROW) for name, m in net.named_modules()
+            if isinstance(m, nn.Conv2d) and m.groups == 1 and m.in_channels >= MIN_ROW_CHANNELS
+            and not (size and m.in_channels % size)}
+
+
+def layer_splits(split: Split, bias: bool) -> Dict[str, Tuple[int, int]]:
+    """``{parameter: (dim, chunks)}`` of the parameters a layer split by
+    ``split`` holds sliced (a row split's bias stays whole)."""
+    if split.kind == COLUMN:
+        return {"weight": (0, split.chunks), **({"bias": (0, split.chunks)} if bias else {})}
+    return {"weight": (1, 1)}
+
+
 def param_splits(net: nn.Module, plan: Mapping[str, Split]) -> Dict[str, Tuple[int, int]]:
-    """``{parameter name: (dim, chunks)}`` of the parameters ``plan`` splits
-    (a row split's bias stays whole)."""
-    out = {}
-    for name, split in plan.items():
-        out[f"{name}.weight"] = (0, split.chunks) if split.kind == COLUMN else (1, 1)
-        if split.kind == COLUMN and getattr(net.get_submodule(name), "bias", None) is not None:
-            out[f"{name}.bias"] = (0, split.chunks)
-    return out
+    """``{parameter name: (dim, chunks)}`` of the parameters ``plan`` splits."""
+    return {f"{name}.{k}": spec for name, split in plan.items()
+            for k, spec in layer_splits(split, getattr(net.get_submodule(name), "bias", None) is not None).items()}
 
 
 def check_plan(net: nn.Module, plan: Mapping[str, Split], size: int) -> None:
@@ -253,7 +330,7 @@ def plan_of(net: nn.Module, size: int) -> Dict[str, Split]:
     plan = getattr(net, "tensor_parallel_plan", None)
     if plan is None:
         raise ValueError(f"tensor parallelism: {type(net).__name__} has no tensor-parallel plan "
-                         f"(model_parallel={size}); DiT and ConditionalUNet have one")
+                         f"(model_parallel={size}); nets with one: {', '.join(PLANNED)}")
     plan = plan(size)
     check_plan(net, plan, size)
     return plan

@@ -33,9 +33,11 @@ state.
 
 Under tensor parallelism (a ``mesh`` whose model axis is longer than 1)
 the trained net is split over its model group (``training.trainer.
-tensor_parallel``; DiT and ConditionalUNet have plans, the other nets
-raise) before the step goes through DDP over the data group; a ``.pth``
-loads whole and each rank keeps its slice, and ``params_trees`` is whole.
+tensor_parallel``; every trained net has a plan: DiT, ConditionalUNet,
+the NAFNet family and the compressor) before the step goes through DDP
+over the data group; a latent task's frozen compressor stays whole on
+every rank.  A ``.pth`` loads whole and each rank keeps its slice, and
+``params_trees`` is whole.
 """
 
 from __future__ import annotations

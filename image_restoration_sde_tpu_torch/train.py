@@ -24,7 +24,8 @@ while the others wait) and writes checkpoints; every rank resumes.
 Tensor parallelism: ``train.model_parallel: M`` in the YAML (or the
 environment's ``IRSDE_TP=M``) lays the N ranks out as a mesh of N / M data
 rows by M model ranks (``parallel.mesh``); the M ranks of a row split the
-net between them (DiT and ConditionalUNet; the other nets raise), load the
+net between them (DiT, ConditionalUNet, the NAFNet family, the
+compressor; a net without a plan raises), load the
 same rows and draw the same noise, and DDP averages over the rows.  Rank
 0's model group validates together (the split net's forward is a
 collective), and assembles the whole tensors that rank 0 writes; a

@@ -3,7 +3,8 @@ layers against the whole layers; a tp2 train step of a tiny DiT and of
 ConditionalUNet against the one-process step; checkpoints from tp2 to one
 process and back; dp2 x tp2 against the JAX package's dp4 x tp2 step; the
 train entry point under ``torchrun`` with ``train.model_parallel: 2``;
-DiT-L/2's plan on the meta device; the refusals; ConditionalUNet's Fourier
+DiT-L/2's plan on the meta device; the refusals (the NAFNet family's
+plans: ``tests/test_torch_tp_nafnet.py``); ConditionalUNet's Fourier
 time features against flax.  Three spawns of ranks in all (they dominate
 the time), one torch thread."""
 
@@ -29,9 +30,7 @@ from image_restoration_sde_tpu.training import optimizers as jopt
 from image_restoration_sde_tpu.training import trainer as jtrainer
 from image_restoration_sde_tpu_torch import dryrun, runners
 from image_restoration_sde_tpu_torch import train as ptrain
-from image_restoration_sde_tpu_torch.models import ConditionalNAFNet, ConditionalUNet, DiT, UNet, build_network
-from image_restoration_sde_tpu_torch.models.bokeh_nafnet import BokehConditionalNAFNet
-from image_restoration_sde_tpu_torch.models.stereo_nafnet import StereoConditionalNAFNet
+from image_restoration_sde_tpu_torch.models import ConditionalUNet, DiT, build_network
 from image_restoration_sde_tpu_torch.parallel import dist
 from image_restoration_sde_tpu_torch.parallel.mesh import Mesh, make_mesh
 from image_restoration_sde_tpu_torch.parallel.tensor import plan_of, split_share
@@ -233,26 +232,13 @@ def _fresh_state(net):
                                                       build_lr_schedule(dryrun.TRAIN_OPT)))
 
 
-@pytest.mark.parametrize("net", [
-    lambda: ConditionalNAFNet(width=8, enc_blk_nums=[1], middle_blk_num=1, dec_blk_nums=[1]),
-    lambda: StereoConditionalNAFNet(width=8, enc_blk_nums=[1], middle_blk_num=1, dec_blk_nums=[1]),
-    lambda: BokehConditionalNAFNet(width=8, enc_blk_nums=[1], middle_blk_num=1, dec_blk_nums=[1]),
-    lambda: UNet(ch=8, ch_mult=[1, 2], embed_dim=4),
-], ids=["nafnet", "stereo", "bokeh", "compressor"])
-def test_nets_without_a_plan_refuse_tensor_parallelism(net):
-    """The NAFNet family and the latent compressor have no plan: a request
-    for model_parallel 2 raises, naming the net; nothing is replicated
-    quietly."""
-    net = net()
-    mesh = Mesh(data_rank=0, data_size=1, model_rank=0, model_size=2)
-    with pytest.raises(ValueError, match=f"{type(net).__name__} has no tensor-parallel plan"):
-        tensor_parallel(_fresh_state(net), mesh)
-
-
 def test_layouts_the_port_cannot_honour_raise(tmp_path):
     """One process cannot be split two ways (the entry point raises before
-    it trains), DiT's heads must divide by the width, and a state that has
-    stepped is not split."""
+    it trains), DiT's heads must divide by the width, a state that has
+    stepped is not split, a NAFNet width that does not divide by the model
+    axis raises through the task runner, and a module without a plan
+    raises, naming the nets that have one: nothing is replicated
+    quietly."""
     with pytest.raises(ValueError, match="1 process\\(es\\) not divisible by model_parallel=2"):
         make_mesh(2)
     root = str(tmp_path)
@@ -266,10 +252,12 @@ def test_layouts_the_port_cannot_honour_raise(tmp_path):
     with pytest.raises(ValueError, match="has stepped"):
         tensor_parallel(state, mesh)
     opt = options.dict_to_nonedict(options.parse(_tiny_yaml(root, "naf", 1, network=(
-        "{which_model_G: ConditionalNAFNet, setting: {width: 8, enc_blk_nums: [1], middle_blk_num: 1, "
+        "{which_model_G: ConditionalNAFNet, setting: {width: 66, enc_blk_nums: [1], middle_blk_num: 1, "
         "dec_blk_nums: [1]}}")), is_train=True))
-    with pytest.raises(ValueError, match="ConditionalNAFNet has no tensor-parallel plan"):
-        runners.build_task(opt, 0, "cpu", mesh)
+    with pytest.raises(ValueError, match="66 input channels do not divide by model_parallel=4"):
+        runners.build_task(opt, 0, "cpu", Mesh(data_rank=0, data_size=1, model_rank=0, model_size=4))
+    with pytest.raises(ValueError, match="Sequential has no tensor-parallel plan .*ConditionalNAFNet"):
+        tensor_parallel(_fresh_state(torch.nn.Sequential(torch.nn.Linear(4, 4))), mesh)
 
 
 # ------------------------------------------------------ Fourier time features
