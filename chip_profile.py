@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one sampler step goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--sampling] [--package CHECKOUT]
+    python3 chip_profile.py [--sampling | --dit-train] [--package CHECKOUT]
 
 For each of the port's sampler paths (the configurations of
 ``chip_smoke.py``: IR-SDE deraining, ConditionalUNet at batch 8, 128 px;
@@ -44,7 +44,9 @@ nasde.yml``, kernel path and plain path) and DiT-L/2
 attention keeps B H N^2 float32 scores a block for its backward, past the
 card's memory at batch 8), with the step's peak memory.
 
-``--sampling`` stops after the sampler paths; ``--package CHECKOUT`` imports
+``--sampling`` stops after the sampler paths; ``--dit-train`` times the
+DiT-L/2 train step alone (its kernel path, the last line of the list
+above); ``--package CHECKOUT`` imports
 the port from another checkout of the repository (``chip_compare.py
 --enqueue`` times two checkouts' host enqueue with the same script).
 Without CUDA it exits at once.
@@ -251,10 +253,21 @@ def profile_train(dev, gen):
             del task
             torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = default_tf32
+    profile_latent_train(dev, gen)
+
+
+def profile_latent_train(dev, gen, cfgs=(("nasde", (False, True)), ("dit", (False,)))):
+    """One train step of the latent train paths (module docstring): each
+    (YAML stem, its plain flags) of ``cfgs``."""
+    import torch
+    import yaml
+
+    from image_restoration_sde_tpu_torch import runners
+    from image_restoration_sde_tpu_torch.utils import options
 
     lq = torch.rand(8, 1024, 1024, 3, generator=gen, device=dev)
     gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
-    for cfg, paths in (("nasde", (False, True)), ("dit", (False,))):
+    for cfg, paths in cfgs:
         with open(os.path.join(REPO, "configs", "latent-dehazing", "train", f"{cfg}.yml")) as f:
             raw = yaml.safe_load(f)
         raw["path"]["pretrain_model_L"] = None  # a seeded compressor
@@ -290,6 +303,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sampling", action="store_true", help="the sampler paths only, no train step")
     parser.add_argument("--package", default=REPO, help="the checkout whose port is imported")
+    parser.add_argument("--dit-train", action="store_true", help="the DiT-L/2 train step only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -304,6 +318,11 @@ def main(argv=None) -> int:
     from image_restoration_sde_tpu_torch.sde import IRSDE, DenoisingSDE, samplers
 
     dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    if args.dit_train:
+        profile_latent_train(dev, gen, (("dit", (False,)),))
+        print_card()
+        return 0
 
     def load(*path):
         with open(os.path.join(REPO, "configs", *path)) as f:
@@ -315,8 +334,6 @@ def main(argv=None) -> int:
     def make_sde(opt):
         s = opt["sde"]
         return IRSDE.create(s["max_sigma"], s["T"], s["schedule"], s["eps"], device=dev)
-
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
     opt = load("deraining", "test", "ir-sde.yml")
     unet = seeded(ConditionalUNet(**opt["network_G"]["setting"], dtype=torch.bfloat16))
@@ -368,10 +385,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if not args.sampling:
         profile_train(dev, gen)
+    print_card()
+    return 0
+
+
+def print_card():
+    import torch
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    return 0
 
 
 if __name__ == "__main__":

@@ -130,7 +130,8 @@ its DiT run):
    head), (1, 1000, 16, 64) and (3, 35, 4, 64) (ragged), (4, 4096, 16, 64)
    (the tiled call), and on strided views of a packed qkv; bfloat16 also
    against a plain version that rounds p where the kernel does; beside
-   F.scaled_dot_product_attention and the bound;
+   F.scaled_dot_product_attention (float32: TF32 matmuls off) and the
+   bound (float32: on the FMA units and as the kernel's 3xTF32 products);
 9. DiT net: one forward of DiT-L/2 at batch 2 on 128x128x8 latents, kernel
    path against plain path, float32 and bfloat16; the path's compressor,
    kernel path against plain path, at each DiT request's shape and at the
@@ -224,7 +225,10 @@ its DiT run):
 native (after the build): the native resampler (``data/native.py``)
    built on the card's host from the checkout and taken by ``imresize``
    (counted), matlab x1/4 and bicubic x2 of a NATIVE_SIDE px image within
-   NATIVE_BOUND of the numpy weights, both timed;
+   NATIVE_BOUND of the numpy weights, both timed; LMDB roots of the
+   synthetic deraining set written by ``create_lmdb`` and the deraining
+   train dataset from them bit-equal to the same dataset from the folders,
+   ms a sample for each;
 tools (after eval): ``interpolation`` at TOOLS_SIDE px, T = TOOLS_T (its
    PNGs; the card's states against the CPU's with the same noise),
    ``app``'s restore callable and ``eval_parity`` (exit code 0 at
@@ -518,9 +522,9 @@ BENCH_REFUSION, BENCH_REFUSION_SIZE, BENCH_REFUSION_STEPS, BENCH_REFUSION_REPS =
 # a kernel's launch, which events around one call would read, is far below)
 TIMING_BUDGET_MS, GRAPH_MS_ABOVE = 200.0, 10.0
 # NVIDIA H100 SXM published peaks (dense): HBM bytes/s, and FLOP/s for
-# bfloat16 on the tensor cores and float32 outside them
+# bfloat16 and TF32 on the tensor cores and float32 outside them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -607,6 +611,19 @@ def bound(nbytes: float, flops: float, dtype: str):
     ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ms_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def flash_f32_bounds(shape):
+    """K4 in float32 on (B, N, H, D): ((ms, by) on the FMA units, (ms, by)
+    as the kernel's three TF32 products a product at the TF32 peak), the
+    function's FLOP and bytes (flash_work) in both."""
+    nbytes, flops, _ = flash_work(shape, 4)
+    return bound(nbytes, flops, "float32"), bound(nbytes, 3 * flops, "tf32")
+
+
+def flash_f32_bound_text(shape):
+    (f_ms, f_by), (t_ms, t_by) = flash_f32_bounds(shape)
+    return f"least {t_ms:.4f} ms ({t_by}) as 3xTF32 on the tensor cores, {f_ms:.4f} ms ({f_by}) on the FMA units"
 
 
 def naf_blocks(K, C, T, dev, seed):
@@ -1371,7 +1388,9 @@ def phase_flash(dev, stats, dit_opt):
     flash_bf16_agreement: at most FLASH_FLIP_SHARE of the elements past
     two ulps, none past the flip allowance.  Library call:
     F.scaled_dot_product_attention on the same tensors as (B, H, N, D),
-    transposed beforehand (bfloat16 only)."""
+    transposed beforehand, in both dtypes (float32 with TF32 matmuls off,
+    as the whole script runs); float32 bounds both on the FMA units and as
+    the kernel's 3xTF32 products (flash_f32_bounds)."""
     import torch
     import torch.nn.functional as F
 
@@ -1407,18 +1426,22 @@ def phase_flash(dev, stats, dit_opt):
             reps = 10 if shape[1] >= 2048 else 20
             ms = cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=reps)
             pms = cuda_ms(lambda: FA.flash_mha_plain(q, k, v, scale), reps=reps)
-            lib = "-"
-            if dtype == torch.bfloat16:
-                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=reps)
-                lib = f"{lms:.4f} ms"
-                del qt, kt, vt
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=reps)
+            del qt, kt, vt
             nbytes, flops, exps = flash_work(shape, q.element_size())
             bms, by = bound(nbytes, flops, str(dtype)[6:])
+            least = f"least {bms:.4f} ms ({by})"
+            if dtype == torch.float32:
+                least = flash_f32_bound_text(shape)
+                tf32_ms = flash_f32_bounds(shape)[1][0]
+                stats[FLASH_ATTN].setdefault("float32", []).append(
+                    {"shape": list(shape), "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                     "bound_by": by, "tf32x3_bound_ms": tf32_ms, "max_abs_err": err})
             print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} {shape}: max|dy|={err:.3g} (bound {limit:.3g}){tiled}; "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms sdpa {lib}; {flops / 1e9:.1f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.0f} M exp, least {bms:.4f} ms ({by}), "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s")
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms sdpa {lms:.4f} ms"
+                  f"{' (TF32 matmuls off)' if dtype == torch.float32 else ''}; {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB, {exps / 1e6:.0f} M exp, {least}, {flops / ms / 1e9:.1f} TFLOP/s")
             check(err <= limit, f"K4 {dtype} {shape}: max|dy|={err:.3g} (bound {limit:.3g})")
             check(share <= FLASH_FLIP_SHARE and worst <= 1,
                   f"K4 {dtype} {shape} against the tiled plain version: {share:.3g} of the elements past two ulps "
@@ -2106,7 +2129,8 @@ def phase_flash_backward(dev, stats):
     FLASH_BWD_BUFFERS float32 (B, H, block, N) buffers plus
     FLASH_BWD_ROWS float32 (B, N, H, D) ones, and its time; the kernel's
     forward beside its plain version, F.scaled_dot_product_attention
-    (forward, and forward with backward) and the bounds."""
+    (forward, and forward with backward) and the bounds; in float32 the
+    forward also held against its plain version within 1e-5 of max|ref|."""
     import torch
     import torch.nn.functional as F
 
@@ -2158,6 +2182,15 @@ def phase_flash_backward(dev, stats):
                   f"{bwd_flops / ms / 1e9:.1f} TFLOP/s")
             check(extra <= limit, f"K4 backward {name} block {block}: {extra} bytes past its limit {limit}")
         torch.cuda.empty_cache()
+        held = ""
+        if dtype == torch.float32:  # phase 8's float32 bound at the train step's own shape
+            ref = FA.flash_mha_plain(q, k, v, scale)
+            err = (FA.flash_mha_cuda(q, k, v, scale) - ref).abs().max().item()
+            limit = 1e-5 * ref.abs().max().item()
+            del ref
+            stats[FLASH_ATTN]["err"] = max(stats[FLASH_ATTN]["err"], err)
+            check(err <= limit, f"K4 forward {name} {shape}: max|dy|={err:.3g} (bound {limit:.3g})")
+            held = f"max|dy|={err:.3g} (bound {limit:.3g}); "
         ms = cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=10)
         pms = cuda_ms(lambda: FA.flash_mha_plain(q, k, v, scale), reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2170,8 +2203,9 @@ def phase_flash_backward(dev, stats):
         del qt, kt, vt, cott
         nbytes, flops, _ = flash_work(shape, q.element_size())
         f_ms, f_by = bound(nbytes, flops, name)
-        print(f"[flash-bwd] K4 forward {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"F.scaled_dot_product_attention {lms:.3f} ms, least {f_ms:.3f} ms ({f_by}), "
+        least = flash_f32_bound_text(shape) if dtype == torch.float32 else f"least {f_ms:.3f} ms ({f_by})"
+        print(f"[flash-bwd] K4 forward {name} {shape}: {held}kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"F.scaled_dot_product_attention {lms:.3f} ms, {least}, "
               f"{flops / ms / 1e9:.1f} TFLOP/s; forward and backward: kernel + "
               f"backward(block {FA.BWD_BLOCK}) {ms + sweep[FA.BWD_BLOCK]['ms']:.3f} ms, sdpa {lbms:.3f} ms; card: "
               f"{torch.cuda.get_device_name(dev)}")
@@ -2179,6 +2213,8 @@ def phase_flash_backward(dev, stats):
                         "bound_by": f_by, "backward_ms": sweep[FA.BWD_BLOCK]["ms"], "backward_bound_ms": b_ms,
                         "library_fwd_bwd_ms": lbms, "bwd_block": FA.BWD_BLOCK,
                         "bwd_sweep": {str(b): r for b, r in sweep.items()}}
+        if dtype == torch.float32:
+            record[name]["tf32x3_bound_ms"] = flash_f32_bounds(shape)[1][0]
         del q, k, v, cot
         torch.cuda.empty_cache()
     stats[FLASH_ATTN]["train"] = record
@@ -4050,13 +4086,13 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, stats, dp_pending=None):
     p_ms = cuda_ms(lambda: FA.flash_mha_plain(q, k, v, scale), reps=10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=10)
-    nbytes, flops, _ = flash_work(TP_SITE, 4)
-    b_ms, by = bound(nbytes, flops, "float32")
+    (b_ms, by), (t_ms, _) = flash_f32_bounds(TP_SITE)
     del q, k, v, qt, kt, vt
-    print(f"[train-tp] K4 float32 {TP_SITE}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, least "
-          f"{b_ms:.4f} ms ({by}); card: {smi}")
+    print(f"[train-tp] K4 float32 {TP_SITE}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms "
+          f"(TF32 matmuls off), {flash_f32_bound_text(TP_SITE)}; card: {smi}")
     stats[FLASH_ATTN]["train_tp"] = {"shape": list(TP_SITE), "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                                     "bound_ms": b_ms, "bound_by": by, "launches_per_rank_step": DIT_DEPTH}
+                                     "bound_ms": b_ms, "bound_by": by, "tf32x3_bound_ms": t_ms,
+                                     "launches_per_rank_step": DIT_DEPTH}
     x, blocks, tmod, stacked = naf_stack_inputs(TP_NAF_SITE, TRAIN_NAF_LEVEL[0], dev, gen)
     k_ms = cuda_ms(lambda: NS.naf_stack_cuda(x, blocks, tmod, 1e-5), reps=10)
     p_ms = cuda_ms(lambda: NS.naf_stack_plain(x, stacked, 1e-5), reps=10)
@@ -4133,6 +4169,46 @@ def phase_native(smi):
     check(len(calls) == 2, f"native resampler: {len(calls)} native calls for 2 resizes")
     print(f"[native] {lib} built in {built:.1f} s (g++ {native.compiler()}); imresize took the native path; "
           f"card: {smi}")
+    native_lmdb(smi)
+
+
+def native_lmdb(smi):
+    """LMDB on the card's host: the synthetic deraining set (TRAIN_DATA's
+    pixel pairs) written as GT and LQ LMDB roots by ``python -m
+    image_restoration_sde_tpu_torch.create_lmdb``, one process a root, both
+    at once; the deraining train YAML's dataset (LQGT, 128 px crops, flips
+    and rotations) from the LMDB roots against the same dataset from the
+    folders: every sample bit-equal at one epoch seed, and ms a sample for
+    each (the LMDB's first read opens its environment)."""
+    from image_restoration_sde_tpu_torch.data import datasets
+    from image_restoration_sde_tpu_torch.data.synthetic import write_pairs
+
+    opt = load_yaml(os.path.join(REPO, "configs", *TRAIN_PATHS["ir-sde"][0]))["datasets"]["train"]
+    _, n, train_hw, _ = TRAIN_DATA["pixel"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lmdb_") as root:
+        write_pairs(root, n, SEED + 31, *train_hw)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "image_restoration_sde_tpu_torch.create_lmdb", "--input",
+                                   f"{root}/{sub}", "--output", f"{root}/{sub}.lmdb"], cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for sub in ("GT", "LQ")]
+        outs = [proc.communicate()[0] for proc in procs]
+        seconds = time.perf_counter() - t0
+        check(all(proc.returncode == 0 and f"wrote {n} images" in out for proc, out in zip(procs, outs)),
+              f"create_lmdb: {outs}")
+        samples, ms = {}, {}
+        for kind, ext in (("img", ""), ("lmdb", ".lmdb")):
+            ds = datasets.create_dataset({**opt, "phase": "train", "scale": 1, "data_type": kind,
+                                          "dataroot_GT": f"{root}/GT{ext}", "dataroot_LQ": f"{root}/LQ{ext}"})
+            ds.set_epoch_seed((SEED, 0))
+            t0 = time.perf_counter()
+            samples[kind] = [ds[i] for i in range(len(ds))]
+            ms[kind] = (time.perf_counter() - t0) * 1e3 / len(ds)
+    same = len(samples["lmdb"]) == len(samples["img"]) == n and all(
+        np.array_equal(a[key], b[key]) for a, b in zip(samples["img"], samples["lmdb"]) for key in ("LQ", "GT"))
+    check(same, "LMDB: the deraining train dataset's samples differ from the image folders'")
+    print(f"[native] LMDB: create_lmdb wrote the {n} GT and LQ images of the synthetic deraining set in {seconds:.1f} "
+          f"s (two processes); its train dataset ({opt['GT_size']} px crops) from the LMDB roots bit-equal to the "
+          f"folders', {ms['lmdb']:.2f} ms a sample against {ms['img']:.2f} from PNGs on the host; card: {smi}")
 
 
 def phase_tools(dev, smi):
@@ -4516,6 +4592,8 @@ def main() -> int:
             report[-1]["train"] = stats[k]["train"]
         if "train_tp" in stats[k]:  # K4 on a rank's heads (DiT-L/2), K3 on the gathered level (NAFNet)
             report[-1]["train_tp"] = stats[k]["train_tp"]
+        if "float32" in stats[k]:  # K4 at each float32 shape of phase 8
+            report[-1]["float32"] = stats[k]["float32"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
           f"of 20 calls (event_ms: one launch between CUDA events, the earlier figure); K3 one call at "

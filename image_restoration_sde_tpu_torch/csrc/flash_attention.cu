@@ -47,7 +47,51 @@
 // tile, mma.sync m16n8k16, cp.async k/v tiles of 64 keys, head dims padded
 // to 80 with zeros inside the kernel.  The 144-byte rows do not fit the
 // 128-byte swizzle of the wgmma path in one box.
-// float32 inputs run on the FMA units (TF32 stays off), 32x32 tiles.
+//
+// float32, D = 64 and 72 (DiT training, tensor-parallel DiT ranks):
+// tc::flash_fwd_f32, both products on the tensor cores at float32 accuracy
+// by a three-way TF32 split ("3xTF32").  Each operand x is split as
+// x_hi = cvt.rna.tf32(x), x_lo = cvt.rna.tf32(x - x_hi) (round to nearest,
+// ties away: a float32 register fed to a TF32 mma unconverted would be
+// truncated), and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi, the
+// small terms first, into float32 accumulators; the dropped a_lo b_lo term
+// and the halves' rounding leave ~2^-22 of each product, where one TF32
+// product alone leaves ~2^-11 (1e-3 of the output, past the 1e-5 bound).
+// Plain TF32 would change the function the JAX package computes.  The
+// bound moves from 4 B H N^2 D FLOP on the FMA units (67 TFLOP/s) to three
+// times that at the TF32 rate (494.7 TFLOP/s): 3.33 ms at the DiT-L/2 train
+// shape (8, 4096, 16, 64), against 8.21 on FMA.  Choices:
+//   - route: mma.sync m16n8k8 .tf32.  wgmma .tf32 wants both shared
+//     operands K-major, and v's tile (keys x D, D contiguous) is MN-major
+//     for p v, so it would need a transposed copy of every v tile;
+//   - one CTA of four warps per 128-query tile (two 16-row m-tiles a warp,
+//     so each k or v fragment split feeds two m-tiles), k/v tiles of 32
+//     keys double-buffered by 16-byte cp.async (rows past N zero-filled),
+//     one __syncthreads a tile; ~73 KB of dynamic shared memory and ~250
+//     registers a thread (the tile's p halves and o): two CTAs an SM.  Of
+//     one or two m-tiles a warp and 32 or 64 keys a tile, this was the
+//     fastest that keeps D = 72 clear of the register limit;
+//   - the split is done by each consumer warp on the fragments it loads,
+//     not once by the loader into hi/lo tiles: a CTA's fragment loads read
+//     96 KB of shared memory a 32-key tile (D = 64), 768 clocks at 128
+//     bytes a clock, against 1536 m16n8k8 products, ~1536 clocks at the
+//     TF32 peak; hi/lo tiles would double those bytes, while the warps'
+//     conversions issue beside the products;
+//   - p never leaves registers: the m16n8k8 accumulator holds columns
+//     (2t, 2t + 1) of rows g, g + 8 and the A operand wants k-slots (t,
+//     t + 4), so slot t takes key 2t and slot t + 4 key 2t + 1, and v's B
+//     fragment rows are read in that order (q k^T permutes d the same way,
+//     so its q and k fragments are single 8-byte loads);
+//   - padded rows, no swizzle: q and k rows of 72 floats (8-byte fragment
+//     loads conflict-free), v rows of D + 4 (4-byte loads conflict-free);
+//   - softmax as the bf16 path's: the running max of the raw scores, p =
+//     exp2(s c - m c) with c = scale log2(e), p in float32 into the row sums
+//     and, split, into p v;
+//   - each tile's p v goes into fresh accumulators, added to o by the
+//     rescale's own FFMA (o = o corr + p v): the tensor cores' adds
+//     truncate to the accumulator's exponent, and into o, summed over every
+//     key so far, that is a bias growing with N (past the 1e-5 bound at
+//     N = 4096); a tile's sum is small and the FFMA rounds to nearest.
 // q, k and v take any batch and token stride (a multiple of 16 bytes), so
 // the (B, N, 3, H, D) view of a packed qkv product goes in with no copy.
 //
@@ -676,117 +720,251 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace wg
 
-// ------------------------------------------------------------------ f32
+// ------------------------------------------------------------------ f32: 3xTF32 on the tensor cores
 
-constexpr int kF32Rows = 32;  // query rows per CTA: 8 thread rows x 4
-constexpr int kF32Keys = 32;  // keys per tile: 16 thread columns x 2
-constexpr int kF32Threads = 128;
+namespace tc {
 
-// rows [row0, row0 + 32) of one head into a shared tile with row stride ld
-template <int DP>
-__device__ __forceinline__ void load_tile_f32(float* tile, int ld, const float* base, long long sn, int row0,
-                                              int N, int D) {
-  for (int i = threadIdx.x; i < kF32Rows * DP; i += kF32Threads) {
-    const int r = i / DP, d = i % DP;
-    tile[r * ld + d] = row0 + r < N && d < D ? base[(long long)(row0 + r) * sn + d] : 0.f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMT = 2;                  // 16-row m-tiles per warp
+constexpr int kBQ = 16 * kMT * kWarps;  // query rows per CTA
+constexpr int kBK = 32;                 // keys per k/v tile
+// row stride (floats) of the q and k tiles: 72 = 8 (mod 32), so the 8-byte
+// fragment loads of a half-warp (rows g, d pairs 2t) cover 32 banks
+constexpr int kLDQK = 72;
+// row stride of the v tile: D + 4 = 4 or 12 (mod 16), so the 4-byte loads
+// of a warp (keys 2t, columns g) cover 32 banks
+template <int D>
+constexpr int kLDV = D + 4;
+template <int D>
+constexpr int kSmem = 4 * (kBQ * kLDQK + 2 * kBK * kLDQK + 2 * kBK * kLDV<D>);
+constexpr int kMaxDevices = 16;
+
+// rows [row0, row0 + R) of one head, D floats each, into a shared tile of
+// row stride LD, 16 bytes a cp.async; rows past N are zero-filled
+template <int D, int R, int LD>
+__device__ __forceinline__ void load_rows(float* tile, const float* base, long long sn, int row0, int N) {
+  constexpr int kChunks = D / 4;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < R * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    const bool valid = row0 + r < N;
+    cp_async16(tile + r * LD + col, valid ? base + (long long)(row0 + r) * sn + col : base, valid);
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(const Params p) {
-  constexpr int LDK = DP + 1;  // odd row stride: the 16 column threads hit 16 banks
-  constexpr int LDP = kF32Keys + 1;
-  constexpr int ND = DP / 16;  // output columns per thread
-  __shared__ float sQ[kF32Rows * LDK];
-  __shared__ float sK[kF32Keys * LDK];
-  __shared__ float sV[kF32Keys * DP];
-  __shared__ float sP[kF32Rows * LDP];
+// c += a b at float32 accuracy from TF32 halves, the small products first:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
 
-  const int q0 = blockIdx.x * kF32Rows, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;  // rows ty*4 + i; keys and dims tx + 16*j
-  const int N = p.N, D = p.D;
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Params p, float c) {  // c = scale * log2(e)
+  constexpr int LDV = kLDV<D>;
+  constexpr int KS = D / 8;    // k-steps of q k^T; 8-column tiles of the output
+  constexpr int NS = kBK / 8;  // 8-key tiles of the scores; k-steps of p v
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;                // kBQ x kLDQK
+  float* sK = sQ + kBQ * kLDQK;        // 2 stages of kBK x kLDQK
+  float* sV = sK + 2 * kBK * kLDQK;    // 2 stages of kBK x LDV
+
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row group and k-slot / column pair
+  const int N = p.N;
   const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + (long long)h * D;
   const float* K = static_cast<const float*>(p.k) + b * p.k_sb + (long long)h * D;
   const float* V = static_cast<const float*>(p.v) + b * p.v_sb + (long long)h * D;
 
-  load_tile_f32<DP>(sQ, LDK, Q, p.q_sn, q0, N, D);
-  float acc[4][ND] = {};
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.f;
+  load_rows<D, kBQ, kLDQK>(sQ, Q, p.q_sn, q0, N);
+  load_rows<D, kBK, kLDQK>(sK, K, p.k_sn, 0, N);
+  load_rows<D, kBK, LDV>(sV, V, p.v_sn, 0, N);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < N; k0 += kF32Keys) {
-    __syncthreads();  // every thread is done with the previous tiles
-    load_tile_f32<DP>(sK, LDK, K, p.k_sn, k0, N, D);
-    load_tile_f32<DP>(sV, DP, V, p.v_sn, k0, N, D);
-    __syncthreads();
+  float o[kMT][KS][4];
+  float m[kMT][2], l[kMT][2];  // rows g and g + 8 of each m-tile: running max of the raw scores, this thread's sums
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < KS; ++nt) o[mt][nt][0] = o[mt][nt][1] = o[mt][nt][2] = o[mt][nt][3] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  // this thread's q fragment: row g of the warp's first m-tile, d pair 2t
+  const float* qf = sQ + (warp * 16 * kMT + g) * kLDQK + 2 * t;
 
-    float s[4][2] = {};
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * LDK + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) kv[j] = sK[(tx + 16 * j) * LDK + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  const int n_tiles = (N + kBK - 1) / kBK;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j is in for every thread, and every thread is done with tile j - 1
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      load_rows<D, kBK, kLDQK>(sK + st * kBK * kLDQK, K, p.k_sn, (j + 1) * kBK, N);
+      load_rows<D, kBK, LDV>(sV + st * kBK * LDV, V, p.v_sn, (j + 1) * kBK, N);
+      cp_async_commit();
     }
+    const float* kf = sK + (j & 1) * kBK * kLDQK + g * kLDQK + 2 * t;  // key g, d pair 2t
+    const float* vf = sV + (j & 1) * kBK * LDV + 2 * t * LDV + g;      // key 2t, column g
 
+    // s = q k^T: k-slots t and t + 4 of each 8-wide step hold d = 2t and
+    // 2t + 1 (a permutation of the sum), so one 8-byte load gives both
+    float s[kMT][NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = k0 + tx + 16 * j < N ? s[i][j] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int nt = 0; nt < NS; ++nt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[kMT][4], al[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const float2 r0 = *reinterpret_cast<const float2*>(qf + mt * 16 * kLDQK + ks * 8);
+        const float2 r1 = *reinterpret_cast<const float2*>(qf + (mt * 16 + 8) * kLDQK + ks * 8);
+        split_tf32(r0.x, ah[mt][0], al[mt][0]);
+        split_tf32(r1.x, ah[mt][1], al[mt][1]);
+        split_tf32(r0.y, ah[mt][2], al[mt][2]);
+        split_tf32(r1.y, ah[mt][3], al[mt][3]);
       }
 #pragma unroll
-      for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float corr = expf(m[i] - mx);
-      m[i] = mx;
-      float rs = 0.f;
+      for (int nt = 0; nt < NS; ++nt) {
+        const float2 kv = *reinterpret_cast<const float2*>(kf + nt * 8 * kLDQK + ks * 8);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(kv.x, bh0, bl0);
+        split_tf32(kv.y, bh1, bl1);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float pij = expf(s[i][j] - mx);
-        rs += pij;
-        sP[(ty * 4 + i) * LDP + tx + 16 * j] = pij;  // rounding to v's dtype: none in f32
+        for (int mt = 0; mt < kMT; ++mt) mma3(s[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+      }
+    }
+
+    // mask the keys past N (the last tile only); running max of the raw
+    // scores; p = exp2(s c - m c) in float32 into the row sums, in place
+    const bool edge = (j + 1) * kBK > N;
+    float corr[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (edge) {
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * kBK + nt * 8 + 2 * t + (e & 1) >= N) s[mt][nt][e] = kNegInf;
+      }
+      float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][nt][0], s[mt][nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][nt][2], s[mt][nt][3]));
+      }
+      float mc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[mt][r] = wg::ex2((m[mt][r] - mx[r]) * c);
+        m[mt][r] = mx[r];
+        mc[r] = mx[r] * c;
       }
 #pragma unroll
-      for (int o = 1; o < 16; o <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l[i] = l[i] * corr + rs;
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int j = 0; j < ND; ++j) acc[i][j] *= corr;
+        for (int e = 0; e < 4; ++e) {
+          s[mt][nt][e] = wg::ex2(fmaf(s[mt][nt][e], c, -mc[e >> 1]));
+          rs[e >> 1] += s[mt][nt][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * corr[mt][r] + rs[r];
     }
-    __syncthreads();
 
-    for (int c = 0; c < kF32Keys; ++c) {
-      float pv[4], vv[ND];
+    // o = o corr + p v.  k-slot t of 8-key step kk is key 8kk + 2t and slot
+    // t + 4 key 8kk + 2t + 1, so p's A fragment is the score tile's own
+    // registers (c0, c2, c1, c3), and v's B fragment rows are read in that
+    // order.  Each 8-column tile of the output sums the tile's keys into a
+    // fresh accumulator, added to o by one FFMA: the tensor cores' adds
+    // truncate to the accumulator's exponent, and o's magnitude, summed
+    // over every key so far, would make that a bias growing with N
+    uint32_t ph[kMT][NS][4], pl[kMT][NS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * LDP + c];
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int j = 0; j < ND; ++j) vv[j] = sV[c * DP + tx + 16 * j];
+      for (int kk = 0; kk < NS; ++kk) {
+        split_tf32(s[mt][kk][0], ph[mt][kk][0], pl[mt][kk][0]);
+        split_tf32(s[mt][kk][2], ph[mt][kk][1], pl[mt][kk][1]);
+        split_tf32(s[mt][kk][1], ph[mt][kk][2], pl[mt][kk][2]);
+        split_tf32(s[mt][kk][3], ph[mt][kk][3], pl[mt][kk][3]);
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < KS; ++nt) {
+      float pv[kMT][4];
 #pragma unroll
-        for (int j = 0; j < ND; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int mt = 0; mt < kMT; ++mt) pv[mt][0] = pv[mt][1] = pv[mt][2] = pv[mt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const float* vp = vf + kk * 8 * LDV + nt * 8;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vp[0], bh0, bl0);    // key 8kk + 2t, column 8nt + g
+        split_tf32(vp[LDV], bh1, bl1);  // key 8kk + 2t + 1
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) mma3(pv[mt], ph[mt][kk], pl[mt][kk], bh0, bh1, bl0, bl1);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        o[mt][nt][0] = fmaf(o[mt][nt][0], corr[mt][0], pv[mt][0]);
+        o[mt][nt][1] = fmaf(o[mt][nt][1], corr[mt][0], pv[mt][1]);
+        o[mt][nt][2] = fmaf(o[mt][nt][2], corr[mt][1], pv[mt][2]);
+        o[mt][nt][3] = fmaf(o[mt][nt][3], corr[mt][1], pv[mt][3]);
+      }
     }
   }
 
   float* O = static_cast<float*>(p.o) + (long long)b * N * p.H * D + (long long)h * D;
   const long long o_sn = (long long)p.H * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= N) continue;
+  for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) O[row * o_sn + d] = acc[i][j] / l[i];
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+    }
+    const int row = q0 + warp * 16 * kMT + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < KS; ++nt) {
+      const int d = nt * 8 + 2 * t;
+      if (row < N)
+        *reinterpret_cast<float2*>(O + row * o_sn + d) = make_float2(o[mt][nt][0] / l[mt][0], o[mt][nt][1] / l[mt][0]);
+      if (row + 8 < N)
+        *reinterpret_cast<float2*>(O + (row + 8) * o_sn + d) =
+            make_float2(o[mt][nt][2] / l[mt][1], o[mt][nt][3] / l[mt][1]);
     }
   }
 }
+
+template <int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  // the shared-memory attributes, once per device (launches hold the
+  // package's launch lock)
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !ready[dev]) {
+    if ((err = cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<D>)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+      return err;
+    if (dev < kMaxDevices) ready[dev] = true;
+  }
+  const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
+  flash_fwd_f32<D><<<grid, kThreads, kSmem<D>, stream>>>(p, p.scale * 1.4426950408889634f);
+  return cudaSuccess;
+}
+
+}  // namespace tc
 
 template <int DP>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
@@ -797,11 +975,9 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
       const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
       flash_fwd_bf16<DP><<<grid, kThreads, 0, stream>>>(p);
     }
-  } else {
-    const dim3 grid((unsigned)((p.N + kF32Rows - 1) / kF32Rows), (unsigned)p.H, (unsigned)p.B);
-    flash_fwd_f32<DP><<<grid, kF32Threads, 0, stream>>>(p);
+    return cudaSuccess;
   }
-  return cudaSuccess;
+  return tc::launch<DP == 64 ? 64 : 72>(p, stream);
 }
 
 }  // namespace

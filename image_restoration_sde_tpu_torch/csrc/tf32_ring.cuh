@@ -1,7 +1,8 @@
 // Pieces shared by the two linear-attention kernels (linear_attention.cu,
-// K2; linear_attention_bh.cu, K5): the 16-byte cp.async ring, TF32 hi/lo
-// splits and the mma.sync m16n8k8 TF32 product, 8-element shared loads and
-// global stores, and the resident-CTA capacity of a cooperative kernel.
+// K2; linear_attention_bh.cu, K5): the 16-byte cp.async ring, 8-element
+// shared loads and global stores, and the resident-CTA capacity of a
+// cooperative kernel.  The TF32 hi/lo split and the mma.sync m16n8k8 TF32
+// product are common.cuh's (K4's float32 path takes them too).
 #pragma once
 
 #include "common.cuh"
@@ -22,27 +23,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + O(2^-22 x), hi and lo TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a b on a 16x8x8 TF32 tile, float32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float lds(const float* p) { return *p; }

@@ -1,10 +1,10 @@
 """Dataset classes producing numpy HWC RGB float32 samples.
 
-A copy of the image-folder part of
-``image_restoration_sde_tpu/data/datasets.py``: the crops and flips come
-from the same numpy generators, so both packages yield the same samples.
-The LMDB readers are not in the port (ROADMAP, Queue 1): an LMDB root
-raises ``NotImplementedError``.
+A copy of ``image_restoration_sde_tpu/data/datasets.py``: the crops and
+flips come from the same numpy generators, so both packages yield the same
+samples, from image folders (``data_type: img``) or LMDB roots
+(``data_type: lmdb``, each root's environment opened once, at its first
+read).
 
 Parity: the reference's seven Dataset classes (``data/__init__.py:36-68``)
 built on the option-dict schema (dataroot_GT/dataroot_LQ, GT_size/LR_size,
@@ -51,6 +51,7 @@ class _Base:
         self.phase = opt.get("phase", "train")
         self.scale = int(opt.get("scale") or 1)
         self.data_type = opt.get("data_type", "img")
+        self._envs = {}
 
     def _paths(self, key: str):
         if self.data_type == "mc":
@@ -60,9 +61,23 @@ class _Base:
             )
         return io_utils.get_image_paths(self.data_type, self.opt.get(key))
 
+    def _paths_sizes(self, key: str):
+        """(paths, sizes) of a root: sizes the ``C_H_W`` strings of an LMDB
+        root, None for an image folder; (None, None) without the root."""
+        res = self._paths(key)
+        if self.data_type == "lmdb":
+            return res if res is not None else (None, None)
+        return res, None
+
     def _read(self, root_key: str, paths, sizes, index: int) -> np.ndarray:
         # uint8 until after the crop/augment: converting full-size HR
         # sources to f32 before cropping dominated the loader (io_utils)
+        if self.data_type == "lmdb":
+            env = self._envs.get(root_key)
+            if env is None:
+                env = self._envs[root_key] = io_utils.open_lmdb(self.opt[root_key])
+            size = [int(s) for s in sizes[index].split("_")]
+            return io_utils.read_img_lmdb_uint8(env, paths[index], size)
         return io_utils.read_img_uint8(paths[index])
 
     def rng(self, index: int) -> np.random.Generator:
@@ -83,8 +98,8 @@ class LQGTDataset(_Base):
 
     def __init__(self, opt):
         super().__init__(opt)
-        self.GT_paths, self.GT_sizes = self._paths("dataroot_GT"), None
-        self.LQ_paths, self.LQ_sizes = self._paths("dataroot_LQ"), None
+        self.GT_paths, self.GT_sizes = self._paths_sizes("dataroot_GT")
+        self.LQ_paths, self.LQ_sizes = self._paths_sizes("dataroot_LQ")
         if not self.GT_paths:
             raise ValueError("GT paths are empty")
         if self.LQ_paths and len(self.LQ_paths) != len(self.GT_paths):
@@ -152,7 +167,7 @@ class GTDataset(_Base):
 
     def __init__(self, opt):
         super().__init__(opt)
-        self.GT_paths, self.GT_sizes = self._paths("dataroot_GT"), None
+        self.GT_paths, self.GT_sizes = self._paths_sizes("dataroot_GT")
 
     def __len__(self):
         return len(self.GT_paths)
@@ -180,7 +195,7 @@ class LQDataset(_Base):
 
     def __init__(self, opt):
         super().__init__(opt)
-        self.LQ_paths, self.LQ_sizes = self._paths("dataroot_LQ"), None
+        self.LQ_paths, self.LQ_sizes = self._paths_sizes("dataroot_LQ")
 
     def __len__(self):
         return len(self.LQ_paths)

@@ -1,7 +1,8 @@
 """Image file IO for the data pipeline.
 
-A copy of ``image_restoration_sde_tpu/data/io_utils.py`` without its LMDB
-readers (ROADMAP, Queue 1: LMDB in the port).
+A copy of ``image_restoration_sde_tpu/data/io_utils.py``.  LMDB roots are
+read through the ``lmdb`` package where it is importable, else through the
+port's own pure-Python reader (``mdb.MdbEnv``).
 
 Parity: ref ``data/util.py:12-78`` — recursive sorted folder walk, cv2
 decode to float32 HWC in [0,1].  We standardize on RGB channel order
@@ -12,7 +13,8 @@ LQGT_dataset.py:177-180); a PIL fallback covers environments without cv2.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+import pickle
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -46,11 +48,25 @@ def get_paths_from_images(path: str) -> List[str]:
     return images
 
 
+def get_paths_from_lmdb(dataroot: str) -> Tuple[list, list]:
+    """(keys, ``C_H_W`` resolutions) from the root's ``meta_info.pkl``; one
+    resolution stands for every key."""
+    with open(os.path.join(dataroot, "meta_info.pkl"), "rb") as f:
+        meta_info = pickle.load(f)
+    paths = meta_info["keys"]
+    sizes = meta_info["resolution"]
+    if len(sizes) == 1:
+        sizes = sizes * len(paths)
+    return paths, sizes
+
+
 def get_image_paths(data_type: str, dataroot: Optional[str]):
+    """Sorted image paths of a folder (``img``), or ``(keys, sizes)`` of an
+    LMDB root (``lmdb``)."""
     if dataroot is None:
         return None
     if data_type == "lmdb":
-        raise NotImplementedError("LMDB datasets are not in the port yet (ROADMAP, Queue 1); use image folders")
+        return get_paths_from_lmdb(dataroot)
     if data_type == "img":
         return sorted(get_paths_from_images(dataroot))
     raise NotImplementedError(f"data_type {data_type!r} is not recognized")
@@ -82,6 +98,32 @@ def read_img_uint8(path: str) -> np.ndarray:
 def read_img(path: str) -> np.ndarray:
     """Read an image file -> float32 HWC **RGB** in [0,1]."""
     return to_float01(read_img_uint8(path))
+
+
+def read_img_lmdb_uint8(env, key: str, size: Tuple[int, int, int]) -> np.ndarray:
+    """Read uint8 HWC RGB from an lmdb record (size = (C, H, W)).
+
+    The channel flip (reference lmdb blobs are BGR) is a VIEW — the copy
+    happens crop-sized at the caller's final float conversion."""
+    with env.begin(write=False) as txn:
+        buf = txn.get(key.encode("ascii"))
+    C, H, W = size
+    img = np.frombuffer(buf, dtype=np.uint8).reshape(H, W, C)
+    if C >= 3:
+        img = img[:, :, ::-1]
+    return img
+
+
+def open_lmdb(dataroot: str):
+    """A read-only environment of an LMDB root: the ``lmdb`` package's where
+    it is importable, else :class:`mdb.MdbEnv`."""
+    try:
+        import lmdb  # optional: the C extension when present
+    except ImportError:
+        from .mdb import MdbEnv  # pure-Python MDB-format fallback
+
+        return MdbEnv(dataroot)
+    return lmdb.open(dataroot, readonly=True, lock=False, readahead=False, meminit=False)
 
 
 def to_float01(img: np.ndarray) -> np.ndarray:

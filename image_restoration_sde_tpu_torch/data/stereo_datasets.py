@@ -1,8 +1,7 @@
 """Stereo datasets: L/R pairs concatenated to 6-channel samples.
 
-A copy of the image-folder part of
-``image_restoration_sde_tpu/data/stereo_datasets.py``; LMDB roots raise in
-``io_utils.get_image_paths``, as in the other datasets of the port.
+A copy of ``image_restoration_sde_tpu/data/stereo_datasets.py``: image
+folders or LMDB roots, read through ``datasets._Base``.
 
 Parity: ref ``data/StereoLQGT_dataset.py`` / ``StereoLQ_dataset.py`` —
 images at indices 2i / 2i+1 form a pair, joint crop + augment, channel
@@ -23,8 +22,8 @@ from .datasets import _Base
 class StereoLQGTDataset(_Base):
     def __init__(self, opt):
         super().__init__(opt)
-        self.GT_paths, self.GT_sizes = self._paths("dataroot_GT"), None
-        self.LQ_paths, self.LQ_sizes = self._paths("dataroot_LQ"), None
+        self.GT_paths, self.GT_sizes = self._paths_sizes("dataroot_GT")
+        self.LQ_paths, self.LQ_sizes = self._paths_sizes("dataroot_LQ")
         if not self.GT_paths:
             raise ValueError("GT paths are empty")
 
@@ -77,7 +76,7 @@ class StereoLQDataset(_Base):
 
     def __init__(self, opt):
         super().__init__(opt)
-        self.LQ_paths, self.LQ_sizes = self._paths("dataroot_LQ"), None
+        self.LQ_paths, self.LQ_sizes = self._paths_sizes("dataroot_LQ")
 
     def __len__(self):
         return len(self.LQ_paths) // 2

@@ -12,9 +12,13 @@ over the keys:
 package's einsum reference ``_ref_mha`` divides first and then rounds, so
 the two differ in bfloat16.  The kernel is ``csrc/flash_attention.cu``:
 tensor-core products in bfloat16 (``wgmma`` with TMA-fed 128-key tiles at
-head dim 64, ``mma.sync`` with 64-key tiles at 72), FMA in float32, any N,
-q/k/v with any batch and token stride (the (B, N, 3, H, D) view of a
-packed qkv product goes in as it is).
+head dim 64, ``mma.sync`` with 64-key tiles at 72) and in float32
+(``mma.sync`` TF32 on ``F32_KEY_TILE``-key tiles, each operand split into
+two TF32 halves rounded to nearest, three products a_lo b_hi + a_hi b_lo +
+a_hi b_hi: float32 accuracy, bound by three TF32 products at 494.7 TFLOP/s
+rather than one float32 product on the FMA units at 67), any N, q/k/v with
+any batch and token stride (the (B, N, 3, H, D) view of a packed qkv
+product goes in as it is).
 
 :func:`flash_mha` is the operator ``irsde::flash_mha``: it launches the
 kernel on CUDA tensors and runs the plain version on CPU tensors.  It is
@@ -53,15 +57,19 @@ HEAD_DIMS = (64, 72)
 BWD_BLOCK = 1024
 # keys per tile of the bfloat16 kernel, by head dim: where it rounds p
 KEY_TILE = {64: 128, 72: 64}
+# keys per tile of the float32 kernel: where its running max moves
+F32_KEY_TILE = 32
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """(B, N, H, D) attention, un-tiled: float32 scores and sums, ``p``
-    rounded to v's dtype before the product, the sum divided out last."""
-    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * scale
+    """(B, N, H, D) attention, un-tiled: float32 scores and sums (float64
+    for float64 inputs), ``p`` rounded to v's dtype before the product, the
+    sum divided out last."""
+    wide = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bihd,bjhd->bhij", q.to(wide), k.to(wide)) * scale
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhij,bjhd->bhid", p.to(v.dtype).float(), v.float()) / l
+    out = torch.einsum("bhij,bjhd->bhid", p.to(v.dtype).to(wide), v.to(wide)) / l
     return out.transpose(1, 2).to(q.dtype)
 
 

@@ -99,7 +99,7 @@ def test_eval_loader_and_factory(folders):
     assert type(stereo).__name__ == "StereoLQGTDataset" and len(stereo) == 3 and stereo[0]["GT"].shape[2] == 6
     with pytest.raises(NotImplementedError, match="not recognized"):
         datasets.create_dataset({**opt, "mode": "LQGT_unknown"})
-    with pytest.raises(NotImplementedError, match="LMDB"):
+    with pytest.raises(FileNotFoundError, match="meta_info.pkl"):  # an LMDB root is read through its meta file
         datasets.create_dataset({**opt, "data_type": "lmdb"})
 
 
