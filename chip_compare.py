@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time K1 and K5 of two checkouts of the port on one NVIDIA GPU, in turns.
+"""Time K1 and K5 (or K4, or the host enqueue) of two checkouts of the port
+on one NVIDIA GPU, in turns.
 
-    python3 chip_compare.py OTHER_CHECKOUT [--enqueue]
+    python3 chip_compare.py OTHER_CHECKOUT [--enqueue | --k4]
 
 OTHER_CHECKOUT is another checkout of this repository (the parent commit,
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -28,6 +29,12 @@ run on each checkout's package (``--package``), in the same turns repeated
 three times, and the table gives each side's median and quartiles of its
 six runs a path.
 
+With ``--k4`` it times instead K4's bf16 forward (``flash_mha_cuda``)
+and ``F.scaled_dot_product_attention`` on the same tensors at K4_SHAPES
+(the DiT-L/2 and DiT-XL/2 sites), CUDA events around one call (the median
+of 30 after 3 warm-ups, ``chip_smoke.cuda_ms``), the sides in K4_ROUNDS,
+with each side's median and range and the pairs this side won.
+
 The kernels are held against their plain versions by ``chip_smoke.py``;
 this script only times them.  Without CUDA it exits at once.
 """
@@ -47,6 +54,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = ("other", "this", "this", "other")
 ENQUEUE_ROUNDS = ROUNDS * 3
+# K4 at the DiT-L/2 (head dim 64) and DiT-XL/2 (72) sampling sites and the
+# tiled call's; two rounds of turns: one side's medians move a few percent
+# between processes
+K4_SHAPES = [(2, 4096, 16, 64), (4, 4096, 16, 64), (1, 4096, 16, 72), (2, 4096, 16, 72), (1, 2816, 16, 72)]
+K4_ROUNDS = ROUNDS * 2
 
 
 def smoke():
@@ -124,6 +136,51 @@ def side(tree):
     print(json.dumps({"k1": [[C, rows, *t] for (C, rows), t in k1.items()], "k5": k5}))
 
 
+def side_k4(tree):
+    """One side's K4 times as a JSON line: (kernel ms, SDPA ms) by shape."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import torch.nn.functional as F
+
+    cs = smoke()
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 9)
+    times = {}
+    for shape in K4_SHAPES:
+        q, k, v = ((torch.randn(shape, generator=gen, device=dev) * 1.5).bfloat16() for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        scale = shape[-1] ** -0.5
+        times[str(shape)] = (cs.cuda_ms(lambda: FA.flash_mha_cuda(q, k, v, scale), reps=30),
+                             cs.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps=30))
+    print(json.dumps({"k4": times}))
+
+
+def compare_k4(trees, cs, smi) -> int:
+    """K4 bf16 of the two checkouts at K4_SHAPES, in K4_ROUNDS."""
+    runs = {"other": [], "this": []}
+    for name in K4_ROUNDS:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--side-k4", trees[name]],
+                             stdout=subprocess.PIPE, text=True, check=True)
+        runs[name].append(json.loads(out.stdout.strip().splitlines()[-1])["k4"])
+    n = K4_ROUNDS.count("this")
+    print(f"[k4] other = {trees['other']}; K4 bf16 ms, median [min, max] of {n} processes a side in turns "
+          f"(other, this, this, other) x {n // 2}; SDPA the median over both sides' processes; card: {smi}")
+    for shape in map(str, K4_SHAPES):
+        t = {name: [r[shape][0] for r in runs[name]] for name in runs}
+        sdpa = statistics.median(r[shape][1] for name in runs for r in runs[name])
+        wins = sum(a < b for a, b in zip(t["this"], t["other"]))
+        nbytes, flops, _ = cs.flash_work(tuple(json.loads(shape.replace("(", "[").replace(")", "]"))), 2)
+        bms, by = cs.bound(nbytes, flops, "bfloat16")
+        print(f"[k4] {shape}: other {statistics.median(t['other']):.4f} [{min(t['other']):.4f}, "
+              f"{max(t['other']):.4f}] this {statistics.median(t['this']):.4f} [{min(t['this']):.4f}, "
+              f"{max(t['this']):.4f}] ({100 * (statistics.median(t['this']) / statistics.median(t['other']) - 1):+.1f}%; "
+              f"this lower in {wins} of {n} pairs); sdpa {sdpa:.4f}; least {bms:.4f} ({by})")
+    return 0
+
+
 def compare_enqueue(trees) -> int:
     """Host enqueue per forward of each sampler path, the two checkouts'
     packages in turns under this checkout's ``chip_profile.py --sampling``
@@ -158,10 +215,10 @@ def compare_enqueue(trees) -> int:
 def main() -> int:
     import torch
 
-    if len(sys.argv) == 3 and sys.argv[1] == "--side":
-        side(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--side", "--side-k4"):
+        (side if sys.argv[1] == "--side" else side_k4)(sys.argv[2])
         return 0
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--enqueue"]):
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--enqueue"], ["--k4"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -183,6 +240,8 @@ def main() -> int:
         return 1
     if "--enqueue" in sys.argv[2:]:
         return compare_enqueue(trees)
+    if "--k4" in sys.argv[2:]:
+        return compare_k4(trees, cs, smi)
 
     sites = record_sites(cs, torch.device("cuda", 0))
     distinct = sorted({s for path in sites.values() for s in path})

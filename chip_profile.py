@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one sampler step goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--sampling | --dit-train] [--package CHECKOUT]
+    python3 chip_profile.py [--sampling | --dit-train | --dit-xl] [--package CHECKOUT]
 
 For each of the port's sampler paths (the configurations of
 ``chip_smoke.py``: IR-SDE deraining, ConditionalUNet at batch 8, 128 px;
@@ -46,7 +46,9 @@ card's memory at batch 8), with the step's peak memory.
 
 ``--sampling`` stops after the sampler paths; ``--dit-train`` times the
 DiT-L/2 train step alone (its kernel path, the last line of the list
-above); ``--package CHECKOUT`` imports
+above); ``--dit-xl`` profiles the DiT path's sampler step alone with
+DiT-XL/2 (``configs/latent-dehazing/train/dit.yml`` with ``which_model:
+DiT_XL_2``: 28 blocks, heads of 72) in its place; ``--package CHECKOUT`` imports
 the port from another checkout of the repository (``chip_compare.py
 --enqueue`` times two checkouts' host enqueue with the same script).
 Without CUDA it exits at once.
@@ -304,6 +306,7 @@ def main(argv=None) -> int:
     parser.add_argument("--sampling", action="store_true", help="the sampler paths only, no train step")
     parser.add_argument("--package", default=REPO, help="the checkout whose port is imported")
     parser.add_argument("--dit-train", action="store_true", help="the DiT-L/2 train step only")
+    parser.add_argument("--dit-xl", action="store_true", help="the DiT-XL/2 sampler step only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -334,6 +337,17 @@ def main(argv=None) -> int:
     def make_sde(opt):
         s = opt["sde"]
         return IRSDE.create(s["max_sigma"], s["T"], s["schedule"], s["eps"], device=dev)
+
+    if args.dit_xl:
+        opt = load("latent-dehazing", "train", "dit.yml")
+        compressor = seeded(UNet(**opt["network_L"]["setting"]))
+        dit = seeded(build_network("DiT_XL_2", opt["network_G"]["setting"], dtype=torch.bfloat16))
+        img = torch.rand(2, 1024, 1024, 3, generator=gen, device=dev)
+        with torch.inference_mode():
+            latent, _ = compressor.encode(img)
+        profile_steps("dit-xl", *posterior(make_noise_fn(dit, torch.bfloat16), latent + 0.1, latent, make_sde(opt)))
+        print_card()
+        return 0
 
     opt = load("deraining", "test", "ir-sde.yml")
     unet = seeded(ConditionalUNet(**opt["network_G"]["setting"], dtype=torch.bfloat16))

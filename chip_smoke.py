@@ -21,7 +21,9 @@ seed or trained here:
   script's serving constants): the same compressor encodes 1024 px images
   to 128x128x8 latents; DiT-L/2 (hidden 1024, 24 blocks, 16 heads of 64:
   4096 tokens, bf16 compute, parameters cast to bf16 once per request)
-  runs 100 reverse steps, its attention through kernel K4;
+  runs 100 reverse steps, its attention through kernel K4; and the same
+  path through DiT-XL/2 (the YAML with ``network_G.which_model: DiT_XL_2``:
+  hidden 1152, 28 blocks, 16 heads of 72, what the bare DiT class builds);
 - tiled large images: a 1536x1536 uint8 image as four 1024 px tiles in one
   call of the DiT sampler, blended on the card;
 - the public op ``ops.linear_attention.linear_attention`` (kernel K5) at
@@ -127,8 +129,10 @@ its DiT run):
 8. DiT kernels: K4 against its plain version in float32 and bfloat16 at
    (B, N, H, D) = (2, 4096, 16, 64) (the slice), (1, 2816, 16, 64) (the
    odd request), (2, 1024, 16, 64) (512 px), (1, 4096, 16, 72) (DiT-XL's
-   head), (1, 1000, 16, 64) and (3, 35, 4, 64) (ragged), (4, 4096, 16, 64)
-   (the tiled call), and on strided views of a packed qkv; bfloat16 also
+   head), (1, 1000, 16, 64), (3, 35, 4, 64), (1, 1000, 16, 72) and
+   (3, 35, 4, 72) (ragged), (4, 4096, 16, 64) (the tiled call), (2, 4096,
+   16, 72) and (1, 2816, 16, 72) (the DiT-XL requests), and on strided views
+   of packed (2, 4096, 3, 16, 64) and (2, 4096, 3, 16, 72) qkv; bfloat16 also
    against a plain version that rounds p where the kernel does; beside
    F.scaled_dot_product_attention (float32: TF32 matmuls off) and the
    bound (float32: on the FMA units and as the kernel's 3xTF32 products);
@@ -143,6 +147,12 @@ its DiT run):
 11. tiled path: ``tiling.tiled_restore_device`` on a 1x1536x1536 uint8
    image, tile 1024, overlap 64, tile_batch 4 (four tiles, one sampler
    call: 2400 K4 launches);
+dit-xl net (after 11): phase 9's forward through DiT-XL/2, kernel path
+   against plain path, float32 and bfloat16, 28 K4 launches a bf16 forward;
+dit-xl main path: phase 10's first posterior batch and odd image through
+   DiT-XL/2 (the compressor of phase 9); per 100-step request exactly 2800
+   K4, 4 K1, 2 K2a, 2 K2b and no K3 launches; then the wall ms a step and
+   the host's enqueue of one forward (the median of ENQUEUE_REPS);
 12. linear attention: the op path at (BH, N, d) = (32, 16384, 32),
    (32, 4096, 32), (32, 1024, 32), (32, 256, 32) (the deraining UNet's
    levels at batch 8 x 4 heads), (6, 1000, 32), (8, 4096, 16) and
@@ -420,10 +430,25 @@ TRAIN_NET_BATCH = {"dit": 1}
 TRAIN_BATCH, TRAIN_SIZE = 4, 128  # the pixel train paths' batch and crop
 TRAIN_NAF_LEVEL = (28, 512)  # the Refusion net's fused level: blocks, channels (at TRAIN_SIZE / 8)
 DIT_DEPTH = 24  # DiT-L/2's blocks: K4 launches a forward
+# DiT-XL/2 (hidden 1152, 28 blocks, 16 heads of 72), what the bare DiT
+# class builds: the DiT YAML with network_G.which_model set to this in
+# memory (dit_xl_opt); its main path serves XL_SERVED of the DiT path's
+# requests
+DIT_XL = "DiT_XL_2"
 # K4's (B, N, H, D): the slice first; phase 8 adds the shapes of every DiT
-# and tiled request (dit_path_shapes) that are not among these
+# and tiled request (dit_path_shapes) and of the DiT-XL requests that are
+# not among these; the strided views of a packed qkv at FLASH_PACKED
 FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
-                (1, 1000, 16, 64), (3, 35, 4, 64)]
+                (1, 1000, 16, 64), (3, 35, 4, 64), (1, 1000, 16, 72), (3, 35, 4, 72)]
+FLASH_PACKED = [(2, 4096, 16, 64), (2, 4096, 16, 72)]
+# host enqueue of one DiT-XL forward: the median of this many, each on an
+# idle card (chip_profile.py's ENQUEUE_REPS); sampler steps timed for the
+# wall ms a step
+ENQUEUE_REPS, XL_TIMED_STEPS = 5, 10
+# the DiT-XL main path serves these of phase 10's requests: the first
+# posterior batch and the odd image (the second posterior batch and the sde
+# batch cut to the script's time limit)
+XL_SERVED = (0, 3)
 # K4 under autograd (phase 19): the gradient's shape, where the un-tiled
 # reference's B H N^2 float32 scores fit (2.1 GB; 8.6 GB at batch 8 and
 # ~4x that under autograd), and the DiT-L/2 train step's attention shape
@@ -482,7 +507,7 @@ DP_ARTIFACT_DEVICES = ["cuda:0", "cuda:0"]
 # the halves added by the all-reduce); the later steps' losses within
 # DP_LATER_LOSS (Lion's first update moves an element by lr_G either way
 # where its gradient's sign flips)
-TP_STEPS, TP_BATCH, TP_RANKS = 3, 2, 2
+TP_STEPS, TP_BATCH, TP_RANKS = 2, 2, 2
 TP_GRAD_REL = 2e-4
 TP_SITE = (TP_BATCH, 4096, 16 // TP_RANKS, 64)
 # and the deraining Refusion YAML at its own batch (TRAIN_BATCH of
@@ -775,20 +800,31 @@ def compressor_shapes(comp, requests):
     return ln, attn
 
 
-def dit_path_shapes(dit_opt):
-    """The DiT and tiled paths' kernel shapes: the compressor's K1 (C, rows)
-    and K2 (batch, N), and K4's (B, N, H, D) on the latent's patch grid."""
+def dit_path_shapes(dit_opt, requests=None):
+    """The DiT and tiled paths' kernel shapes (or those of ``requests``):
+    the compressor's K1 (C, rows) and K2 (batch, N), and K4's (B, N, H, D)
+    on the latent's patch grid."""
     import torch
 
     from image_restoration_sde_tpu_torch.models import build_network
 
+    requests = requests or dit_requests()
     with torch.device("meta"):
         net = build_network(dit_opt["network_G"]["which_model"], dit_opt["network_G"]["setting"])
     p, heads = net.patch_size, net.blocks[0].attn.heads
     dh = net.blocks[0].attn.proj.in_features // heads
-    ln, attn = compressor_shapes(dit_opt["network_L"]["setting"], dit_requests())
-    flash = [(batch, (h // 8 // p) * (w // 8 // p), heads, dh) for batch, h, w in dit_requests()]
+    ln, attn = compressor_shapes(dit_opt["network_L"]["setting"], requests)
+    flash = [(batch, (h // 8 // p) * (w // 8 // p), heads, dh) for batch, h, w in requests]
     return sorted(ln), sorted(attn), flash
+
+
+def dit_xl_opt(dit_opt):
+    """The DiT YAML with ``network_G.which_model`` set to DIT_XL."""
+    import copy
+
+    opt = copy.deepcopy(dit_opt)
+    opt["network_G"]["which_model"] = DIT_XL
+    return opt
 
 
 def latent_path_shapes(latent_opt):
@@ -1151,12 +1187,17 @@ def make_net(cls, setting, dtype, plain, dev, state=None):
 
     from image_restoration_sde_tpu_torch.models import init_params_
 
-    net = cls(**setting, dtype=dtype, plain=plain)
     if state is None:
+        # init_params_ sets every parameter (the nets hold no buffers), from
+        # the CPU generator: no default initialiser runs
+        with torch.device("meta"):
+            net = cls(**setting, dtype=dtype, plain=plain)
         gen = torch.Generator()
         gen.manual_seed(SEED)
-        init_params_(net, gen)
+        init_params_(net.to_empty(device=dev), gen)
     else:
+        with torch.device(dev):  # the default initialisers run on the card; state's weights replace them
+            net = cls(**setting, dtype=dtype, plain=plain)
         net.load_state_dict(state)
     return net.to(dev).eval()
 
@@ -1397,7 +1438,10 @@ def phase_flash(dev, stats, dit_opt):
     from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
 
-    shapes = FLASH_SHAPES + [s for s in dit_path_shapes(dit_opt)[2] if s not in FLASH_SHAPES]
+    shapes = list(FLASH_SHAPES)
+    for s in dit_path_shapes(dit_opt)[2] + dit_path_shapes(dit_xl_opt(dit_opt), dit_requests()[:2])[2]:
+        if s not in shapes:
+            shapes.append(s)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 9)
     for dtype in (torch.bfloat16, torch.float32):
@@ -1448,30 +1492,35 @@ def phase_flash(dev, stats, dit_opt):
                   f"(bound {FLASH_FLIP_SHARE}), worst {worst:.3g} of the flip allowance")
             if dtype == torch.bfloat16 and shape == FLASH_SHAPES[0]:
                 stats[FLASH_ATTN].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
+            if dtype == torch.bfloat16 and D == 72:
+                stats[FLASH_ATTN].setdefault("bfloat16_d72", []).append(
+                    {"shape": list(shape), "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+                     "bound_by": by, "max_abs_err": err})
             del q, k, v, out, ref
 
         # strided views of a packed (B, N, 3, H, D) product, as the DiT gives them
-        B, N, H, D = FLASH_SHAPES[0]
-        qkv = (torch.randn(B, N, 3, H, D, generator=gen, device=dev) * 1.5).to(dtype)
-        q, k, v = qkv.unbind(2)
-        out = FA.flash_mha_cuda(q, k, v, D**-0.5)
-        same = torch.equal(out, FA.flash_mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(), D**-0.5))
-        err = (out.float() - FA.flash_mha_plain(q, k, v, D**-0.5).float()).abs().max().item()
-        check(same, f"K4 {dtype}: strided q/k/v views differ from contiguous copies")
-        print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} strided views of a packed ({B}, {N}, 3, {H}, {D}) qkv: "
-              f"bit-equal to contiguous copies, max|dy| vs plain {err:.3g}")
-        del qkv, q, k, v, out
+        for B, N, H, D in FLASH_PACKED:
+            qkv = (torch.randn(B, N, 3, H, D, generator=gen, device=dev) * 1.5).to(dtype)
+            q, k, v = qkv.unbind(2)
+            out = FA.flash_mha_cuda(q, k, v, D**-0.5)
+            same = torch.equal(out, FA.flash_mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(), D**-0.5))
+            err = (out.float() - FA.flash_mha_plain(q, k, v, D**-0.5).float()).abs().max().item()
+            check(same, f"K4 {dtype} D={D}: strided q/k/v views differ from contiguous copies")
+            print(f"[dit-kernels] K4 {str(dtype)[6:]:8s} strided views of a packed ({B}, {N}, 3, {H}, {D}) qkv: "
+                  f"bit-equal to contiguous copies, max|dy| vs plain {err:.3g}")
+            del qkv, q, k, v, out
 
 
-def phase_dit_net(dev, dit_opt):
-    """One forward of the full-width DiT-L/2 at batch 2 on 128x128x8
-    latents, kernel path against plain path, float32 and bfloat16 (bounds
-    of compare_nets).  Seeded weights with flax's default initialisers on
-    every layer: flax zeroes adaLN and the final layer, and a net whose
-    output is exactly 0 would agree with anything.  The bf16 kernel forward
-    launches K4 once per block.  Then the path's float32 compressor, kernel
-    path against plain path, at each DiT request's shape and the tiled
-    call's (compare_compressor)."""
+def phase_dit_net(dev, dit_opt, tag="dit-net", with_compressor=True):
+    """One forward of the YAML's full-width DiT (DiT-L/2; DiT-XL/2 through
+    dit_xl_opt) at batch 2 on 128x128x8 latents, kernel path against plain
+    path, float32 and bfloat16 (bounds of compare_nets).  Seeded weights
+    with flax's default initialisers on every layer: flax zeroes adaLN and
+    the final layer, and a net whose output is exactly 0 would agree with
+    anything.  The bf16 kernel forward launches K4 once per block.  Then,
+    ``with_compressor``, the path's float32 compressor, kernel path against
+    plain path, at each DiT request's shape and the tiled call's
+    (compare_compressor); else None in its place."""
     import functools
 
     import torch
@@ -1491,10 +1540,13 @@ def phase_dit_net(dev, dit_opt):
     with torch.inference_mode():
         nets[torch.bfloat16, False](xt, cond, t)
     depth = len(nets[torch.bfloat16, False].blocks)
-    check(FLASH_ATTN.launches - before == depth, f"DiT forward: {FLASH_ATTN.launches - before} K4 launches")
-    compare_nets("dit-net", f"{which} batch {DIT_BATCH} {lat}x{lat}x{setting['in_channels']}", nets, (xt, cond, t))
+    check(FLASH_ATTN.launches - before == depth, f"{which} forward: {FLASH_ATTN.launches - before} K4 launches")
+    compare_nets(tag, f"{which} batch {DIT_BATCH} {lat}x{lat}x{setting['in_channels']}, {depth} K4 launches a bf16 "
+                 f"forward", nets, (xt, cond, t))
     net = nets.pop((torch.bfloat16, False))
     del nets
+    if not with_compressor:
+        return net, None
 
     comp_opt = dit_opt["network_L"]
     compressor = build_network(comp_opt["which_model"], comp_opt["setting"])
@@ -1514,11 +1566,11 @@ def dit_want(steps, depth):
                   FLASH_ATTN=depth * steps)
 
 
-def phase_dit_main_path(dev, net, compressor, dit_opt, smi):
+def phase_dit_main_path(dev, net, compressor, dit_opt, smi, tag="dit-main", served=(0, 1, 2, 3)):
     """The DiT latent sampler (compressor float32; DiT bf16 compute with its
     parameters cast to bf16 once per request) serves two posterior batches
     of 2 at 1024 px, one sde batch of 2 and the odd 1000x700 image (padded
-    to 1024x704: 2816 tokens)."""
+    to 1024x704: 2816 tokens), or those of them that ``served`` names."""
     import torch
 
     from image_restoration_sde_tpu_torch.sde import IRSDE
@@ -1535,8 +1587,61 @@ def phase_dit_main_path(dev, net, compressor, dit_opt, smi):
     requests = [(DIT_MODE, rng.random(full, np.float32), (gen,)), (DIT_MODE, rng.random(full, np.float32), (gen,)),
                 ("sde", rng.random(full, np.float32), (gen,)),
                 (DIT_MODE, rng.random((1, *DIT_ODD_HW, 3), np.float32), (gen,))]
-    launches = serve("dit-main", dev, requests, samplers, dit_want(steps, len(net.blocks)), smi, DIT_BATCH, pad=64)
+    requests = [requests[i] for i in served]
+    launches = serve(tag, dev, requests, samplers, dit_want(steps, len(net.blocks)), smi, DIT_BATCH, pad=64)
     return launches, samplers[DIT_MODE]
+
+
+def phase_dit_xl_main_path(dev, net, compressor, xl_opt, smi):
+    """phase_dit_main_path's XL_SERVED requests through DiT-XL/2 (28 K4
+    launches a step at head dim 72); then, on the 128x128x8 latents of
+    batch 2 with the parameters cast to bf16 as the sampler casts them, the
+    host's enqueue of one forward (no synchronisation: the card runs behind; the median of
+    ENQUEUE_REPS, each on an idle card, as chip_profile.py measures it: a
+    tensor-map cache miss would show here) and the wall ms a step (host
+    clock around XL_TIMED_STEPS posterior steps ending in a
+    synchronisation, after a warm run)."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.ops import FLASH_ATTN
+    from image_restoration_sde_tpu_torch.sampling import make_noise_fn
+    from image_restoration_sde_tpu_torch.sde import IRSDE, samplers
+
+    launches, _ = phase_dit_main_path(dev, net, compressor, xl_opt, smi, tag="dit-xl-main", served=XL_SERVED)
+    s = xl_opt["sde"]
+    sde = IRSDE.create(s["max_sigma"], s["T"], s["schedule"], s["eps"], device=dev)
+    fn = make_noise_fn(net, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    lat = DIT_SIZE // 8
+    mu = torch.randn(DIT_BATCH, lat, lat, net.in_channels, generator=gen, device=dev)
+    xt, tvec = mu + 0.1, torch.full((DIT_BATCH,), 50, device=dev)
+    noise = torch.zeros(XL_TIMED_STEPS, *xt.shape, device=dev)
+    depth = len(net.blocks)
+    with torch.inference_mode():
+        def run():
+            return samplers.reverse_posterior(sde, fn, xt, mu, None, steps=XL_TIMED_STEPS, noise_seq=noise)
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / XL_TIMED_STEPS * 1e3
+        check(bool(torch.isfinite(out).all()), "DiT-XL steps: output not finite")
+        enqueues = []
+        for _ in range(ENQUEUE_REPS):
+            torch.cuda.synchronize()
+            before = FLASH_ATTN.launches
+            t0 = time.perf_counter()
+            fn(xt, mu, tvec)
+            enqueues.append((time.perf_counter() - t0) * 1e3)
+            check(FLASH_ATTN.launches - before == depth, f"DiT-XL forward: {FLASH_ATTN.launches - before} K4 launches")
+        torch.cuda.synchronize()
+    print(f"[dit-xl-main] {DIT_XL} bf16, cast parameters, batch {DIT_BATCH} on {lat}x{lat}x{net.in_channels}: "
+          f"wall {wall:.3f} ms a step ({XL_TIMED_STEPS} posterior steps, host clock), host enqueue "
+          f"{statistics.median(enqueues):.3f} ms a forward (median of {ENQUEUE_REPS}: "
+          f"{', '.join(f'{e:.3f}' for e in enqueues)}), {depth} K4 launches a forward (card: {smi})")
+    return launches
 
 
 def phase_tiled(dev, sampler, steps, depth, smi):
@@ -2266,7 +2371,8 @@ def train_net_step(label, opt, dev, gen, plain, state_dicts, batch, remat=False)
 
     nopt = options.dict_to_nonedict(opt)
     which, setting = train_network(label, nopt)
-    net = build_network(which, setting, plain=plain).to(dev).train()
+    with torch.device(dev):  # the default initialisers run on the card; the state dicts' weights replace them
+        net = build_network(which, setting, plain=plain).train()
     net.load_state_dict(state_dicts["net"])
     optimizer = ScheduledOptimizer(build_optimizer(opt["train"]["optimizer"], net.parameters()), lambda s: 0.0)
     state = create_train_state(net, optimizer, ema=False)
@@ -2276,7 +2382,8 @@ def train_net_step(label, opt, dev, gen, plain, state_dicts, batch, remat=False)
         step, args = make_compressor_train_step(), (lq, gt, None)
     elif label in LATENT_TRAIN:
         which_l, setting_l = options.network_setting(nopt, "network_L")
-        comp = build_network(which_l, setting_l, plain=plain).to(dev)
+        with torch.device(dev):
+            comp = build_network(which_l, setting_l, plain=plain)
         comp.load_state_dict(state_dicts["compressor"])
         with torch.no_grad():
             lat = comp.encode(lq[:1])[0]
@@ -2312,15 +2419,21 @@ def phase_train_nets(dev, train_opts):
     from image_restoration_sde_tpu_torch.models import build_network, init_params_
     from image_restoration_sde_tpu_torch.utils import options
 
+    def seeded_state(which, setting, seeded):
+        # init_params_ sets every parameter (the nets hold no buffers): no default initialiser runs
+        with torch.device("meta"):
+            net = build_network(which, setting)
+        return init_params_(net.to_empty(device="cpu"), seeded).state_dict()
+
     gen = rng_generator(dev, SEED + 32)
     for label, opt in train_opts.items():
         nopt = options.dict_to_nonedict(opt)
         which, setting = train_network(label, nopt)
         seeded = torch.Generator().manual_seed(SEED + 33)
-        state_dicts = {"net": init_params_(build_network(which, setting), seeded).state_dict()}
+        state_dicts = {"net": seeded_state(which, setting, seeded)}
         if label in LATENT_TRAIN:
             which_l, setting_l = options.network_setting(nopt, "network_L")
-            state_dicts["compressor"] = init_params_(build_network(which_l, setting_l), seeded).state_dict()
+            state_dicts["compressor"] = seeded_state(which_l, setting_l, seeded)
         batch = train_batch(label, opt, dev, gen)
         step_gen = rng_generator(dev, SEED + 35)
         out = {}
@@ -4513,7 +4626,12 @@ def main() -> int:
                                          dit_opt, smi)
     launches["tiled"] = timed("tiled", phase_tiled, dev, dit_sampler, dit_opt["sde"]["sample_T"],
                               len(dit_net.blocks), smi)
-    del dit_net, dit_compressor, dit_sampler
+    del dit_net, dit_sampler
+    torch.cuda.empty_cache()
+    xl_opt = dit_xl_opt(dit_opt)
+    xl_net, _ = timed("dit-xl net", phase_dit_net, dev, xl_opt, "dit-xl-net", False)
+    launches["dit_xl"] = timed("dit-xl main path", phase_dit_xl_main_path, dev, xl_net, dit_compressor, xl_opt, smi)
+    del xl_net, dit_compressor
     torch.cuda.empty_cache()
 
     launches["linear_attention"] = timed("linear attention", phase_lin_attn, dev, stats)
@@ -4594,12 +4712,15 @@ def main() -> int:
             report[-1]["train_tp"] = stats[k]["train_tp"]
         if "float32" in stats[k]:  # K4 at each float32 shape of phase 8
             report[-1]["float32"] = stats[k]["float32"]
+        if "bfloat16_d72" in stats[k]:  # K4 at each bfloat16 head-dim-72 shape of phase 8
+            report[-1]["bfloat16_d72"] = stats[k]["bfloat16_d72"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; ms / plain_ms / bound_ms / library_ms: K1, K2a, K2b "
           f"summed over one deraining UNet forward's sites at batch {BATCH}, {SIZE}px, bf16, from CUDA graphs "
           f"of 20 calls (event_ms: one launch between CUDA events, the earlier figure); K3 one call at "
           f"batch {LATENT_BATCH}, 8x8x512, 28 blocks, bf16 (one latent NAFNet forward at {LATENT_SIZE}px); K4 one "
           f"call at {FLASH_SHAPES[0]} bf16 (one attention site of a DiT-L/2 forward at batch {DIT_BATCH}, "
-          f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention; K5 (irsde_lin_attn_*) one call of each "
+          f"{DIT_SIZE}px), library_ms F.scaled_dot_product_attention, and bfloat16_d72 each bf16 head-dim-72 site of "
+          f"phase 8 (DiT-XL/2's head); K5 (irsde_lin_attn_*) one call of each "
           f"pass at {LIN_ATTN_SHAPES[0]} bf16 from CUDA graphs, bound_ms half the op's bytes and FLOP each; "
           f"K1's by_path: one bf16 forward of each path's score net, from CUDA graphs")
     print(json.dumps({"kernels": report}))

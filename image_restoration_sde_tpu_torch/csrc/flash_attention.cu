@@ -18,35 +18,45 @@
 // at their peak, so the exponentials of one tile have to overlap the
 // products of another.
 //
-// bf16, D = 64 (every serving path): flash_fwd_wgmma, built for Hopper.
-// One CTA of three warpgroups per (128-query tile, head, batch):
+// bf16, D = 64 (DiT-L/2) and D = 72 (DiT-XL/2): flash_fwd_wgmma<D>, built
+// for Hopper.  One CTA of three warpgroups per (128-query tile, head, batch):
 //   - warpgroup 0 is the producer: one thread loads the q tile and streams
 //     128-key k and v tiles into a kStages-deep shared-memory ring with TMA
 //     (cp.async.bulk.tensor, 4-D maps over (D, H, N, B) with the caller's
-//     strides, 128-byte swizzle, rows past N zero-filled), each stage's k
-//     and v tracked by their own "full" mbarrier and released by an "empty"
-//     one;
+//     strides, rows past N zero-filled), each stage's k and v tracked by
+//     their own "full" mbarrier and released by an "empty" one;
+//   - a tile's row is columns 0..63 in the 128-byte swizzle (a 128-byte
+//     box) and, at D = 72, columns 64..79 in the 32-byte swizzle (a 32-byte
+//     box of a second map): 144-byte rows fit no one swizzle box.  Both maps
+//     keep dims[0] = D, so TMA zero-fills columns 72..79 on load and clips
+//     them on store; each part sits on its swizzle atom (1024 and 256
+//     bytes), and a tile's two parts complete on one barrier;
 //   - warpgroups 1 and 2 each own 64 query rows and run both products on
-//     wgmma: S = Q K^T as m64n128k16 from shared memory (Q and K K-major),
-//     O += P V as m64n64k16 with P from registers (the S accumulator
-//     rounded to bf16 is the A fragment) and V read MN-major, so no
-//     transpose pass.  Tile j's S product is issued together with tile
-//     j - 1's P V product, and the two warpgroups take turns issuing them
-//     (named barriers), so one warpgroup's softmax runs under the other's
-//     products;
+//     wgmma: S = Q K^T as m64n128k16 from shared memory (Q and K K-major;
+//     four k16 steps on the 128-byte parts, at D = 72 a fifth on the 32-byte
+//     parts, whose zero columns add nothing), O += P V as m64n64k16 (and at
+//     D = 72 m64n16k16 on the 32-byte part, its 8 zero columns dropped at
+//     the store) with P from registers (the S accumulator rounded to bf16
+//     is the A fragment) and V read MN-major, so no transpose pass.  Tile
+//     j's S product is issued together with tile j - 1's P V product, and
+//     the two warpgroups take turns issuing them (named barriers), so one
+//     warpgroup's softmax runs under the other's products;
 //   - softmax: the row max is taken on the raw scores and p = exp2(s c -
 //     m c) with c = scale log2(e) folded into one FFMA (scale must be > 0);
 //   - epilogue: O / l in bf16 into the (dead) q tile in the swizzled
-//     layout, then one TMA store per warpgroup, which clips rows past N.
-// The tensor maps are encoded on the host (the last 16 kept, by pointer,
-// shape and strides); cuTensorMapEncodeTiled is reached through
-// cudaGetDriverEntryPoint, so no -lcuda.
-//
-// bf16, D = 72 (DiT-XL's head; no serving path measured here uses it):
-// flash_fwd_bf16, the earlier design: one CTA of four warps per 64-query
-// tile, mma.sync m16n8k16, cp.async k/v tiles of 64 keys, head dims padded
-// to 80 with zeros inside the kernel.  The 144-byte rows do not fit the
-// 128-byte swizzle of the wgmma path in one box.
+//     layouts, then one TMA store per part and warpgroup, which clips rows
+//     past N.
+// At D = 72 the products run 80 wide: q k^T does 25% and p v 25% more
+// tensor-core work than at 64, 11% more than the function's own 72.
+// Shared memory: a q, k or v tile is 16 KB (D = 64) or 20 KB (D = 72), so
+// the three-stage ring takes 113 KB or 141 KB of the 227 KB; one CTA an SM
+// either way (384 threads at up to 240 registers a consumer thread).  Of
+// two and three stages, three was the faster at D = 72 on an NVIDIA H100
+// 80GB HBM3 at 700 W (0.41-0.45 ms against 0.50 at (2, 4096, 16, 72)).
+// The tensor maps are encoded on the host (the last kMapCache kept, by
+// pointer, shape, strides and box); cuTensorMapEncodeTiled is reached
+// through cudaGetDriverEntryPoint, so no -lcuda.  A failed encode or launch
+// returns its error to the caller.
 //
 // float32, D = 64 and 72 (DiT training, tensor-parallel DiT ranks):
 // tc::flash_fwd_f32, both products on the tensor cores at float32 accuracy
@@ -118,13 +128,6 @@ struct Params {
   float scale;
 };
 
-// ------------------------------------------------------------------ bf16
-
-constexpr int kBQ = 64;  // query rows per CTA, 16 per warp
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 128;
-static_assert(kBQ == kBK, "q, k and v tiles share one loader");
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -140,201 +143,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b: a 16x16 (row), b 16x8 (col), bf16; c 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// rows [row0, row0 + 64) of one head into a (64, LD) shared tile, DP columns
-// (the D real ones, zeros past D and past N)
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* tile, const __nv_bfloat16* base, long long sn,
-                                               int row0, int N, int D) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBK * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < N && col < D;
-    const __nv_bfloat16* src = valid ? base + (long long)(row0 + r) * sn + col : base;
-    cp_async16(tile + r * LD + col, src, valid);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
-  constexpr int LD = DP + 8;     // +16 bytes a row: conflict-free ldmatrix
-  constexpr int KS = DP / 16;    // k-steps of q k^T
-  constexpr int NT_O = DP / 8;   // 8-wide column tiles of the output
-  constexpr int NT_S = kBK / 8;  // 8-wide column tiles of the scores
-  __shared__ __align__(128) uint16_t smem[3 * kBK * LD];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBK * LD;
-  __nv_bfloat16* sV = sK + kBK * LD;
-
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;  // mma fragment row group, column pair
-  const int N = p.N, D = p.D;
-  const auto* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + (long long)h * D;
-  const auto* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + (long long)h * D;
-  const auto* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + (long long)h * D;
-
-  load_tile_bf16<DP, LD>(sQ, Q, p.q_sn, q0, N, D);
-  cp_async_commit();
-  load_tile_bf16<DP, LD>(sK, K, p.k_sn, 0, N, D);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  // this warp's 16 query rows as A fragments, one per k-step
-  unsigned qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8 of the warp
-  float l[2] = {0.f, 0.f};          // this thread's part of the row sums
-
-  const int n_tiles = (N + kBK - 1) / kBK;
-  for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait<0>();  // k tile j
-    __syncthreads();     // ... for every warp; every warp is done with v tile j - 1
-    load_tile_bf16<DP, LD>(sV, V, p.v_sn, j * kBK, N, D);
-    cp_async_commit();
-
-    float s[NT_S][4];
-#pragma unroll
-    for (int i = 0; i < NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        const int mat = lane >> 3;
-        unsigned bk[4];
-        ldmatrix_x4(bk, sK + (np * 16 + (lane & 7) + (mat >> 1) * 8) * LD + ks * 16 + (mat & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], bk[2], bk[3]);
-      }
-    }
-
-    // scale, mask the keys past N, running max
-    const int key0 = j * kBK + tig * 2;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + nt * 8 + (e & 1);
-        s[nt][e] = key < N ? s[nt][e] * p.scale : kNegInf;
-      }
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = __expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-
-    // p = exp(s - m): f32 into the row sums, bf16 into p v's A fragments
-    unsigned pa[kBK / 16][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      const float p0 = __expf(s[nt][0] - m[0]), p1 = __expf(s[nt][1] - m[0]);
-      const float p2 = __expf(s[nt][2] - m[1]), p3 = __expf(s[nt][3] - m[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pa[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      acc[i][0] *= corr[0];
-      acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1];
-      acc[i][3] *= corr[1];
-    }
-
-    cp_async_wait<0>();  // v tile j
-    __syncthreads();     // ... for every warp; every warp is done with k tile j
-    if (j + 1 < n_tiles) {
-      load_tile_bf16<DP, LD>(sK, K, p.k_sn, (j + 1) * kBK, N, D);
-      cp_async_commit();
-    }
-
-#pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) {
-#pragma unroll
-      for (int dp = 0; dp < NT_O / 2; ++dp) {
-        const int mat = lane >> 3;
-        unsigned bv[4];
-        ldmatrix_x4_trans(bv, sV + (t * 16 + (lane & 7) + (mat & 1) * 8) * LD + dp * 16 + (mat >> 1) * 8);
-        mma_bf16(acc[2 * dp], pa[t], bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa[t], bv[2], bv[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  auto* O = static_cast<__nv_bfloat16*>(p.o) + (long long)b * N * p.H * D + (long long)h * D;
-  const long long o_sn = (long long)p.H * D;
-  const int row = q0 + warp * 16 + g;
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) {
-    const int d = i * 8 + tig * 2;
-    if (d >= D) continue;
-    if (row < N)
-      *reinterpret_cast<unsigned*>(O + row * o_sn + d) = pack_bf16(acc[i][0] / l[0], acc[i][1] / l[0]);
-    if (row + 8 < N)
-      *reinterpret_cast<unsigned*>(O + (row + 8) * o_sn + d) = pack_bf16(acc[i][2] / l[1], acc[i][3] / l[1]);
-  }
-}
-
-// ------------------------------------------------------------------ bf16, D = 64: wgmma + TMA
+// ------------------------------------------------------------------ bf16: wgmma + TMA, D = 64 and 72
 
 namespace wg {
 
-constexpr int kD = 64;                       // head dim: one 128-byte swizzle row
 constexpr int kBQ = 128;                     // query rows per CTA, 64 per consumer warpgroup
 constexpr int kBK = 128;                     // keys per k/v tile
 constexpr int kStages = 3;                   // k/v ring depth
 constexpr int kThreads = 384;                // warpgroup 0 producer, 1 and 2 consumers
-constexpr int kTileBytes = kBK * kD * 2;     // one k or v tile (and the q tile): 16 KB
-constexpr int kSmem = 1024 + kTileBytes * (1 + 2 * kStages);  // + slack to align to 1024
+constexpr int kMainCols = 64;                // columns 0..63: 128-byte rows in the 128-byte swizzle
+constexpr int kTailCols = 16;                // columns 64..79 (D = 72): 32-byte rows in the 32-byte swizzle
+constexpr int kMainBytes = kBK * kMainCols * 2;  // 16 KB a tile
+constexpr int kTailBytes = kBK * kTailCols * 2;  // 4 KB a tile
+template <int D>
+constexpr bool kTail = D > kMainCols;
+// one q, k or v tile: its 128-byte part, then (D = 72) its 32-byte part;
+// 20 KB keeps every tile and both parts on 1024-byte boundaries
+template <int D>
+constexpr int kTileBytes = kMainBytes + (kTail<D> ? kTailBytes : 0);
+template <int D>
+constexpr int kSmem = 1024 + kTileBytes<D> * (1 + 2 * kStages);  // + slack to align to 1024
 constexpr int kBarTurn = 1;                  // named barriers 1, 2: whose turn to issue wgmma
 constexpr int kBarStore = 3;                 // named barriers 3, 4: a warpgroup's output tile is staged
 static_assert(kBQ == kBK, "q, k and v share one tensor-map box");
+
+// the tensor maps of one launch: the 128-byte parts (box of 64 columns)
+// and, at D = 72, the 32-byte parts (box of 16 columns from column 64 of
+// maps whose dims[0] is 72: columns 72..79 zero-filled on load, clipped on
+// store)
+template <int D>
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+template <>
+struct Maps<72> {
+  CUtensorMap q, k, v, o, q2, k2, v2, o2;
+};
 
 struct Barriers {
   uint64_t q_full;
@@ -365,21 +214,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
   } while (!done);
 }
 
-// box (D, 1, kBK, 1) at (0, h, row, b) -> dst; completion counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int h, int row, int b) {
+// the map's box at (col, h, row, b) -> dst; completion counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col, int h, int row,
+                                         int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
       "[%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(row), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(h), "r"(row), "r"(b)
       : "memory");
 }
 
-// box (D, 1, 64, 1) of src -> (0, h, row, b); returns once src has been read
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int h, int row, int b) {
+// src -> the map's box at (col, h, row, b)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col, int h, int row, int b) {
   asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)),
-               "r"(smem_addr(src)), "r"(0), "r"(h), "r"(row), "r"(b)
+               "r"(smem_addr(src)), "r"(col), "r"(h), "r"(row), "r"(b)
                : "memory");
+}
+// returns once every store issued so far has read its shared memory
+__device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
@@ -399,6 +252,17 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// the same for a tile of 32-byte rows in the 32-byte swizzle (256-byte
+// atoms of 8 rows, 256-byte aligned): leading and stride byte offsets both
+// 256, layout type 3 (32B swizzle).  K-major (q and k, one k16 step: the 16
+// columns are the atom's width) the stride offset steps 8 rows; MN-major
+// (v, n16: one atom wide, so the leading offset is never followed) it steps
+// 8 keys
+__device__ __forceinline__ uint64_t sw32_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(256 >> 4) << 16) | (uint64_t(256 >> 4) << 32) | (uint64_t(3) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -448,22 +312,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigne
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 16, f32) += a (64 x 16: bf16 fragments in registers) b (16 x 16: MN-major bf16 in shared memory)
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to, int N,
-                    float c) {  // c = scale * log2(e)
+    flash_fwd_wgmma(const __grid_constant__ Maps<D> maps, int N, float c) {  // c = scale * log2(e)
+  constexpr int kTB = kTileBytes<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ Barriers bar;
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = base;
-  auto sK = [&](int s) { return base + kTileBytes * (1 + s); };
-  auto sV = [&](int s) { return base + kTileBytes * (1 + kStages + s); };
+  auto sK = [&](int s) { return base + kTB * (1 + s); };
+  auto sV = [&](int s) { return base + kTB * (1 + kStages + s); };
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (N + kBK - 1) / kBK;
@@ -480,19 +355,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (wgi == 0) {
-    // producer: one thread keeps the ring full; the warpgroup hands its
-    // registers to the consumers
+    // producer: one thread keeps the ring full (a tile's two parts on one
+    // barrier); the warpgroup hands its registers to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(&bar.q_full, kTileBytes);
-      tma_load(sQ, &tq, &bar.q_full, h, q0, b);
+      mbar_expect_tx(&bar.q_full, kTB);
+      tma_load(sQ, &maps.q, &bar.q_full, 0, h, q0, b);
+      if constexpr (kTail<D>) tma_load(sQ + kMainBytes, &maps.q2, &bar.q_full, kMainCols, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
-        mbar_expect_tx(&bar.k_full[s], kTileBytes);
-        tma_load(sK(s), &tk, &bar.k_full[s], h, j * kBK, b);
-        mbar_expect_tx(&bar.v_full[s], kTileBytes);
-        tma_load(sV(s), &tv, &bar.v_full[s], h, j * kBK, b);
+        mbar_expect_tx(&bar.k_full[s], kTB);
+        tma_load(sK(s), &maps.k, &bar.k_full[s], 0, h, j * kBK, b);
+        if constexpr (kTail<D>) tma_load(sK(s) + kMainBytes, &maps.k2, &bar.k_full[s], kMainCols, h, j * kBK, b);
+        mbar_expect_tx(&bar.v_full[s], kTB);
+        tma_load(sV(s), &maps.v, &bar.v_full[s], 0, h, j * kBK, b);
+        if constexpr (kTail<D>) tma_load(sV(s) + kMainBytes, &maps.v2, &bar.v_full[s], kMainCols, h, j * kBK, b);
       }
     }
     return;
@@ -503,11 +381,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cw = wgi - 1;
   const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
   const int tig = lane & 3;  // accumulator column pair; rows lane / 4 and lane / 4 + 8 of the warp's 16
-  uint8_t* myQ = sQ + cw * 64 * 128;
+  uint8_t* myQ = sQ + cw * 64 * 128;                     // this warpgroup's rows of the 128-byte part
+  uint8_t* myQ2 = sQ + kMainBytes + cw * 64 * 32;        // ... and of the 32-byte part (D = 72)
 
-  float o[32];
+  float o[32];   // output columns 0..63
+  float o2[8];   // columns 64..79 (D = 72; 72..79 are v's zero columns)
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o2[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};  // running max of the raw scores, rows g and g + 8
   float l[2] = {0.f, 0.f};          // this thread's part of the row sums
   unsigned pa[kBK / 16][4];         // p of the previous tile, bf16 A fragments
@@ -557,6 +439,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       o[4 * i + 2] *= corr[1];
       o[4 * i + 3] *= corr[1];
     }
+    if constexpr (kTail<D>) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o2[4 * i] *= corr[0];
+        o2[4 * i + 1] *= corr[0];
+        o2[4 * i + 2] *= corr[1];
+        o2[4 * i + 3] *= corr[1];
+      }
+    }
+  };
+  // S = Q K^T of the tile in stage s: four k16 steps on the 128-byte parts,
+  // and (D = 72) one on the 32-byte parts, whose columns 72..79 are zeros
+  auto qk = [&](float (&sc)[64], int s) {
+#pragma unroll
+    for (int kk = 0; kk < kMainCols / 16; ++kk)
+      wgmma_m64n128k16_ss(sc, sw128_desc(myQ) + 2 * kk, sw128_desc(sK(s)) + 2 * kk, kk > 0);
+    if constexpr (kTail<D>) wgmma_m64n128k16_ss(sc, sw32_desc(myQ2), sw32_desc(sK(s) + kMainBytes), 1);
+  };
+  // O += P V of the tile in stage s: n64 on the 128-byte part and (D = 72)
+  // n16 on the 32-byte part, each of the tile's 8 k16 steps
+  auto pv = [&](int s) {
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) wgmma_m64n64k16_rs(o, pa[t], sw128_desc(sV(s) + t * 16 * 128));
+    if constexpr (kTail<D>) {
+#pragma unroll
+      for (int t = 0; t < kBK / 16; ++t) wgmma_m64n16k16_rs(o2, pa[t], sw32_desc(sV(s) + kMainBytes + t * 16 * 32));
+    }
   };
 
   if (cw == 1) named_arrive(kBarTurn, 256);  // consumer 0 goes first
@@ -571,9 +480,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(&bar.k_full[0], 0);
     named_sync(kBarTurn + cw, 256);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(sc, sw128_desc(myQ) + 2 * kk, sw128_desc(sK(0)) + 2 * kk, kk > 0);
+    qk(sc, 0);
     wgmma_commit();
     if (!(cw == 1 && n_tiles == 1)) named_arrive(kBarTurn + 1 - cw, 256);
     wgmma_wait_all();
@@ -588,16 +495,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     float sc[64];
     named_sync(kBarTurn + cw, 256);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(sc, sw128_desc(myQ) + 2 * kk, sw128_desc(sK(s)) + 2 * kk, kk > 0);
-#pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) wgmma_m64n64k16_rs(o, pa[t], sw128_desc(sV(sp) + t * 16 * 128));
+    qk(sc, s);
+    pv(sp);
     wgmma_commit();
     if (!(cw == 1 && j == n_tiles - 1)) named_arrive(kBarTurn + 1 - cw, 256);
     wgmma_wait_all();
     fence_regs(sc);
     fence_regs(o);
+    if constexpr (kTail<D>) fence_regs(o2);
     if (lane == 0) mbar_arrive(&bar.empty[sp]);  // k and v of tile j - 1 are read
     softmax(j, sc);
   }
@@ -607,11 +512,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int sp = (n_tiles - 1) % kStages;
     mbar_wait(&bar.v_full[sp], ((n_tiles - 1) / kStages) & 1);
     wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) wgmma_m64n64k16_rs(o, pa[t], sw128_desc(sV(sp) + t * 16 * 128));
+    pv(sp);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
+    if constexpr (kTail<D>) fence_regs(o2);
   }
 
 #pragma unroll
@@ -619,8 +524,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  // out tile into this warpgroup's half of the q tile, in the 128-byte
-  // swizzle the output map expects: 16-byte chunk i of row r at i ^ (r % 8)
+  // out tile into this warpgroup's rows of the q tile, in the swizzles the
+  // output maps expect: 16-byte chunk i of row r at i ^ (r % 8) in the
+  // 128-byte part, at i ^ (r / 4 % 2) in the 32-byte part
   const int row = warp * 16 + (lane >> 2);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -628,9 +534,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     *reinterpret_cast<unsigned*>(myQ + row * 128 + chunk) = pack_bf16(o[4 * i] / l[0], o[4 * i + 1] / l[0]);
     *reinterpret_cast<unsigned*>(myQ + (row + 8) * 128 + chunk) = pack_bf16(o[4 * i + 2] / l[1], o[4 * i + 3] / l[1]);
   }
+  if constexpr (kTail<D>) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int chunk = (i ^ ((row >> 2) & 1)) * 16 + tig * 4;  // rows row and row + 8 share row / 4 % 2
+      *reinterpret_cast<unsigned*>(myQ2 + row * 32 + chunk) = pack_bf16(o2[4 * i] / l[0], o2[4 * i + 1] / l[0]);
+      *reinterpret_cast<unsigned*>(myQ2 + (row + 8) * 32 + chunk) =
+          pack_bf16(o2[4 * i + 2] / l[1], o2[4 * i + 3] / l[1]);
+    }
+  }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   named_sync(kBarStore + cw, 128);
-  if (threadIdx.x % 128 == 0 && q0 + 64 * cw < N) tma_store(&to, myQ, h, q0 + 64 * cw, b);
+  if (threadIdx.x % 128 == 0 && q0 + 64 * cw < N) {
+    tma_store(&maps.o, myQ, 0, h, q0 + 64 * cw, b);
+    if constexpr (kTail<D>) tma_store(&maps.o2, myQ2, kMainCols, h, q0 + 64 * cw, b);
+    tma_store_wait();
+  }
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
@@ -654,27 +573,30 @@ EncodeTiled encode_tiled() {
 }
 
 // 4-D map (D, H, N, B) of a bf16 tensor with unit dim stride, head stride
-// D and the given token and batch strides (elements), box (D, 1, rows, 1),
-// 128-byte swizzle, zero fill past the edges.  The last kMapCache maps are
-// kept by everything that goes into them: a sampler hands the kernel the
-// same buffers step after step, and encoding costs host time on a path
-// whose host already sets its pace.
-constexpr int kMapCache = 16;
+// D and the given token and batch strides (elements), box (cols, 1, rows,
+// 1) in the 128-byte (cols 64) or 32-byte (cols 16) swizzle, zero fill
+// past the edges.  The last kMapCache maps are kept by everything that
+// goes into them: a sampler hands the kernel the same buffers step after
+// step (at D = 72 eight maps a launch, a few buffers a step), and encoding
+// costs host time on a path whose host already sets its pace.
+constexpr int kMapCache = 64;
 
 struct MapKey {
   const void* ptr;
   long long sb, sn;
-  int B, N, H, rows;
+  int B, N, H, D, rows, cols;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && sb == o.sb && sn == o.sn && B == o.B && N == o.N && H == o.H && rows == o.rows;
+    return ptr == o.ptr && sb == o.sb && sn == o.sn && B == o.B && N == o.N && H == o.H && D == o.D &&
+           rows == o.rows && cols == o.cols;
   }
 };
 
-bool encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, long long sb, long long sn, int rows) {
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int D, long long sb, long long sn, int rows,
+                int cols) {
   // a stride of a dimension of size 1 is never followed; keep it valid
-  if (N == 1) sn = (long long)H * kD;
+  if (N == 1) sn = (long long)H * D;
   if (B == 1) sb = sn * N;
-  const MapKey key{ptr, sb, sn, B, N, H, rows};
+  const MapKey key{ptr, sb, sn, B, N, H, D, rows, cols};
   static std::mutex mu;
   static MapKey keys[kMapCache];
   static CUtensorMap maps[kMapCache];
@@ -687,12 +609,13 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, long lon
     }
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kD, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cols == kMainCols ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, estride,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   keys[next] = key;
@@ -702,19 +625,27 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int N, int H, long lon
   return true;
 }
 
+// q, k, v and o's maps for one part (box of cols columns)
+bool encode_part(const Params& p, int cols, CUtensorMap& mq, CUtensorMap& mk, CUtensorMap& mv, CUtensorMap& mo) {
+  const long long o_sn = (long long)p.H * p.D;
+  return encode_map(&mq, p.q, p.B, p.N, p.H, p.D, p.q_sb, p.q_sn, kBQ, cols) &&
+         encode_map(&mk, p.k, p.B, p.N, p.H, p.D, p.k_sb, p.k_sn, kBK, cols) &&
+         encode_map(&mv, p.v, p.B, p.N, p.H, p.D, p.v_sb, p.v_sn, kBK, cols) &&
+         encode_map(&mo, p.o, p.B, p.N, p.H, p.D, o_sn * p.N, o_sn, 64, cols);
+}
+
+template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncSetAttribute(flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<D>);
   if (attr != cudaSuccess) return attr;
-  CUtensorMap mq, mk, mv, mo;
-  const long long o_sn = (long long)p.H * kD;
-  if (!encode_map(&mq, p.q, p.B, p.N, p.H, p.q_sb, p.q_sn, kBQ) ||
-      !encode_map(&mk, p.k, p.B, p.N, p.H, p.k_sb, p.k_sn, kBK) ||
-      !encode_map(&mv, p.v, p.B, p.N, p.H, p.v_sb, p.v_sn, kBK) ||
-      !encode_map(&mo, p.o, p.B, p.N, p.H, o_sn * p.N, o_sn, 64))
-    return cudaErrorInvalidValue;
+  Maps<D> maps;
+  if (!encode_part(p, kMainCols, maps.q, maps.k, maps.v, maps.o)) return cudaErrorInvalidValue;
+  if constexpr (kTail<D>) {
+    if (!encode_part(p, kTailCols, maps.q2, maps.k2, maps.v2, maps.o2)) return cudaErrorInvalidValue;
+  }
   const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
-  flash_fwd_wgmma<<<grid, kThreads, kSmem, stream>>>(mq, mk, mv, mo, p.N, p.scale * 1.4426950408889634f);
+  flash_fwd_wgmma<D><<<grid, kThreads, kSmem<D>, stream>>>(maps, p.N, p.scale * 1.4426950408889634f);
   return cudaSuccess;
 }
 
@@ -966,18 +897,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace tc
 
-template <int DP>
+template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == IRSDE_BF16) {
-    if constexpr (DP == 64) {
-      return wg::launch(p, stream);
-    } else {
-      const dim3 grid((unsigned)((p.N + kBQ - 1) / kBQ), (unsigned)p.H, (unsigned)p.B);
-      flash_fwd_bf16<DP><<<grid, kThreads, 0, stream>>>(p);
-    }
-    return cudaSuccess;
-  }
-  return tc::launch<DP == 64 ? 64 : 72>(p, stream);
+  return dtype == IRSDE_BF16 ? wg::launch<D>(p, stream) : tc::launch<D>(p, stream);
 }
 
 }  // namespace
@@ -993,7 +915,7 @@ extern "C" int irsde_flash_attention(const void* q, const void* k, const void* v
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;  // the bf16 kernel takes the max of the raw scores
   const Params p{q, k, v, o, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, B, N, H, D, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = D == 64 ? launch<64>(p, dtype, s) : launch<80>(p, dtype, s);
+  cudaError_t err = D == 64 ? launch<64>(p, dtype, s) : launch<72>(p, dtype, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,13 @@
 """Multi-process dry run of the data- and tensor-parallel train step:
 
-    python -m image_restoration_sde_tpu_torch.dryrun [N]
+    python -m image_restoration_sde_tpu_torch.dryrun [N] [--device cuda|cpu]
 
 Counterpart of ``__graft_entry__.dryrun_multichip``: :func:`dryrun_multichip`
 starts N processes that join one process group and lay out as a mesh of N
 / M data rows by M model ranks (``parallel.mesh``; M = 2 where N is even,
 as the JAX dry run takes it).  On the card they are NCCL ranks, one a card,
-where there are N cards, else gloo ranks sharing the card; without a card,
-gloo ranks on the CPU.  Each takes one full IR-SDE train step
+where there are N cards, else gloo ranks sharing the card; on the CPU,
+which the caller asks for (``device="cpu"``), gloo ranks there.  Each takes one full IR-SDE train step
 (ConditionalUNet nf 16, depth 2, T 8, 16 px, Adam and EMA) on its data
 row's block of a global batch of 2N rows, drawing the global batch's
 timesteps and noise: the net split over the model group (the time MLP,
@@ -27,7 +27,6 @@ TF32 is off on the card, so both sides compute in float32.
 
 from __future__ import annotations
 
-import sys
 from typing import Optional
 
 import numpy as np
@@ -118,13 +117,17 @@ def grad_rel(got: dict, want: dict) -> float:
                else g.abs().max().item() for k, g in got.items())
 
 
-def dryrun_multichip(n: int, state_dict=None, model_parallel: Optional[int] = None) -> dict:
+def dryrun_multichip(n: int, state_dict=None, model_parallel: Optional[int] = None, device: str = "cuda") -> dict:
     """Run the dry run over ``n`` processes (the net seeded, or
     ``state_dict``), ``model_parallel`` model ranks a row (2 where ``n`` is
-    even), on the card where there is one; raises where a rank fails or
-    disagrees.  Returns rank 0's step."""
+    even), on ``device`` ("cuda", the card, by default: it raises where
+    there is none; or "cpu"); raises where a rank fails or disagrees.
+    Returns rank 0's step."""
     tp = model_parallel or (2 if n % 2 == 0 else 1)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"dryrun_multichip: device {device!r}; 'cuda' or 'cpu'")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dryrun_multichip: no CUDA device; pass device='cpu' to run on the CPU")
     backend = "nccl" if device == "cuda" and torch.cuda.device_count() >= n else "gloo"
     batch, dp = 2 * n, n // tp
     one = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
@@ -165,4 +168,10 @@ def dryrun_multichip(n: int, state_dict=None, model_parallel: Optional[int] = No
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else max(2, torch.cuda.device_count()))
+    import argparse
+
+    parser = argparse.ArgumentParser(description="multi-process dry run of the data- and tensor-parallel train step")
+    parser.add_argument("n", nargs="?", type=int, default=None, help="processes (default: the cards, at least 2)")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = parser.parse_args()
+    dryrun_multichip(args.n or max(2, torch.cuda.device_count()), device=args.device)

@@ -12,7 +12,8 @@ over the keys:
 package's einsum reference ``_ref_mha`` divides first and then rounds, so
 the two differ in bfloat16.  The kernel is ``csrc/flash_attention.cu``:
 tensor-core products in bfloat16 (``wgmma`` with TMA-fed 128-key tiles at
-head dim 64, ``mma.sync`` with 64-key tiles at 72) and in float32
+both head dims; at 72 each row is a 128-byte and a 32-byte swizzled part)
+and in float32
 (``mma.sync`` TF32 on ``F32_KEY_TILE``-key tiles, each operand split into
 two TF32 halves rounded to nearest, three products a_lo b_hi + a_hi b_lo +
 a_hi b_hi: float32 accuracy, bound by three TF32 products at 494.7 TFLOP/s
@@ -56,7 +57,7 @@ HEAD_DIMS = (64, 72)
 # backward phase, PERF.md)
 BWD_BLOCK = 1024
 # keys per tile of the bfloat16 kernel, by head dim: where it rounds p
-KEY_TILE = {64: 128, 72: 64}
+KEY_TILE = {64: 128, 72: 128}
 # keys per tile of the float32 kernel: where its running max moves
 F32_KEY_TILE = 32
 

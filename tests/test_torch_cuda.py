@@ -568,7 +568,7 @@ def test_nafnet_kernel_path_matches_plain_path(cuda_device, dtype):
 
 # ------------------------------------------------------------------ K4
 FLASH_SHAPES = [(2, 4096, 16, 64), (1, 2816, 16, 64), (2, 1024, 16, 64), (1, 4096, 16, 72),
-                (1, 1000, 16, 64), (3, 35, 4, 64)]
+                (1, 1000, 16, 64), (3, 35, 4, 64), (2, 4096, 16, 72), (1, 1000, 16, 72), (3, 35, 4, 72)]
 
 
 FLASH_FLIP_SHARE = 5e-4
@@ -662,6 +662,25 @@ def test_flash_attention_kernel_reads_reused_buffers_anew(cuda_device):
     want = FA.flash_mha(q.clone(), k.clone(), v.clone(), 0.125)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_keys_its_maps_by_head_dim(cuda_device):
+    """One buffer as (1, 300, 8, 72) and as the first 8 heads of (1, 300,
+    9, 64): the same pointer, shape and strides but for the head dim.  Each
+    call, in turns, gives the bits of contiguous copies: neither reads the
+    other's tensor maps."""
+    from image_restoration_sde_tpu_torch.ops import flash_attention as FA
+
+    buf = (torch.randn(3, 300 * 576, device=cuda_device) * 1.5).bfloat16()
+    wide = [b.view(1, 300, 8, 72) for b in buf]
+    narrow = [b.view(1, 300, 9, 64)[:, :, :8] for b in buf]
+    for views in (wide, narrow, wide, narrow):
+        D = views[0].shape[-1]
+        got = FA.flash_mha(*views, D**-0.5)
+        want = FA.flash_mha(*(t.contiguous() for t in views), D**-0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), D
 
 
 @pytest.mark.cuda

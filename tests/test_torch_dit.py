@@ -85,14 +85,15 @@ def test_flash_plain_matches_einsum_reference_at_ragged_n(N, dtype, bound):
     pytest.param(2, 192, 2, 72, 64, id="2-192-2-72"),
     pytest.param(1, 256, 4, 64, 128, id="1-256-4-64-tile128"),
     pytest.param(2, 384, 2, 64, 128, id="2-384-2-64-tile128"),
+    pytest.param(2, 384, 2, 72, 128, id="2-384-2-72-tile128"),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_tiled_plain_matches_pallas_kernel_at_its_tiles(B, N, H, D, tile, dtype):
     """``flash_mha_tiled_plain`` at ``tile`` keys per tile against the
     Pallas kernel in interpret mode at bq = bk = tile: the same order of
     operations, p rounded at each tile's running max.  The CUDA kernel's
-    tiles are ``KEY_TILE``: 128 keys at head dim 64, 64 at 72 (the
-    default ``block``).  float32: 1e-5 of max|ref|; bfloat16:
+    tiles are ``KEY_TILE``: 128 keys at head dims 64 and 72 (the default
+    ``block``).  float32: 1e-5 of max|ref|; bfloat16:
     ``flash_bf16_agreement`` (float32 sums and exp in another order may
     flip the rounding of a p), which the un-tiled plain version, rounding p
     at the row max, fails."""

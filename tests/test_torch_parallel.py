@@ -242,7 +242,7 @@ def test_dryrun_and_the_ddp_step_against_the_jax_data_parallel_step(capsys):
     elementwise within 2 lr."""
     batch, lr = 4, dryrun.TRAIN_OPT["lr_G"]
     weights = _flax_weights(11)
-    got = dryrun.dryrun_multichip(2, state_dict_from_flax(weights, dryrun.DEPTH), model_parallel=1)
+    got = dryrun.dryrun_multichip(2, state_dict_from_flax(weights, dryrun.DEPTH), model_parallel=1, device="cpu")
     out = capsys.readouterr().out
     assert "dryrun_multichip OK: world 2 (gloo, cpu), batch 4 (2 a process)" in out and "tp 1" in out
 
@@ -268,6 +268,20 @@ def test_dryrun_and_the_ddp_step_against_the_jax_data_parallel_step(capsys):
     for k, v in got["params"].items():
         assert (v - want_params[k]).abs().max().item() <= 2 * lr, k
         assert (got["ema"][k] - want_ema[k]).abs().max().item() <= 2 * lr, k
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_dryrun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, device):
+    """With no card, ``dryrun_multichip`` raises before it starts a rank
+    (by default and with ``device="cuda"``); it never falls back to the
+    CPU; another device name is refused."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist, "spawn", lambda *a, **k: pytest.fail("a rank was started"))
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
+        dryrun.dryrun_multichip(2, **kw)
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        dryrun.dryrun_multichip(2, device="cuda:1")
 
 
 def test_gathered_in_one_process_is_every_item_in_order():

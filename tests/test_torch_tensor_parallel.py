@@ -140,7 +140,7 @@ def test_dp2_tp2_step_matches_the_jax_dp4_tp2_step(capsys):
     parameters and EMA elementwise within 2 lr."""
     batch = 8
     weights = _flax_weights(11)
-    got = dryrun.dryrun_multichip(4, state_dict_from_flax(weights, dryrun.DEPTH), model_parallel=2)
+    got = dryrun.dryrun_multichip(4, state_dict_from_flax(weights, dryrun.DEPTH), model_parallel=2, device="cpu")
     out = capsys.readouterr().out
     assert "world 4 (gloo, cpu), batch 8 (4 a process)" in out and "mesh {'data': 2, 'model': 2}, tp 2" in out
     assert got["rows"] == 4 and got["layout_kept"] and len(got["split"]) > 0
