@@ -90,12 +90,21 @@ seed or trained here:
   train steps, img/s/GPU and MFU) and ``bench_refusion`` (the latent
   pipeline at 1024 px, NAFNet and DiT-L/2).
 
-Phases, each printing its lines and its seconds (the serving phases ops,
-export *, artifacts, serve and bench run where their nets are built: ops
-after phase 3, export deraining after 5, export latent after 7, export
-denoising, artifacts, serve, bench, bench train and bench refusion after
-14; train dp after phase 21's IR-SDE run; train tp and dryrun tp after
-its DiT run):
+Phases, each printing its lines and its seconds (the serving phases run
+where their nets are built: export deraining after 5, export latent after
+7, export denoising, serve, bench, bench train and bench refusion after 14;
+train dp after phase 21's IR-SDE run, train tp after its DiT run, demo
+after phase 21).  Work that is host-bound or light on the card runs in
+child processes beside the phases (``Background``), each joined where its
+result is held: ops and dryrun tp start after phase 3 and are joined
+before phase 19 (no kernel is timed while the dry run launches); the
+server starts after phase 13 and loads and warms during phase 14; the
+artifacts' loading process runs beside phase 22, the restore entry point
+within it; train tp's torchrun runs from phase 21's DiT run to the end of
+phase 22, after which its K4 and K3 sites are timed alone.  The phases
+these overlap record host-clock seconds only, which the overlap can
+stretch; no kernel timing overlaps a child but the ops child's few
+launches:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels, from this checkout's sources;
@@ -163,8 +172,8 @@ dit-xl main path: phase 10's first posterior batch and odd image through
    kernel path against plain path (17 K1, 8 K2a, 8 K2b per forward), and
    K1, K2 at its sites and those of the 512 px request;
 14. denoise main path: ``make_denoising_sampler`` (t0 = 414) serves a batch
-   of 8 noisy 128 px images and one 500x500 image (padded to 512x512)
-   twice; per request exactly 7038 K1, 3312 K2a and 3312 K2b launches;
+   of 8 noisy 128 px images and one 500x500 image (padded to 512x512); per
+   request exactly 7038 K1, 3312 K2a and 3312 K2b launches;
 15. stereo net: one forward at batch 4 pairs, 128 px, kernel path against
    plain path (144 K1 per forward, no K3), and K1 at its sites and those
    of the 140x200 request;
@@ -231,6 +240,18 @@ dit-xl main path: phase 10's first posterior batch and odd image through
    (K2a up to N = 921600 at 720x1280, K3 up to (1, 90, 160, 512)), with
    phase 3's bounds for K1 and K2 (K2a's ctx against the float64
    composition) and phase 5's for K3.
+demo (after phase 21, in its temporary directory): the demo YAMLs of
+   configs/demo/ (Refusion stage 1 and 2, stereo SR, bokeh stage 1 and 2),
+   copied by ``chip_learn.py``'s code, on ``gen_synth``'s data (DEMO_DATA),
+   each through the train entry point for DEMO_STEPS steps and one
+   validation (TRAIN_VAL_SAMPLE_T sampler steps): exactly ``demo_counts``
+   launches per step and per validation image, finite losses and PSNR;
+   each stage 2's compressor, named ``{iter}_G`` as the shipped YAMLs name
+   it, bit-equal to the ``{iter}_G.pth`` its stage 1 wrote; the test entry
+   point on the Refusion stage 2's ``lastest_EMA.pth`` (exact launches per
+   image, PNGs, finite metrics); each kernel held against its plain version
+   at every site the phase launched it at.  The learning curves are
+   ``chip_learn.py``'s;
 
 native (after the build): the native resampler (``data/native.py``)
    built on the card's host from the checkout and taken by ``imresize``
@@ -247,7 +268,7 @@ tools (after eval): ``interpolation`` at TOOLS_SIDE px, T = TOOLS_T (its
 ops: ``torch.library.opcheck`` (schema, autograd registration, the fake
    implementation against the kernel's output, the dynamic-shape autograd
    trace) of each operator on CUDA tensors at one site of a path that
-   launches it (phase_ops);
+   launches it (phase_ops, in ``--ops-child``);
 export deraining / latent / denoising: the deraining sampler (posterior,
    bf16 on parameters cast to bf16, per-sample seeds) at a fixed batch of 8
    and at a symbolic batch, the nasde latent sampler at 4 x 512 px and the
@@ -256,7 +277,7 @@ export deraining / latent / denoising: the deraining sampler (posterior,
    generators (K1 and K2 held against their plain versions at the sites of
    the deraining runs, batches 1, 3 and 8);
 artifacts: each artifact loaded in a fresh process that builds no net and
-   reads no YAML (``--artifact-child``), each call (the symbolic one at
+   reads no YAML (``--artifact-child``, beside phase 22), each call (the symbolic one at
    batches 1, 3 and 8) against the eager sampler within EXPORT_BOUND
    (bit-equality reported), with exact launches per call;
 serve: the server on the fixed-batch per-sample-seed deraining artifact,
@@ -314,7 +335,7 @@ train tp (after phase 21's DiT run, in its directory, with its last
    peak memory a rank, parameter bytes a rank; then K4 at TP_SITE and K3
    at TP_NAF_SITE held against their plain versions and timed beside
    them (K4 beside SDPA) and their bounds;
-dryrun tp: ``dryrun.dryrun_multichip(2)``, two gloo ranks
+dryrun tp: ``dryrun.dryrun_multichip(2)`` (in ``--dryrun-child``), two gloo ranks
    sharing the card as one model group (ConditionalUNet nf 16 split: time
    and ResBlock MLPs, convolutions at least 64 channels wide), the dry
    run's checks (the one-process step's loss, gradients within 2e-4 of
@@ -327,11 +348,10 @@ F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
 ``by_path`` on K1's entry of the JSON line.
 
 Launch counts are set to 0 just before each main path and read just after.
-Then a ``[serving]`` JSON line with the exports, loaded calls, served
-requests and bench, a ``[benches]`` one with the two benches' lines, a
-``[train]`` JSON line with the train paths' times (and the data-parallel
-runs'), an
-``[eval]`` one with the test YAMLs' seconds per image, peak memory and
+Then a ``[benches]`` JSON line with the two benches' lines, a ``[demo]``
+one with the demo stages' records, a ``[serving]`` one with the exports,
+loaded calls, served requests and bench, a ``[train]`` one with the train
+paths' times (and the data-parallel runs'), an ``[eval]`` one with the test YAMLs' seconds per image, peak memory and
 metrics, one JSON line
 with each kernel's launches, error, times and bound, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the
@@ -339,9 +359,10 @@ script exits non-zero and prints no result.  Without CUDA it exits at once.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` False), so float32 comparisons
-are float32 on both sides; only phases 21 and 22 run the train and test
-entry points with torch's default (cuDNN TF32 on), as a user's run gets
-it (phase 22's LPIPS, FID and plain-path comparisons turn it off again).
+are float32 on both sides; only phases 21, demo and 22 run the train and
+test entry points with torch's default (cuDNN TF32 on), as a user's run
+gets it (phase 22's LPIPS, FID and plain-path comparisons turn it off
+again).
 """
 
 from __future__ import annotations
@@ -480,8 +501,9 @@ EXPORT_BOUND = 1e-3
 # window (long enough for a group of concurrent requests to share a call),
 # the bench's requests, concurrency and untimed warm-up requests
 SERVE_WINDOW_MS, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP = 50.0, 32, 8, 8
-# bench_cuda.py's batch sweep at 128 px, reps per batch (after two warm-ups)
-BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 4, 16, 32), 2  # batch 8: bench_cuda.py's own line
+# bench_cuda.py's batch sweep at 128 px, reps per batch (after two warm-ups):
+# its ends, beside bench_cuda.py's own batch 8 (the three PERF.md quotes)
+BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 32), 2
 # data parallelism (phase train dp): steps of the deraining train YAML
 # under torchrun; the data-parallel artifact's batches (phase artifacts)
 DP_STEPS = 3
@@ -555,6 +577,48 @@ PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+class Background:
+    """A child process started now and joined later, so that its work
+    (host-bound or light on the card) overlaps the phases in between; its
+    output goes to a file and is printed where it is joined, and a non-zero
+    exit fails the run.  ``children`` (the script's list of the processes
+    it started) holds it until the script ends, which ends it (``end``) if
+    it was never joined."""
+
+    def __init__(self, name, argv, children, timeout=900):
+        self.name, self.timeout, self.t0 = name, timeout, time.perf_counter()
+        self.log = tempfile.TemporaryFile(mode="w+")
+        env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        self.proc = subprocess.Popen(argv, stdout=self.log, stderr=subprocess.STDOUT, text=True, cwd=REPO, env=env)
+        children.append(self.proc)
+
+    def join(self, echo=True) -> str:
+        """Wait for the child, print its output (``echo``) and its seconds
+        since it started; returns the output."""
+        rc = self.proc.wait(timeout=self.timeout)
+        seconds = time.perf_counter() - self.t0
+        self.log.seek(0)
+        out = self.log.read()
+        self.log.close()
+        if echo:
+            sys.stdout.write(out)
+        print(f"[background] {self.name}: exit {rc}, {seconds:.1f} s from its start to its join")
+        check(rc == 0, f"{self.name}: exit code {rc}: {out[-3000:]}")
+        return out
+
+
+def end(proc) -> None:
+    """Stop a child process that is still running: SIGTERM (torchrun passes
+    it to its ranks), then SIGKILL after 30 s."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
 
 
 def event_ms(fn) -> float:
@@ -1912,8 +1976,7 @@ def phase_denoise_main_path(dev, net, opt, smi):
     """make_denoising_sampler (DenoisingSDE max_sigma 70, T 1000, cosine;
     sigma 50 -> t0 reverse ODE steps; bf16 net, f32 parameters) serves a
     batch of 8 noisy 128 px images and one 500x500 image (reflect-padded to
-    512x512), twice; per request exactly 17 t0 K1 and 8 t0 K2a, K2b
-    launches."""
+    512x512); per request exactly 17 t0 K1 and 8 t0 K2a, K2b launches."""
     import torch
 
     from image_restoration_sde_tpu_torch.sampling import make_denoising_sampler
@@ -1930,7 +1993,6 @@ def phase_denoise_main_path(dev, net, opt, smi):
         return (clean + sigma / 255 * rng.standard_normal(shape, np.float32)).astype(np.float32)
 
     requests = [("ode", noisy((BATCH, SIZE, SIZE, 3)), ()), ("ode", noisy((1, *DENOISE_ODD_HW, 3)), ())]
-    requests.append(("ode", requests[-1][1], ()))
     want = counts(LAYERNORM=DENOISE_LN_PER_FORWARD * sample.t0, LA_CTX=DENOISE_ATTN_PER_FORWARD * sample.t0,
                   LA_APPLY=DENOISE_ATTN_PER_FORWARD * sample.t0)
     print(f"[denoise-main] sigma {sigma:g} -> t0 = {sample.t0} reverse ODE steps per request")
@@ -2822,6 +2884,206 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     return launches, record, os.path.join(exp, "models", f"{steps}_G.pth")
 
 
+# ---------------------------------------------------------------- the demos
+# The demo YAMLs (configs/demo/: the two-stage Refusion and bokeh chains,
+# stereo SR), copied as chip_learn.py copies them (its dataroots, path.root
+# and a stage 2's pretrain_model_L in the directory its stage 1 wrote,
+# spelled {iter}_G) and cut in niter and val_freq only (DEMO_STEPS steps, one
+# validation at the end, its sampler at TRAIN_VAL_SAMPLE_T steps), on
+# gen_synth's data at DEMO_DATA (2 train, 1 val, the sides the crops take);
+# the learning runs themselves are chip_learn.py's.  A stage whose files
+# nothing reads writes none (a save point of the 77M-parameter NAFNet with
+# its training state is ~1.5 GB); the Refusion stage 2, which the test
+# entry point reads, its weights only
+DEMO_STEPS = 2
+DEMO_DATA = {"refusion": {"n_train": 2, "n_val": 1, "size": 512}, "stereo": {"n_train": 2, "n_val": 1},
+             "bokeh": {"n_train": 2, "n_val": 1}}
+DEMO_SAVES = {("refusion", "stage1"): "all", ("refusion", "stage2"): "weights", ("stereo", "stereo_sr"): None,
+              ("bokeh", "stage1"): "all", ("bokeh", "stage2"): None}
+
+
+def demo_counts(opt):
+    """Launches (per train step, per validation image) of a demo stage's
+    YAML: the compressor's (stage 1), the Refusion latent path's, the
+    stereo NAFNet's, or the bokeh NAFNet's, whose blocks (2 K1 each) fuse
+    no level, on the frozen compressor's encode (train) and encode and
+    decode (validation)."""
+    steps, setting = val_steps(opt), opt["network_G"]["setting"]
+    if opt["model"] == "latent":
+        return train_counts("compressor"), val_counts("compressor", steps)
+    if opt["datasets"]["train"]["mode"].startswith("Ste"):
+        return train_counts("stereo"), val_counts("stereo", steps)
+    if not opt["datasets"]["train"]["mode"].startswith("Bokeh"):
+        return train_counts("latent"), val_counts("latent", steps)
+    blocks = sum(setting["enc_blk_nums"]) + setting["middle_blk_num"] + sum(setting["dec_blk_nums"])
+    enc = counts(LAYERNORM=COMPRESSOR_LN // 2, LA_CTX=COMPRESSOR_ATTN // 2, LA_APPLY=COMPRESSOR_ATTN // 2)
+    net = counts(LAYERNORM=2 * blocks)
+    return ({k: enc[k] + net[k] for k in enc},
+            {k: steps * net[k] + 2 * enc[k] for k in enc})
+
+
+@contextlib.contextmanager
+def demo_saves(kind):
+    """The train entry point's save points inside the block: ``all`` as
+    they are, ``weights`` the net's and EMA's ``.pth`` files only (no
+    training state: nothing resumes), None nothing (``no_checkpoints``)."""
+    from image_restoration_sde_tpu_torch import train
+    from image_restoration_sde_tpu_torch.training import checkpoint
+
+    if kind == "all":
+        yield
+        return
+    if kind is None:
+        with no_checkpoints():
+            yield
+        return
+
+    def weights(opt_path, state, epoch, iter_step, generator, extra=None):
+        whole = checkpoint.whole_state(state)
+        checkpoint.save_params(opt_path["models"], whole["net"], f"{iter_step}_G")
+        if state.ema is not None:
+            checkpoint.save_params(opt_path["models"], checkpoint.ema_state_dict(state, whole), "lastest_EMA")
+
+    save = train.save_checkpoint
+    train.save_checkpoint = weights
+    try:
+        yield
+    finally:
+        train.save_checkpoint = save
+
+
+@contextlib.contextmanager
+def loaded_compressors():
+    """The frozen compressor of every latent task (``pretrain_model_L`` as
+    the YAML spells it, its tensors on the host after loading) built
+    inside the block."""
+    from image_restoration_sde_tpu_torch import runners
+
+    rec, load = [], runners.LatentDiffusionTask.maybe_load_pretrained
+
+    def recording(self, state):
+        load(self, state)
+        rec.append((self.opt["path"]["pretrain_model_L"],
+                    {k: v.detach().cpu() for k, v in self.compressor.state_dict().items()}))
+
+    runners.LatentDiffusionTask.maybe_load_pretrained = recording
+    try:
+        yield rec
+    finally:
+        runners.LatentDiffusionTask.maybe_load_pretrained = load
+
+
+def phase_demo(dev, workdir, smi, stats):
+    """The demo chains of ``chip_learn.py`` through the train entry point
+    (``train.train``), at torch's default TF32 settings as phase 21:
+    ``gen_synth``'s data at DEMO_DATA, each of the five demo YAMLs copied by
+    ``chip_learn``'s code and cut to DEMO_STEPS steps and one validation;
+    per step exactly ``demo_counts``' launches and a finite loss, per
+    validation image exactly its launches and a finite PSNR; each stage 2's
+    frozen compressor, named ``{iter}_G`` as the shipped YAMLs name it,
+    loaded from the ``{iter}_G.pth`` its stage 1 wrote, bit-equal to it;
+    then the test entry point on the Refusion stage 2's ``lastest_EMA.pth``
+    (exactly ``eval_counts`` launches an image, the PNGs, finite metrics).
+    Every K1, K2 and K3 launch records its site, and each kernel is then
+    held against its plain version at every distinct site (``hold_sites``,
+    ``hold_naf_sites``).  Returns the launches and a record."""
+    import torch
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as the entry points run
+    try:
+        with recorded_sites() as (ln, attn), recorded_naf_sites() as naf:
+            result = demo_main_path(dev, os.path.join(workdir, "demo"), smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    hold_sites("demo", dev, ln, attn, stats, {})
+    hold_naf_sites("demo", dev, naf, stats)
+    return result
+
+
+def demo_main_path(dev, root, smi):
+    import gc
+
+    import torch
+
+    import chip_learn
+    from image_restoration_sde_tpu_torch import train
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.utils import options
+
+    total, record = {k.symbol: 0 for k in KERNELS}, {}
+    for demo, data_kw in DEMO_DATA.items():
+        (kind, _), stages = chip_learn.DEMOS[demo]
+        base = os.path.join(root, demo)
+        t0 = time.perf_counter()
+        data = chip_learn.write_data(kind, os.path.join(base, "data"), **data_kw)
+        print(f"[demo] {demo}: gen_synth {kind} {data_kw} in {time.perf_counter() - t0:.1f} s")
+        done = {}
+        for label, shipped, changes in stages:
+            if "resume" in changes:  # resumed train runs: phase 21
+                continue
+            opt = chip_learn.stage_opt(load_yaml(shipped), kind, data, os.path.join(base, "run"), changes)
+            opt["train"].update(niter=DEMO_STEPS, val_freq=DEMO_STEPS)
+            opt["sde"]["sample_T"] = val_steps(opt)
+            chip_learn.link(opt, changes, done)
+            yml = chip_learn.dump_yaml(opt, os.path.join(base, "yml", f"{label}.yml"))
+            models = options.parse(yml, is_train=True)["path"]["models"]
+            want_step, want_val = demo_counts(opt)
+            for k in KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with recorded_steps() as rec, loaded_compressors() as loaded, demo_saves(DEMO_SAVES[demo, label]):
+                state = train.train(yml, dev)
+            seconds = time.perf_counter() - t0
+            for k in KERNELS:
+                total[k.symbol] += k.launches
+            keeps_ema = state.ema is not None
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            tag = f"demo {demo} {label}"
+            check(len(rec["steps"]) == DEMO_STEPS, f"{tag}: {len(rec['steps'])} steps")
+            for i, (grew, _, loss) in enumerate(rec["steps"]):
+                check(grew == want_step, f"{tag} step {i + 1}: launches {grew}, expected {want_step}")
+                check(np.isfinite(loss), f"{tag} step {i + 1}: loss {loss}")
+            check(len(rec["vals"]) == 1, f"{tag}: {len(rec['vals'])} validations")
+            ((grew, vm),) = rec["vals"]
+            check(grew == want_val and np.isfinite(vm["psnr"]), f"{tag} validation: {grew}, psnr {vm['psnr']}")
+            line = {"seconds": seconds, "losses": [r[2] for r in rec["steps"]], "val_psnr": vm["psnr"],
+                    "launches_per_step": want_step, "launches_per_validation": want_val, "ema": keeps_ema}
+            if "compressor" in changes:
+                s1_models, s1_iter = done[changes["compressor"]]
+                spelled = opt["path"]["pretrain_model_L"]
+                saved = torch.load(os.path.join(s1_models, f"{s1_iter}_G.pth"), map_location="cpu",
+                                   weights_only=True)
+                ((name, got),) = loaded
+                check(name == spelled and not os.path.exists(spelled) and sorted(got) == sorted(saved)
+                      and all(torch.equal(got[k], v) for k, v in saved.items()),
+                      f"{tag}: the compressor loaded from {name} is not stage 1's {s1_iter}_G.pth")
+                line["compressor"] = f"{os.path.basename(spelled)} -> {s1_iter}_G.pth, bit-equal"
+            print(f"[demo] {demo} {label}: {DEMO_STEPS} steps of batch {opt['datasets']['train']['batch_size']} at "
+                  f"{opt['datasets']['train']['GT_size']} px in {seconds:.1f} s, losses "
+                  f"{[round(x, 6) for x in line['losses']]}, launches per step {want_step}; validation at "
+                  f"{val_steps(opt)} sampler steps: PSNR {vm['psnr']:.4f}, launches {grew}"
+                  + (f"; compressor {line['compressor']}" if "compressor" in line else "") + f"; card: {smi}")
+            record[f"{demo}/{label}"] = line
+            done[label] = (models, DEMO_STEPS)
+            if (demo, label) == ("refusion", "stage2"):
+                weights = os.path.join(models, "lastest_EMA.pth" if keeps_ema else f"{DEMO_STEPS}_G.pth")
+                check(keeps_ema, f"{tag}: no EMA")
+                test_opt = chip_learn.test_opt(opt, weights, os.path.join(base, "run"))
+                test_yml = chip_learn.dump_yaml(test_opt, os.path.join(base, "test", "yml", f"{label}.yml"))
+                result, per_image, run = run_test(test_yml, dev)
+                for sym, n in run.items():
+                    total[sym] += n
+                want = eval_counts(test_opt, val_steps(opt))
+                check_outputs(f"{tag} test", test_yml, result, per_image, want)
+                (res,) = result.values()
+                record[f"{demo}/{label}/test"] = eval_line(f"demo {demo} {label} test (lastest_EMA.pth)", res, want,
+                                                           smi)
+    return total, record
+
+
 # ---------------------------------------------------------------- evaluation
 # The test YAMLs (configs/<task>/test/<file>), each through the test entry
 # point at its own full width (its sampling steps cut): per YAML its synthetic
@@ -3060,8 +3322,10 @@ def recorded_images():
 def run_test(yml, dev, *flags):
     """``python -m image_restoration_sde_tpu_torch.test -opt=<yml>`` (its
     ``evaluate``, in this process), every launch count set to 0 just
-    before and read just after; returns its result by set, each image's
-    launches and the run's."""
+    before and read just after; prints its seconds and those of them spent
+    restoring (the rest: building the task, loading weights, data, PNGs,
+    metrics); returns its result by set, each image's launches and the
+    run's."""
     import gc
 
     import torch
@@ -3072,8 +3336,13 @@ def run_test(yml, dev, *flags):
     lpips_pth, fid_pth = (flags + (None, None))[:2]
     for k in KERNELS:
         k.launches = 0
+    t0 = time.perf_counter()
     with recorded_images() as rec:
         result = test_entry.evaluate(yml, dev, lpips_pth, fid_pth)
+    seconds = time.perf_counter() - t0
+    restoring = sum(r["seconds"] for res in result.values() for r in res["images"])
+    print(f"[test-entry] {os.path.relpath(yml, os.path.dirname(os.path.dirname(os.path.dirname(yml))))}: "
+          f"{seconds:.1f} s in the entry point, {restoring:.1f} s of it restoring")
     run = {k.symbol: k.launches for k in KERNELS}
     check(run == {k.symbol: sum(r[k.symbol] for r in rec) for k in KERNELS}, f"{yml}: launches outside the images")
     gc.collect()
@@ -3114,7 +3383,7 @@ def eval_line(tag, res, per_image, smi):
             **{k: res.get(k) for k in ("psnr", "ssim", "psnr_y", "ssim_y", "lpips", "fid")}}
 
 
-def phase_eval(dev, workdir, smi, trained, stats):
+def phase_eval(dev, workdir, smi, trained, stats, children):
     """Every test YAML through the test entry point (``test.evaluate``, what
     ``python -m image_restoration_sde_tpu_torch.test -opt=<yml>`` runs), at
     torch's default TF32 settings (cuDNN TF32 on), as a user's run gets
@@ -3134,7 +3403,7 @@ def phase_eval(dev, workdir, smi, trained, stats):
     torch.backends.cudnn.allow_tf32 = True  # torch's default
     try:
         with recorded_sites() as (ln, attn), recorded_naf_sites() as naf:
-            result = eval_main_path(dev, os.path.join(workdir, "eval"), smi, trained)
+            result = eval_main_path(dev, os.path.join(workdir, "eval"), smi, trained, children)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
     hold_sites("eval", dev, ln, attn, stats, {})
@@ -3142,8 +3411,8 @@ def phase_eval(dev, workdir, smi, trained, stats):
     return result
 
 
-def eval_main_path(dev, root, smi, trained):
-    launches, record = {}, {}
+def eval_main_path(dev, root, smi, trained, children):
+    launches, record, restore = {}, {}, None
     for i, (parts, (kind, n, hw, label)) in enumerate(EVAL_PATHS.items()):
         key = "/".join(parts)
         opt = eval_yaml(parts)
@@ -3161,10 +3430,12 @@ def eval_main_path(dev, root, smi, trained):
         check_outputs(key, yml, result, rec, per_image, stereo=kind == "stereo")
         (res,) = result.values()
         record[key] = eval_line(key, res, per_image, smi)
+        if parts == ("deraining", "ir-sde.yml"):
+            restore = start_restore_cli(root, children)
     launches["test_tlsc"], record["tlsc"] = eval_tlsc(dev, root, smi, trained)
     launches["test_tiled"], record["tiled"] = eval_tiled(dev, root, smi, trained)
     launches["inference"], record["inference"] = eval_inference(dev, root, smi)
-    record["restore_cli"] = eval_restore_cli(root)
+    record["restore_cli"] = eval_restore_cli(restore)
     launches["test_lpips_fid"], record["lpips_fid"] = eval_lpips_fid(dev, root, smi, trained)
     launches["test_plain"], record["plain"] = eval_plain(dev, root, smi)
     return launches, record
@@ -3248,25 +3519,29 @@ def eval_inference(dev, root, smi):
     return grew, {"seconds": times, "steps": eval_steps(with_sigma)}
 
 
-def eval_restore_cli(root):
+def start_restore_cli(root, children):
     """``python -m image_restoration_sde_tpu_torch.restore`` in its own
-    process, by tiles, on the deraining sweep's YAML and LQ image: exit 0
-    and an output of the input's size."""
-    from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8
-
+    process, by tiles, on the deraining sweep's YAML and LQ image, started
+    as soon as they are written: its start (imports, the net, the weights)
+    overlaps the sweep."""
     yml = os.path.join(root, "deraining", "test", "ir-sde.yml")
     src = sorted(os.listdir(os.path.join(root, "data", "deraining_ir-sde.yml", "LQ")))[0]
     src = os.path.join(root, "data", "deraining_ir-sde.yml", "LQ", src)
     dst = os.path.join(root, "restored.png")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "image_restoration_sde_tpu_torch.restore", f"-opt={yml}", "-i", src,
-                           "-o", dst, "--tile", "256", "--tile-overlap", "32"], cwd=REPO, capture_output=True,
-                          text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"restore CLI: rc {proc.returncode}: {proc.stderr[-2000:]}")
-    check(read_img_uint8(dst).shape == read_img_uint8(src).shape, "restore CLI: output size")
-    print(f"[eval] restore CLI (tiles of 256 px): {proc.stdout.strip()}; {seconds:.1f} s with the process start")
-    return {"seconds_with_start": seconds, "stdout": proc.stdout.strip()}
+    argv = [sys.executable, "-m", "image_restoration_sde_tpu_torch.restore", f"-opt={yml}", "-i", src, "-o", dst,
+            "--tile", "256", "--tile-overlap", "32"]
+    return Background("restore CLI", argv, children, timeout=600), src, dst
+
+
+def eval_restore_cli(started):
+    """Join the restore CLI: exit 0 and an output of the input's size."""
+    from image_restoration_sde_tpu_torch.data.io_utils import read_img_uint8
+
+    child, src, dst = started
+    said = [line for line in child.join().splitlines() if line.startswith("restored ")]
+    check(len(said) == 1 and read_img_uint8(dst).shape == read_img_uint8(src).shape, f"restore CLI: {said}")
+    print(f"[eval] restore CLI (tiles of 256 px): {said[0]}")
+    return {"stdout": said[0]}
 
 
 def eval_lpips_fid(dev, root, smi, trained):
@@ -3393,7 +3668,9 @@ def phase_ops(dev):
     dynamic-shape autograd trace against eager): K1 at the deraining UNet's
     128 px level, K2 at its 128 px attention, K3 at the latent path's
     28-block level (the dynamic-shape test at OPCHECK_NAF_DYNAMIC_K blocks
-    of it), K4 at a DiT-L/2 site, K5 at the deraining UNet's first level."""
+    of it), K4 at a DiT-L/2 site, K5 at the deraining UNet's first level.
+    It runs in a process of its own (``ops_child``) beside the phases after
+    phase 3: its traces are host work, and it launches little."""
     import torch
 
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
@@ -3413,13 +3690,13 @@ def phase_ops(dev):
     k = OPCHECK_NAF_DYNAMIC_K
     naf_small = (naf[0], tmod[:k].detach().requires_grad_(), 1e-3, tensors[: k * len(NS.PARAM_ORDER)])
     B, N, H, D = FLASH_SHAPES[0]
-    sites = [
+    sites = [  # the K3 dynamic-shape trace, host work alone, last
         ("K1", LN.OP, (leaf(BATCH, SIZE, SIZE, 64, scale=2.0), leaf(64, dtype=torch.float32), 1e-3), None),
         ("K2", LA.PACKED_OP, (leaf(BATCH, SIZE * SIZE, 384), 4, 32), None),
         ("K3", NS.OP, naf, ("test_schema", "test_autograd_registration", "test_faketensor")),
-        ("K3", NS.OP, naf_small, ("test_aot_dispatch_dynamic",)),
         ("K4", FA.OP, (leaf(B, N, H, D), leaf(B, N, H, D), leaf(B, N, H, D), D**-0.5), None),
         ("K5", LA.HEADS_OP, tuple(leaf(*LIN_ATTN_SHAPES[0]) for _ in range(3)), None),
+        ("K3", NS.OP, naf_small, ("test_aot_dispatch_dynamic",)),
     ]
     for name, op, args, tests in sites:
         t0 = time.perf_counter()
@@ -3430,6 +3707,20 @@ def phase_ops(dev):
                   for a in args]
         check(all(v == "SUCCESS" for v in result.values()), f"opcheck {name}: {result}")
         print(f"[ops] {name} {op}: {shapes}: {', '.join(result)} SUCCESS ({time.perf_counter() - t0:.1f} s)")
+
+
+def ops_child() -> int:
+    """``chip_smoke.py --ops-child``: ``phase_ops`` in a process of its own,
+    TF32 off as in the script."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, REPO)
+    t0 = time.perf_counter()
+    phase_ops(torch.device("cuda", 0))
+    print(f"[ops] every operator in {time.perf_counter() - t0:.1f} s")
+    return 0
 
 
 def export_to(workdir, name, export, **kw):
@@ -3608,28 +3899,33 @@ def artifact_child(manifest: str) -> int:
     return 0
 
 
-def phase_artifacts(dev, workdir, jobs, smi):
+def start_artifacts(workdir, jobs, children):
+    """Phase artifacts' loading process (``artifact_child``), in the
+    background: it loads and calls every exported artifact beside the
+    phases that follow (the evaluation's); ``phase_artifacts`` joins it."""
+    manifest = os.path.join(workdir, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump(jobs, f)
+    return Background("artifacts", [sys.executable, os.path.abspath(__file__), "--artifact-child", manifest],
+                      children), manifest
+
+
+def phase_artifacts(dev, started, jobs, smi):
     """Every exported artifact loaded and called in a fresh process
-    (``artifact_child``): each call's output against the eager sampler's
-    with the same generators (EXPORT_BOUND of max|eager|; bit-equality
-    reported) and its exact launches.  The data-parallel job (the symbolic
+    (``artifact_child``, started by ``start_artifacts``): each call's
+    output against the eager sampler's with the same generators
+    (EXPORT_BOUND of max|eager|; bit-equality reported) and its exact
+    launches.  The data-parallel job (the symbolic
     artifact over DP_ARTIFACT_DEVICES, a chain for each row block): one
     call's launches for each block, bit-equal to the one-device loader on
     the same blocks, and against the eager sampler on the whole batch
     within DP_ARTIFACT_BOUND (bit-equality reported).  Returns the
     launches, the data-parallel job's apart, and the record."""
-    import torch
-
-    manifest = os.path.join(workdir, "manifest.json")
-    with open(manifest, "w") as f:
-        json.dump(jobs, f)
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--artifact-child", manifest], check=True,
-                   timeout=900)
-    seconds = time.perf_counter() - t0
+    child, manifest = started
+    child.join()
     with open(manifest + ".out.json") as f:
         report = json.load(f)
-    print(f"[artifacts] the loading process took {seconds:.1f} s, by job (load, calls and block holds): "
+    print(f"[artifacts] the loading process by job (load, calls and block holds): "
           f"{', '.join(f'{name} {entry['job_s']:.1f}' for name, entry in report.items())} s")
     launches, dp_launches, record = {}, {}, {}
     for job in jobs:
@@ -3684,9 +3980,20 @@ def post_group(addr, requests):
     return out
 
 
-def phase_serve(dev, artifact, smi):
+def start_server(artifact, children):
     """``python -m image_restoration_sde_tpu_torch.serve`` on the fixed-batch
-    per-sample-seed deraining artifact, port 0: ``/health``; SERVE_N
+    per-sample-seed deraining artifact, port 0, started ahead of phase
+    serve: it loads and warms beside the phases in between."""
+    from image_restoration_sde_tpu_torch import bench_serve
+
+    proc = bench_serve.start_server(artifact, BATCH, SERVE_WINDOW_MS, device="cuda")
+    children.append(proc)
+    return proc
+
+
+def phase_serve(dev, proc, smi):
+    """The server ``start_server`` started (the fixed-batch per-sample-seed
+    deraining artifact, port 0), once it is bound: ``/health``; SERVE_N
     requests at SERVE_CONCURRENCY through the port's ``bench_serve``, every
     device call launching exactly one batch's kernels; the same (image,
     seed) in two batches of other companions, at other positions, gives the
@@ -3697,8 +4004,8 @@ def phase_serve(dev, artifact, smi):
     from image_restoration_sde_tpu_torch.data.io_utils import decode_img_bytes
 
     per_call = counts(LAYERNORM=LN_PER_FORWARD * 100, LA_CTX=ATTN_PER_FORWARD * 100, LA_APPLY=ATTN_PER_FORWARD * 100)
-    proc, addr = bench_serve.spawn_server(artifact, BATCH, SERVE_WINDOW_MS, device="cuda")
     try:
+        addr = bench_serve.server_address(proc)
         health = bench_serve.health(addr)
         serving = health["serving"]
         check(health["kind"] == "restoration_sampler" and serving["fixed_batch"] == BATCH
@@ -3740,8 +4047,7 @@ def phase_serve(dev, artifact, smi):
               f"bytes ({same}); seed_reproducible {serving['seed_reproducible']}; seeds -1 and 2**32: 400, their "
               f"companion 200")
     finally:
-        proc.kill()
-        proc.wait(timeout=60)
+        end(proc)
     return grew, result
 
 
@@ -4064,8 +4370,51 @@ def ranks_child(out: str, *ymls: str) -> int:
     return 0
 
 
-def phase_train_tp(dev, opts, workdir, smi, pretrain_l, stats, dp_pending=None):
-    """The TP_PATHS train YAMLs through the train entry point with
+def phase_train_tp(dev, opts, workdir, smi, pretrain_l, children, dp_pending=None):
+    """Phase train tp's first half: the TP_PATHS YAMLs in this process
+    (the one-process references ``finish_train_tp`` holds the ranks
+    against), then one ``torchrun`` of TP_RANKS gloo ranks (``ranks_child``;
+    phase train dp's run (b) first where ``dp_pending`` holds it) started
+    in the background, beside the phases up to ``finish_train_tp``.
+    Returns what ``finish_train_tp`` takes."""
+    import gc
+
+    import torch
+
+    from image_restoration_sde_tpu_torch import train
+
+    data, root = os.path.join(workdir, "data"), os.path.join(workdir, "tp")
+    os.makedirs(root, exist_ok=True)
+    never, refs, ymls = 10 * TP_STEPS, {}, []
+    for label, batch in TP_PATHS.items():
+        opt, pl = opts[label], pretrain_l if label == "dit" else None
+        one_yml = write_train_yaml(os.path.join(root, f"{label}_one.yml"), label, opt, root, data, TP_STEPS, never,
+                                   never, name=f"{opt['name']}_one", pretrain_l=pl, batch=batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
+            train.train(one_yml, dev)
+        refs[label] = {"losses": [st[2] for st in rec["steps"]], "ms": [st[1] for st in rec["steps"]],
+                       "grads": rec["grads"][1], "peak": torch.cuda.max_memory_allocated()}
+        del rec
+        ymls.append(write_train_yaml(os.path.join(root, f"{label}.yml"), label, opt, root, data, TP_STEPS, never,
+                                     never, name=f"{opt['name']}_tp", pretrain_l=pl, batch=batch,
+                                     train={"model_parallel": TP_RANKS}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "tp")
+    first = [] if dp_pending is None else [dp_pending["yml"]]
+    child = Background("train tp torchrun", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                             "--nproc_per_node", str(TP_RANKS), os.path.abspath(__file__),
+                                             "--ranks-child", out, *first, *ymls], children)
+    return {"child": child, "refs": refs, "out": out, "first": first, "dp_pending": dp_pending}
+
+
+def finish_train_tp(dev, started, smi, stats):
+    """Join phase train tp's torchrun (``phase_train_tp``) and hold it: the
+    TP_PATHS train YAMLs through the train entry point with
     ``train.model_parallel: TP_RANKS``, all in one ``torchrun``
     (``ranks_child``): TP_RANKS gloo ranks sharing the card, one model group
     splitting the net, TP_STEPS steps, no validation, no checkpoint.  The
@@ -4095,50 +4444,21 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, stats, dp_pending=None):
     without a model axis): its YAML trains first in the same torchrun,
     whose start it then shares, and its ``finish`` holds it as phase train
     dp would have."""
-    import gc
-
     import torch
     import torch.nn.functional as F
 
-    from image_restoration_sde_tpu_torch import train
     from image_restoration_sde_tpu_torch.dryrun import grad_rel
     from image_restoration_sde_tpu_torch.ops import FLASH_ATTN, KERNELS, NAF_STACK
     from image_restoration_sde_tpu_torch.ops import flash_attention as FA
     from image_restoration_sde_tpu_torch.ops import naf_stack as NS
 
-    data, root = os.path.join(workdir, "data"), os.path.join(workdir, "tp")
-    os.makedirs(root, exist_ok=True)
-    never, refs, ymls = 10 * TP_STEPS, {}, []
-    for label, batch in TP_PATHS.items():
-        opt, pl = opts[label], pretrain_l if label == "dit" else None
-        one_yml = write_train_yaml(os.path.join(root, f"{label}_one.yml"), label, opt, root, data, TP_STEPS, never,
-                                   never, name=f"{opt['name']}_one", pretrain_l=pl, batch=batch)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
-            train.train(one_yml, dev)
-        refs[label] = {"losses": [st[2] for st in rec["steps"]], "ms": [st[1] for st in rec["steps"]],
-                       "grads": rec["grads"][1], "peak": torch.cuda.max_memory_allocated()}
-        del rec
-        ymls.append(write_train_yaml(os.path.join(root, f"{label}.yml"), label, opt, root, data, TP_STEPS, never,
-                                     never, name=f"{opt['name']}_tp", pretrain_l=pl, batch=batch,
-                                     train={"model_parallel": TP_RANKS}))
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    out = os.path.join(root, "tp")
-    first = [] if dp_pending is None else [dp_pending["yml"]]
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-                          str(TP_RANKS), os.path.abspath(__file__), "--ranks-child", out, *first, *ymls],
-                         capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    check(run.returncode == 0, f"train tp: torchrun exited {run.returncode}: {run.stderr[-3000:]}")
+    child, refs, out, first, dp_pending = (started[k] for k in ("child", "refs", "out", "first", "dp_pending"))
+    logged = child.join(echo=False)
+    seconds = time.perf_counter() - child.t0
     if dp_pending is not None:
-        dp_pending["finish"](f"{out}.{os.path.basename(first[0])[:-len('.yml')]}", run.stderr, seconds)
+        dp_pending["finish"](f"{out}.{os.path.basename(first[0])[:-len('.yml')]}", logged, seconds)
     line = f"Tensor parallel: mesh {{'data': 1, 'model': {TP_RANKS}}} (data 1 x model {TP_RANKS})"
-    check(run.stderr.count(line) == len(TP_PATHS), f"train tp: rank 0's line {line!r} not logged once a run")
+    check(logged.count(line) == len(TP_PATHS), f"train tp: rank 0's line {line!r} not logged once a run")
     launches, record = {k.symbol: 0 for k in KERNELS}, {"torchrun_seconds": seconds, "card": smi}
     for label in TP_PATHS:
         want, ref = train_counts(label), refs.pop(label)
@@ -4188,7 +4508,8 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, stats, dp_pending=None):
                          "one_process_ms_per_step": ref["ms"], "loss_rel": loss_rel, "grad_rel": dgrad,
                          "peak_memory_gib": peaks, "one_process_peak_memory_gib": ref["peak"] / 2**30,
                          "split_share": share, "shard_bytes": shard_bytes}
-    print(f"[train-tp] torchrun {seconds:.1f} s for {'train dp (b), ' if first else ''}{', '.join(TP_PATHS)}")
+    print(f"[train-tp] torchrun for {'train dp (b), ' if first else ''}{', '.join(TP_PATHS)}: {seconds:.1f} s from "
+          f"its start to its join, beside the phases between")
 
     hold_flash_sites("train-tp", dev, [(TP_SITE, torch.float32)], stats)
     gen = torch.Generator(device=dev)
@@ -4221,21 +4542,48 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, stats, dp_pending=None):
     return launches, record
 
 
-def phase_dryrun_tp(dev, smi):
-    """``dryrun 2`` (what ``python -m image_restoration_sde_tpu_torch.dryrun
-    2`` runs here): two gloo ranks sharing the card as one model group
-    (``model_parallel`` 2), one train step of ConditionalUNet nf 16 split
-    between them (its channel LayerNorms and linear attention at full width
-    on each rank: K1, K2a and K2b launch on both), held by the dry run
-    against the one-process step on the card, each rank exactly its
-    launches.  Returns the ranks' launches."""
+def dryrun_child(out: str) -> int:
+    """``chip_smoke.py --dryrun-child <out>``: ``dryrun 2`` (what ``python -m
+    image_restoration_sde_tpu_torch.dryrun 2`` runs here) in a process of
+    its own, TF32 off as in the script: two gloo ranks sharing the card as
+    one model group (``model_parallel`` 2), one train step of
+    ConditionalUNet nf 16 split between them (its channel LayerNorms and
+    linear attention at full width on each rank: K1, K2a and K2b launch on
+    both), held by the dry run against the one-process step on the card,
+    each rank exactly its launches; the launches a rank and the split
+    parameters' count go to ``out`` (JSON)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch import dryrun
-    from image_restoration_sde_tpu_torch.ops import LA_APPLY, LA_CTX, LAYERNORM
 
     got = dryrun.dryrun_multichip(2)
+    with open(out, "w") as f:
+        json.dump({"launches": got["launches"], "split": len(got["split"])}, f)
+    return 0
+
+
+def start_dryrun_tp(workdir, children):
+    """Phase dryrun tp in the background (``dryrun_child``); returns what
+    ``finish_dryrun_tp`` takes."""
+    out = os.path.join(workdir, "dryrun_tp.json")
+    return Background("dryrun tp", [sys.executable, os.path.abspath(__file__), "--dryrun-child", out], children), out
+
+
+def finish_dryrun_tp(started, smi):
+    """Join the dry run; K1, K2a and K2b launched on each rank.  Returns
+    the ranks' launches."""
+    from image_restoration_sde_tpu_torch.ops import LA_APPLY, LA_CTX, LAYERNORM
+
+    child, out = started
+    child.join()
+    with open(out) as f:
+        got = json.load(f)
     grew = got["launches"]
     check(all(grew[k.symbol] > 0 for k in (LAYERNORM, LA_CTX, LA_APPLY)), f"dryrun tp: launches {grew}")
-    print(f"[dryrun-tp] 2 gloo ranks on one card, mesh {{'data': 1, 'model': 2}}, {len(got['split'])} parameters "
+    print(f"[dryrun-tp] 2 gloo ranks on one card, mesh {{'data': 1, 'model': 2}}, {got['split']} parameters "
           f"split; launches a rank {grew}; card: {smi}")
     return {k: 2 * n for k, n in grew.items()}
 
@@ -4578,6 +4926,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    children = []  # every process the script starts: ended on the way out
+    try:
+        return smoke(children)
+    finally:
+        for proc in children:
+            end(proc)
+
+
+def smoke(children) -> int:
+    import torch
+
     sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
@@ -4607,8 +4966,11 @@ def main() -> int:
         stats[k]["event_ms"] = 0.0
     stats[KERNELS[0]].update(library_ms=0.0, by_path={})  # K1: F.layer_norm; K1 per path
     timed("kernels", phase_kernels, dev, stats, latent_opt, dit_opt)
-    timed("ops", phase_ops, dev)
     serving_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    # host-bound phases that launch little, in processes of their own beside
+    # the phases that follow (joined before phase 19's kernel timings)
+    ops = Background("ops", [sys.executable, os.path.abspath(__file__), "--ops-child"], children)
+    dryrun = start_dryrun_tp(serving_dir.name, children)
     net = timed("net", phase_net, dev, setting, sde_opt)
     launches = {"deraining": timed("main path", phase_main_path, dev, net, sde_opt, smi)}
     jobs, exports = timed("export deraining", phase_export_deraining, dev, net, sde_opt, serving_dir.name, stats)
@@ -4637,22 +4999,19 @@ def main() -> int:
     launches["linear_attention"] = timed("linear attention", phase_lin_attn, dev, stats)
     denoise_opt, stereo_opt, bokeh_opt = (load_yaml(p) for p in (DENOISE_CONFIG, STEREO_CONFIG, BOKEH_CONFIG))
     denoise_net = timed("denoise net", phase_denoise_net, dev, denoise_opt, stats)
+    server = start_server(jobs[0]["path"], children)  # it loads and warms beside the next phases
     launches["denoising"] = timed("denoise main path", phase_denoise_main_path, dev, denoise_net, denoise_opt, smi)
     more = timed("export denoising", phase_export_denoising, dev, denoise_net, denoise_opt, serving_dir.name)
     jobs += more[0]
     exports.update(more[1])
     del denoise_net
     torch.cuda.empty_cache()
-    launches["artifacts"], launches["dp_artifact"], loaded = timed("artifacts", phase_artifacts, dev,
-                                                                    serving_dir.name, jobs, smi)
-    launches["serve"], served = timed("serve", phase_serve, dev, jobs[0]["path"], smi)
-    serving_dir.cleanup()
+    launches["serve"], served = timed("serve", phase_serve, dev, server, smi)
     launches["bench"], benched = timed("bench", phase_bench, dev, smi, stats)
-    print(f"[serving] {json.dumps({'export': exports, 'artifacts': loaded, 'serve': served, 'bench': benched})}")
-    launches["bench_train"], benched = timed("bench train", phase_bench_train, dev, smi)
+    launches["bench_train"], benched_train = timed("bench train", phase_bench_train, dev, smi)
     more = timed("bench refusion", phase_bench_refusion, dev, smi, stats)
     launches["bench_refusion"] = more[0]
-    print(f"[benches] {json.dumps({'bench_train': benched, 'bench_refusion': more[1]})}")
+    print(f"[benches] {json.dumps({'bench_train': benched_train, 'bench_refusion': more[1]})}")
     stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt, stats)
     launches["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net, stereo_opt, smi)
     del stereo_net
@@ -4661,6 +5020,8 @@ def main() -> int:
                                      bokeh_opt, smi)
     del bokeh_net, bokeh_compressor
     torch.cuda.empty_cache()
+    timed("ops", ops.join)
+    launches["dryrun_tp"] = timed("dryrun tp", finish_dryrun_tp, dryrun, smi)
 
     train_opts = {label: load_yaml(os.path.join(REPO, "configs", *spec[0])) for label, spec in TRAIN_PATHS.items()}
     for label in ("ir-sde", "refusion"):
@@ -4681,13 +5042,20 @@ def main() -> int:
                 launches["train_dp"], train_record["dp"], dp_pending = timed("train dp", phase_train_dp, dev, label,
                                                                              o, workdir, smi, keep)
                 del keep
-            if label == "dit":
-                launches["train_tp"], train_record["tp"] = timed("train tp", phase_train_tp, dev, train_opts,
-                                                                 workdir, smi, trained["compressor"], stats,
-                                                                 dp_pending)
-                launches["dryrun_tp"] = timed("dryrun tp", phase_dryrun_tp, dev, smi)
+            if label == "dit":  # its torchrun runs beside the phases up to finish_train_tp
+                tp = timed("train tp", phase_train_tp, dev, train_opts, workdir, smi, trained["compressor"],
+                           children, dp_pending)
+        launches["demo"], demo_record = timed("demo", phase_demo, dev, workdir, smi, stats)
+        print(f"[demo] {json.dumps(demo_record)}")
+        # the exported artifacts' loading process beside the evaluation
+        artifacts = start_artifacts(serving_dir.name, jobs, children)
+        eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats, children)
+        launches["artifacts"], launches["dp_artifact"], loaded = timed("artifacts", phase_artifacts, dev, artifacts,
+                                                                        jobs, smi)
+        serving_dir.cleanup()
+        print(f"[serving] {json.dumps({'export': exports, 'artifacts': loaded, 'serve': served, 'bench': benched})}")
+        launches["train_tp"], train_record["tp"] = timed("train tp join", finish_train_tp, dev, tp, smi, stats)
         print(f"[train] {json.dumps(train_record)}")
-        eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats)
     launches.update(eval_launches)
     print(f"[eval] {json.dumps(eval_record)}")
     launches["tools"] = timed("tools", phase_tools, dev, smi)
@@ -4732,6 +5100,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--artifact-child"]:
         sys.exit(artifact_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--ops-child"]:
+        sys.exit(ops_child())
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        sys.exit(dryrun_child(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(dp_child(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--ranks-child"]:

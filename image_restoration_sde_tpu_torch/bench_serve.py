@@ -98,11 +98,11 @@ def fire(addr, body, n, concurrency, timeout=600.0):
     return wall, [x for x in lat if x is not None]
 
 
-def spawn_server(artifact: str, max_batch: int, window_ms: float, max_wait_ms=None, device: str = "cuda",
-                 devices=None):
+def start_server(artifact: str, max_batch: int, window_ms: float, max_wait_ms=None, device: str = "cuda",
+                 devices=None) -> subprocess.Popen:
     """Start the port's server on a free port (``devices``: comma-separated,
-    the server's ``--devices``); returns (process, address) once it prints
-    its address (warm and bound)."""
+    the server's ``--devices``) without waiting for it: it loads and warms
+    while the caller goes on; ``server_address`` waits for it."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "image_restoration_sde_tpu_torch.serve", "--artifact", artifact, "--port", "0",
@@ -111,13 +111,26 @@ def spawn_server(artifact: str, max_batch: int, window_ms: float, max_wait_ms=No
         cmd += ["--max-wait-ms", str(max_wait_ms)]
     if devices:
         cmd += ["--devices", devices]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
+
+
+def server_address(proc: subprocess.Popen) -> str:
+    """The address of a server ``start_server`` started, once it prints it
+    (warm and bound); a server that exits first is reaped and raises."""
     line = proc.stdout.readline()
     if not line.startswith("serving on "):
         proc.kill()
         proc.wait(timeout=30)
         raise RuntimeError(f"the server did not start: {line!r}")
-    return proc, line.strip().split()[-1]
+    return line.strip().split()[-1]
+
+
+def spawn_server(artifact: str, max_batch: int, window_ms: float, max_wait_ms=None, device: str = "cuda",
+                 devices=None):
+    """Start the port's server on a free port; returns (process, address)
+    once it prints its address (warm and bound)."""
+    proc = start_server(artifact, max_batch, window_ms, max_wait_ms, device, devices)
+    return proc, server_address(proc)
 
 
 def bench(addr: str, n: int, concurrency: int, warmup: int) -> dict:

@@ -27,9 +27,9 @@ and ``maybe_load_pretrained(state)``; the samplers that restore tiles also
 The net's initial weights are torch's default initialisation of the
 reference's modules, drawn from the run's seed; so are a latent task's
 compressor's, unless ``path.pretrain_model_L`` names a ``.pth`` (a
-compressor run's ``{iter}_G.pth`` or a reference file), which it loads on
-every start, resumed ones included: the compressor is not part of the train
-state.
+compressor run's ``{iter}_G.pth``, also when spelled ``{iter}_G``, or a
+reference file), which it loads on every start, resumed ones included: the
+compressor is not part of the train state.
 
 Under tensor parallelism (a ``mesh`` whose model axis is longer than 1)
 the trained net is split over its model group (``training.trainer.

@@ -85,11 +85,25 @@ def save_params(models_dir: str, state_dict: dict, label: str) -> str:
     return path
 
 
+def resolve_params_path(path: str) -> str:
+    """``path``, or ``path + ".pth"`` where ``path`` names no file and no
+    ``.pth``, but that file exists: a YAML may spell a save point
+    ``{iter}_G`` (the JAX package's own name for it, an orbax directory),
+    where the port writes ``{iter}_G.pth``.  Raises FileNotFoundError,
+    naming the path, where neither exists."""
+    if os.path.exists(path):
+        return path
+    if not path.endswith(".pth") and os.path.exists(path + ".pth"):
+        return path + ".pth"
+    raise FileNotFoundError(f"no checkpoint at {path}" + ("" if path.endswith(".pth") else f" nor {path}.pth"))
+
+
 def load_params(path: str) -> dict:
-    """A ``state_dict`` from a ``.pth`` on the host; a ``module.`` prefix
-    (a reference net saved from DataParallel) is dropped, as the reference's
+    """A ``state_dict`` from a ``.pth`` on the host (``path`` through
+    :func:`resolve_params_path`); a ``module.`` prefix (a reference net
+    saved from DataParallel) is dropped, as the reference's
     ``load_network`` does."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = torch.load(resolve_params_path(path), map_location="cpu", weights_only=True)
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 

@@ -237,11 +237,12 @@ def test_cast_params_applies_to_the_score_net_only(port_pair):
 # ---------------------------------------------------------------- hygiene
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     """Every module of the port and the scripts that run it on the card
-    (chip_smoke.py, chip_profile.py, chip_compare.py): no import of jax,
-    jaxlib, flax or image_restoration_sde_tpu (the port's own package
-    name aside)."""
+    (chip_smoke.py, chip_profile.py, chip_compare.py, chip_learn.py): no
+    import of jax, jaxlib, flax or image_restoration_sde_tpu (the port's
+    own package name aside)."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|image_restoration_sde_tpu)(\.|\s|$)", re.M)
-    files = [os.path.join(REPO, name) for name in ("chip_smoke.py", "chip_profile.py", "chip_compare.py")]
+    files = [os.path.join(REPO, name) for name in ("chip_smoke.py", "chip_profile.py", "chip_compare.py",
+                                                   "chip_learn.py")]
     for root, _, names in os.walk(os.path.join(REPO, "image_restoration_sde_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
