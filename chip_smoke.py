@@ -208,7 +208,10 @@ dit-xl main path: phase 10's first posterior batch and odd image through
    compressor first, whose last checkpoint the latent and DiT paths load
    as ``pretrain_model_L``): ``train.train`` for the path's steps
    (checkpoints half-way and at the end, one validation at the end through
-   the task's sampler or, for the compressor, its cross decode), exactly
+   the task's sampler or, for the compressor, its cross decode), each net
+   it builds fresh held to the JAX package's initialisation first
+   (``init_check``: flax's constants exact, kernels within 2 sigma', a
+   fresh DiT's forward exactly 0), exactly
    ``train_counts`` launches per step (none in the backward) and
    ``val_counts`` per validation image; a finite loss; the run resumed
    from the half-way checkpoint (no validation, no checkpoint written)
@@ -244,8 +247,9 @@ demo (after phase 21, in its temporary directory): the demo YAMLs of
    configs/demo/ (Refusion stage 1 and 2, stereo SR, bokeh stage 1 and 2),
    copied by ``chip_learn.py``'s code, on ``gen_synth``'s data (DEMO_DATA),
    each through the train entry point for DEMO_STEPS steps and one
-   validation (TRAIN_VAL_SAMPLE_T sampler steps): exactly ``demo_counts``
-   launches per step and per validation image, finite losses and PSNR;
+   validation (TRAIN_VAL_SAMPLE_T sampler steps), each net it builds
+   fresh held by ``init_check``: exactly ``demo_counts`` launches per step
+   and per validation image, finite losses and PSNR;
    each stage 2's compressor, named ``{iter}_G`` as the shipped YAMLs name
    it, bit-equal to the ``{iter}_G.pth`` its stage 1 wrote; the test entry
    point on the Refusion stage 2's ``lastest_EMA.pth`` (exact launches per
@@ -306,8 +310,9 @@ bench refusion: ``bench_refusion`` for nafnet and dit at 1024 px, 100
    K1, K2, K3 and K4 and each is held against its plain version there;
 train dp (after phase 21's IR-SDE run, in its directory): the train entry
    point under ``torchrun`` (``--dp-child``; run (b), two gloo ranks on the
-   card, in phase train tp's torchrun), DP_STEPS steps of batch 4,
-   for each of dp_runs, against phase 21's first DP_STEPS steps: one rank
+   card, in phase train tp's torchrun), DP_STEPS steps of batch 4
+   resumed from phase 21's half-way checkpoint (DP_AT), for each of
+   dp_runs, against phase 21's same steps: one rank
    bit-equal; more ranks their first step's loss within 1e-6, its
    all-reduced gradients within DP_GRAD_REL of max|grad| of the same
    ranks' gradients averaged in the script's process and the
@@ -323,7 +328,9 @@ train tp (after phase 21's DiT run, in its directory, with its last
    TP_RANKS gloo ranks on the card, after train dp's run (b)), cuDNN TF32
    off on both sides: the
    DiT YAML at batch TP_BATCH (DIT_DEPTH K4 a step on a rank's heads at
-   TP_SITE) and the deraining Refusion YAML (the flagship NAFNet, batch 4
+   TP_SITE; from ``random_pth``'s weights, whose step-1 attention
+   gradients are not zero, their max|grad| held above 0) and the
+   deraining Refusion YAML (the flagship NAFNet, batch 4
    of 128 px, Lion: 16 K1 and one K3 a step, the K3 at TP_NAF_SITE on the
    28-block level's tensors gathered from the ranks, each launch held
    against its plain version on them).  Rank 0 alone logs the mesh, every
@@ -505,14 +512,23 @@ SERVE_WINDOW_MS, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP = 50.0, 32, 8, 8
 # its ends, beside bench_cuda.py's own batch 8 (the three PERF.md quotes)
 BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 32), 2
 # data parallelism (phase train dp): steps of the deraining train YAML
-# under torchrun; the data-parallel artifact's batches (phase artifacts)
+# under torchrun, resumed from phase 21's half-way checkpoint of that YAML
+# (its step DP_RESUME): the steps DP_AT[0]..DP_AT[1], with Adam's moments
+# warm.  From a fresh optimizer the first step is a sign step of lr_G on
+# every element, which moves the elements whose near-zero gradient flips
+# its sign between two sums 2 lr_G apart, and from the JAX package's
+# initialisation that first step lifts the deraining UNet's loss sixfold,
+# where those moves showed 3.6e-4 in the next loss on an H100.  The
+# data-parallel artifact's batches (phase artifacts)
 DP_STEPS = 3
-# (b) and (c): step 1's gradients after the all-reduce against the same
-# ranks' gradients averaged in this process (block_mean_grads), each
+DP_RESUME = TRAIN_PATHS["ir-sde"][3]
+DP_AT = (DP_RESUME + 1, DP_RESUME + DP_STEPS)
+# (b) and (c): the first step's gradients after the all-reduce against the
+# same ranks' gradients averaged in this process (block_mean_grads), each
 # tensor within this share of its max|grad| (the CPU tests' bound for the
-# port's gradients against JAX's); the losses of steps 2..DP_STEPS against
+# port's gradients against JAX's); the losses of the later steps against
 # the one-process run's, which start from parameters that differ within
-# 2 lr_G (1.33e-5 measured)
+# 2 lr_G (1.33e-5 measured from step 1 of torch's default initialisation)
 DP_GRAD_REL, DP_LATER_LOSS = 2e-4, 1e-4
 DP_ARTIFACT_BATCHES = (3, 8)
 DP_ARTIFACT_DEVICES = ["cuda:0", "cuda:0"]
@@ -541,6 +557,10 @@ TP_SITE = (TP_BATCH, 4096, 16 // TP_RANKS, 64)
 # near-zero gradient's sign flips); the split share above TP_SHARE (the
 # JAX package's bar for the flagship: tests/test_tp_scale.py)
 TP_PATHS = {"dit": TP_BATCH, "refusion": None}  # label -> batch (None: the YAML's)
+# the paths whose one-process and split runs start from random_pth's
+# weights: a fresh DiT's gates are closed (adaLN-Zero), so its step-1
+# attention and MLP gradients are exactly 0 and would agree with anything
+TP_RANDOM_START = ("dit",)
 TP_LOSS_REL = {"dit": 1e-5, "refusion": 1e-6}
 TP_SHARE = {"dit": 0.9, "refusion": 0.85}
 TP_NAF_SITE = (TRAIN_BATCH, TRAIN_SIZE // 8, TRAIN_SIZE // 8, TRAIN_NAF_LEVEL[1])
@@ -2567,13 +2587,15 @@ def write_train_data(data):
 
 
 def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, resume=None, plain=False, name=None,
-                     pretrain_l=None, batch=None, train=None):
+                     pretrain_l=None, batch=None, train=None, pretrain_g=None):
     """``opt`` (a train YAML) with its data on the synthetic folders, its
     iteration count and frequencies cut to this run, its validation's
     sampler to ``val_steps`` and, for a latent path, its frozen
     compressor's ``.pth`` (``pretrain_l``, or None: seeded), written to
     ``path``; ``plain`` the plain path of every net; ``batch`` in place of
-    its batch size, ``train`` keys added to its ``train`` section."""
+    its batch size, ``train`` keys added to its ``train`` section;
+    ``pretrain_g`` the trained net's starting ``.pth`` (None: as the YAML
+    says)."""
     import copy
 
     import yaml
@@ -2588,6 +2610,8 @@ def write_train_yaml(path, label, opt, root, data, niter, save_freq, val_freq, r
     opt["path"].update(root=root, resume_state=resume)
     if "pretrain_model_L" in opt["path"]:
         opt["path"]["pretrain_model_L"] = pretrain_l
+    if pretrain_g:
+        opt["path"]["pretrain_model_G"] = pretrain_g
     opt["train"].update(niter=niter, val_freq=val_freq, **(train or {}))
     if batch:
         ds["train"]["batch_size"] = batch
@@ -2741,7 +2765,8 @@ def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None, keep=N
     time; ``chip_profile.py``), its data on the synthetic folders
     (TRAIN_DATA), ``niter`` cut to the path's steps with a checkpoint
     half-way and one validation (the path's validation images, the YAML's
-    sampler) at the end.  Per train step exactly the forward's launches
+    sampler) at the end, every net it builds fresh held by ``init_check``
+    (``fresh_nets``).  Per train step exactly the forward's launches
     (``train_counts``), none in the backward, and a finite loss; per
     validation image exactly ``val_counts``; the checkpoints on disk
     (``lastest_EMA.pth`` where the task keeps an EMA).  Then the run
@@ -2755,11 +2780,12 @@ def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None, keep=N
     plain-path steps (no kernel launches) for their time.  Returns the
     launches of the first run by kernel symbol and a record of the times
     and peak memory; ``keep`` (a dict) gets the first run's losses and
-    milliseconds by step, its parameters after steps 1 and DP_STEPS, its
-    step-1 gradients and, for each world size of ``dp_runs`` past 1, the
-    step-1 gradients that that many ranks average (``block_mean_grads``,
-    computed after the path's launches were read), which phase train dp
-    holds its runs against."""
+    milliseconds at the steps of DP_AT, its parameters after them, the
+    gradients of the first, its half-way checkpoint (``state``, ``weights``)
+    and, for each world size of ``dp_runs`` past 1, the first step's
+    gradients that that many ranks average (``block_mean_grads``, computed
+    after the path's launches were read), which phase train dp holds its
+    runs against."""
     import torch
 
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
@@ -2794,15 +2820,20 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with recorded_steps(snapshot_at=(1, DP_STEPS, save + 1) if keep is not None else (save + 1,),
-                        grads_at=(1,) if keep is not None else (), control_at=1 if keep is not None else None) as rec:
+    with recorded_steps(snapshot_at=(*DP_AT, save + 1) if keep is not None else (save + 1,),
+                        grads_at=DP_AT[:1] if keep is not None else (),
+                        control_at=DP_AT[0] if keep is not None else None) as rec, \
+            fresh_nets(f"train {label}", dev) as inits:
         t0 = time.perf_counter()
         state = train.train(yml, dev)
         seconds = time.perf_counter() - t0
+    check(len(inits) == (2 if label in LATENT_TRAIN else 1), f"train {label}: {len(inits)} fresh nets")  # + compressor
     if keep is not None:
-        keep.update(losses=[r[2] for r in rec["steps"]], ms=[r[1] for r in rec["steps"]],
-                    params={at: rec["snapshots"][at] for at in (1, DP_STEPS)}, grads=rec["grads"][1],
-                    lr=float(opt["train"]["lr_G"]))
+        window = rec["steps"][DP_AT[0] - 1:DP_AT[1]]
+        keep.update(losses=[r[2] for r in window], ms=[r[1] for r in window],
+                    params={at: rec["snapshots"][at] for at in DP_AT}, grads=rec["grads"][DP_AT[0]],
+                    lr=float(opt["train"]["lr_G"]), state=os.path.join(exp, "training_state", f"{save}.state"),
+                    weights=os.path.join(exp, "models", f"{save}_G.pth"))
     peak = torch.cuda.max_memory_allocated()
     launches = {k.symbol: k.launches for k in KERNELS}
     keeps_ema = state.ema is not None
@@ -2880,8 +2911,97 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
           f"img/s), {plain_text}; card: {smi}")
     record = {"ms_per_step": k_ms, "img_per_s": batch * 1e3 / k_ms, "plain_ms_per_step": p_ms,
               "plain_img_per_s": batch * 1e3 / p_ms if p_ms else None, "peak_memory_gib": peak / 2**30,
-              "batch": batch, "crop": crop, "launches_per_step": want, "card": smi}
+              "batch": batch, "crop": crop, "launches_per_step": want, "init": inits, "card": smi}
     return launches, record, os.path.join(exp, "models", f"{steps}_G.pth")
+
+
+# ---------------------------------------------------------------- the train initialisation
+# every net the train entry point builds fresh starts as the JAX package's
+# (flax's initialisers): the tensors flax makes constant, by parameter
+# name, hold their constant exactly (biases, the NAFBlock and SCAM scales
+# beta / gamma, the DiT's modulations and final linear map 0; the channel
+# LayerNorms' gains g 1); every other weight is a lecun_normal kernel:
+# within 2 sigma' = 2 sqrt(1/fan_in) / INIT_TRUNCATED_STD (float32 scaling:
+# INIT_ULP of slack) and, from INIT_STD_MIN_SIZE elements, a std within
+# INIT_STD_REL of sqrt(1/fan_in) (~4.5 sampling errors at that size); the
+# Fourier features' frequencies (``weights``) drawn N(0, 1); a fresh DiT
+# returns exactly 0
+INIT_ZERO = ("bias", "beta", "gamma")
+INIT_DIT_ZERO = ("adaLN_modulation.1.weight", "final_layer.linear.weight")
+INIT_TRUNCATED_STD, INIT_ULP = 0.87962566103423978, 1e-6
+INIT_STD_MIN_SIZE, INIT_STD_REL = 1024, 0.10
+
+
+def init_check(tag, net, dev) -> dict:
+    """Hold one fresh net (see INIT_ZERO): its constants, its kernels and,
+    for a DiT, one forward on the card at a 16x16 latent (its K4 launches
+    taken off the counts: they are not the path's).  Returns a record."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import DiT
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    constants, kernels, worst, ratios = 0, 0, 0.0, []
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in INIT_ZERO or leaf == "g" or name.endswith(INIT_DIT_ZERO):
+                want = 1.0 if leaf == "g" else 0.0
+                check(bool((p == want).all()), f"{tag}: {name} is not flax's constant {want}")
+                constants += 1
+            elif leaf == "weights":  # Fourier frequencies, N(0, 1)
+                check(p.numel() < 2 or bool((p != p.flatten()[0]).any()), f"{tag}: {name} is constant")
+            else:
+                check(p.dim() in (2, 4), f"{tag}: {name} {tuple(p.shape)}: not a conv or dense kernel")
+                fan_in = p[0].numel()
+                sigma = fan_in**-0.5 / INIT_TRUNCATED_STD
+                worst = max(worst, p.abs().max().item() / sigma)
+                if p.numel() >= INIT_STD_MIN_SIZE:
+                    ratios.append(p.double().std().item() * fan_in**0.5)
+                kernels += 1
+    check(worst <= 2 * (1 + INIT_ULP), f"{tag}: a kernel reaches {worst:.6f} sigma' (bound 2)")
+    check(ratios and all(abs(r - 1) <= INIT_STD_REL for r in ratios),
+          f"{tag}: kernel std / sqrt(1/fan_in) {min(ratios, default=0):.4f}..{max(ratios, default=0):.4f}")
+    rec = {"constants": constants, "kernels": kernels, "max_abs_over_sigma": worst,
+           "std_ratio": [min(ratios), max(ratios)], "kernels_std_held": len(ratios)}
+    if isinstance(net, DiT):
+        launches = [k.launches for k in KERNELS]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 19)
+        x, cond = (torch.randn(2, 16, 16, net.in_channels, generator=gen, device=dev) for _ in range(2))
+        with torch.no_grad():
+            out = net(x, cond, torch.tensor([5.0, 60.0], device=dev))
+        for k, n in zip(KERNELS, launches):
+            k.launches = n
+        check(out.shape == x.shape and not out.any(), f"{tag}: a fresh DiT returns max|out| {out.abs().max().item()}")
+        rec["dit_forward_zero"] = True
+    print(f"[init] {tag}: {type(net).__name__}: {constants} tensors at flax's constants exactly, {kernels} kernels "
+          f"within {worst:.6f} sigma' (bound 2), std / sqrt(1/fan_in) {min(ratios):.4f}..{max(ratios):.4f} over the "
+          f"{len(ratios)} of at least {INIT_STD_MIN_SIZE} elements (bound {INIT_STD_REL})"
+          + ("; its first forward on the card exactly 0" if "dit_forward_zero" in rec else ""))
+    return rec
+
+
+@contextlib.contextmanager
+def fresh_nets(tag, dev):
+    """Every net the train entry point builds inside the block
+    (``runners._seeded_network``: the trained net, a latent task's seeded
+    compressor) moved to the card and held by ``init_check`` before the
+    task takes it; yields the records."""
+    from image_restoration_sde_tpu_torch import runners
+
+    build, rec = runners._seeded_network, []
+
+    def checked(which, setting, seed):
+        net = build(which, setting, seed).to(dev)
+        rec.append({"which": which, **init_check(f"{tag} {which}", net, dev)})
+        return net
+
+    runners._seeded_network = checked
+    try:
+        yield rec
+    finally:
+        runners._seeded_network = build
 
 
 # ---------------------------------------------------------------- the demos
@@ -3032,7 +3152,8 @@ def demo_main_path(dev, root, smi):
             for k in KERNELS:
                 k.launches = 0
             t0 = time.perf_counter()
-            with recorded_steps() as rec, loaded_compressors() as loaded, demo_saves(DEMO_SAVES[demo, label]):
+            with recorded_steps() as rec, loaded_compressors() as loaded, demo_saves(DEMO_SAVES[demo, label]), \
+                    fresh_nets(f"demo {demo} {label}", dev) as inits:
                 state = train.train(yml, dev)
             seconds = time.perf_counter() - t0
             for k in KERNELS:
@@ -3049,8 +3170,10 @@ def demo_main_path(dev, root, smi):
             check(len(rec["vals"]) == 1, f"{tag}: {len(rec['vals'])} validations")
             ((grew, vm),) = rec["vals"]
             check(grew == want_val and np.isfinite(vm["psnr"]), f"{tag} validation: {grew}, psnr {vm['psnr']}")
+            check(len(inits) == 1 + ("compressor" in changes), f"{tag}: {len(inits)} fresh nets")
             line = {"seconds": seconds, "losses": [r[2] for r in rec["steps"]], "val_psnr": vm["psnr"],
-                    "launches_per_step": want_step, "launches_per_validation": want_val, "ema": keeps_ema}
+                    "launches_per_step": want_step, "launches_per_validation": want_val, "ema": keeps_ema,
+                    "init": inits}
             if "compressor" in changes:
                 s1_models, s1_iter = done[changes["compressor"]]
                 spelled = opt["path"]["pretrain_model_L"]
@@ -4103,7 +4226,7 @@ def dp_child(yml: str, out: str, backend: str) -> int:
     rank of the port's train entry point (``train.train``, what ``python -m
     image_restoration_sde_tpu_torch.train`` runs under torchrun) with its
     steps recorded (``recorded_steps``: launches, milliseconds, loss, the
-    parameters after steps 1 and DP_STEPS, the gradients of step 1: under
+    parameters after the steps of DP_AT, the gradients of the first: under
     DDP the ranks' mean); the record goes to ``<out>.<rank>.pt``.
     torch's default TF32 settings, as the one-process run of phase 21."""
     import torch
@@ -4111,9 +4234,9 @@ def dp_child(yml: str, out: str, backend: str) -> int:
     sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch import train
 
-    with recorded_steps(snapshot_at=(1, DP_STEPS), grads_at=(1,)) as rec:
+    with recorded_steps(snapshot_at=DP_AT, grads_at=DP_AT[:1]) as rec:
         train.train(yml, "cuda", backend)
-    torch.save({"steps": rec["steps"], "params": rec["snapshots"], "grads": rec["grads"][1]},
+    torch.save({"steps": rec["steps"], "params": rec["snapshots"], "grads": rec["grads"][DP_AT[0]]},
                f"{out}.{os.environ['RANK']}.pt")
     return 0
 
@@ -4158,30 +4281,32 @@ def dp_runs():
 
 
 def phase_train_dp(dev, label, opt, workdir, smi, reference):
-    """The deraining IR-SDE train YAML's first DP_STEPS steps (batch 4 of
-    128 px crops, full width, the synthetic folders of phase 21) through
-    the train entry point under ``torchrun`` (``dp_child``; run (b) in
-    phase train tp's torchrun, ``ranks_child``), for each run of
-    ``dp_runs``, held against phase 21's one-process run of the same YAML
-    and seed (``reference``: its losses and step milliseconds, its
-    parameters after steps 1 and DP_STEPS, its step-1 gradients).  Rank 0
+    """The deraining IR-SDE train YAML's steps DP_AT (DP_STEPS of batch 4
+    of 128 px crops, full width, the synthetic folders of phase 21),
+    resumed from phase 21's half-way checkpoint (its ``.state`` and its
+    weights copied to the run's own models directory), through the train
+    entry point under ``torchrun`` (``dp_child``; run (b) in phase train
+    tp's torchrun, ``ranks_child``), for each run of ``dp_runs``, held
+    against phase 21's one-process run of the same YAML and seed
+    (``reference``: its losses and step milliseconds at those steps, its
+    parameters after them, the first one's gradients).  Rank 0
     alone logs the data-parallel line; every rank takes exactly the
     one-process step's launches per step (at its per-rank batch, none in
     the backward); the ranks end with the same parameters and gradients
     and report the same (global) losses.  (a), one rank, is bit-equal to
-    the one-process run: every loss, the step-1 gradients and the
+    the one-process run: every loss, the first step's gradients and the
     parameters after every recorded step.  (b) and (c) split the batch, so
     the gradients sum in another order: their first step's loss within
     1e-6 of the one-process step's, its gradients (after the all-reduce:
     the ranks' mean) each within DP_GRAD_REL of its tensor's max|grad| from
     the same ranks' gradients averaged in this process
     (``block_mean_grads``; from the whole batch's, which cuDNN's TF32
-    convolutions round otherwise, reported), and the parameters after it within 2 lr_G (phase_train_main_path's bounds
-    for the first step of a resumed run; Adam's sign-sensitive first step
-    moves an element by at most lr_G whatever its gradient, so only the
-    gradients show the mean); the later steps start from those parameters,
+    convolutions round otherwise, reported), and the parameters after it
+    within 2 lr_G (phase_train_main_path's bounds for the first step of a
+    resumed run: Adam's step on an element whose gradient's sign flips may
+    differ by up to that); the later steps start from those parameters,
     their losses within DP_LATER_LOSS of the one-process run's, and the
-    parameters after step DP_STEPS are reported.  Returns the launches of
+    parameters after the last step are reported.  Returns the launches of
     all ranks and runs and a record of step times against the one-process
     run's (both filled in further when run (b) is held), and run (b)
     pending: its YAML, which phase train tp's torchrun trains first
@@ -4198,15 +4323,19 @@ def phase_train_dp(dev, label, opt, workdir, smi, reference):
 
 
 def train_dp(dev, label, opt, workdir, smi, reference):
+    import shutil
+
     import torch
 
     from image_restoration_sde_tpu_torch.dryrun import grad_rel
     from image_restoration_sde_tpu_torch.ops import KERNELS
+    from image_restoration_sde_tpu_torch.utils import options
 
     root, data = os.path.join(workdir, f"{label}_dp"), os.path.join(workdir, "data")
     os.makedirs(root, exist_ok=True)
     want, lr = train_counts(label), reference["lr"]
-    ref_losses, ref_ms = reference["losses"][:DP_STEPS], reference["ms"][:DP_STEPS]
+    ref_losses, ref_ms = reference["losses"], reference["ms"]
+    first, last = DP_AT
     launches, record = {k.symbol: 0 for k in KERNELS}, {"one_process_ms_per_step": ref_ms, "card": smi}
 
     def hold(tag, n, backend, out, logged, seconds):
@@ -4241,17 +4370,17 @@ def train_dp(dev, label, opt, workdir, smi, reference):
                        "bit_equal": bit_equal}
         print(f"[train-dp] ({tag}) {n} {backend} rank(s) on {'one card' if tag != 'c' else f'{n} cards'}: "
               f"{DP_STEPS} steps of batch {TRAIN_BATCH} ({TRAIN_BATCH // n} a rank), losses {losses} against "
-              f"{ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}); step 1's gradients "
+              f"{ref_losses} in one process (rel {', '.join(f'{x:.3g}' for x in loss_rel)}); step {first}'s gradients "
               f"{dgrad:.3g} of max|grad| from {'the' if n == 1 else f'{n} row blocks averaged in'} one process's "
               f"(bound {DP_GRAD_REL}), {dgrad_whole:.3g} from the whole batch's; parameters max|d| "
-              f"after step 1 {dparam[1]:.3g}, after step {DP_STEPS} {dparam[DP_STEPS]:.3g} (2 lr_G = {2 * lr:.3g}); "
+              f"after step {first} {dparam[first]:.3g}, after step {last} {dparam[last]:.3g} (2 lr_G = {2 * lr:.3g}); "
               f"bit-equal: {bit_equal}; launches per rank and step {want}; ms by step (rank 0) "
               f"{', '.join(f'{x:.1f}' for x in ms)} against {', '.join(f'{x:.1f}' for x in ref_ms)} in one process; "
               f"torchrun {seconds:.1f} s (card: {smi})")
         if n == 1:
             check(bit_equal, f"train dp ({tag}): one rank is not bit-equal to one process")
         else:
-            check(loss_rel[0] <= 1e-6 and dgrad <= DP_GRAD_REL and dparam[1] <= 2 * lr,
+            check(loss_rel[0] <= 1e-6 and dgrad <= DP_GRAD_REL and dparam[first] <= 2 * lr,
                   f"train dp ({tag}): the first step differs")
             check(all(x <= DP_LATER_LOSS for x in loss_rel[1:]), f"train dp ({tag}): a later step's loss differs")
 
@@ -4262,8 +4391,11 @@ def train_dp(dev, label, opt, workdir, smi, reference):
                   f"{torch.cuda.device_count()} card(s)")
             record[tag] = None
             continue
-        yml = write_train_yaml(os.path.join(root, f"{tag}.yml"), label, opt, root, data, DP_STEPS, 10 * DP_STEPS,
-                               10 * DP_STEPS, name=f"{opt['name']}_dp_{tag}")  # the final save alone
+        yml = write_train_yaml(os.path.join(root, f"{tag}.yml"), label, opt, root, data, last, 10 * last, 10 * last,
+                               resume=reference["state"], name=f"{opt['name']}_dp_{tag}")  # the final save alone
+        models = options.parse(yml, is_train=True)["path"]["models"]  # where the resumed run reads its weights
+        os.makedirs(models, exist_ok=True)
+        shutil.copy(reference["weights"], os.path.join(models, os.path.basename(reference["weights"])))
         out = os.path.join(root, tag)
         if tag == "b":  # in phase train tp's torchrun (ranks_child): its start is paid once
             pending = {"yml": yml, "finish": lambda out_, logged, seconds, n=n, backend=backend:
@@ -4289,7 +4421,7 @@ def ranks_child(out: str, *ymls: str) -> int:
     group for all, joined here, so the runs share torchrun's start).  A
     YAML without ``train.model_parallel`` is phase train dp's run (b), as
     ``dp_child`` runs it: torch's default TF32 settings, its checkpoint
-    written, the parameters after steps 1 and DP_STEPS and step 1's
+    written, the parameters after the steps of DP_AT and the first's
     gradients (DDP's mean) recorded.  One with it: cuDNN TF32 off as the
     one-process steps it is held against, writing no checkpoint, its steps
     recorded (``recorded_steps``: launches, milliseconds, loss; step 1's
@@ -4349,9 +4481,10 @@ def ranks_child(out: str, *ymls: str) -> int:
             path = f"{out}.{os.path.basename(yml)[:-len('.yml')]}.{rank}.pt"
             if not load_yaml(yml)["train"].get("model_parallel"):
                 torch.backends.cudnn.allow_tf32 = True  # torch's default, as dp_child's fresh process has it
-                with recorded_steps(snapshot_at=(1, DP_STEPS), grads_at=(1,)) as rec:
+                with recorded_steps(snapshot_at=DP_AT, grads_at=DP_AT[:1]) as rec:
                     state = train.train(yml, "cuda", "gloo")
-                torch.save({"steps": rec["steps"], "params": rec["snapshots"], "grads": rec["grads"][1]}, path)
+                torch.save({"steps": rec["steps"], "params": rec["snapshots"], "grads": rec["grads"][DP_AT[0]]},
+                           path)
                 del state, rec
                 continue
             torch.backends.cudnn.allow_tf32 = False
@@ -4368,6 +4501,26 @@ def ranks_child(out: str, *ymls: str) -> int:
         dit.flash_mha, nafnet.naf_stack, NS.naf_stack_cuda = attend, stack, cuda
         dist.shutdown()
     return 0
+
+
+def random_pth(path, label, opt, dev) -> str:
+    """The path ``label``'s net with ``init_params_`` weights (every
+    tensor drawn, the DiT's zero-initialised modulations and final linear
+    map too), saved as a ``.pth``: a start whose step-1 gradients are not
+    zero where a fresh net's are."""
+    import torch
+
+    from image_restoration_sde_tpu_torch.models import build_network, init_params_
+    from image_restoration_sde_tpu_torch.utils import options
+
+    with torch.device(dev):
+        net = build_network(*train_network(label, options.dict_to_nonedict(opt)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    torch.save(init_params_(net, gen).state_dict(), path)
+    del net
+    torch.cuda.empty_cache()
+    return path
 
 
 def phase_train_tp(dev, opts, workdir, smi, pretrain_l, children, dp_pending=None):
@@ -4388,8 +4541,9 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, children, dp_pending=Non
     never, refs, ymls = 10 * TP_STEPS, {}, []
     for label, batch in TP_PATHS.items():
         opt, pl = opts[label], pretrain_l if label == "dit" else None
+        pg = random_pth(os.path.join(root, f"{label}_G.pth"), label, opt, dev) if label in TP_RANDOM_START else None
         one_yml = write_train_yaml(os.path.join(root, f"{label}_one.yml"), label, opt, root, data, TP_STEPS, never,
-                                   never, name=f"{opt['name']}_one", pretrain_l=pl, batch=batch)
+                                   never, name=f"{opt['name']}_one", pretrain_l=pl, batch=batch, pretrain_g=pg)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4400,7 +4554,7 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, children, dp_pending=Non
         del rec
         ymls.append(write_train_yaml(os.path.join(root, f"{label}.yml"), label, opt, root, data, TP_STEPS, never,
                                      never, name=f"{opt['name']}_tp", pretrain_l=pl, batch=batch,
-                                     train={"model_parallel": TP_RANKS}))
+                                     train={"model_parallel": TP_RANKS}, pretrain_g=pg))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4419,8 +4573,10 @@ def finish_train_tp(dev, started, smi, stats):
     (``ranks_child``): TP_RANKS gloo ranks sharing the card, one model group
     splitting the net, TP_STEPS steps, no validation, no checkpoint.  The
     DiT YAML (DiT-L/2 at full width, 1024 px crops: 4096 tokens; phase
-    21's compressor as its frozen ``pretrain_model_L``) at batch TP_BATCH:
-    qkv by head, so K4 runs on each rank's heads; the deraining Refusion
+    21's compressor as its frozen ``pretrain_model_L``; ``random_pth``'s
+    weights as its ``pretrain_model_G``, TP_RANDOM_START) at batch TP_BATCH:
+    qkv by head, so K4 runs on each rank's heads, its step-1 attention
+    gradients not zero (their max|grad| printed); the deraining Refusion
     YAML (the flagship NAFNet, batch 4 of 128 px crops, Lion): its
     convolutions by input channel and its 28-block level's split tensors
     gathered, so one K3 a rank and step runs on the whole level at
@@ -4485,6 +4641,11 @@ def finish_train_tp(dev, started, smi, stats):
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
         check(sorted(ranks[0]["grads"]) == sorted(ref["grads"]), f"train tp {label}: gradients' keys")
         dgrad = grad_rel(ranks[0]["grads"], ref["grads"])
+        # the attention's step-1 gradients (the DiT's), which zero gates would make exactly 0
+        attn = [max((g.abs().max().item() for k, g in grads.items() if ".attn." in k), default=None)
+                for grads in (ref["grads"], ranks[0]["grads"])]
+        if label in TP_RANDOM_START:
+            check(all(a is not None and a > 0 for a in attn), f"train tp {label}: attention gradients max|grad| {attn}")
         del ranks[0]["grads"], ref["grads"]
         ms = [st[1] for st in ranks[0]["steps"]]
         peaks = [rank["peak"] / 2**30 for rank in ranks]
@@ -4494,7 +4655,9 @@ def finish_train_tp(dev, started, smi, stats):
               f"{TP_STEPS} steps, float32, cuDNN TF32 off; losses {losses} against {ref['losses']} in one process "
               f"(rel {', '.join(f'{x:.3g}' for x in loss_rel)}; bounds {TP_LOSS_REL[label]}, then {DP_LATER_LOSS}); "
               f"step 1's gradients assembled from the ranks {dgrad:.3g} of max|grad| from one process's (bound "
-              f"{TP_GRAD_REL}); launches per rank and step {want}; K4 calls a rank {len(ranks[0]['k4'])} at "
+              f"{TP_GRAD_REL})" + (f", the attention's max|grad| {attn[0]:.6g} in one process, {attn[1]:.6g} from "
+                                   f"the ranks" if attn[0] is not None else "") +
+              f"; launches per rank and step {want}; K4 calls a rank {len(ranks[0]['k4'])} at "
               f"{TP_SITE}, K3 calls a rank {len(ranks[0]['k3'])} at {TP_NAF_SITE} on whole (gathered) tensors, "
               f"each held against its plain version on them (worst {held:.3g} of its bound); card: {smi}")
         print(f"[train-tp] {label}: ms by step (rank 0) {', '.join(f'{x:.1f}' for x in ms)} against "
@@ -4506,6 +4669,7 @@ def finish_train_tp(dev, started, smi, stats):
         check(share > TP_SHARE[label], f"train tp {label}: {share:.2%} of the parameter bytes split")
         record[label] = {"ranks": TP_RANKS, "batch": TP_PATHS[label] or TRAIN_BATCH, "ms_per_step": ms,
                          "one_process_ms_per_step": ref["ms"], "loss_rel": loss_rel, "grad_rel": dgrad,
+                         "attention_max_abs_grad": attn,
                          "peak_memory_gib": peaks, "one_process_peak_memory_gib": ref["peak"] / 2**30,
                          "split_share": share, "shard_bytes": shard_bytes}
     print(f"[train-tp] torchrun for {'train dp (b), ' if first else ''}{', '.join(TP_PATHS)}: {seconds:.1f} s from "

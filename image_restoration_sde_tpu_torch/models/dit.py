@@ -5,7 +5,9 @@ stride-p patch embedding of ``concat([x - cond, cond])`` (reflect-padded to
 the patch size), a GLIDE timestep embedding (cos first, 256 frequencies)
 through a two-layer MLP, adaLN-Zero blocks (6-way modulation from the time
 embedding; attention, then a GELU(tanh) MLP), a 2-way modulated final
-layer and unpatchify, cropped back to the input size.  No positional
+layer and unpatchify, cropped back to the input size.  Initialised as the
+flax module: the modulations and the final linear map zero (so a fresh
+net returns 0), every other layer ``modules.lecun_normal_``.  No positional
 embedding, as in the reference.  Module names follow the reference torch
 DiT, the key space ``utils/torch_import.dit_key_rules`` maps.
 
@@ -92,12 +94,19 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
+def _zeros(layer: Linear) -> Linear:
+    nn.init.zeros_(layer.weight)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
 class DiTBlock(nn.Module):
-    """adaLN-Zero block."""
+    """adaLN-Zero block: the modulation starts at zero weight and bias, so
+    a fresh block's gates are closed and it passes its input through."""
 
     def __init__(self, hidden: int, heads: int, plain: bool = False):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(hidden, 6 * hidden))
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _zeros(Linear(hidden, 6 * hidden)))
         self.attn = Attention(hidden, heads, plain=plain)
         self.mlp = Mlp(hidden)
 
@@ -108,10 +117,13 @@ class DiTBlock(nn.Module):
 
 
 class FinalLayer(nn.Module):
+    """Modulated LayerNorm and the linear map to patch pixels, both zero at
+    the start: a fresh DiT outputs exactly 0."""
+
     def __init__(self, hidden: int, patch: int, out_channels: int):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(hidden, 2 * hidden))
-        self.linear = Linear(hidden, patch * patch * out_channels)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _zeros(Linear(hidden, 2 * hidden)))
+        self.linear = _zeros(Linear(hidden, patch * patch * out_channels))
 
     def forward(self, x, c):
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)

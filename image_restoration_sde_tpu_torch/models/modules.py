@@ -68,8 +68,36 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
         return torch.cat([t, freqs.sin(), freqs.cos()], dim=-1)
 
 
+# flax's ``lecun_normal``: a normal truncated at two standard deviations,
+# its std divided by the truncated one's (0.8796...) so that the draws
+# have variance 1/fan_in
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """Draw ``weight`` (out first) as flax's default kernel initialiser
+    does, from torch's global generator: std sigma' = sqrt(1/fan_in) /
+    TRUNCATED_STD, truncated at 2 sigma'; fan_in is ``weight[0].numel()``
+    (in/groups x kh x kw for a convolution, as flax's grouped kernel (kh,
+    kw, in/groups, out) counts it).  Sampled as ``jax.random.
+    truncated_normal`` samples, by the inverse CDF (a uniform between
+    erf(-sqrt 2) and erf(sqrt 2) through erfinv): torch's ``trunc_normal_``
+    rejects and redraws the whole tensor, ~8x the time on a large net."""
+    std = weight[0].numel() ** -0.5 / TRUNCATED_STD
+    edge = math.erf(math.sqrt(2.0))
+    with torch.no_grad():
+        return weight.uniform_(-edge, edge).erfinv_().mul_(math.sqrt(2.0) * std).clamp_(-2 * std, 2 * std)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose float32 parameters are cast to the input's dtype."""
+    """``nn.Conv2d`` whose float32 parameters are cast to the input's dtype;
+    initialised as a flax ``nn.Conv``: ``lecun_normal_`` kernel, zero
+    bias."""
+
+    def reset_parameters(self):
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -78,7 +106,11 @@ class Conv2d(nn.Conv2d):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` whose float32 parameters are cast to the input's dtype."""
+    """``nn.Linear`` whose float32 parameters are cast to the input's dtype;
+    initialised as a flax ``nn.Dense``: ``lecun_normal_`` kernel, zero
+    bias."""
+
+    reset_parameters = Conv2d.reset_parameters
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)

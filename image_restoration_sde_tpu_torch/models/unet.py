@@ -154,8 +154,14 @@ class ConditionalUNet(nn.Module):
 
 
 def init_params_(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights with flax's default initialisers: kernels
-    normal with variance 1/fan_in (lecun normal), biases 0, norm gains 1."""
+    """Random weights from ``generator`` for the benches, the dry run and
+    the kernel checks: every kernel, NAFBlock ``beta``/``gamma`` and
+    Fourier ``weights`` a plain (untruncated) normal of variance 1/fan_in,
+    biases 0, norm gains 1.  Not the train initialisation (a net as built,
+    ``modules.lecun_normal_`` and flax's constants): it also draws the
+    tensors that start at zero there (the DiT's modulations and final
+    linear map, the NAFBlock scales), on purpose, so that every kernel of
+    a net sees signal in its forward and its gradients."""
     with torch.no_grad():
         for name, p in net.named_parameters():
             if name.endswith(".g"):

@@ -24,9 +24,10 @@ and ``maybe_load_pretrained(state)``; the samplers that restore tiles also
 ``sample_batch(tiles, gens)``, the ``sample_fn`` of
 ``tiling.tiled_restore`` and ``tiled_restore_device``.
 
-The net's initial weights are torch's default initialisation of the
-reference's modules, drawn from the run's seed; so are a latent task's
-compressor's, unless ``path.pretrain_model_L`` names a ``.pth`` (a
+The net's initial weights are the JAX package's initialisation (flax's
+``lecun_normal`` kernels, zero biases, flax's constants), drawn from the
+run's seed; so are a latent task's compressor's, unless
+``path.pretrain_model_L`` names a ``.pth`` (a
 compressor run's ``{iter}_G.pth``, also when spelled ``{iter}_G``, or a
 reference file), which it loads on every start, resumed ones included: the
 compressor is not part of the train state.
@@ -115,10 +116,12 @@ def _dataset_mode(opt) -> str:
 
 
 def _seeded_network(which: str, setting: dict, seed: int):
-    """The net with torch's default initialisation drawn from ``seed``,
-    leaving the caller's global generator as it was.  ``upscale``, which
-    ``options.parse`` adds to the setting of sr configs, is dropped: the
-    reference nets take it and do not use it."""
+    """The net as built, which is the JAX package's initialisation (flax's
+    ``lecun_normal`` kernels, zero biases and flax's constants:
+    ``models.modules.lecun_normal_``), drawn from ``seed`` through torch's
+    global generator, leaving the caller's generator as it was.
+    ``upscale``, which ``options.parse`` adds to the setting of sr
+    configs, is dropped: the reference nets take it and do not use it."""
     setting = {k: v for k, v in setting.items() if k != "upscale"}
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

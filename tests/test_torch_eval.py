@@ -76,7 +76,7 @@ path: {{root: {root}, pretrain_model_G: {root}/net.pth}}
 
 
 def _seeded_pth(yml, path, seed=3):
-    """The YAML's task's net with torch's default initialisation from
+    """The YAML's task's net as the train entry point initialises it from
     ``seed``, saved as the reference's ``.pth``."""
     opt = options.dict_to_nonedict(options.parse(yml, is_train=False))
     opt["path"]["pretrain_model_G"] = None

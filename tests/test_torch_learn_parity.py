@@ -3,9 +3,10 @@ refusion-two-stage/stage1_compressor.yml``'s net, Adam, TrueCosineAnnealingLR)
 trained by the JAX package and by the port on the same batches of
 ``gen_synth dehaze`` crops, from the same flax-made weights: over the
 steps the losses and the cross-decode PSNR stay together (one step is held
-in ``test_torch_latent_training.py``).  Beside them the port from torch's
-default initialisation, its own start (the upstream reference's), which
-the JAX package does not share.
+in ``test_torch_latent_training.py``).  Beside them the port from its own
+initialisation (a net as the train entry point builds it: flax's
+``lecun_normal`` kernels, zero biases), which shares the JAX package's
+distributions but not its draws.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_learn_parity.py 800
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_learn_parity.py 800 bokeh
@@ -143,6 +144,6 @@ if __name__ == "__main__":
     root = os.path.join(os.environ.get("TMPDIR", "/tmp"), "learn_parity_" + ("bokeh" if bokeh else "dehaze"))
     for rec in run(root, int(sys.argv[1]), comp=BOKEH if bokeh else COMP, bokeh=bokeh):
         print(f"step {rec['step']}: loss JAX {rec['loss'][0]:.5f}, port from its weights {rec['loss'][1]:.5f}, "
-              f"port from torch's init {rec['loss'][2]:.5f}; cross-decode PSNR {rec['psnr'][0]:.3f} / "
+              f"port from its own init {rec['loss'][2]:.5f}; cross-decode PSNR {rec['psnr'][0]:.3f} / "
               f"{rec['psnr'][1]:.3f} / {rec['psnr'][2]:.3f} dB; zero latent's decode against the GT's "
               f"{rec['latent'][0]:.3f} / {rec['latent'][1]:.3f} / {rec['latent'][2]:.3f} dB", flush=True)
