@@ -2,7 +2,7 @@
 """Benchmark of the PyTorch port: restored images/s on one GPU at 100
 reverse-SDE steps.
 
-    python3 bench_cuda.py
+    python3 bench_cuda.py [--eager]
 
 ``bench.py``'s configuration and metric line, run through the port
 (``image_restoration_sde_tpu_torch``) on an NVIDIA GPU: the flagship IR-SDE
@@ -10,11 +10,14 @@ deraining score net (ConditionalUNet nf=64, depth=4, bf16 compute, float32
 parameters, seeded random weights with flax's initialisers), IR-SDE on the
 cosine schedule (max_sigma 10, eps 0.005), T = 100 steps of the reverse SDE
 (``sampling.make_restoration_sampler``, mode ``sde``) on a batch of 8
-random 128 px images.  The overrides are ``bench.py``'s: ``BENCH_BATCH``,
+random 128 px images, the chain replayed from its captured CUDA graph as
+the sampler runs it on the card (``--eager``: the eager chain, one
+enqueue a kernel).  The overrides are ``bench.py``'s: ``BENCH_BATCH``,
 ``BENCH_SIZE``, ``BENCH_STEPS``, ``BENCH_REPS`` (5) and ``BENCH_CAST`` (any
 value: the parameters cast to bf16 once per call).
 
-Two warm-up calls run the exact timed path; then each of ``BENCH_REPS``
+Two warm-up calls run the exact timed path (the first captures the
+chain); then each of ``BENCH_REPS``
 calls is timed on the host clock up to ``torch.cuda.synchronize()``, and
 the value is the batch over the median time.  It prints ONE JSON line with
 ``bench.py``'s keys (``metric``, ``value``, ``unit`` = ``img/s/GPU``,
@@ -51,15 +54,17 @@ def make_net(device):
     return init_params_(net, rng.generator(SEED, device))
 
 
-def make_sampler(net, steps: int, cast: bool, device):
-    """The benchmarked sampler over ``net``: ``sample(lq, gen)``."""
+def make_sampler(net, steps: int, cast: bool, device, capture=True):
+    """The benchmarked sampler over ``net``: ``sample(lq, gen)``; captured
+    on the card unless ``capture`` is False."""
     import torch
 
     from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
     sde = IRSDE.create(max_sigma=10.0, T=steps, schedule="cosine", eps=0.005, device=device)
-    return make_restoration_sampler(sde, net, mode="sde", cast_params=torch.bfloat16 if cast else None)
+    return make_restoration_sampler(sde, net, mode="sde", cast_params=torch.bfloat16 if cast else None,
+                                    capture=capture)
 
 
 def run(sampler, batch: int, size: int, reps: int, device) -> list:
@@ -87,7 +92,7 @@ def run(sampler, batch: int, size: int, reps: int, device) -> list:
     return times
 
 
-def main(device=None) -> dict:
+def main(device=None, capture=True) -> dict:
     import torch
 
     from image_restoration_sde_tpu_torch.runners import resolve_device
@@ -97,7 +102,7 @@ def main(device=None) -> dict:
     size = int(os.environ.get("BENCH_SIZE", "128"))
     steps = int(os.environ.get("BENCH_STEPS", "100"))
     reps = int(os.environ.get("BENCH_REPS", "5"))
-    sampler = make_sampler(make_net(device), steps, bool(os.environ.get("BENCH_CAST")), device)
+    sampler = make_sampler(make_net(device), steps, bool(os.environ.get("BENCH_CAST")), device, capture)
     imgs_per_sec = batch / statistics.median(run(sampler, batch, size, reps, device))
     line = {
         "metric": f"restored images/sec/GPU ({steps}-step reverse SDE, {size}px, UNet nf64d4 bf16)",
@@ -112,4 +117,4 @@ def main(device=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    main(capture="--eager" not in sys.argv[1:])

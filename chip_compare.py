@@ -24,10 +24,10 @@ Measured, bf16 unless named, each from a CUDA graph of 20 back-to-back calls
   float32 and bfloat16, beside half the op's bound each.
 
 With ``--enqueue`` it times instead the host enqueue per score-net forward
-on the six sampler paths: this checkout's ``chip_profile.py --sampling``
-run on each checkout's package (``--package``), in the same turns repeated
-three times, and the table gives each side's median and quartiles of its
-six runs a path.
+on the six sampler paths, eager: this checkout's ``chip_profile.py
+--sampling --form eager`` run on each checkout's package (``--package``),
+in the same turns repeated three times, and the table gives each side's
+median and quartiles of its six runs a path.
 
 With ``--k4`` it times instead K4's bf16 forward (``flash_mha_cuda``)
 and ``F.scaled_dot_product_attention`` on the same tensors at K4_SHAPES
@@ -191,8 +191,8 @@ def compare_enqueue(trees) -> int:
     line = re.compile(r"^\[([\w-]+)\] wall ([\d.]+) ms/step; host enqueue ([\d.]+) ms/forward")
     runs = {"other": [], "this": []}
     for name in ENQUEUE_ROUNDS:
-        out = subprocess.run([sys.executable, os.path.join(REPO, "chip_profile.py"), "--sampling", "--package",
-                              trees[name]], stdout=subprocess.PIPE, text=True, check=True).stdout
+        out = subprocess.run([sys.executable, os.path.join(REPO, "chip_profile.py"), "--sampling", "--form", "eager",
+                              "--package", trees[name]], stdout=subprocess.PIPE, text=True, check=True).stdout
         runs[name].append({m[1]: (float(m[2]), float(m[3])) for m in map(line.match, out.splitlines()) if m})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
                          capture_output=True, text=True, timeout=60).stdout.strip()

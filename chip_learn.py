@@ -3,6 +3,7 @@
 own entry points.
 
     python3 chip_learn.py --demo {refusion,deraining,stereo,bokeh} [--resume] [--work DIR]
+        [--stages LABEL ...] [--seed N]
 
 Each demo writes its data from a seed (``gen_synth``, ``data.synthetic``)
 under ``DIR/<demo>/data``, copies its shipped YAMLs to ``DIR/<demo>/yml``
@@ -44,7 +45,10 @@ points' own logs go to standard error and to ``DIR/<demo>/<stage>.log``.
 ``--resume`` continues in a work directory that holds an interrupted run:
 a stage whose last checkpoint exists is not trained again, and a stage
 with a ``training_state`` short of its end resumes from the latest one.
-Without CUDA it exits at once.
+``--stages`` runs only the named stages (e.g. ``stage1``, a demo's
+compressor: another draw of its curve), ``--seed`` sets ``train.
+manual_seed`` in each copied YAML (the net's initial weights and the
+run's draws; the data stay the demo's).  Without CUDA it exits at once.
 """
 
 from __future__ import annotations
@@ -235,20 +239,23 @@ def latest_state(training_state: str):
 
 
 def run_demo(demo: str, work: str, device: str = "cuda", runner=run_child, resume: bool = False, data_kw=None,
-             edit=None) -> dict:
+             edit=None, stages=None) -> dict:
     """Run the demo's stages in ``work/<demo>`` (see the module's
     docstring), each entry point through ``runner(module, argv)`` (which
     yields its output's lines); ``data_kw`` replaces the data writer's
     arguments and ``edit(opt)`` edits each stage's YAML after the demo's
-    own changes (a test's narrowed copies; None for the demo as shipped).
-    Prints each JSON record; returns them by kind: ``val``, ``test`` and
+    own changes (a test's narrowed copies; None for the demo as shipped);
+    ``stages``, the labels of the stages to run (None: all).  Prints each
+    JSON record; returns them by kind: ``val``, ``test`` and
     ``baseline``."""
     from image_restoration_sde_tpu_torch.utils import options
 
     def emit(rec):
         print(json.dumps(rec), flush=True)
 
-    (kind, kw), stages = DEMOS[demo]
+    (kind, kw), all_stages = DEMOS[demo]
+    stages = [st for st in all_stages if stages is None or st[0] in stages]
+    check(bool(stages), f"{demo}: no stage of {[st[0] for st in all_stages]} named")
     base = os.path.join(work, demo)
     data = os.path.join(base, "data")
     if not (resume and os.path.isdir(data)):
@@ -330,6 +337,8 @@ def main(argv=None) -> int:
                         help="continue the run in the work directory: skip finished stages, resume a cut one")
     parser.add_argument("--work", default=os.path.join(REPO, "learn_runs"),
                         help="where the data, YAML copies, checkpoints and logs go (default: learn_runs/)")
+    parser.add_argument("--stages", nargs="+", default=None, help="run only these stages (default: all)")
+    parser.add_argument("--seed", type=int, default=None, help="train.manual_seed of every stage's copy")
     args = parser.parse_args(argv)
     import torch
 
@@ -337,7 +346,11 @@ def main(argv=None) -> int:
         print("chip_learn: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {card()}", file=sys.stderr, flush=True)
-    run_demo(args.demo, args.work, resume=args.resume)
+    def seeded(opt):
+        opt["train"]["manual_seed"] = args.seed
+
+    run_demo(args.demo, args.work, resume=args.resume, edit=None if args.seed is None else seeded,
+             stages=args.stages)
     return 0
 
 

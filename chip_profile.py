@@ -2,6 +2,7 @@
 """Where the time of one sampler step goes, on one NVIDIA GPU.
 
     python3 chip_profile.py [--sampling | --dit-train | --dit-xl] [--package CHECKOUT]
+        [--form eager|captured|both]
 
 For each of the port's sampler paths (the configurations of
 ``chip_smoke.py``: IR-SDE deraining, ConditionalUNet at batch 8, 128 px;
@@ -14,11 +15,18 @@ stereo NAFNet on 4 pairs at 128 px; latent bokeh, the bokeh NAFNet with
 lens values on the 128x128x4 latents of batch 4 at 512 px), with random
 weights made from a seed, bf16 score net:
 
+- each in two forms (``--form``, default both): the eager chain, and the
+  same chain captured as one CUDA graph and replayed (``sde/captured.py``,
+  as the samplers run it on the card), each form's line tagged with it;
 - wall time per step: host clock around ``STEPS`` reverse steps that end
-  in ``torch.cuda.synchronize()``, after a warm run of the same length;
-- host enqueue time per net forward: host clock around one forward with
-  no synchronisation (the card runs behind), median of ``ENQUEUE_REPS``
-  forwards, each started on an idle card;
+  in ``torch.cuda.synchronize()``, after a warm run of the same length
+  (the captured form's warm run captures);
+- host time per step: host clock around the same call with no
+  synchronisation, over ``STEPS`` (the card runs behind; median of
+  ``ENQUEUE_REPS`` calls, each started on an idle card);
+- host enqueue time per net forward (eager): host clock around one
+  forward with no synchronisation, median of ``ENQUEUE_REPS`` forwards,
+  each started on an idle card;
 - device time per step by kernel, and the device's busy share (summed
   kernel time over wall time), from ``torch.profiler`` over the same
   steps;
@@ -64,6 +72,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED, STEPS, TRAIN_STEPS = 0, 10, 3
+FORMS = ("eager", "captured")
 ENQUEUE_REPS = 5  # host enqueue per forward: median of this many forwards, each on an idle card
 # the port's kernels by the stem of their device function names (csrc/*.cu)
 PORT_KERNELS = {"K1": "channel_layernorm_kernel", "K2a": "la_ctx", "K2b": "la_apply", "K3": "naf_stack",
@@ -83,27 +92,50 @@ def posterior(net, xt, mu, sde):
             lambda: net(xt, mu, tvec))
 
 
-def profile_steps(name, run, forward, steps=STEPS):
-    """``run()``: ``steps`` sampler steps; ``forward()``: one net forward."""
+def captured(run):
+    """``run`` (a chain on tensors it holds) replayed from its captured CUDA
+    graph, as the samplers replay theirs."""
     import torch
 
-    with torch.inference_mode():
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
-        enqueues = []
-        for _ in range(ENQUEUE_REPS):
+    from image_restoration_sde_tpu_torch.sde.captured import ChainGraphs
+
+    graphs, anchor = ChainGraphs(), torch.zeros(1, device="cuda")
+    return lambda: graphs(("run",), lambda _: run(), (anchor,))
+
+
+def profile_steps(name, run, forward, steps=STEPS):
+    """``run()``: ``steps`` sampler steps; ``forward()``: one net forward.
+    One line a form of FORMS: eager, and ``run`` captured (``captured``)."""
+    import torch
+
+    for form in FORMS:
+        call = run if form == "eager" else captured(run)
+        with torch.inference_mode():
+            call()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            forward()
-            enqueues.append((time.perf_counter() - t0) * 1e3)
-        enqueue = statistics.median(enqueues)
-        torch.cuda.synchronize()
-        kernels = device_times(run, steps)
-    report(name, kernels, wall, f"host enqueue {enqueue:.3f} ms/forward; ")
+            call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            hosts = []
+            for _ in range(ENQUEUE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                hosts.append((time.perf_counter() - t0) / steps * 1e3)
+            torch.cuda.synchronize()
+            extra = f"host {statistics.median(hosts):.3f} ms/step; "
+            if form == "eager":
+                enqueues = []
+                for _ in range(ENQUEUE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    forward()
+                    enqueues.append((time.perf_counter() - t0) * 1e3)
+                extra = f"host enqueue {statistics.median(enqueues):.3f} ms/forward; " + extra
+                torch.cuda.synchronize()
+            kernels = device_times(call, steps)
+        report(name if form == "eager" else f"{name} {form}", kernels, wall, extra)
 
 
 def device_times(run, steps):
@@ -126,6 +158,9 @@ def report(name, kernels, wall, extra=""):
     """Print wall and device time per step, the busy share, the top
     kernels and the port's kernels' share."""
     busy = sum(kernels.values())
+    if not busy:
+        print(f"[{name}] wall {wall:.3f} ms/step; {extra}device busy not measured (the profiler saw no kernel)")
+        return
     print(f"[{name}] wall {wall:.3f} ms/step; {extra}device busy "
           f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall, idle {100 - 100 * busy / wall:.1f}%)")
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
@@ -307,7 +342,11 @@ def main(argv=None) -> int:
     parser.add_argument("--package", default=REPO, help="the checkout whose port is imported")
     parser.add_argument("--dit-train", action="store_true", help="the DiT-L/2 train step only")
     parser.add_argument("--dit-xl", action="store_true", help="the DiT-XL/2 sampler step only")
+    parser.add_argument("--form", choices=("eager", "captured", "both"), default="both",
+                        help="the sampler paths' chain eager, captured as one CUDA graph, or both (default)")
     args = parser.parse_args(argv)
+    global FORMS
+    FORMS = FORMS if args.form == "both" else (args.form,)
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2

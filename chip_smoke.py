@@ -90,6 +90,16 @@ seed or trained here:
   train steps, img/s/GPU and MFU) and ``bench_refusion`` (the latent
   pipeline at 1024 px, NAFNet and DiT-L/2).
 
+Every sampler path runs as the port runs it on the card: each call's whole
+chain (encode, every step and decode) replayed from one CUDA graph
+captured per call signature (``sde/captured.py``).  Each main path first
+captures its requests' graphs (``sample.prepare``: the capture seconds, the
+graph pool's MiB and the warm-up's launches printed apart), then serves its
+requests from them, then runs requests again through the same sampler with
+``capture=False``, each form from a generator of one seed: the outputs must
+be bit-equal and the generators' states equal after, and the wall ms a
+step of each form is printed (``[captured]`` JSON line).
+
 Phases, each printing its lines and its seconds (the serving phases run
 where their nets are built: export deraining after 5, export latent after
 7, export denoising, serve, bench, bench train and bench refusion after 14;
@@ -126,7 +136,9 @@ launches:
    path; and a 100-step float32 chain on a small input, kernel against plain;
 5. main path: the deraining sampler serves two posterior batches of 8, one
    sde batch of 8 and one odd-size single image; per net call exactly 18
-   K1 and 9 K2a, K2b launches, and no K3;
+   K1 and 9 K2a, K2b launches, and no K3; the first posterior batch and
+   the odd image held bit-equal to the eager chain (phase bench holds the
+   sde chain);
 6. latent net: one forward of the full-width latent NAFNet and one of the
    deraining Refusion NAFNet (configs/deraining/test/refusion.yml, 128 px,
    batch 8), and the compressor's encode and decode at batch 4, 512 px and
@@ -155,7 +167,8 @@ launches:
    2 K2a, 2 K2b and no K3 launches;
 11. tiled path: ``tiling.tiled_restore_device`` on a 1x1536x1536 uint8
    image, tile 1024, overlap 64, tile_batch 4 (four tiles, one sampler
-   call: 2400 K4 launches);
+   call capturing its chunk's graph: 2400 K4 launches), and through the
+   eager sampler: the same bytes;
 dit-xl net (after 11): phase 9's forward through DiT-XL/2, kernel path
    against plain path, float32 and bfloat16, 28 K4 launches a bf16 forward;
 dit-xl main path: phase 10's first posterior batch and odd image through
@@ -172,14 +185,13 @@ dit-xl main path: phase 10's first posterior batch and odd image through
    kernel path against plain path (17 K1, 8 K2a, 8 K2b per forward), and
    K1, K2 at its sites and those of the 512 px request;
 14. denoise main path: ``make_denoising_sampler`` (t0 = 414) serves a batch
-   of 8 noisy 128 px images and one 500x500 image (padded to 512x512); per
-   request exactly 7038 K1, 3312 K2a and 3312 K2b launches;
+   of 8 noisy 128 px images: exactly 7038 K1, 3312 K2a and 3312 K2b
+   launches;
 15. stereo net: one forward at batch 4 pairs, 128 px, kernel path against
    plain path (144 K1 per forward, no K3), and K1 at its sites and those
    of the 140x200 request;
 16. stereo main path: the restoration sampler serves a posterior batch
-   of 4 pairs at 128 px and one 140x200 pair (the net pads it to 144x208:
-   SCAM at 18x26 and 9x13); per request exactly 14400 K1 launches;
+   of 4 pairs at 128 px: exactly 14400 K1 launches;
 17. bokeh net: the compressor's kernel path against its plain path at
    batch 4, 512 px and at 704x1024; the bokeh NAFNet's at batch 4 on
    128x128x4 latents (72 K1 per forward, no K3); K1, K2 at both nets' sites;
@@ -283,7 +295,10 @@ export deraining / latent / denoising: the deraining sampler (posterior,
 artifacts: each artifact loaded in a fresh process that builds no net and
    reads no YAML (``--artifact-child``, beside phase 22), each call (the symbolic one at
    batches 1, 3 and 8) against the eager sampler within EXPORT_BOUND
-   (bit-equality reported), with exact launches per call;
+   (bit-equality reported), with exact launches per call, its captured
+   chain bit-equal to the artifact loaded with ``capture=False`` (the
+   generators' states equal after), and the server's answers byte-equal to
+   the eager loader's rows;
 serve: the server on the fixed-batch per-sample-seed deraining artifact,
    port 0: /health, SERVE_N requests at SERVE_CONCURRENCY through the port's
    ``bench_serve`` (req/s, p50, p99, mean device batch; one batch's launches
@@ -291,10 +306,11 @@ serve: the server on the fixed-batch per-sample-seed deraining artifact,
    the same bytes, every response a PNG of its input's size, seeds -1 and
    2**32 refused with 400 while their companion is served,
    ``seed_reproducible`` as the run showed;
-bench: ``python3 bench_cuda.py`` in its own process (batch 8), its line
-   checked and printed, then its sampler at batches BENCH_SWEEP (exact
-   launches), and K1 and K2 held against their plain versions at each
-   sweep batch's sites;
+bench: ``python3 bench_cuda.py`` in its own process (batch 8, the captured
+   chain), its line checked and printed; its sampler at batch 8 captured
+   and eager (img/s, every call's seconds), the two bit-equal; then at
+   batches BENCH_SWEEP (exact launches), and K1 and K2 held against their
+   plain versions at each sweep batch's sites;
 artifacts also loads the symbolic deraining artifact over
    DP_ARTIFACT_DEVICES (``[dp-artifact]``): at DP_ARTIFACT_BATCHES, a chain
    for each row block with its own seeds, bit-equal to the one-device
@@ -354,7 +370,9 @@ K1 is also timed over one bf16 forward of each path's score net (phases 3,
 F.layer_norm and the bound by bytes), one ``[k1-path]`` line a path and
 ``by_path`` on K1's entry of the JSON line.
 
-Launch counts are set to 0 just before each main path and read just after.
+Launch counts are set to 0 just before each main path and read just after,
+less the launches of the warm-ups that precede captures (``Kernel.warmups``,
+counted apart: ``request_counts``).
 Then a ``[benches]`` JSON line with the two benches' lines, a ``[demo]``
 one with the demo stages' records, a ``[serving]`` one with the exports,
 loaded calls, served requests and bench, a ``[train]`` one with the train
@@ -511,6 +529,7 @@ SERVE_WINDOW_MS, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP = 50.0, 32, 8, 8
 # bench_cuda.py's batch sweep at 128 px, reps per batch (after two warm-ups):
 # its ends, beside bench_cuda.py's own batch 8 (the three PERF.md quotes)
 BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 32), 2
+BENCH_REPS = 5  # bench_cuda.py's default: timed calls of each form at batch 8
 # data parallelism (phase train dp): steps of the deraining train YAML
 # under torchrun, resumed from phase 21's half-way checkpoint of that YAML
 # (its step DP_RESUME): the steps DP_AT[0]..DP_AT[1], with Adam's moments
@@ -855,6 +874,29 @@ def counts(**nonzero):
     want = {k.symbol: 0 for k in ops.KERNELS}
     want.update({getattr(ops, name).symbol: n for name, n in nonzero.items()})
     return want
+
+
+def request_counts() -> dict:
+    """Each kernel's launches by symbol, less those made warming a captured
+    chain up before its capture (``Kernel.warmups``, counted apart): the
+    launches and replayed graph nodes of the requests themselves."""
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    return {k.symbol: k.launches - k.warmups for k in KERNELS}
+
+
+def reset_counts() -> None:
+    """Every kernel's launches and warm-up launches set to 0."""
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = k.warmups = 0
+
+
+def warmup_counts() -> dict:
+    from image_restoration_sde_tpu_torch.ops import KERNELS
+
+    return {k.symbol: k.warmups for k in KERNELS if k.warmups}
 
 
 def pad64(hw):
@@ -1345,7 +1387,8 @@ def phase_net(dev, setting, sde_opt):
     for plain in (False, True):
         g = torch.Generator(device=dev)
         g.manual_seed(SEED + 2)
-        chain[plain] = make_restoration_sampler(sde, nets[torch.float32, plain], mode="posterior")(small, g)
+        chain[plain] = make_restoration_sampler(sde, nets[torch.float32, plain], mode="posterior",
+                                                capture=False)(small, g)
     c_err = (chain[False] - chain[True]).abs().max().item()
     c_bound = 1e-3 * chain[True].abs().max().item()
     print(f"[net] 100-step f32 posterior chain 2x32x32 kernel-vs-plain max|d|={c_err:.3g} (bound {c_bound:.3g})")
@@ -1361,6 +1404,7 @@ def phase_main_path(dev, net, sde_opt, smi):
 
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     samplers = {m: make_restoration_sampler(sde, net, mode=m) for m in ("posterior", "sde")}
+    eager = {"posterior": make_restoration_sampler(sde, net, mode="posterior", capture=False)}
     gen = rng_generator(dev, SEED + 3)
     rng = np.random.default_rng(SEED + 3)
     requests = [("posterior", rng.random((BATCH, SIZE, SIZE, 3), np.float32), (gen,)),
@@ -1369,7 +1413,8 @@ def phase_main_path(dev, net, sde_opt, smi):
                 ("posterior", rng.random((1, *ODD_HW, 3), np.float32), (gen,))]
     # one chunk: the default runs the whole batch at once
     want = counts(LAYERNORM=LN_PER_FORWARD * sde.T, LA_CTX=ATTN_PER_FORWARD * sde.T, LA_APPLY=ATTN_PER_FORWARD * sde.T)
-    return serve("main", dev, requests, samplers, want, smi, BATCH, pad=64)
+    return serve("main", dev, requests, samplers, want, smi, BATCH, pad=64, eager=eager, steps=sde.T,
+                 compare=(0, 3))
 
 
 def compare_compressor(tag, compressor, plain, img):
@@ -1458,6 +1503,7 @@ def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     steps, mode = sde_opt["sample_T"], sde_opt["sampling_mode"]
     samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps) for m in (mode, "sde")}
+    eager = {mode: make_latent_sampler(sde, net, compressor, mode=mode, steps=steps, capture=False)}
     gen = rng_generator(dev, SEED + 8)
     rng = np.random.default_rng(SEED + 8)
     full = (LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3)
@@ -1466,7 +1512,7 @@ def phase_latent_main_path(dev, net, compressor, latent_opt, smi):
                 (mode, rng.random((1, *LATENT_ODD_HW, 3), np.float32), (gen,))]
     want = counts(LAYERNORM=NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
                   LA_APPLY=COMPRESSOR_ATTN, NAF_STACK=steps)
-    return serve("latent-main", dev, requests, samplers, want, smi, LATENT_BATCH, pad=64)
+    return serve("latent-main", dev, requests, samplers, want, smi, LATENT_BATCH, pad=64, eager=eager, steps=steps)
 
 
 def flash_work(shape, itemsize):
@@ -1665,6 +1711,8 @@ def phase_dit_main_path(dev, net, compressor, dit_opt, smi, tag="dit-main", serv
     steps = sde_opt["sample_T"]
     samplers = {m: make_latent_sampler(sde, net, compressor, mode=m, steps=steps, cast_params=torch.bfloat16)
                 for m in (DIT_MODE, "sde")}
+    eager = {DIT_MODE: make_latent_sampler(sde, net, compressor, mode=DIT_MODE, steps=steps,
+                                           cast_params=torch.bfloat16, capture=False)}
     gen = rng_generator(dev, SEED + 12)
     rng = np.random.default_rng(SEED + 12)
     full = (DIT_BATCH, DIT_SIZE, DIT_SIZE, 3)
@@ -1672,8 +1720,9 @@ def phase_dit_main_path(dev, net, compressor, dit_opt, smi, tag="dit-main", serv
                 ("sde", rng.random(full, np.float32), (gen,)),
                 (DIT_MODE, rng.random((1, *DIT_ODD_HW, 3), np.float32), (gen,))]
     requests = [requests[i] for i in served]
-    launches = serve(tag, dev, requests, samplers, dit_want(steps, len(net.blocks)), smi, DIT_BATCH, pad=64)
-    return launches, samplers[DIT_MODE]
+    launches, record = serve(tag, dev, requests, samplers, dit_want(steps, len(net.blocks)), smi, DIT_BATCH, pad=64,
+                             eager=eager, steps=steps)
+    return launches, record, (samplers[DIT_MODE], eager[DIT_MODE])
 
 
 def phase_dit_xl_main_path(dev, net, compressor, xl_opt, smi):
@@ -1691,7 +1740,7 @@ def phase_dit_xl_main_path(dev, net, compressor, xl_opt, smi):
     from image_restoration_sde_tpu_torch.sampling import make_noise_fn
     from image_restoration_sde_tpu_torch.sde import IRSDE, samplers
 
-    launches, _ = phase_dit_main_path(dev, net, compressor, xl_opt, smi, tag="dit-xl-main", served=XL_SERVED)
+    launches, record, _ = phase_dit_main_path(dev, net, compressor, xl_opt, smi, tag="dit-xl-main", served=XL_SERVED)
     s = xl_opt["sde"]
     sde = IRSDE.create(s["max_sigma"], s["T"], s["schedule"], s["eps"], device=dev)
     fn = make_noise_fn(net, torch.bfloat16)
@@ -1725,29 +1774,41 @@ def phase_dit_xl_main_path(dev, net, compressor, xl_opt, smi):
           f"wall {wall:.3f} ms a step ({XL_TIMED_STEPS} posterior steps, host clock), host enqueue "
           f"{statistics.median(enqueues):.3f} ms a forward (median of {ENQUEUE_REPS}: "
           f"{', '.join(f'{e:.3f}' for e in enqueues)}), {depth} K4 launches a forward (card: {smi})")
-    return launches
+    return launches, record
 
 
-def phase_tiled(dev, sampler, steps, depth, smi):
+def phase_tiled(dev, samplers, steps, depth, smi):
     """tiled_restore_device on a 1x1536x1536 uint8 image through the DiT
-    posterior sampler: four 1024 px tiles in one call of tile_batch 4."""
-    from image_restoration_sde_tpu_torch.ops import KERNELS
+    posterior sampler: four 1024 px tiles in one call of tile_batch 4, a
+    chunk shape whose graph the call captures first (its warm-up's launches
+    apart).  Then the same image through the eager sampler (``samplers``:
+    captured, eager): the same bytes.  Returns (launches, record)."""
     from image_restoration_sde_tpu_torch.tiling import tiled_restore_device
 
+    sampler, eager = samplers
     img = np.random.default_rng(SEED + 13).integers(0, 256, (1, *TILED_HW, 3)).astype(np.uint8)
-    for k in KERNELS:
-        k.launches = 0
-    t0 = time.perf_counter()
-    out = tiled_restore_device(sampler, img, SEED, tile=TILE, overlap=TILE_OVERLAP, tile_batch=TILE_BATCH,
-                               device=dev)
-    seconds = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in KERNELS}
+    reset_counts()
+    graphs = len(sampler.graphs)
+    runs = {}
+    for form, s in (("captured", sampler), ("eager", eager)):
+        t0 = time.perf_counter()
+        runs[form] = (tiled_restore_device(s, img, SEED, tile=TILE, overlap=TILE_OVERLAP, tile_batch=TILE_BATCH,
+                                           device=dev), time.perf_counter() - t0)
+        if form == "captured":
+            launches = request_counts()
+    out, seconds = runs["captured"]
+    (_, entry), = sampler.graphs.entries()[graphs:]
     check(out.shape == img.shape and out.dtype == np.uint8, f"tiled output {out.shape} {out.dtype}")
     check(launches == dit_want(steps, depth), f"tiled launch counts {launches}")
+    same = bool(np.array_equal(out, runs["eager"][0]))
+    check(same, "tiled: the captured sampler's image is not the eager sampler's")
     print(f"[tiled] 1x{TILED_HW[0]}x{TILED_HW[1]} uint8, tile {TILE}, overlap {TILE_OVERLAP}, tile_batch "
-          f"{TILE_BATCH}: {seconds:.3f} s per image, output {out.dtype} {out.shape} (mean {out.mean():.2f}), "
-          f"launches {launches} (host clock; card: {smi})")
-    return launches
+          f"{TILE_BATCH}: {seconds:.3f} s per image with the chunk's capture (warm-up {entry.warm_s:.3f} s, capture "
+          f"{entry.capture_s:.3f} s, warm-up launches {warmup_counts()} apart), eager {runs['eager'][1]:.3f} s, the "
+          f"same bytes; output {out.dtype} {out.shape} (mean {out.mean():.2f}), launches {launches} (host clock; "
+          f"card: {smi})")
+    return launches, {"bit_equal": same, "seconds": {"captured_with_capture": seconds, "eager": runs["eager"][1]},
+                      "warm_s": entry.warm_s, "capture_s": entry.capture_s}
 
 
 def lin_attn_work(shape, itemsize):
@@ -1922,24 +1983,48 @@ def hold_sites(tag, dev, ln_sites, attn_sites, stats, forwards):
         k1_path(label, sites, times, stats)
 
 
-def serve(tag, dev, requests, samplers, want, smi, rate_batch, pad=None):
+def serve(tag, dev, requests, samplers, want, smi, rate_batch, pad=None, eager=None, steps=None, compare=(0,)):
     """Each request (mode, NHWC float32 array, extra arguments) through
     ``samplers[mode](x, *extra)``, with exact launch counts per request (``want``);
     counts set to 0 before the first and read after the last.  ``pad``
     pads each request to a bucket multiple first (pad_to_bucket) and crops
-    the output back."""
+    the output back.  The samplers capture their chains on the card: each
+    request's graph is captured first (``sample.prepare``: its warm-up's
+    launches, the capture seconds and the graph pool's MiB reported apart),
+    so every request replays.  Then (``eager``: the same samplers with
+    ``capture=False``) the requests ``compare`` names again, captured and
+    eager, each from a generator of the same seed: the outputs bit-equal,
+    the generators' states equal after, and the wall ms a step (``steps`` a
+    request) of each form; returns (launches, that record)."""
     import torch
 
-    from image_restoration_sde_tpu_torch.ops import KERNELS
     from image_restoration_sde_tpu_torch.sampling import pad_to_bucket, unpad
 
-    for k in KERNELS:
-        k.launches = 0
+    def prepared(img):
+        padded, hw = pad_to_bucket(img, pad) if pad else (img, img.shape[1:3])
+        return torch.from_numpy(padded).to(dev), hw
+
+    reset_counts()
+    t0 = time.perf_counter()
+    for mode, img, args in requests:
+        samplers[mode].prepare(prepared(img)[0], *args)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    distinct = {id(s): s for s in samplers.values()}.values()
+    entries = [e for sampler in distinct for _, e in sampler.graphs.entries()]
+    pool_mib = sum(sampler.graphs.pool_bytes() for sampler in distinct) / 2**20
+    capture = {"graphs": len(entries), "prepare_s": prepare_s, "warm_s": sum(e.warm_s for e in entries),
+               "capture_s": sum(e.capture_s for e in entries), "pool_mib": pool_mib,
+               "inputs_mib": sum(e.input_bytes() for e in entries) / 2**20, "warmup_launches": warmup_counts()}
+    check(not any(request_counts().values()), f"{tag}: the captures counted launches {request_counts()}")
+    print(f"[{tag}] captured {capture['graphs']} chain graph(s) in {prepare_s:.3f} s (warm-up {capture['warm_s']:.3f} "
+          f"s, capture {capture['capture_s']:.3f} s; warm-up launches {capture['warmup_launches']}, apart); graph "
+          f"pool {pool_mib:.1f} MiB, static inputs {capture['inputs_mib']:.1f} MiB (card: {smi})")
+    reset_counts()
     rates = {}
     for i, (mode, img, args) in enumerate(requests):
-        before = {k.symbol: k.launches for k in KERNELS}
-        padded, hw = pad_to_bucket(img, pad) if pad else (img, img.shape[1:3])
-        x = torch.from_numpy(padded).to(dev)
+        before = request_counts()
+        x, hw = prepared(img)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = unpad(samplers[mode](x, *args), hw)
@@ -1947,16 +2032,46 @@ def serve(tag, dev, requests, samplers, want, smi, rate_batch, pad=None):
         seconds = time.perf_counter() - t0
         check(out.shape == img.shape and out.dtype == torch.float32, f"{tag} {mode} output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"{tag} {mode} output not finite")
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        grew = {sym: n - before[sym] for sym, n in request_counts().items()}
         check(grew == want, f"{tag} launch counts {grew}, expected {want}")
         if img.shape[0] == rate_batch:
             rates.setdefault(mode, []).append(rate_batch / seconds)
-        print(f"[{tag}] {mode:9s} {'x'.join(map(str, img.shape))} (run as {tuple(padded.shape[1:3])}): "
+        print(f"[{tag}] {mode:9s} {'x'.join(map(str, img.shape))} (run as {tuple(x.shape[1:3])}): "
               f"{seconds:.3f} s, {img.shape[0] / seconds:.4f} img/s, launches {grew}")
     for mode, r in rates.items():
         print(f"[{tag}] img/s at batch {rate_batch}, {mode}: {r[-1]:.4f} (last), {r[0]:.4f} (first) "
               f"(host clock; card: {smi})")
-    return {k.symbol: k.launches for k in KERNELS}
+    launched = request_counts()
+    held = [captured_against_eager(tag, dev, requests[i], samplers, eager, steps, prepared, smi) for i in compare]
+    return launched, {**capture, "against_eager": held}
+
+
+def captured_against_eager(tag, dev, request, samplers, eager, steps, prepared, smi):
+    """``request`` through the captured sampler and the eager one, each from
+    a generator seeded alike: the outputs bit-equal and the generators'
+    states equal after; the wall ms a step of each (host clock to a
+    synchronisation)."""
+    import torch
+
+    mode, img, args = request
+    x, _ = prepared(img)
+    runs = {}
+    for form, sampler in (("captured", samplers[mode]), ("eager", eager[mode])):
+        gen = rng_generator(dev, SEED + 400)  # the denoising sampler (no arguments) draws nothing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(x, *((gen, *args[1:]) if args else ()))
+        torch.cuda.synchronize()
+        runs[form] = (out, gen.get_state(), (time.perf_counter() - t0) / steps * 1e3)
+    (yc, sc, wc), (ye, se, we) = runs["captured"], runs["eager"]
+    same, states = bool(torch.equal(yc, ye)), bool(torch.equal(sc, se))
+    check(same, f"{tag}: the captured chain is not the eager chain bit for bit: max|d| "
+                f"{(yc - ye).abs().max().item():.3g}")
+    check(states, f"{tag}: the generators' states differ after the captured and the eager chain")
+    print(f"[{tag}] captured against eager, {mode} {'x'.join(map(str, img.shape))}: bit-equal, generator states "
+          f"equal; wall {wc:.3f} ms a step captured, {we:.3f} eager ({steps} steps, host clock; card: {smi})")
+    return {"request": f"{mode} {'x'.join(map(str, img.shape))}", "bit_equal": same, "states_equal": states,
+            "wall_ms_step": {"captured": wc, "eager": we}, "steps": steps}
 
 
 def phase_denoise_net(dev, opt, stats):
@@ -1995,8 +2110,8 @@ def phase_denoise_net(dev, opt, stats):
 def phase_denoise_main_path(dev, net, opt, smi):
     """make_denoising_sampler (DenoisingSDE max_sigma 70, T 1000, cosine;
     sigma 50 -> t0 reverse ODE steps; bf16 net, f32 parameters) serves a
-    batch of 8 noisy 128 px images and one 500x500 image (reflect-padded to
-    512x512); per request exactly 17 t0 K1 and 8 t0 K2a, K2b launches."""
+    batch of 8 noisy 128 px images; exactly 17 t0 K1 and 8 t0 K2a, K2b
+    launches."""
     import torch
 
     from image_restoration_sde_tpu_torch.sampling import make_denoising_sampler
@@ -2005,6 +2120,7 @@ def phase_denoise_main_path(dev, net, opt, smi):
     sde_opt, sigma = opt["sde"], float(opt["degradation"]["sigma"])
     sde = DenoisingSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], device=dev)
     sample = make_denoising_sampler(sde, net, sigma)
+    eager = {"ode": make_denoising_sampler(sde, net, sigma, capture=False)}
     check(sample.t0 == DENOISE_T0, f"optimal timestep {sample.t0} for sigma {sigma}, expected {DENOISE_T0}")
     rng = np.random.default_rng(SEED + 17)
 
@@ -2012,11 +2128,15 @@ def phase_denoise_main_path(dev, net, opt, smi):
         clean = rng.random(shape, np.float32)
         return (clean + sigma / 255 * rng.standard_normal(shape, np.float32)).astype(np.float32)
 
-    requests = [("ode", noisy((BATCH, SIZE, SIZE, 3)), ()), ("ode", noisy((1, *DENOISE_ODD_HW, 3)), ())]
+    # one request: a 500x500 image's 414 steps would cost a capture of ~9 s
+    # and a 4.8 s replay; inference and eval restore 500x500 images through
+    # the same sampler
+    requests = [("ode", noisy((BATCH, SIZE, SIZE, 3)), ())]
     want = counts(LAYERNORM=DENOISE_LN_PER_FORWARD * sample.t0, LA_CTX=DENOISE_ATTN_PER_FORWARD * sample.t0,
                   LA_APPLY=DENOISE_ATTN_PER_FORWARD * sample.t0)
     print(f"[denoise-main] sigma {sigma:g} -> t0 = {sample.t0} reverse ODE steps per request")
-    return serve("denoise-main", dev, requests, {"ode": sample}, want, smi, BATCH, pad=64)
+    return serve("denoise-main", dev, requests, {"ode": sample}, want, smi, BATCH, pad=64, eager=eager,
+                 steps=sample.t0)
 
 
 def phase_stereo_net(dev, opt, stats):
@@ -2056,10 +2176,10 @@ def phase_stereo_net(dev, opt, stats):
 def phase_stereo_main_path(dev, net, opt, smi):
     """The IR-SDE restoration sampler with the stereo net (max_sigma 50,
     T 100, cosine, eps 0.005; posterior, 100 steps; bf16 net): a batch of 4
-    pairs at 128 px and one 140x200 pair (zero-padded by the net to
-    144x208: SCAM at 18x26 and 9x13); per request exactly 144 x 100 K1.
-    (The second batch of 4 pairs, 10 s of a host-bound chain, was cut to
-    the script's time limit.)"""
+    pairs at 128 px; exactly 144 x 100 K1.  (The second batch of 4 pairs
+    was cut to the script's time limit, and so was the 140x200 pair, whose
+    capture takes ~11 s: phase 15 runs the net on it, phase 22 the test
+    entry point's sampler on its own odd pair.)"""
     from image_restoration_sde_tpu_torch.sampling import make_restoration_sampler
     from image_restoration_sde_tpu_torch.sde import IRSDE
 
@@ -2067,13 +2187,13 @@ def phase_stereo_main_path(dev, net, opt, smi):
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     mode = sde_opt["sampling_mode"]
     sampler = {mode: make_restoration_sampler(sde, net, mode=mode)}
+    eager = {mode: make_restoration_sampler(sde, net, mode=mode, capture=False)}
     gen = rng_generator(dev, SEED + 19)
     rng = np.random.default_rng(SEED + 19)
     full = (STEREO_BATCH, SIZE, SIZE, 6)
-    requests = [(mode, rng.random(full, np.float32), (gen,)),
-                (mode, rng.random((1, *STEREO_ODD_HW, 6), np.float32), (gen,))]
+    requests = [(mode, rng.random(full, np.float32), (gen,))]
     return serve("stereo-main", dev, requests, sampler, counts(LAYERNORM=STEREO_LN_PER_FORWARD * sde.T), smi,
-                 STEREO_BATCH)
+                 STEREO_BATCH, eager=eager, steps=sde.T)
 
 
 def rng_generator(dev, seed):
@@ -2157,10 +2277,11 @@ def bokeh_lens(rng, batch, dev):
 def phase_bokeh_main_path(dev, net, compressor, opt, smi):
     """The latent sampler with the bokeh net (max_sigma 50, T 100, cosine,
     eps 0.005; posterior, 100 steps; bf16 score net, f32 compressor; lens
-    values from the seed as the per-sample cond): a batch of 4 at 512 px and
-    one 700x1000 image (padded to 704x1024); per request exactly 72 x 100 +
-    4 K1 and 2 K2a, K2b launches.  (The second batch of 4, a host-bound
-    chain, was cut to the script's time limit.)"""
+    values from the seed as the per-sample cond): a batch of 4 at 512 px;
+    exactly 72 x 100 + 4 K1 and 2 K2a, K2b launches.  (The second batch of
+    4 was cut to the script's time limit, and so was the 700x1000 image,
+    whose capture takes ~6 s: phase 17 runs the nets at its shape, phase 22
+    the test entry point's sampler on its own.)"""
     from image_restoration_sde_tpu_torch.sde import IRSDE
     from image_restoration_sde_tpu_torch.training import make_latent_sampler
 
@@ -2168,14 +2289,14 @@ def phase_bokeh_main_path(dev, net, compressor, opt, smi):
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     mode = sde_opt["sampling_mode"]
     sampler = {mode: make_latent_sampler(sde, net, compressor, mode=mode)}
+    eager = {mode: make_latent_sampler(sde, net, compressor, mode=mode, capture=False)}
     gen = rng_generator(dev, SEED + 22)
     rng = np.random.default_rng(SEED + 22)
     full = (BOKEH_BATCH, BOKEH_SIZE, BOKEH_SIZE, 3)
-    requests = [(mode, rng.random(full, np.float32), (gen, bokeh_lens(rng, BOKEH_BATCH, dev))),
-                (mode, rng.random((1, *BOKEH_ODD_HW, 3), np.float32), (gen, bokeh_lens(rng, 1, dev)))]
+    requests = [(mode, rng.random(full, np.float32), (gen, bokeh_lens(rng, BOKEH_BATCH, dev)))]
     want = counts(LAYERNORM=BOKEH_LN_PER_FORWARD * sde.T + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
                   LA_APPLY=COMPRESSOR_ATTN)
-    return serve("bokeh-main", dev, requests, sampler, want, smi, BOKEH_BATCH, pad=64)
+    return serve("bokeh-main", dev, requests, sampler, want, smi, BOKEH_BATCH, pad=64, eager=eager, steps=sde.T)
 
 
 # ---------------------------------------------------------------- training
@@ -3149,15 +3270,14 @@ def demo_main_path(dev, root, smi):
             yml = chip_learn.dump_yaml(opt, os.path.join(base, "yml", f"{label}.yml"))
             models = options.parse(yml, is_train=True)["path"]["models"]
             want_step, want_val = demo_counts(opt)
-            for k in KERNELS:
-                k.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             with recorded_steps() as rec, loaded_compressors() as loaded, demo_saves(DEMO_SAVES[demo, label]), \
                     fresh_nets(f"demo {demo} {label}", dev) as inits:
                 state = train.train(yml, dev)
             seconds = time.perf_counter() - t0
-            for k in KERNELS:
-                total[k.symbol] += k.launches
+            for sym, n in request_counts().items():
+                total[sym] += n
             keeps_ema = state.ema is not None
             del state
             gc.collect()
@@ -3243,6 +3363,10 @@ EVAL_PATHS = {
 # sigma on the cosine T 1000, max_sigma 70 schedule (the JAX package's
 # integers, tests/test_torch_denoising.py)
 DENOISE_STEPS = {50: DENOISE_T0, 25: 230, 15: 158}
+# the Gaussian denoising test YAMLs' noise cut to sigma 15 (158 ODE steps;
+# ir-sde.yml's 50 takes 414, and a capture of them ~9 s more):
+# the main path and the denoising artifact run 414
+EVAL_DENOISE_SIGMA = 15
 # TLSC (CNAFNetLocal: deraining/test/refusion.yml's net with windows of a
 # 256 px train crop, 1.5 x 256 / 8 = 48 at the 28-block level): a 224x240
 # set, whose padded 224x240 map (28x30 at that level) the window covers, so
@@ -3269,10 +3393,13 @@ LPIPS_FID_IMAGES, LPIPS_FID_BOUND = 3, 1e-4
 
 def eval_yaml(parts):
     """configs/<task>/test/<file>, its sampler cut to EVAL_SAMPLE_T steps
-    where it runs sample_T (or T) of them."""
+    where it runs sample_T (or T) of them, a Gaussian denoising YAML's noise
+    to EVAL_DENOISE_SIGMA."""
     opt = load_yaml(os.path.join(REPO, "configs", parts[0], "test", parts[1]))
     if opt.get("sde") and opt.get("distortion") != "denoising":
         opt["sde"]["sample_T"] = min(EVAL_SAMPLE_T, int(opt["sde"].get("sample_T") or opt["sde"]["T"]))
+    if opt.get("distortion") == "denoising":
+        opt["degradation"]["sigma"] = min(EVAL_DENOISE_SIGMA, opt["degradation"]["sigma"])
     return opt
 
 
@@ -3430,9 +3557,9 @@ def recorded_images():
     rec, original = [], test_entry.restore
 
     def restore(*args):
-        before = {k.symbol: k.launches for k in KERNELS}
+        before = request_counts()
         out = original(*args)
-        rec.append({k.symbol: k.launches - before[k.symbol] for k in KERNELS})
+        rec.append({sym: n - before[sym] for sym, n in request_counts().items()})
         return out
 
     test_entry.restore = restore
@@ -3457,8 +3584,7 @@ def run_test(yml, dev, *flags):
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
     lpips_pth, fid_pth = (flags + (None, None))[:2]
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     with recorded_images() as rec:
         result = test_entry.evaluate(yml, dev, lpips_pth, fid_pth)
@@ -3466,7 +3592,7 @@ def run_test(yml, dev, *flags):
     restoring = sum(r["seconds"] for res in result.values() for r in res["images"])
     print(f"[test-entry] {os.path.relpath(yml, os.path.dirname(os.path.dirname(os.path.dirname(yml))))}: "
           f"{seconds:.1f} s in the entry point, {restoring:.1f} s of it restoring")
-    run = {k.symbol: k.launches for k in KERNELS}
+    run = request_counts()
     check(run == {k.symbol: sum(r[k.symbol] for r in rec) for k in KERNELS}, f"{yml}: launches outside the images")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3630,10 +3756,9 @@ def eval_inference(dev, root, smi):
     with_sigma = copy.deepcopy(opt)
     with_sigma["degradation"]["sigma"] = sigma
     want = scaled(eval_counts(with_sigma, eval_steps(with_sigma)), n)
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     (times,) = inference.infer(yml, dev, sigma).values()
-    grew = {k.symbol: k.launches for k in KERNELS}
+    grew = request_counts()
     out_dir = os.path.join(root, "results", parts[0], "inference", opt["datasets"]["test1"]["name"])
     check(grew == want and len(times) == n and len(os.listdir(out_dir)) == n,
           f"inference: launches {grew}, expected {want}; {os.listdir(out_dir)}")
@@ -3895,7 +4020,7 @@ def phase_export_deraining(dev, net, sde_opt, workdir, stats):
     sde = IRSDE.create(sde_opt["max_sigma"], sde_opt["T"], sde_opt["schedule"], sde_opt["eps"], device=dev)
     kw = dict(sde=sde, net=net, size=(SIZE, SIZE), mode="posterior", cast_params=torch.bfloat16,
               per_sample_seed=True)
-    eager = make_restoration_sampler(sde, net, mode="posterior", cast_params=torch.bfloat16)
+    eager = make_restoration_sampler(sde, net, mode="posterior", cast_params=torch.bfloat16, capture=False)
     gen = rng_generator(dev, SEED + 92)
     want = counts(LAYERNORM=LN_PER_FORWARD * sde.T, LA_CTX=ATTN_PER_FORWARD * sde.T, LA_APPLY=ATTN_PER_FORWARD * sde.T)
     jobs, record, sites = [], {}, ([], [])
@@ -3939,7 +4064,8 @@ def phase_export_latent(dev, net, compressor, latent_opt, workdir):
                                      batch=LATENT_BATCH, cast_params=torch.bfloat16)
     check("irsde::naf_stack" in header["custom_ops"], f"nasde: custom ops {header['custom_ops']}")
     lq = torch.rand(LATENT_BATCH, LATENT_SIZE, LATENT_SIZE, 3, generator=rng_generator(dev, SEED + 93), device=dev)
-    eager = make_latent_sampler(sde, net, compressor, mode=mode, steps=steps, cast_params=torch.bfloat16)
+    eager = make_latent_sampler(sde, net, compressor, mode=mode, steps=steps, cast_params=torch.bfloat16,
+                                capture=False)
     want = counts(LAYERNORM=NAF_LN_PER_FORWARD * steps + COMPRESSOR_LN, LA_CTX=COMPRESSOR_ATTN,
                   LA_APPLY=COMPRESSOR_ATTN, NAF_STACK=steps)
     seed = SEED + 94
@@ -3965,7 +4091,7 @@ def phase_export_denoising(dev, net, opt, workdir):
     gen = rng_generator(dev, SEED + 95)
     noisy = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen, device=dev)
     noisy = noisy + sigma / 255 * torch.randn(noisy.shape, generator=gen, device=dev)
-    eager = make_denoising_sampler(sde, net, sigma, cast_params=torch.bfloat16)
+    eager = make_denoising_sampler(sde, net, sigma, cast_params=torch.bfloat16, capture=False)
     want = counts(LAYERNORM=DENOISE_LN_PER_FORWARD * DENOISE_T0, LA_CTX=DENOISE_ATTN_PER_FORWARD * DENOISE_T0,
                   LA_APPLY=DENOISE_ATTN_PER_FORWARD * DENOISE_T0)
     job = export_job(workdir, "denoising_b8", path, want, [(noisy, 0, eager(noisy))])
@@ -3975,60 +4101,114 @@ def phase_export_denoising(dev, net, opt, workdir):
 def artifact_child(manifest: str) -> int:
     """``chip_smoke.py --artifact-child <manifest>``: in a fresh process that
     builds no net and reads no YAML, load each artifact of the manifest
-    (``exporting.load_artifact``) and call it on each run's lq and seed,
-    the launch counts set to 0 just before each call and read just after;
-    the outputs go beside the runs, the report (load and call seconds,
-    launches, each job's seconds in all) to ``<manifest>.out.json``.  A job with ``devices`` loads
-    the artifact over those devices (``load_artifact(devices=...)``) and
-    also holds each call bit for bit against the one-device loader (the
-    artifact's earlier job) called on the same row blocks.  TF32 is off, as
-    in the parent process that ran the eager samplers."""
+    (``exporting.load_artifact``) and call it on each run's lq and seed:
+    first its graph captured (``prepare``, seconds and warm-up launches
+    apart), then the launch counts set to 0 just before the call and read
+    just after; the outputs go beside the runs, the report (load, prepare
+    and call seconds, launches, each job's seconds in all) to
+    ``<manifest>.out.json``.  Each one-device call is also held bit for bit
+    against the same artifact loaded with ``capture=False`` on the same lq,
+    from generators of the run's seeds, their states equal after.  A job
+    with ``devices`` loads the artifact over those devices
+    (``load_artifact(devices=...)``) and also holds each call bit for bit
+    against the one-device loader (the artifact's earlier job) called on
+    the same row blocks.  The manifest's ``serve``: the (image, seed) pairs
+    the server answered, each answer held byte for byte against the eager
+    loader's row encoded as the server encodes it.  TF32 is off, as in the
+    parent process that ran the eager samplers."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, REPO)
     from image_restoration_sde_tpu_torch import exporting
-    from image_restoration_sde_tpu_torch.ops import KERNELS
 
     with open(manifest) as f:
-        jobs = json.load(f)
-    report, one_device = {}, {}
-    for job in jobs:
+        spec = json.load(f)
+    report, one_device, eager = {}, {}, {}
+
+    def eager_call(path):
+        if path not in eager:
+            eager[path] = exporting.load_artifact(path, "cuda", capture=False)[0]
+        return eager[path]
+
+    for job in spec["jobs"]:
         t_job = t0 = time.perf_counter()
         call, _ = exporting.load_artifact(job["path"], "cuda", devices=job.get("devices"))
         one_device.setdefault(job["path"], call)
         entry = {"load_s": time.perf_counter() - t0, "runs": []}
         for run in job["runs"]:
             lq = torch.from_numpy(np.load(run["lq"])).cuda()
-            for k in KERNELS:
-                k.launches = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            call.prepare(lq, run["seed"])
             torch.cuda.synchronize()
+            prepare_s, warm = time.perf_counter() - t0, warmup_counts()
+            reset_counts()
             t0 = time.perf_counter()
             out = call(lq, run["seed"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             np.save(run["out"], out.cpu().numpy())
-            entry["runs"].append({"batch": lq.shape[0], "seconds": seconds,
-                                  "launches": {k.symbol: k.launches for k in KERNELS}})
+            entry["runs"].append({"batch": lq.shape[0], "seconds": seconds, "prepare_s": prepare_s,
+                                  "warmup_launches": warm, "launches": request_counts()})
             if "devices" in job:
                 one, blocks = one_device[job["path"]], [rows for _, rows in call.blocks(lq.shape[0])]
                 by_block = torch.cat([one(lq[rows], run["seed"][rows]) for rows in blocks])
                 entry["runs"][-1].update(blocks=len(blocks), blocks_bit_equal=bool(torch.equal(out, by_block)))
+                continue
+            forms = {}
+            for form, loaded in (("captured", call), ("eager", eager_call(job["path"]))):
+                gen = loaded._generators(run["seed"], lq.shape[0])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = loaded.run(lq, gen=gen)
+                torch.cuda.synchronize()
+                states = [g.get_state() for g in (gen if isinstance(gen, list) else [gen] if gen is not None else [])]
+                forms[form] = (y, states, time.perf_counter() - t0)
+            (yc, sc, tc), (ye, se, te) = forms["captured"], forms["eager"]
+            entry["runs"][-1].update(captured_bit_equal=bool(torch.equal(yc, ye)), captured_seconds=tc,
+                                     eager_seconds=te,
+                                     states_equal=len(sc) == len(se) and all(map(torch.equal, sc, se)))
         entry["job_s"] = time.perf_counter() - t_job
         report[job["name"]] = entry
+    if spec.get("serve"):
+        report["serve"] = served_against_eager(spec["serve"], eager_call(spec["serve"]["path"]))
     with open(manifest + ".out.json", "w") as f:
         json.dump(report, f)
     return 0
 
 
-def start_artifacts(workdir, jobs, children):
+def served_against_eager(served, loaded) -> dict:
+    """Each answer the server gave (``served``: the artifact, and per answer
+    its image, seed and PNG) against the eager loader's row for that
+    (image, seed) at the artifact's fixed batch, made as the server makes
+    it (``serve.build_handler``'s restore: [0, 1] floats in, the row clipped,
+    rounded to uint8 and encoded as a PNG).  A row depends only on its own
+    image and seed at a fixed batch, so the companions do not matter."""
+    from image_restoration_sde_tpu_torch.data.io_utils import decode_img_bytes, encode_png
+
+    pairs = sorted({(a["image"], a["seed"]) for a in served["answers"]})
+    imgs = [decode_img_bytes(open(path, "rb").read()).astype(np.float32) / 255.0 for path, _ in pairs]
+    batch = loaded.header["batch"]
+    xs = np.stack(imgs + [imgs[-1]] * (batch - len(imgs)))
+    seeds = [seed for _, seed in pairs] + [pairs[-1][1]] * (batch - len(pairs))
+    out = loaded(xs, seeds).cpu().numpy()
+    want = {pair: encode_png((np.clip(row, 0.0, 1.0) * 255.0).round().astype(np.uint8))
+            for pair, row in zip(pairs, out)}
+    same = [want[a["image"], a["seed"]] == open(a["png"], "rb").read() for a in served["answers"]]
+    return {"answers": len(same), "bytes_equal": sum(same)}
+
+
+def start_artifacts(workdir, jobs, children, served=None):
     """Phase artifacts' loading process (``artifact_child``), in the
     background: it loads and calls every exported artifact beside the
-    phases that follow (the evaluation's); ``phase_artifacts`` joins it."""
+    phases that follow (the evaluation's), and holds the server's answers
+    (``served``, phase serve's) against the eager loader; ``phase_artifacts``
+    joins it."""
     manifest = os.path.join(workdir, "manifest.json")
     with open(manifest, "w") as f:
-        json.dump(jobs, f)
+        json.dump({"jobs": jobs, "serve": served}, f)
     return Background("artifacts", [sys.executable, os.path.abspath(__file__), "--artifact-child", manifest],
                       children), manifest
 
@@ -4038,7 +4218,10 @@ def phase_artifacts(dev, started, jobs, smi):
     (``artifact_child``, started by ``start_artifacts``): each call's
     output against the eager sampler's with the same generators
     (EXPORT_BOUND of max|eager|; bit-equality reported) and its exact
-    launches.  The data-parallel job (the symbolic
+    launches, its captured chain bit-equal to the same artifact's eager
+    chain with the same generators, their states equal after.  The
+    server's answers byte-equal to the eager loader's rows (``served``).
+    The data-parallel job (the symbolic
     artifact over DP_ARTIFACT_DEVICES, a chain for each row block): one
     call's launches for each block, bit-equal to the one-device loader on
     the same blocks, and against the eager sampler on the whole batch
@@ -4048,8 +4231,8 @@ def phase_artifacts(dev, started, jobs, smi):
     child.join()
     with open(manifest + ".out.json") as f:
         report = json.load(f)
-    print(f"[artifacts] the loading process by job (load, calls and block holds): "
-          f"{', '.join(f'{name} {entry['job_s']:.1f}' for name, entry in report.items())} s")
+    print(f"[artifacts] the loading process by job (load, calls, captured against eager and block holds): "
+          f"{', '.join(f'{job['name']} {report[job['name']]['job_s']:.1f}' for job in jobs)} s")
     launches, dp_launches, record = {}, {}, {}
     for job in jobs:
         entry = report[job["name"]]
@@ -4066,9 +4249,18 @@ def phase_artifacts(dev, started, jobs, smi):
             into = dp_launches if "devices" in job else launches
             for sym, n in got["launches"].items():
                 into[sym] = into.get(sym, 0) + n
-            rec["runs"].append({"batch": got["batch"], "seconds": got["seconds"], "rel_err": err, "bit_equal": same})
+            rec["runs"].append({"batch": got["batch"], "seconds": got["seconds"], "prepare_s": got["prepare_s"],
+                                "rel_err": err, "bit_equal": same})
             tag, more = "artifacts", ""
-            if "devices" in job:
+            if "devices" not in job:
+                check(got["captured_bit_equal"] and got["states_equal"],
+                      f"{job['name']} batch {got['batch']}: the captured chain is not the eager loader's "
+                      f"(bit-equal {got['captured_bit_equal']}, generator states equal {got['states_equal']})")
+                rec["runs"][-1].update(captured_s=got["captured_seconds"], eager_s=got["eager_seconds"])
+                more = (f"; captured bit-equal to the eager loader, generator states equal (call "
+                        f"{got['captured_seconds']:.3f} s captured, {got['eager_seconds']:.3f} eager; capture "
+                        f"{got['prepare_s']:.3f} s, warm-up launches {got['warmup_launches']} apart)")
+            else:
                 check(got["blocks_bit_equal"], f"{job['name']} batch {got['batch']}: not the one-device blocks")
                 rec["runs"][-1].update(devices=job["devices"], blocks=got["blocks"])
                 tag, more = "dp-artifact", (f"; on {job['devices']} in {got['blocks']} row blocks, bit-equal to "
@@ -4077,6 +4269,13 @@ def phase_artifacts(dev, started, jobs, smi):
                   f"{err:.3g} of max|eager| from the eager sampler on the whole batch "
                   f"({'bit-equal' if same else 'not bit-equal'}), launches {got['launches']}{more} "
                   f"(load {entry['load_s']:.1f} s; card: {smi})")
+    if "serve" in report:
+        got = report["serve"]
+        check(got["bytes_equal"] == got["answers"] > 0, f"serve: {got['bytes_equal']} of {got['answers']} answers "
+                                                         f"byte-equal to the eager loader's rows")
+        record["serve_against_eager"] = got
+        print(f"[artifacts] the server's {got['answers']} answers (its captured chain) byte-equal to the eager "
+              f"loader's rows: {got['bytes_equal']} of {got['answers']}")
     return launches, dp_launches, record
 
 
@@ -4114,15 +4313,19 @@ def start_server(artifact, children):
     return proc
 
 
-def phase_serve(dev, proc, smi):
+def phase_serve(dev, proc, smi, artifact, workdir):
     """The server ``start_server`` started (the fixed-batch per-sample-seed
-    deraining artifact, port 0), once it is bound: ``/health``; SERVE_N
+    deraining ``artifact``, port 0; on the card its loader replays the
+    chain's graph, captured by the server's warm-up call), once it is
+    bound: ``/health``; SERVE_N
     requests at SERVE_CONCURRENCY through the port's ``bench_serve``, every
     device call launching exactly one batch's kernels; the same (image,
     seed) in two batches of other companions, at other positions, gives the
     same bytes, every response a PNG of its input's size; seeds -1 and 2**32
     get 400 while their companion gets 200; ``seed_reproducible`` is what
-    the run showed."""
+    the run showed.  Returns the launches, the record and the answers of
+    those two batches (images, seeds and PNGs saved under ``workdir``),
+    which phase artifacts holds against the eager loader."""
     from image_restoration_sde_tpu_torch import bench_serve
     from image_restoration_sde_tpu_torch.data.io_utils import decode_img_bytes
 
@@ -4157,6 +4360,17 @@ def phase_serve(dev, proc, smi):
                 check(status == 200, f"serve: HTTP {status}: {body[:200]!r}")
                 check(decode_img_bytes(body).shape == decode_img_bytes(png).shape, "serve: output size")
             answers.append(got)
+        saved = []
+        for g, (group, got) in enumerate(zip(groups, answers)):
+            for i, ((png, seed), (_, body)) in enumerate(zip(group, got)):
+                out = os.path.join(workdir, f"served.{g}.{i}.out.png")
+                with open(out, "wb") as f:
+                    f.write(body)
+                saved.append({"image": os.path.join(workdir, f"served.in.{images.index(png)}.png"), "seed": seed,
+                              "png": out})
+        for i, png in enumerate(images):
+            with open(os.path.join(workdir, f"served.in.{i}.png"), "wb") as f:
+                f.write(png)
         same = answers[0][0][1] == answers[1][2][1]
         differ = answers[0][0][1] != answers[0][1][1]
         check(same and differ, f"serve: same (image, seed) bytes equal {same}; other seeds differ {differ}")
@@ -4171,13 +4385,18 @@ def phase_serve(dev, proc, smi):
               f"companion 200")
     finally:
         end(proc)
-    return grew, result
+    return grew, result, {"path": artifact, "answers": saved}
 
 
 def phase_bench(dev, smi, stats):
-    """``python3 bench_cuda.py`` in its own process (batch 8), its line
-    checked and printed; then its sampler at each other batch of
-    BENCH_SWEEP at 128 px (BENCH_SWEEP_REPS timed calls after two warm-ups),
+    """``python3 bench_cuda.py`` in its own process (batch 8, the captured
+    chain), its line checked and printed; then in this process its sampler
+    at batch 8 in both forms, captured and eager (``capture=False``),
+    BENCH_REPS timed calls after two warm-ups each (img/s median and every
+    call's seconds), and one call of each from generators of one seed: the
+    outputs bit-equal, the generators' states equal after; then the
+    captured sampler at each batch of BENCH_SWEEP at 128 px
+    (BENCH_SWEEP_REPS timed calls after two warm-ups, the first capturing),
     with exact launches.  Then one forward of the bench's net at each sweep
     batch records its K1 and K2 sites, and each kernel is held against its
     plain version there (``hold_sites``; these launches are not the
@@ -4185,7 +4404,6 @@ def phase_bench(dev, smi, stats):
     import torch
 
     import bench_cuda
-    from image_restoration_sde_tpu_torch.ops import KERNELS
 
     run = subprocess.run([sys.executable, os.path.join(REPO, "bench_cuda.py")], capture_output=True, text=True,
                          timeout=600)
@@ -4196,13 +4414,28 @@ def phase_bench(dev, smi, stats):
     print(f"[bench] bench_cuda.py: {json.dumps(line)} (card: {smi})")
     net = bench_cuda.make_net(dev)
     sampler = bench_cuda.make_sampler(net, 100, False, dev)
+    eager = bench_cuda.make_sampler(net, 100, False, dev, capture=False)
+    forms = {}
+    for form, s in (("captured", sampler), ("eager", eager)):
+        times = bench_cuda.run(s, BATCH, SIZE, BENCH_REPS, dev)
+        forms[form] = {"img_s": BATCH / statistics.median(times), "seconds": times}
+        print(f"[bench] {form} batch {BATCH} at {SIZE}px, 100 sde steps: {forms[form]['img_s']:.4f} img/s (median "
+              f"of {BENCH_REPS}: {', '.join(f'{t:.3f}' for t in times)} s; host clock; card: {smi})")
+    lq = torch.rand(BATCH, SIZE, SIZE, 3, generator=rng_generator(dev, SEED + 97), device=dev)
+    outs = {}
+    for form, s in (("captured", sampler), ("eager", eager)):
+        gen = rng_generator(dev, SEED + 98)
+        outs[form] = (s(lq, gen), gen.get_state())
+    same = bool(torch.equal(outs["captured"][0], outs["eager"][0]))
+    states = bool(torch.equal(outs["captured"][1], outs["eager"][1]))
+    check(same and states, f"bench: captured against eager bit-equal {same}, generator states equal {states}")
+    print(f"[bench] captured against eager at batch {BATCH}: bit-equal, generator states equal")
     sweep = {BATCH: {"img_s": line["value"], "from": "bench_cuda.py"}}
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     for b in BENCH_SWEEP:
-        before = {k.symbol: k.launches for k in KERNELS}
+        before = request_counts()
         times = bench_cuda.run(sampler, b, SIZE, BENCH_SWEEP_REPS, dev)
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        grew = {sym: n - before[sym] for sym, n in request_counts().items()}
         calls = 2 + BENCH_SWEEP_REPS
         want = counts(LAYERNORM=LN_PER_FORWARD * 100 * calls, LA_CTX=ATTN_PER_FORWARD * 100 * calls,
                       LA_APPLY=ATTN_PER_FORWARD * 100 * calls)
@@ -4210,14 +4443,14 @@ def phase_bench(dev, smi, stats):
         sweep[b] = {"img_s": b / statistics.median(times), "seconds": times}
         print(f"[bench] batch {b} at {SIZE}px, 100 sde steps: {sweep[b]['img_s']:.4f} img/s (median of "
               f"{BENCH_SWEEP_REPS}: {', '.join(f'{t:.3f}' for t in times)} s; card: {smi})")
-    launched = {k.symbol: k.launches for k in KERNELS}
+    launched = request_counts()
     gen = rng_generator(dev, SEED + 96)
     with recorded_sites() as (ln, attn), torch.inference_mode():
         for b in BENCH_SWEEP:
             x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev)
             net(x, x, torch.full((b,), 50, dtype=torch.int32, device=dev))
     hold_sites("bench", dev, ln, attn, stats, {})
-    return launched, {"bench_cuda": line, "sweep": sweep}
+    return launched, {"bench_cuda": line, "forms": forms, "captured_bit_equal": same, "sweep": sweep}
 
 
 # ---------------------------------------------------------------- data parallelism
@@ -4888,11 +5121,11 @@ def phase_tools(dev, smi):
                       LA_APPLY=steps * ATTN_PER_FORWARD)
         restore = app.make_restore(yml, dev)
         img = (r.random((TOOLS_SIDE, TOOLS_SIDE, 3)) * 255).astype(np.uint8)
-        before = {k.symbol: k.launches for k in KERNELS}
+        before = request_counts()
         t0 = time.perf_counter()
         out = restore(img)
         seconds = time.perf_counter() - t0
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        grew = {sym: n - before[sym] for sym, n in request_counts().items()}
         print(f"[tools] app restore callable ({opt['name']}, seeded, {steps} steps): {img.shape} uint8 -> "
               f"{out.shape} {out.dtype} in {seconds:.2f} s; launches {grew}")
         check(out.shape == img.shape and out.dtype == np.uint8 and grew == want, f"app: launches {grew}, {want}")
@@ -4902,10 +5135,10 @@ def phase_tools(dev, smi):
         with open(yml, "w") as f:
             yaml.safe_dump(opt, f)
         traced = app.make_restore(yml, dev)
-        before = {k.symbol: k.launches for k in KERNELS}
+        before = request_counts()
         with profiling.trace(os.path.join(root, "trace")):
             traced(img[:64, :64])
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        grew = {sym: n - before[sym] for sym, n in request_counts().items()}
         traced_want = {k: n // steps * TOOLS_TRACE_T for k, n in want.items()}
         check(grew == traced_want, f"app under the profiler: launches {grew}, {traced_want}")
         for sym, c in grew.items():
@@ -4920,10 +5153,10 @@ def phase_tools(dev, smi):
         torch.save(lpips.seeded_state_dict("alex", seed=SEED + 33), lp)
         write_pairs(os.path.join(root, "pairs"), 2, SEED + 34, shape=(TOOLS_SIDE // 2, TOOLS_SIDE // 2))
         want = {k: 2 * n for k, n in want.items()}
-        before = {k.symbol: k.launches for k in KERNELS}
+        before = request_counts()
         rc = eval_parity.main(["--data", os.path.join(root, "pairs"), "--pth", pth, "--setting", json.dumps(setting),
                                "--T", str(steps), "--lpips-pth", lp, "--target-psnr", "0", "--device", str(dev)])
-        grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+        grew = {sym: n - before[sym] for sym, n in request_counts().items()}
         print(f"[tools] eval_parity: exit {rc}; launches {grew}; card: {smi}")
         check(rc == 0 and grew == want, f"eval_parity: exit {rc}, launches {grew} against {want}")
         for sym, c in grew.items():
@@ -4983,9 +5216,7 @@ def hold_flash_sites(tag, dev, sites, stats):
 
 
 def bench_launches(before):
-    from image_restoration_sde_tpu_torch.ops import KERNELS
-
-    return {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+    return {sym: n - before[sym] for sym, n in request_counts().items()}
 
 
 def phase_bench_train(dev, smi):
@@ -5007,7 +5238,7 @@ def phase_bench_train(dev, smi):
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as the bench runs alone
     try:
         for arch, pipe, batch, size in BENCH_TRAIN:
-            before = {k.symbol: k.launches for k in KERNELS}
+            before = request_counts()
             line = bench_train.run(dev, arch, pipe, batch, size, BENCH_TRAIN_STEPS)
             grew = bench_launches(before)
             want = {sym: n * (BENCH_TRAIN_STEPS + 2) for sym, n in per_step[arch].items()}
@@ -5059,7 +5290,7 @@ def phase_bench_refusion(dev, smi, stats):
             hold_flash_sites(f"bench-refusion-{arch}", dev, fl, stats)
             check(bool(naf) == (arch == "nafnet") and bool(fl) == (arch == "dit"), f"bench {arch}: sites {naf} {fl}")
             sampler = bench_refusion.make_sampler(score, compressor, steps, True, dev)
-            before = {k.symbol: k.launches for k in KERNELS}
+            before = request_counts()
             line = bench_refusion.bench(dev, sampler, label, 1, BENCH_REFUSION_SIZE, steps, BENCH_REFUSION_REPS)
             grew = bench_launches(before)
             want = {sym: calls * (steps * per_step[arch][sym] + enc[sym]) for sym in grew}
@@ -5136,27 +5367,29 @@ def smoke(children) -> int:
     ops = Background("ops", [sys.executable, os.path.abspath(__file__), "--ops-child"], children)
     dryrun = start_dryrun_tp(serving_dir.name, children)
     net = timed("net", phase_net, dev, setting, sde_opt)
-    launches = {"deraining": timed("main path", phase_main_path, dev, net, sde_opt, smi)}
+    launches, captured = {}, {}  # captured: each path's chain graphs, captured against eager
+    launches["deraining"], captured["deraining"] = timed("main path", phase_main_path, dev, net, sde_opt, smi)
     jobs, exports = timed("export deraining", phase_export_deraining, dev, net, sde_opt, serving_dir.name, stats)
     del net
     latent_net, compressor = timed("latent net", phase_latent_net, dev, latent_opt, refusion_setting, stats)
-    launches["latent_dehazing"] = timed("latent main path", phase_latent_main_path, dev, latent_net, compressor,
-                                        latent_opt, smi)
+    launches["latent_dehazing"], captured["latent_dehazing"] = timed(
+        "latent main path", phase_latent_main_path, dev, latent_net, compressor, latent_opt, smi)
     more = timed("export latent", phase_export_latent, dev, latent_net, compressor, latent_opt, serving_dir.name)
     jobs += more[0]
     exports.update(more[1])
     del latent_net, compressor
     timed("dit kernels", phase_flash, dev, stats, dit_opt)
     dit_net, dit_compressor = timed("dit net", phase_dit_net, dev, dit_opt)
-    launches["dit"], dit_sampler = timed("dit main path", phase_dit_main_path, dev, dit_net, dit_compressor,
-                                         dit_opt, smi)
-    launches["tiled"] = timed("tiled", phase_tiled, dev, dit_sampler, dit_opt["sde"]["sample_T"],
-                              len(dit_net.blocks), smi)
+    launches["dit"], captured["dit"], dit_sampler = timed("dit main path", phase_dit_main_path, dev, dit_net,
+                                                          dit_compressor, dit_opt, smi)
+    launches["tiled"], captured["tiled"] = timed("tiled", phase_tiled, dev, dit_sampler, dit_opt["sde"]["sample_T"],
+                                                 len(dit_net.blocks), smi)
     del dit_net, dit_sampler
     torch.cuda.empty_cache()
     xl_opt = dit_xl_opt(dit_opt)
     xl_net, _ = timed("dit-xl net", phase_dit_net, dev, xl_opt, "dit-xl-net", False)
-    launches["dit_xl"] = timed("dit-xl main path", phase_dit_xl_main_path, dev, xl_net, dit_compressor, xl_opt, smi)
+    launches["dit_xl"], captured["dit_xl"] = timed("dit-xl main path", phase_dit_xl_main_path, dev, xl_net,
+                                                   dit_compressor, xl_opt, smi)
     del xl_net, dit_compressor
     torch.cuda.empty_cache()
 
@@ -5164,24 +5397,27 @@ def smoke(children) -> int:
     denoise_opt, stereo_opt, bokeh_opt = (load_yaml(p) for p in (DENOISE_CONFIG, STEREO_CONFIG, BOKEH_CONFIG))
     denoise_net = timed("denoise net", phase_denoise_net, dev, denoise_opt, stats)
     server = start_server(jobs[0]["path"], children)  # it loads and warms beside the next phases
-    launches["denoising"] = timed("denoise main path", phase_denoise_main_path, dev, denoise_net, denoise_opt, smi)
+    launches["denoising"], captured["denoising"] = timed("denoise main path", phase_denoise_main_path, dev,
+                                                         denoise_net, denoise_opt, smi)
     more = timed("export denoising", phase_export_denoising, dev, denoise_net, denoise_opt, serving_dir.name)
     jobs += more[0]
     exports.update(more[1])
     del denoise_net
     torch.cuda.empty_cache()
-    launches["serve"], served = timed("serve", phase_serve, dev, server, smi)
+    launches["serve"], served, answers = timed("serve", phase_serve, dev, server, smi, jobs[0]["path"],
+                                               serving_dir.name)
     launches["bench"], benched = timed("bench", phase_bench, dev, smi, stats)
     launches["bench_train"], benched_train = timed("bench train", phase_bench_train, dev, smi)
     more = timed("bench refusion", phase_bench_refusion, dev, smi, stats)
     launches["bench_refusion"] = more[0]
     print(f"[benches] {json.dumps({'bench_train': benched_train, 'bench_refusion': more[1]})}")
     stereo_net = timed("stereo net", phase_stereo_net, dev, stereo_opt, stats)
-    launches["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net, stereo_opt, smi)
+    launches["stereo_sr"], captured["stereo_sr"] = timed("stereo main path", phase_stereo_main_path, dev, stereo_net,
+                                                         stereo_opt, smi)
     del stereo_net
     bokeh_net, bokeh_compressor = timed("bokeh net", phase_bokeh_net, dev, bokeh_opt, stats)
-    launches["latent_bokeh"] = timed("bokeh main path", phase_bokeh_main_path, dev, bokeh_net, bokeh_compressor,
-                                     bokeh_opt, smi)
+    launches["latent_bokeh"], captured["latent_bokeh"] = timed("bokeh main path", phase_bokeh_main_path, dev,
+                                                               bokeh_net, bokeh_compressor, bokeh_opt, smi)
     del bokeh_net, bokeh_compressor
     torch.cuda.empty_cache()
     timed("ops", ops.join)
@@ -5212,7 +5448,7 @@ def smoke(children) -> int:
         launches["demo"], demo_record = timed("demo", phase_demo, dev, workdir, smi, stats)
         print(f"[demo] {json.dumps(demo_record)}")
         # the exported artifacts' loading process beside the evaluation
-        artifacts = start_artifacts(serving_dir.name, jobs, children)
+        artifacts = start_artifacts(serving_dir.name, jobs, children, answers)
         eval_launches, eval_record = timed("eval", phase_eval, dev, workdir, smi, trained, stats, children)
         launches["artifacts"], launches["dp_artifact"], loaded = timed("artifacts", phase_artifacts, dev, artifacts,
                                                                         jobs, smi)
@@ -5222,6 +5458,7 @@ def smoke(children) -> int:
         print(f"[train] {json.dumps(train_record)}")
     launches.update(eval_launches)
     print(f"[eval] {json.dumps(eval_record)}")
+    print(f"[captured] {json.dumps(captured)}")
     launches["tools"] = timed("tools", phase_tools, dev, smi)
 
     report = []

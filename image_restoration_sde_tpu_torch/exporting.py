@@ -24,7 +24,11 @@ around them and draws the noise on the device, as the eager samplers do
 (``torch.export`` cannot trace a ``torch.Generator``): from one generator
 for a scalar seed, from one per sample for a (b,) seed vector, in the eager
 samplers' order, so a loaded call equals the eager sampler's with the same
-generators.
+generators.  On the card the loader records that chain around the step
+programs once per (device, batch) as a CUDA graph and replays it
+(``sde/captured.py``; ``load_artifact(..., capture=False)`` runs it
+eagerly): what the JAX artifact's one serialised program is, built at
+load time from the step programs.
 
 With ``kernels=True`` (the default) the programs call the ``irsde::``
 operators, whose CUDA implementations launch the port's kernels and whose
@@ -49,8 +53,9 @@ import torch
 from torch import nn
 
 from . import ops  # noqa: F401 -- registers the irsde:: operators the programs call
-from .sampling import cast_net_params, check_mode
+from .sampling import cast_net_params, captures, capture_graphs, check_mode
 from .sde import DenoisingSDE, IRSDE, rng, samplers
+from .sde.captured import generator_layout
 from .sde.irsde import noisy_start
 from .sde.rng import normal_like
 
@@ -376,15 +381,19 @@ class LoadedSampler:
     size and channels, at its batch where that is fixed; ``seed`` an int,
     or for a per-sample-seed artifact one int per row; the result is a
     float32 tensor on the device.  :meth:`with_noise` runs the chain on
-    given noise instead of drawing it."""
+    given noise instead of drawing it.  ``capture`` as the samplers'
+    (``sampling.capture_graphs``): on the card one graph a batch and
+    generator layout, ``self.graphs``; :meth:`prepare` captures without
+    drawing."""
 
-    def __init__(self, header: dict, programs: dict, device: torch.device):
+    def __init__(self, header: dict, programs: dict, device: torch.device, capture=True):
         self.header, self.programs, self.device = header, programs, device
         self.kind = header["kind"]
         self.steps = int(header["steps"])
         self.stochastic = self.kind != "denoising_sampler" and header.get("mode") != "ode"
         self.max_sigma = (torch.tensor(header["max_sigma"], dtype=torch.float32, device=device)
                           if "max_sigma" in header else None)
+        self.graphs = capture_graphs(capture)
 
     def _input(self, lq) -> torch.Tensor:
         return self._check(lq).to(self.device)
@@ -426,14 +435,59 @@ class LoadedSampler:
         noise = torch.as_tensor(np.asarray(noise), dtype=torch.float32).to(self.device)
         return self.run(lq, noise=noise)
 
+    def _draws(self) -> int:
+        if self.kind == "denoising_sampler":
+            return 0
+        return samplers.chain_draws("sde" if self.stochastic else "ode", self.steps)
+
+    def _state_shape(self, batch: int) -> tuple:
+        """The chain's state at ``batch`` (the step program's first input:
+        the image, or the latent)."""
+        return (batch, *self.header["specs"]["step"]["inputs"][0]["shape"][1:])
+
     def run(self, lq: torch.Tensor, gen=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The chain on ``lq`` through the eager samplers' loops
         (``samplers.loop_with_noise``), its noise drawn from ``gen`` in
         their order (the initial state's first, then t = T..1), or taken
-        from ``noise`` (see :meth:`with_noise`)."""
-        step = self.programs["step"]
-        b, ts = lq.shape[0], range(self.steps, 0, -1)
+        from ``noise`` (see :meth:`with_noise`); on the card replayed from
+        the graph of ``lq``'s batch, the noise drawn first
+        (``samplers.draw_noise``)."""
         with torch.inference_mode():
+            if not captures(self.graphs, lq):
+                return self._chain(self.steps)(lq, gen=gen, noise=noise)
+            n = self._draws()
+            if n and noise is None:
+                noise = samplers.draw_noise(gen, lq.new_empty(self._state_shape(lq.shape[0])), n)
+            return self._replay(lq, gen, noise)
+
+    def prepare(self, lq, seed=0) -> None:
+        """Capture the graph that ``self(lq, seed)`` replays, drawing nothing
+        (nothing where the call is eager)."""
+        lq = self._input(lq)
+        if not captures(self.graphs, lq):
+            return
+        n = self._draws()
+        noise = lq.new_zeros((n, *self._state_shape(lq.shape[0]))) if n else None
+        with torch.inference_mode():
+            self._replay(lq, self._generators(seed, lq.shape[0]), noise, prepare=True)
+
+    def _replay(self, lq, gen, noise, prepare=False):
+        key = (tuple(lq.shape), lq.dtype, self.kind, self.steps, generator_layout(gen))
+        inputs = (lq,) if noise is None else (lq, noise)
+
+        def chain(n):
+            return lambda lq_, noise_=None: self._chain(n)(lq_, noise=noise_)
+
+        return (self.graphs.prepare if prepare else self.graphs)(key, chain(self.steps), inputs, warmup=chain(1))
+
+    def _chain(self, steps: int):
+        """``run(lq, gen=None, noise=None)``: the chain of ``steps`` steps
+        around the step programs (``noise`` cut to its first draws)."""
+        step = self.programs["step"]
+
+        def run(lq, gen=None, noise=None):
+            b, ts = lq.shape[0], range(steps, 0, -1)
+
             def tv(t):
                 return samplers.tvec(b, t, self.device)
 
@@ -446,13 +500,15 @@ class LoadedSampler:
                 mu = lq
             x = noisy_start(mu, normal_like(gen, mu) if noise is None else noise[0], self.max_sigma)
             if self.stochastic:
-                x = samplers.loop_with_noise(lambda x, t, z: step(x, mu, tv(t), z), x, self.steps, gen,
-                                             None if noise is None else noise[1:])
+                x = samplers.loop_with_noise(lambda x, t, z: step(x, mu, tv(t), z), x, steps, gen,
+                                             None if noise is None else noise[1 : steps + 1])
             else:
                 x = samplers.loop(lambda x, t: step(x, mu, tv(t)), x, ts)
             if hidden is not None:
                 x = self.programs["decode"](x, hidden)
             return x
+
+        return run
 
 
 def on_device(device: torch.device):
@@ -485,13 +541,17 @@ class DataParallelSampler:
         starts = np.cumsum([0] + sizes)
         return [(s, slice(int(a), int(a) + k)) for s, a, k in zip(self.samplers, starts, sizes) if k]
 
+    def _seeds(self, lq, seed):
+        if self.header["seed"] != "per_sample":
+            return None
+        seeds = [int(v) for v in torch.as_tensor(seed).reshape(-1).tolist()]
+        if len(seeds) != lq.shape[0]:
+            raise ValueError(f"{len(seeds)} seeds for a batch of {lq.shape[0]}")
+        return seeds
+
     def __call__(self, lq, seed=0) -> torch.Tensor:
         lq = self.samplers[0]._check(lq)
-        seeds = None
-        if self.header["seed"] == "per_sample":
-            seeds = [int(v) for v in torch.as_tensor(seed).reshape(-1).tolist()]
-            if len(seeds) != lq.shape[0]:
-                raise ValueError(f"{len(seeds)} seeds for a batch of {lq.shape[0]}")
+        seeds = self._seeds(lq, seed)
 
         def run(sampler, rows):
             with on_device(sampler.device):
@@ -504,10 +564,19 @@ class DataParallelSampler:
             futures = [pool.submit(run, s, rows) for s, rows in blocks]
             return torch.cat([f.result() for f in futures])
 
+    def prepare(self, lq, seed=0) -> None:
+        """Capture each device's graph that ``self(lq, seed)`` replays."""
+        lq = self.samplers[0]._check(lq)
+        seeds = self._seeds(lq, seed)
+        for sampler, rows in self.blocks(lq.shape[0]):
+            with on_device(sampler.device):
+                sampler.prepare(lq[rows], seed if seeds is None else seeds[rows])
 
-def load_artifact(data_or_path, device="cuda", devices: Optional[Sequence] = None) -> tuple:
+
+def load_artifact(data_or_path, device="cuda", devices: Optional[Sequence] = None, capture=True) -> tuple:
     """``(call, header)``: the artifact's programs loaded onto ``device``
-    (the card by default; it raises where there is none).  ``devices``
+    (the card by default; it raises where there is none); ``capture``:
+    :class:`LoadedSampler`'s, for each device.  ``devices``
     (e.g. ``["cuda:0", "cuda:1"]``): one copy of the programs on each, and
     ``call`` a :class:`DataParallelSampler` over them; more than one device
     takes a symbolic batch and no single scalar seed (N blocks cannot draw
@@ -535,7 +604,8 @@ def load_artifact(data_or_path, device="cuda", devices: Optional[Sequence] = Non
            for name, (off, n) in header["programs"].items()}
     samplers = [LoadedSampler(header, {name: move_to_device_pass(ep if i == len(targets) - 1 else copy.deepcopy(ep),
                                                                  target).module()
-                                       for name, ep in eps.items()}, target) for i, target in enumerate(targets)]
+                                       for name, ep in eps.items()}, target, capture)
+                for i, target in enumerate(targets)]
     if devices:
         return DataParallelSampler(samplers), header
     return samplers[0], header

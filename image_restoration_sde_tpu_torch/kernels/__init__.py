@@ -8,7 +8,10 @@ runs from its own sources.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0 and counts
-the launches that went through.
+the launches that went through.  Under a CUDA graph capture
+(:func:`recording`, ``sde/captured.py``) a call records a node and launches
+nothing: the :class:`Recording` counts it, and each replay of the graph adds
+those counts to the kernels' ``launches`` (:meth:`Recording.replayed`).
 
 Each public op of ``../ops`` is one operator of the ``irsde`` library
 (:func:`define_op`): a CUDA implementation that launches the kernels, a CPU
@@ -20,6 +23,7 @@ through these operators alone.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -129,7 +133,12 @@ class Kernel:
     """One C entry point of the library, with its launch count.
 
     ``launches`` goes up by one for each launch that the CUDA runtime
-    accepted, and nowhere else.  ``source`` is the file in the repository,
+    accepted, and by a graph's recorded count of this kernel at each replay
+    of that graph; a call made while this thread captures a graph adds
+    nothing.  ``warmups`` counts, of ``launches``, those made while this
+    thread warms a chain up before capturing it (:func:`warming_up`): a
+    signature's first call, apart from the request.  ``source`` is the file
+    in the repository,
     ``replaces`` the TPU kernel it ports (``file:line``).  Threads that
     drive several cards (``exporting.DataParallelSampler``) launch one at a
     time: ctypes releases the interpreter lock during the call, and the
@@ -142,6 +151,7 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.warmups = 0
 
     @functools.cached_property
     def _fn(self):
@@ -151,16 +161,81 @@ class Kernel:
         return fn
 
     def __call__(self, *args) -> None:
+        rec = _THREAD.recording
         with _LAUNCH_LOCK:
             err = self._fn(*args)
             if err == 0:
-                self.launches += 1
+                if rec is not None:
+                    rec.tally[self] = rec.tally.get(self, 0) + 1
+                else:
+                    self.launches += 1
+                    self.warmups += _THREAD.warming
         if err != 0:
             msg = load_library().irsde_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
 
 
 _LAUNCH_LOCK = threading.Lock()
+
+
+class _Thread(threading.local):
+    recording = None  # the Recording of this thread's capture under way
+    warming = False  # this thread warms a chain up before capturing it
+
+
+_THREAD = _Thread()
+
+
+class Recording:
+    """What one graph capture recorded of the kernels: ``tally`` (kernel ->
+    its nodes in the graph) and ``held``, the tensors outside the graph's
+    memory pool that its nodes read (a K3 pointer table, SCAM's resize
+    tables), which the graph owns with it (:func:`hold`)."""
+
+    def __init__(self):
+        self.tally = {}
+        self.held = []
+
+    def replayed(self) -> None:
+        """Count one replay of the graph: each kernel's recorded nodes."""
+        with _LAUNCH_LOCK:
+            for kernel, n in self.tally.items():
+                kernel.launches += n
+
+
+@contextlib.contextmanager
+def recording():
+    """The block captures a CUDA graph on this thread: its kernel calls
+    record nodes into the yielded :class:`Recording` and count no launch."""
+    rec, outer = Recording(), _THREAD.recording
+    _THREAD.recording = rec
+    try:
+        yield rec
+    finally:
+        _THREAD.recording = outer
+
+
+@contextlib.contextmanager
+def warming_up():
+    """The block warms a chain up before its capture: its launches are
+    counted, and also in each kernel's ``warmups``."""
+    outer, _THREAD.warming = _THREAD.warming, True
+    try:
+        yield
+    finally:
+        _THREAD.warming = outer
+
+
+def capturing() -> bool:
+    """Whether this thread is capturing a graph (inside :func:`recording`)."""
+    return _THREAD.recording is not None
+
+
+def hold(*tensors) -> None:
+    """Make the graph this thread captures own ``tensors``, which its
+    nodes read by address: nothing while no capture is under way."""
+    if _THREAD.recording is not None:
+        _THREAD.recording.held.extend(tensors)
 
 
 def ptr(t) -> ctypes.c_void_p:

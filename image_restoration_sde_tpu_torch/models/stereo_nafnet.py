@@ -26,6 +26,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .. import kernels
 from .modules import (
     ChannelLayerNorm,
     Conv2d,
@@ -44,7 +45,8 @@ def _resize_tables(H: int, W: int, device: torch.device):
     """SCAM's resize operators for an H x W map: the bicubic 1/4 matrices
     (rows, columns) and the nearest indices back up, made once per shape
     and device, the last 64 kept (a host-to-device copy on every call would
-    wait for the card)."""
+    wait for the card, and a graph capture cannot make one: its warm-up
+    makes them)."""
     hs, ws = max(H // 4, 1), max(W // 4, 1)
     with torch.inference_mode(False):
         return (torch.from_numpy(bicubic_resize_weights(H, hs)).to(device),
@@ -78,7 +80,8 @@ class SCAM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B2, C, H, W = x.shape
         B = B2 // 2
-        wh, ww, ih, iw = _resize_tables(H, W, x.device)
+        tables = wh, ww, ih, iw = _resize_tables(H, W, x.device)
+        kernels.hold(*tables)  # a captured chain reads them by address: it owns them
         hs, ws = wh.shape[0], ww.shape[0]
         xh = x.permute(0, 2, 3, 1)  # (2B, H, W, C)
         rows = torch.matmul(wh, xh.float().reshape(B2, H, W * C)).reshape(B2 * hs, W, C)

@@ -25,7 +25,7 @@ flows through :func:`time_modulation`.
 from __future__ import annotations
 
 import ctypes
-import functools
+from collections import OrderedDict
 from typing import Dict, Mapping, Sequence
 
 import torch
@@ -136,9 +136,29 @@ def naf_stack_plain(x: torch.Tensor, stacked: Mapping[str, torch.Tensor], eps: f
     return x
 
 
-@functools.lru_cache(maxsize=8)
+_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+TABLES_KEPT = 8
+
+
 def _pointer_table(device: torch.device, ptrs: tuple) -> torch.Tensor:
-    return torch.tensor(ptrs, dtype=torch.int64).to(device)
+    """The device table of ``ptrs``, the last TABLES_KEPT kept.  The
+    kernel reads it by address, so a graph that captures the launch owns
+    its table (``kernels.hold``): an evicted table's memory would otherwise
+    go to another tensor under the replayed graph.  A capture cannot copy
+    from the host, so there it must find the table its warm-up made."""
+    key = (device, ptrs)
+    table = _TABLES.get(key)
+    if table is None:
+        if kernels.capturing():
+            raise RuntimeError("naf_stack: no pointer table for these block tensors was made before the capture "
+                               "(warm the chain up on the same tensors first)")
+        table = _TABLES[key] = torch.tensor(ptrs, dtype=torch.int64).to(device)
+        while len(_TABLES) > TABLES_KEPT:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+    kernels.hold(table)
+    return table
 
 
 def _block_tensors(blocks: Sequence[Block], x: torch.Tensor) -> tuple:

@@ -138,6 +138,14 @@ def _sampler_options(sde_opt) -> dict:
     return {"mode": sde_opt["sampling_mode"] or "sde", "steps": steps}
 
 
+def _captures(opt) -> bool:
+    """Whether the task's sampler captures its chains on the card: at test
+    time (the test, inference and restore entry points: one graph a
+    shape), not in a train run's validation, whose nets move between
+    validations and may be split over ranks that sample together."""
+    return not opt.get("is_train")
+
+
 class _Base:
     keeps_ema = True  # whether the train state keeps an EMA of the net
 
@@ -263,7 +271,8 @@ class PixelDiffusionTask(_Base):
         super().__init__(opt, seed, device, which, setting, mesh)
         self.sde = _make_irsde(opt["sde"], self.device)
         self._train_step = make_train_step(self.sde, **self._loss_kwargs())
-        self.sampler = make_restoration_sampler(self.sde, self.net, **_sampler_options(opt["sde"]))
+        self.sampler = make_restoration_sampler(self.sde, self.net, **_sampler_options(opt["sde"]),
+                                                capture=_captures(opt))
 
     def prepare_pair(self, batch, shard=None) -> Tuple[np.ndarray, np.ndarray]:
         """(LQ, GT) of ``batch``; a train step's ``shard`` (rank, world)
@@ -311,7 +320,7 @@ class GaussianDenoisingTask(_Base):
             kwargs["is_weighted"] = True
         self._train_step = make_denoising_train_step(self.sde, **kwargs)
         self.sigma = float(opt["degradation"]["sigma"])
-        self.sampler = make_denoising_sampler(self.sde, self.net, self.sigma)
+        self.sampler = make_denoising_sampler(self.sde, self.net, self.sigma, capture=_captures(opt))
 
     def step(self, state, batch, gen: torch.Generator):
         return self._train_step(state, self._tensor(batch["GT"]), gen)
@@ -384,7 +393,8 @@ class LatentDiffusionTask(_Base):
         self.compressor = _seeded_network(which_l, setting_l, seed + 1).to(self.device)
         self.sde = _make_irsde(opt["sde"], self.device)
         self._train_step = make_latent_train_step(self.sde, self.compressor, **self._loss_kwargs())
-        self.sampler = make_latent_sampler(self.sde, self.net, self.compressor, **_sampler_options(opt["sde"]))
+        self.sampler = make_latent_sampler(self.sde, self.net, self.compressor, **_sampler_options(opt["sde"]),
+                                           capture=_captures(opt))
 
     @staticmethod
     def _score_network(opt) -> tuple:

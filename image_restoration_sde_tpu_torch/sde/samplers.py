@@ -1,8 +1,13 @@
 """IR-SDE and denoising-SDE samplers as Python loops (PyTorch).
 
 Counterpart of ``image_restoration_sde_tpu/sde/samplers.py``, where each
-sampler is one ``lax.scan``.  Here the loop runs eagerly, one network call
-per step.
+sampler is one ``lax.scan``.  Here the loop is Python, one network call per
+step: eager on the CPU, and on the card recorded once per call signature
+into a CUDA graph and replayed (``sde/captured.py``, through the samplers
+of ``sampling.py``, ``training/latent.py`` and ``exporting.py``).  A replay
+draws nothing: its chain reads its noise from a static buffer that
+:func:`draw_noise` fills, before each replay, with the draws the eager
+chain would make, in its order (:func:`reverse_from_noise`).
 
 ``noise_fn`` is the score network (``score = -noise / sigma_bar``):
 ``noise_fn(x, mu, tvec)`` for the IR-SDE samplers (conditional),
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from .denoising_sde import DenoisingSDE
-from .irsde import IRSDE
+from .irsde import IRSDE, noisy_start
 from .rng import GeneratorLike, normal_like
 
 Tensor = torch.Tensor
@@ -94,6 +99,35 @@ def loop_with_noise(step, x, T, gen, noise_seq, return_all=False, ts=None):
     zs = iter(noise_seq) if noise_seq is not None else None
     return loop(lambda x, t: step(x, t, next(zs) if zs is not None else normal_like(gen, x)),
                  x, ts, return_all)
+
+
+def chain_draws(mode: str, steps: int) -> int:
+    """The normal draws of a ``steps``-step reverse chain of ``mode`` from a
+    noised start: the initial state's, then one a step (none for the ODE)."""
+    return 1 if mode == "ode" else steps + 1
+
+
+def draw_noise(gen: GeneratorLike, like: Tensor, n: int) -> Tensor:
+    """``(n, *like.shape)``: ``n`` draws of ``normal_like(gen, like)`` in
+    turn, the draws a chain that draws from ``gen`` makes, in its order (the
+    initial state's first, then t = T..1); ``gen`` ends where that chain
+    leaves it.  (One draw of ``n`` times the size is another stream.)"""
+    return torch.stack([normal_like(gen, like) for _ in range(n)])
+
+
+def reverse_from_noise(sde: IRSDE, noise_fn: CondNoiseFn, mu: Tensor, noise: Tensor, mode: str,
+                       steps: Optional[int] = None) -> Tensor:
+    """The reverse chain of ``mode`` from ``mu`` noised by ``noise[0]``
+    (``IRSDE.noise_state``'s start), its step t drawing ``noise[T + 1 - t]``:
+    with ``noise = draw_noise(gen, mu, chain_draws(mode, T))`` the chain
+    that ``sde.noise_state(gen, mu)`` and ``reverse_*(..., gen)`` run, bit
+    for bit.  What a captured chain records."""
+    x = noisy_start(mu, noise[0], sde.max_sigma)
+    if mode == "sde":
+        return reverse_sde(sde, noise_fn, x, mu, steps=steps, noise_seq=noise[1:])
+    if mode == "posterior":
+        return reverse_posterior(sde, noise_fn, x, mu, steps=steps, noise_seq=noise[1:])
+    return reverse_ode(sde, noise_fn, x, mu, steps=steps)
 
 
 def forward_sde(

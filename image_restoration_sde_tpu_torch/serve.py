@@ -16,8 +16,9 @@ Endpoints:
 - ``GET /``: an upload page (drop an image, see the restoration);
 - ``GET /health``: the artifact's header, plus ``serving`` (the batching
   configuration, ``seed_reproducible``, the device calls so far:
-  ``batches``, ``requests``, ``mean_batch`` riders a call, and the
-  process's ``launches`` of each of the port's kernels);
+  ``batches``, ``requests``, ``mean_batch`` riders a call, the process's
+  ``launches`` of each of the port's kernels and, of those, the
+  ``warmup_launches`` made warming chains up before their capture);
 - ``POST /restore[?seed=N]``: body a PNG or JPEG image, response the
   restored PNG.  An image smaller than the artifact's size is
   reflect-padded and cropped back; a larger one gets 400.  ``seed`` must be
@@ -43,6 +44,11 @@ for ``--max-batch 1``, or where the artifact draws no noise (seed
 ``ignored``).  A symbolic-batch artifact's rows may run at other batch
 sizes, where the libraries may pick other algorithms, so it is not
 reproducible even with per-sample seeds.
+
+On the card the loader replays one captured graph of the whole chain a
+batch size (``exporting.LoadedSampler``): the warm-up call below captures
+the full batch's before the server binds; a symbolic artifact captures
+each other batch size at its first call.
 
 ``--port 0`` binds a free port; the server prints ``serving on
 <host>:<port>`` once it is warm and bound.
@@ -315,7 +321,9 @@ def build_handler(call, header, *, max_batch=8, window_ms=5.0, max_wait_ms=None,
             if path != "/health":
                 return self._send(404, b"not found", "text/plain")
             launches = {k.symbol: k.launches for k in KERNELS}
-            info = {**header, "serving": {**serving, **batcher.stats(), "launches": launches}}
+            warmups = {k.symbol: k.warmups for k in KERNELS}
+            info = {**header, "serving": {**serving, **batcher.stats(), "launches": launches,
+                                          "warmup_launches": warmups}}
             self._send(200, json.dumps(info, sort_keys=True).encode(), "application/json")
 
         def do_POST(self):

@@ -16,8 +16,12 @@ the tile's index in the whole grid, so the result does not depend on
 into its key instead, so its noise changes with ``tile_batch``.)
 
 uint8 in gives uint8 out (scaled to [0, 1] for the sampler, then rounded
-and clipped); float32 in gives float32 out.  The last chunk runs at its
-own size: eager PyTorch has no compiled batch shape to pad it to.
+and clipped); float32 in gives float32 out.  On the card the port's
+samplers replay one captured graph per chunk shape; the last chunk runs at
+its own size (a second graph), not padded to the first's as the JAX
+package pads to its compiled shape.  The blending stays eager: a few
+adds a tile, where the JAX package compiles the whole tile loop
+(``_build_device_run``).
 """
 
 from __future__ import annotations

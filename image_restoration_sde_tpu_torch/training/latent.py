@@ -17,7 +17,9 @@ Counterpart of ``image_restoration_sde_tpu/training/latent.py``:
 - :func:`make_latent_sampler`: encode the LQ image with the frozen
   compressor, noise the latent, reverse the IR-SDE in latent space with the
   score net, decode with the LQ skips and crop to the input size; the bokeh
-  net takes its lens values as a per-sample ``cond``.
+  net takes its lens values as a per-sample ``cond``.  On the card encode,
+  chain and decode are one captured graph a signature, as the JAX
+  package's sampler is one jitted program.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ import torch
 from torch import nn
 
 from ..models.latent_unet import UNet
-from ..sampling import check_mode, make_noise_fn, reverse, run_chunks
-from ..sde import IRSDE
+from .. import kernels
+from ..sampling import CapturedNet, capture_graphs, captures, check_mode, chunked, make_noise_fn, reverse, run_chunks
+from ..sde import IRSDE, samplers
+from ..sde.captured import generator_layout
 from ..sde.rng import GeneratorLike
 from .losses import matching_loss
 from .trainer import TrainState, _apply_update, make_train_step, step_metrics
@@ -103,21 +107,60 @@ def make_latent_sampler(
     steps: Optional[int] = None,
     chunk: Optional[int] = None,
     cast_params=None,
+    capture=True,
 ) -> Callable:
     """Returns ``sample(lq, gen, cond=None) -> restored`` (NHWC float32,
     lq's shape).
 
-    ``gen``, ``chunk`` and ``mode`` as in
+    ``gen``, ``chunk``, ``mode`` and ``capture`` as in
     ``sampling.make_restoration_sampler``: one generator draws the initial
     latent noise and then the chain's.  ``cond``, a tuple of per-sample
     tensors (the bokeh net's lens values, each (B,)), goes to the net as
     its fourth argument at every step and is sliced with the batch when
-    the batch runs in chunks.  ``cast_params`` applies to the score net,
-    which runs every step; the one-shot compressor keeps its parameters."""
+    the batch runs in chunks; a captured chain takes it as a static input.
+    ``cast_params`` applies to the score net, which runs every step; the
+    one-shot compressor keeps its parameters.  On the card encode, chain
+    and decode are captured as one graph a signature (the latent's shape,
+    which the noise buffer takes, found once a shape by an encode counted
+    with the warm-up); ``sample.prepare(lq, gen, cond=None)`` captures
+    without drawing."""
     check_mode(mode)
+    T = sde.T if steps is None else steps
+    graphs = capture_graphs(capture)
+    captured = None if graphs is None else CapturedNet(net, cast_params, graphs, also=(compressor,))
+    latent_shapes = {}
+
+    def chain(n):
+        def run(x, noise, *c):
+            fn = captured.fn()
+            noise_fn = fn if not c else (lambda xt, mu, tvec: fn(xt, mu, tvec, c))
+            latent_lq, hidden = compressor.encode(x)
+            draws = noise[: samplers.chain_draws(mode, n)]
+            latent = samplers.reverse_from_noise(sde, noise_fn, latent_lq, draws, mode, n)
+            return compressor.decode(latent, hidden)[:, : x.shape[1], : x.shape[2], :]
+
+        return run
+
+    def latent_shape(x):
+        if x.shape not in latent_shapes:
+            with kernels.warming_up():
+                latent_shapes[x.shape] = tuple(compressor.encode(x)[0].shape)
+        return latent_shapes[x.shape]
+
+    def replay(x, g, c=None, draw=True):
+        key = (tuple(x.shape), x.dtype, mode, T, generator_layout(g), chunk, c is not None)
+        like = x.new_empty(latent_shape(x))
+        n = samplers.chain_draws(mode, T)
+        inputs = (x, samplers.draw_noise(g, like, n) if draw else x.new_zeros((n, *like.shape)), *(c or ()))
+        if not draw:
+            return graphs.prepare(key, chain(T), inputs, warmup=chain(1))
+        return graphs(key, chain(T), inputs, warmup=chain(1))
 
     @torch.inference_mode()
     def sample(lq: torch.Tensor, gen: GeneratorLike, cond: Optional[Tuple] = None) -> torch.Tensor:
+        if captures(graphs, lq):
+            captured.sync()
+            return run_chunks(replay, lq, gen, chunk, cond)
         net_fn = make_noise_fn(net, cast_params)
 
         def sample_one(x, g, c=None):
@@ -129,4 +172,13 @@ def make_latent_sampler(
 
         return run_chunks(sample_one, lq, gen, chunk, cond)
 
+    @torch.inference_mode()
+    def prepare(lq: torch.Tensor, gen: GeneratorLike, cond: Optional[Tuple] = None) -> None:
+        if not captures(graphs, lq):
+            return
+        captured.sync()
+        for args in chunked(lq, gen, chunk, cond):
+            replay(*args, draw=False)
+
+    sample.graphs, sample.prepare = graphs, prepare
     return sample
