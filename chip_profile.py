@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one sampler step goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--sampling | --dit-train | --dit-xl] [--package CHECKOUT]
+    python3 chip_profile.py [--sampling | --train | --dit-train | --dit-xl] [--package CHECKOUT]
         [--form eager|captured|both]
 
 For each of the port's sampler paths (the configurations of
@@ -36,25 +36,34 @@ weights made from a seed, bf16 score net:
   host time to enqueue the NAFNet's fused 28-block level, and that
   level's kernel (K3) time by phase, from clock readings in the kernel.
 
-Then where one train step's time goes on the two pixel train paths
+Then where one train step's time goes on the train paths, each in the two
+forms of ``--form`` (the eager step, and the step replayed from its
+captured CUDA graph, as the train entry point runs it on the card;
+``training/captured.py``): the two pixel train paths
 (``configs/deraining/train/ir-sde.yml``: ConditionalUNet nf=64, depth=4,
 Adam; ``configs/deraining/train/refusion.yml``: ConditionalNAFNet width 64,
 enc [1, 1, 1, 28], Lion), built by the port's runner, float32, batch 4 of
 128 px, on the kernel path and the plain path, with TF32 off for
 convolutions (as ``chip_smoke.py`` runs) and with torch's default (cuDNN
 TF32 on, what the train entry point runs with): wall ms per step (host
-clock around ``TRAIN_STEPS`` steps ending in a synchronisation) and device
-time by kernel over the same steps.  Then the same for two latent train
-paths at torch's default, float32, batch 8 of 1024 px crops with a seeded
-frozen compressor: the latent NAFNet (``configs/latent-dehazing/train/
-nasde.yml``, kernel path and plain path) and DiT-L/2
-(``configs/latent-dehazing/train/dit.yml``, kernel path: the plain path's
-attention keeps B H N^2 float32 scores a block for its backward, past the
-card's memory at batch 8), with the step's peak memory.
+clock around ``TRAIN_STEPS`` steps ending in a synchronisation), host ms
+per step (the same steps with no synchronisation) and device time by
+kernel over the same steps, with the busy and idle share.  Then the same
+for two latent train paths at torch's default, float32, batch 8 of 1024 px
+crops with a seeded frozen compressor: the latent NAFNet
+(``configs/latent-dehazing/train/nasde.yml``, kernel path and plain path)
+and DiT-L/2 (``configs/latent-dehazing/train/dit.yml``, kernel path: the
+plain path's attention keeps B H N^2 float32 scores a block for its
+backward, past the card's memory at batch 8), with the step's peak memory;
+then the compressor (``configs/unet-latent/train/train_haze.yml``, batch 16
+of 256 px), latent bokeh (``configs/latent-bokeh/train/refusion.yml``,
+batch 8 of 512 px with lens values) and stereo
+(``configs/stereo-sr/train/refusion.yml``, batch 8 of 128 px pairs) train
+steps, kernel path.
 
-``--sampling`` stops after the sampler paths; ``--dit-train`` times the
-DiT-L/2 train step alone (its kernel path, the last line of the list
-above); ``--dit-xl`` profiles the DiT path's sampler step alone with
+``--sampling`` stops after the sampler paths; ``--train`` runs the train
+steps alone; ``--dit-train`` times the DiT-L/2 train step alone (its
+kernel path); ``--dit-xl`` profiles the DiT path's sampler step alone with
 DiT-XL/2 (``configs/latent-dehazing/train/dit.yml`` with ``which_model:
 DiT_XL_2``: 28 blocks, heads of 72) in its place; ``--package CHECKOUT`` imports
 the port from another checkout of the repository (``chip_compare.py
@@ -147,10 +156,12 @@ def device_times(run, steps):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = {}
+    kernels, count = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / steps  # ms per step
+            count += 1
+    print(f"[device-ops] {count / steps:.0f} device operations a step (kernels and copies the profiler saw)")
     return kernels
 
 
@@ -253,83 +264,135 @@ def compressor_times(tag, compressor, img):
     return latent
 
 
-def profile_train(dev, gen):
-    """One train step of each pixel train path (module docstring), kernel
-    path and plain path, TF32 off and at torch's default."""
-    import torch
-    import yaml
+def profile_train_task(name, build, args, extra=""):
+    """One train step of the task ``build(capture)`` on ``args`` (``(lq,
+    gt[, cond])``, or ``(gt,)`` for denoising) in each form of FORMS: the
+    eager step, and the step replayed from its captured graph (the train
+    entry point's on the card): wall ms per step (host clock around
+    TRAIN_STEPS steps ending in a synchronisation, after two steps, the
+    captured form's first capturing), host ms per step (the same steps with
+    no synchronisation, started on an idle card), device time by kernel,
+    the busy and idle share, and the peak memory."""
+    import gc
 
+    import torch
+
+    for form in FORMS:
+        task = build(form == "captured")
+        step_gen = torch.Generator(device=args[0].device).manual_seed(SEED + 2)
+        head, tail = (args[:2], args[2:]) if len(args) > 1 else (args, ())
+
+        def run(n=TRAIN_STEPS):
+            for _ in range(n):
+                task._train_step(task.state, *head, step_gen, *tail)
+
+        torch.cuda.reset_peak_memory_stats()
+        run(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        t0 = time.perf_counter()
+        run()
+        host = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        graphs = task._train_step.graphs if form == "captured" else None
+        launch = ""
+        if graphs is not None:  # the graph's own launch, apart from the step's other host work
+            ((_, entry),) = graphs.entries()
+            t0 = time.perf_counter()
+            entry.graph.replay()
+            launch = f"of it the graph's launch {(time.perf_counter() - t0) * 1e3:.3f} ms; "
+            torch.cuda.synchronize()
+        report(name if form == "eager" else f"{name} {form}", device_times(run, TRAIN_STEPS), wall,
+               f"{extra}host {host:.3f} ms/step, {launch}peak {peak:.2f} GiB; ")
+        if graphs is not None:  # the graphs' pool goes with them and the gradients in it
+            graphs.clear()
+            task.state.optimizer.zero_grad()
+        del task, run, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_task(dev, raw, plain=False):
+    """``build(capture)`` of the task of the train YAML ``raw`` (its nets'
+    plain path where ``plain``; a latent task's compressor seeded)."""
     from image_restoration_sde_tpu_torch import runners
     from image_restoration_sde_tpu_torch.utils import options
+
+    raw = {**raw, "path": {**raw["path"], "pretrain_model_L": None}}
+    for key in ("network_G", "network_L"):
+        if key in raw:
+            raw[key] = {**raw[key], "setting": {**raw[key]["setting"], "plain": plain}}
+    return lambda capture: runners.build_task(options.dict_to_nonedict(raw), SEED, dev, capture=capture)
+
+
+def load_train(*path):
+    import yaml
+
+    with open(os.path.join(REPO, "configs", *path)) as f:
+        return yaml.safe_load(f)
+
+
+def profile_train(dev, gen):
+    """One train step of each train path (module docstring) in both forms:
+    DiT-L/2 first, on a card nothing else has used; the pixel paths on the
+    kernel path and the plain path, TF32 off and at torch's default; then
+    the latent NAFNet, compressor, bokeh and stereo paths."""
+    import torch
+
+    profile_latent_train(dev, gen, (("dit", (False,)),))
 
     lq = torch.rand(4, 128, 128, 3, generator=gen, device=dev)
     gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
     default_tf32 = torch.backends.cudnn.allow_tf32
     for cfg in ("ir-sde", "refusion"):
-        with open(os.path.join(REPO, "configs", "deraining", "train", f"{cfg}.yml")) as f:
-            raw = yaml.safe_load(f)
+        raw = load_train("deraining", "train", f"{cfg}.yml")
         for plain in (False, True):
-            raw["network_G"]["setting"]["plain"] = plain
-            task = runners.build_task(options.dict_to_nonedict(raw), SEED, dev)
-            step_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-
-            def run(n=TRAIN_STEPS):
-                for _ in range(n):
-                    task._train_step(task.state, lq, gt, step_gen)
-
             for tf32 in (False, True):
                 torch.backends.cudnn.allow_tf32 = tf32
-                run(2)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
                 name = f"train {cfg} {'plain' if plain else 'kernel'} path, cuDNN TF32 {'on' if tf32 else 'off'}"
-                report(name, device_times(run, TRAIN_STEPS), wall, "batch 4 at 128 px, float32; ")
-            del task
-            torch.cuda.empty_cache()
+                profile_train_task(name, train_task(dev, raw, plain), (lq, gt), "batch 4 at 128 px, float32; ")
     torch.backends.cudnn.allow_tf32 = default_tf32
-    profile_latent_train(dev, gen)
+    profile_latent_train(dev, gen, (("nasde", (False, True)),))
+    profile_other_train(dev, gen)
 
 
 def profile_latent_train(dev, gen, cfgs=(("nasde", (False, True)), ("dit", (False,)))):
     """One train step of the latent train paths (module docstring): each
     (YAML stem, its plain flags) of ``cfgs``."""
     import torch
-    import yaml
-
-    from image_restoration_sde_tpu_torch import runners
-    from image_restoration_sde_tpu_torch.utils import options
 
     lq = torch.rand(8, 1024, 1024, 3, generator=gen, device=dev)
     gt = (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
     for cfg, paths in cfgs:
-        with open(os.path.join(REPO, "configs", "latent-dehazing", "train", f"{cfg}.yml")) as f:
-            raw = yaml.safe_load(f)
-        raw["path"]["pretrain_model_L"] = None  # a seeded compressor
+        raw = load_train("latent-dehazing", "train", f"{cfg}.yml")
         for plain in paths:
-            for key in ("network_G", "network_L"):
-                raw[key]["setting"]["plain"] = plain
-            task = runners.build_task(options.dict_to_nonedict(raw), SEED, dev)
-            step_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-
-            def run(n=TRAIN_STEPS):
-                for _ in range(n):
-                    task._train_step(task.state, lq, gt, step_gen)
-
-            torch.cuda.reset_peak_memory_stats()
-            run(2)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-            peak = torch.cuda.max_memory_allocated() / 2**30
             name = f"train {cfg} {'plain' if plain else 'kernel'} path, cuDNN TF32 on"
-            report(name, device_times(run, TRAIN_STEPS), wall, f"batch 8 at 1024 px, float32, peak {peak:.2f} GiB; ")
-            del task
-            torch.cuda.empty_cache()
+            profile_train_task(name, train_task(dev, raw, plain), (lq, gt), "batch 8 at 1024 px, float32; ")
+
+
+def profile_other_train(dev, gen):
+    """One train step of the compressor, latent bokeh and stereo train
+    paths at their YAMLs' batch and crop, kernel path, cuDNN TF32 on."""
+    import torch
+
+    def pair(batch, size, channels=3):
+        lq = torch.rand(batch, size, size, channels, generator=gen, device=dev)
+        return lq, (lq - 0.2 * torch.rand(lq.shape, generator=gen, device=dev)).clamp(0, 1)
+
+    lens = tuple(torch.rand(8, generator=gen, device=dev) * s for s in (160.0, 160.0, 1.0))
+    for cfg, path, args in (("compressor", ("unet-latent", "train", "train_haze.yml"), pair(16, 256)),
+                            ("bokeh", ("latent-bokeh", "train", "refusion.yml"), (*pair(8, 512), lens)),
+                            ("stereo", ("stereo-sr", "train", "refusion.yml"), pair(8, 128, 6))):
+        raw = load_train(*path)
+        ds = raw["datasets"]["train"]
+        as_yaml = (ds["batch_size"], ds["GT_size"]) == tuple(args[0].shape[:2])
+        name = f"train {cfg} kernel path, cuDNN TF32 on"
+        extra = f"batch {ds['batch_size']} at {ds['GT_size']} px{'' if as_yaml else ' (not the YAML)'}, float32; "
+        profile_train_task(name, train_task(dev, raw), args, extra)
 
 
 def main(argv=None) -> int:
@@ -341,9 +404,11 @@ def main(argv=None) -> int:
     parser.add_argument("--sampling", action="store_true", help="the sampler paths only, no train step")
     parser.add_argument("--package", default=REPO, help="the checkout whose port is imported")
     parser.add_argument("--dit-train", action="store_true", help="the DiT-L/2 train step only")
+    parser.add_argument("--train", action="store_true", help="the train steps only, no sampler path")
     parser.add_argument("--dit-xl", action="store_true", help="the DiT-XL/2 sampler step only")
     parser.add_argument("--form", choices=("eager", "captured", "both"), default="both",
-                        help="the sampler paths' chain eager, captured as one CUDA graph, or both (default)")
+                        help="the sampler chains and train steps eager, captured as one CUDA graph, or both "
+                             "(default)")
     args = parser.parse_args(argv)
     global FORMS
     FORMS = FORMS if args.form == "both" else (args.form,)
@@ -361,8 +426,11 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    if args.dit_train:
-        profile_latent_train(dev, gen, (("dit", (False,)),))
+    if args.dit_train or args.train:
+        if args.train:
+            profile_train(dev, gen)
+        else:
+            profile_latent_train(dev, gen, (("dit", (False,)),))
         print_card()
         return 0
 

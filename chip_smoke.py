@@ -100,6 +100,14 @@ requests from them, then runs requests again through the same sampler with
 be bit-equal and the generators' states equal after, and the wall ms a
 step of each form is printed (``[captured]`` JSON line).
 
+Every train path of phase 21 trains as the port's train entry point trains
+on the card: each step replayed from one CUDA graph of its forward,
+backward and update captured per step signature (``training/captured.py``),
+held against the same steps eager (``train(..., capture=False)``) from
+the same checkpoint and generator.  The data- and tensor-parallel runs,
+their one-process references and the dry run step eagerly (their
+collectives are not captured).
+
 Phases, each printing its lines and its seconds (the serving phases run
 where their nets are built: export deraining after 5, export latent after
 7, export denoising, serve, bench, bench train and bench refusion after 14;
@@ -211,27 +219,36 @@ dit-xl main path: phase 10's first posterior batch and odd image through
    limit, and the forward against its plain version, SDPA and the bounds,
    float32 and bfloat16;
 20. train nets: one loss and backward of each of the seven full-width
-   train nets through its train step (the DiT at batch 1), kernel path
-   against plain path, the same parameters, batch and injected
+   train nets through its train step (the DiT at batch 1), eager, kernel
+   path against plain path, the same parameters, batch and injected
    (timesteps, x_t): the loss within 1e-4, each gradient within 1e-3 of
    its max; exact launches, none in the backward; one DiT step at batch 8
-   without and one with remat (48 K4 launches), each with its peak memory;
+   without and one with remat (48 K4 launches), each with its peak
+   memory, and the remat step captured (one graph, its replay's 48 K4);
 21. train main path, for each of the seven train YAMLs (TRAIN_PATHS, the
    compressor first, whose last checkpoint the latent and DiT paths load
-   as ``pretrain_model_L``): ``train.train`` for the path's steps
-   (checkpoints half-way and at the end, one validation at the end through
-   the task's sampler or, for the compressor, its cross decode), each net
-   it builds fresh held to the JAX package's initialisation first
+   as ``pretrain_model_L``): ``train.train`` for the path's steps, each
+   replayed from the step's captured graph as the entry point runs it on
+   the card (checkpoints half-way and at the end, one validation at the end
+   through the task's sampler or, for the compressor, its cross decode),
+   each net it builds fresh held to the JAX package's initialisation first
    (``init_check``: flax's constants exact, kernels within 2 sigma', a
    fresh DiT's forward exactly 0), exactly
    ``train_counts`` launches per step (none in the backward) and
    ``val_counts`` per validation image; a finite loss; the run resumed
-   from the half-way checkpoint (no validation, no checkpoint written)
-   bit-equal to the uninterrupted one (compressor, latent, DiT) or, for
-   the pixel, bokeh and stereo paths, its first step's loss within 1e-6
-   and the parameters after it within 2 lr; then the path's plain-path
-   steps (none launching a kernel; no checkpoint written); train ms/step, img/s and peak memory,
-   kernel path and plain path (a record);
+   eagerly from the half-way checkpoint (no validation, no checkpoint
+   written) held against the captured run: bit-equal (losses, final
+   parameters, optimizer state, EMA) on the compressor (cuDNN's
+   deterministic algorithms: TRAIN_DETERMINISTIC), latent and DiT
+   paths; on the pixel, bokeh and stereo paths its first step's loss
+   within 1e-6 and the parameters after it within 2 lr, the IR-SDE path's
+   two eager runs from that checkpoint printed first; the generators'
+   states equal after the last step on every path; the compressor with
+   ``grad_accum: 2`` eager, captured and captured from the eager run's
+   checkpoint, bit-equal; then the path's plain-path steps (none launching
+   a kernel; no checkpoint written); train ms/step, host ms/step and peak
+   memory captured and eager, the capture's seconds and pool, and the
+   plain path (a record);
 22. eval (``phase_eval``, in phase 21's temporary directory, cuDNN TF32 on
    as a user's run has it): each test YAML of EVAL_PATHS through
    ``test.evaluate`` (what the test entry point runs) on its synthetic set,
@@ -242,7 +259,7 @@ dit-xl main path: phase 10's first posterior batch and odd image through
    set whose 28-block level's TLSC window covers its map (one K3 a step)
    and one where it does not (none: the 28 blocks run one by one, 2 K1
    each); deraining by tiles with ``tile_device`` (one sampler run per
-   chunk of tiles); the inference entry point with ``--sigma 25`` (230 ODE
+   chunk of tiles); the inference entry point with ``--sigma 8`` (100 ODE
    steps an image); the restore entry point in its own process, by tiles;
    the compressor's YAML with ``--lpips-pth`` and ``--fid-pth`` (seeded
    weights), the card's LPIPS distances and InceptionV3 features against
@@ -317,9 +334,9 @@ artifacts also loads the symbolic deraining artifact over
    loader on the same blocks, within DP_ARTIFACT_BOUND of the eager
    sampler on the whole batch, exact launches;
 bench train: ``bench_train`` at BENCH_TRAIN (UNet nf 64 depth 4, batch 32
-   at 128 px; the Refusion NAFNet on 64x64x8 latents, batch 32), its line
-   (img/s/GPU, MFU against the card's bf16 peak, step ms, peak GiB) and
-   exact launches on every step;
+   at 128 px; the Refusion NAFNet on 64x64x8 latents, batch 32), captured
+   then eager, its line (img/s/GPU, MFU against the card's bf16 peak, step
+   ms, peak GiB of each form) and exact launches on every step;
 bench refusion: ``bench_refusion`` for nafnet and dit at 1024 px, 100
    steps, BENCH_REFUSION_REPS timed calls after two warm-ups, its line and
    exact launches; before each, one one-step call records the sites of
@@ -328,7 +345,8 @@ train dp (after phase 21's IR-SDE run, in its directory): the train entry
    point under ``torchrun`` (``--dp-child``; run (b), two gloo ranks on the
    card, in phase train tp's torchrun), DP_STEPS steps of batch 4
    resumed from phase 21's half-way checkpoint (DP_AT), for each of
-   dp_runs, against phase 21's same steps: one rank
+   dp_runs, against phase 21's same steps of its eager run resumed from
+   that checkpoint: one rank
    bit-equal; more ranks their first step's loss within 1e-6, its
    all-reduced gradients within DP_GRAD_REL of max|grad| of the same
    ranks' gradients averaged in the script's process and the
@@ -338,8 +356,8 @@ train dp (after phase 21's IR-SDE run, in its directory): the train entry
    data-parallel line;
 train tp (after phase 21's DiT run, in its directory, with its last
    compressor checkpoint): the TP_PATHS YAMLs, each first in this process
-   (TP_STEPS steps, no validation, no checkpoint; its losses, step times
-   and step-1 gradients kept on the host), then all with
+   (TP_STEPS eager steps, no validation, no checkpoint; its losses, step
+   times and step-1 gradients kept on the host), then all with
    ``train.model_parallel: TP_RANKS`` in one ``torchrun`` (``--ranks-child``,
    TP_RANKS gloo ranks on the card, after train dp's run (b)), cuDNN TF32
    off on both sides: the
@@ -460,7 +478,20 @@ TRAIN_PATHS = {
 }
 LATENT_TRAIN = ("latent", "dit", "bokeh")  # frozen compressor, score net on its latents
 TRAIN_VAL_SAMPLE_T = 15
-TRAIN_BIT_EQUAL = ("compressor", "latent", "dit")  # resumed runs held bit-equal to uninterrupted ones
+TRAIN_BIT_EQUAL = ("compressor", "latent", "dit")  # captured runs held bit-equal to eager ones
+# the paths whose runs take cuDNN's deterministic algorithms: cuDNN's
+# default weight-gradient algorithms for the compressor's 256 px stem sum
+# in another order from run to run (two eager runs' Lion momenta differ in
+# their last bits, their parameters not at all); with deterministic ones
+# eager and captured runs are bit-equal there too
+TRAIN_DETERMINISTIC = ("compressor",)
+# the pixel path whose eager step is run twice from one checkpoint: how far
+# the card's own summation order moves a step, the bound the captured step
+# is held to on the paths outside TRAIN_BIT_EQUAL
+TRAIN_TWIN = "ir-sde"
+# the compressor's train.grad_accum: 2 runs (grad_accum_runs): calls, a
+# checkpoint half-way
+GRAD_ACCUM_STEPS = 4
 # the synthetic data by kind: (writer, train images, their side range, the
 # validation images' side range): 128-256 px pairs for the 128 px pixel
 # crops, 256-320 px for the compressor's 256 px crops, 1024-1280 px for the
@@ -529,7 +560,7 @@ SERVE_WINDOW_MS, SERVE_N, SERVE_CONCURRENCY, SERVE_WARMUP = 50.0, 32, 8, 8
 # bench_cuda.py's batch sweep at 128 px, reps per batch (after two warm-ups):
 # its ends, beside bench_cuda.py's own batch 8 (the three PERF.md quotes)
 BENCH_SWEEP, BENCH_SWEEP_REPS = (1, 32), 2
-BENCH_REPS = 5  # bench_cuda.py's default: timed calls of each form at batch 8
+BENCH_REPS = 3  # timed calls of each form at batch 8 (bench_cuda.py's default 5, cut to the time limit)
 # data parallelism (phase train dp): steps of the deraining train YAML
 # under torchrun, resumed from phase 21's half-way checkpoint of that YAML
 # (its step DP_RESUME): the steps DP_AT[0]..DP_AT[1], with Adam's moments
@@ -2558,16 +2589,18 @@ def train_network(label, opt) -> tuple:
     return which, {k: v for k, v in setting.items() if k != "upscale"}
 
 
-def train_net_step(label, opt, dev, gen, plain, state_dicts, batch, remat=False):
+def train_net_step(label, opt, dev, gen, plain, state_dicts, batch, remat=False, capture=False):
     """One train step of the path ``label``'s nets (kernel or plain path)
-    with a zero learning rate on ``batch``: the pixel and latent paths with
-    injected ``(timesteps, x_t)`` drawn from ``gen``.  Returns (loss,
-    {name: gradient}, launches by kernel symbol, the score net)."""
+    with a zero learning rate on ``batch``: eager, the pixel and latent
+    paths with injected ``(timesteps, x_t)`` drawn from ``gen``; or
+    ``capture``d (a latent path: its states drawn from ``gen`` by the step,
+    one graph captured and replayed).  Returns (loss, {name: gradient},
+    launches by kernel symbol (a capture's warm-up's apart), the score
+    net)."""
     import torch
 
     from image_restoration_sde_tpu_torch import runners
     from image_restoration_sde_tpu_torch.models import build_network
-    from image_restoration_sde_tpu_torch.ops import KERNELS
     from image_restoration_sde_tpu_torch.training import ScheduledOptimizer, build_optimizer, create_train_state, \
         make_compressor_train_step, make_latent_train_step, make_train_step
     from image_restoration_sde_tpu_torch.utils import options
@@ -2582,23 +2615,25 @@ def train_net_step(label, opt, dev, gen, plain, state_dicts, batch, remat=False)
     lq, gt, cond = batch
     sde = runners._make_irsde(nopt["sde"], dev)
     if label == "compressor":
-        step, args = make_compressor_train_step(), (lq, gt, None)
+        step, args = make_compressor_train_step(capture=False), (lq, gt, None)
     elif label in LATENT_TRAIN:
         which_l, setting_l = options.network_setting(nopt, "network_L")
         with torch.device(dev):
             comp = build_network(which_l, setting_l, plain=plain)
         comp.load_state_dict(state_dicts["compressor"])
-        with torch.no_grad():
-            lat = comp.encode(lq[:1])[0]
-        z = torch.randn(lq.shape[0], *lat.shape[1:], generator=gen, device=dev)
-        t, xt = sde.generate_random_states(gen, z, z + 0.2)
-        step, args = make_latent_train_step(Injected(sde, t, xt), comp, remat=remat), (lq, gt, None, cond)
+        if not capture:
+            with torch.no_grad():
+                lat = comp.encode(lq[:1])[0]
+            z = torch.randn(lq.shape[0], *lat.shape[1:], generator=gen, device=dev)
+            sde = Injected(sde, *sde.generate_random_states(gen, z, z + 0.2))
+        step, args = make_latent_train_step(sde, comp, remat=remat, capture=capture), (lq, gt, gen, cond)
     else:
         t, xt = sde.generate_random_states(gen, gt, lq)
-        step, args = make_train_step(Injected(sde, t, xt)), (lq, gt, None)
-    before = {k.symbol: k.launches for k in KERNELS}
+        step, args = make_train_step(Injected(sde, t, xt), capture=False), (lq, gt, None)
+    before = request_counts()
     _, metrics = step(state, *args)
-    grew = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+    grew = {sym: n - before[sym] for sym, n in request_counts().items()}
+    check(len(step.graphs or ()) == int(capture), f"train net {label}: graphs {step.graphs}")
     return metrics["loss"].item(), {k: p.grad.clone() for k, p in net.named_parameters()}, grew, net
 
 
@@ -2617,6 +2652,8 @@ def phase_train_nets(dev, train_opts):
     forward's, none in the backward.  Then one DiT-L/2 step at its YAML's
     batch without and one with ``remat`` (K4 twice per attention site: the
     forward again in the backward), each with its peak memory."""
+    import gc
+
     import torch
 
     from image_restoration_sde_tpu_torch.models import build_network, init_params_
@@ -2666,20 +2703,22 @@ def phase_train_nets(dev, train_opts):
         if label == "dit":
             ds = opt["datasets"]["train"]
             batch = train_batch(label, opt, dev, gen, batch=ds["batch_size"])
-            for remat in (False, True):
+            for remat, capture in ((False, False), (True, False), (True, True)):
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 loss, grads, grew, net = train_net_step(label, opt, dev, step_gen, False, state_dicts, batch,
-                                                        remat=remat)
+                                                        remat=remat, capture=capture)
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 want = {k: n * (2 if remat and k == "irsde_flash_attention" else 1)
                         for k, n in train_counts(label).items()}
-                check(grew == want and np.isfinite(loss), f"train net dit remat={remat}: {grew}, loss {loss}")
+                form = "captured (its warm-up and capture included)" if capture else "eager (with its warm-up)"
+                check(grew == want and np.isfinite(loss), f"train net dit remat={remat} {form}: {grew}, loss {loss}")
                 print(f"[train-net] dit {which} f32 batch {ds['batch_size']} at {ds['GT_size']} px, remat {remat} "
-                      f"(torch.utils.checkpoint around the whole net): one step {seconds:.2f} s (with its "
-                      f"warm-up), launches {grew}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                      f"(torch.utils.checkpoint around the whole net), {form}: one step {seconds:.2f} s, launches "
+                      f"{grew}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
                 del grads, net
+                gc.collect()
                 torch.cuda.empty_cache()
             del batch
 
@@ -2773,13 +2812,18 @@ def no_checkpoints():
 @contextlib.contextmanager
 def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
     """Record every train step and validation the train tasks make inside
-    the block: per step its launches by kernel symbol, card milliseconds
-    (host clock between synchronisations) and loss, the net's parameters
+    the block: per step its launches by kernel symbol (less a capture's
+    warm-up's, ``request_counts``), card milliseconds (host clock between
+    synchronisations) and loss (``steps``), the host milliseconds up to its
+    return, before the synchronisation (``host_ms``), and the state of the
+    run's generator after it (``gens``); the net's parameters
     (on the host) after each step of ``snapshot_at`` (``snapshots``, by
     step) and the gradients the optimizer stepped on (under DDP the ranks'
     mean) at each step of ``grads_at`` (``grads``, by step); what step
     ``control_at`` begins with (``control``: the task, its batch, the
-    generators' states and the parameters; ``block_mean_grads``); per
+    generators' states and the parameters; ``block_mean_grads``); the
+    step's captured graphs after each capture (``capture``: their count,
+    the warm-ups' and captures' seconds, the pool's MiB); per
     validation its launches and image count.  A split net's gradients are
     assembled from its model group (a collective of its ranks)."""
     import copy
@@ -2787,9 +2831,8 @@ def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
     import torch
 
     from image_restoration_sde_tpu_torch import runners
-    from image_restoration_sde_tpu_torch.ops import KERNELS
 
-    rec = {"steps": [], "vals": [], "snapshots": {}, "grads": {}}
+    rec = {"steps": [], "host_ms": [], "gens": [], "vals": [], "snapshots": {}, "grads": {}, "capture": None}
     classes = [c for c in (runners.PixelDiffusionTask, runners.GaussianDenoisingTask, runners.CompressorTask,
                            runners.LatentDiffusionTask) if "step" in vars(c)]
     originals = {c: (c.step, c.validate) for c in classes}
@@ -2800,14 +2843,23 @@ def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
                 rec["control"] = {"task": self, "step": step, "batch": batch, "gen": gen.get_state(),
                                   "device": gen.device, "deg": copy.deepcopy(self.deg_rng.bit_generator.state),
                                   "params": {k: v.detach().clone() for k, v in state.net.named_parameters()}}
-            before = {k.symbol: k.launches for k in KERNELS}
+            before = request_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(self, state, batch, gen)
+            host = (time.perf_counter() - t0) * 1e3
             loss = metrics["loss"].item()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            rec["steps"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, ms, loss))
+            rec["steps"].append(({sym: n - before[sym] for sym, n in request_counts().items()}, ms, loss))
+            rec["host_ms"].append(host)
+            rec["gens"].append(gen.get_state())
+            graphs = getattr(self._train_step, "graphs", None)
+            if graphs is not None and len(graphs) != (rec["capture"] or {}).get("graphs", 0):
+                entries = [e for _, e in graphs.entries()]
+                rec["capture"] = {"graphs": len(entries), "warm_s": [e.warm_s for e in entries],
+                                  "capture_s": [e.capture_s for e in entries],
+                                  "pool_mib": graphs.pool_bytes() / 2**20}
             if state.step in snapshot_at:
                 rec["snapshots"][state.step] = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
             if state.step in grads_at:
@@ -2818,9 +2870,9 @@ def recorded_steps(snapshot_at=(), grads_at=(), control_at=None):
             return state, metrics
 
         def validate_rec(self, state, loader, gen, out_dir, at):
-            before = {k.symbol: k.launches for k in KERNELS}
+            before = request_counts()
             vm = validate(self, state, loader, gen, out_dir, at)
-            rec["vals"].append(({k.symbol: k.launches - before[k.symbol] for k in KERNELS}, vm))
+            rec["vals"].append(({sym: n - before[sym] for sym, n in request_counts().items()}, vm))
             return vm
 
         return step_rec, validate_rec
@@ -2887,34 +2939,69 @@ def phase_train_main_path(dev, label, opt, workdir, smi, pretrain_l=None, keep=N
     (TRAIN_DATA), ``niter`` cut to the path's steps with a checkpoint
     half-way and one validation (the path's validation images, the YAML's
     sampler) at the end, every net it builds fresh held by ``init_check``
-    (``fresh_nets``).  Per train step exactly the forward's launches
-    (``train_counts``), none in the backward, and a finite loss; per
+    (``fresh_nets``); cuDNN's deterministic algorithms on the paths of
+    TRAIN_DETERMINISTIC.  Its steps are captured, as the entry point runs them
+    on the card: one graph (``training/captured.py``), whose capture
+    seconds and pool are reported.  Per train step exactly the forward's
+    launches (``train_counts``; a replay counts its recorded nodes, the
+    warm-up's apart), none in the backward, and a finite loss; per
     validation image exactly ``val_counts``; the checkpoints on disk
-    (``lastest_EMA.pth`` where the task keeps an EMA).  Then the run
-    resumed from the half-way checkpoint (the same YAML with
-    ``path.resume_state``): its steps against the uninterrupted run's,
-    bit-equal for the paths of TRAIN_BIT_EQUAL (losses and the final
-    parameters), else (the pixel, bokeh and stereo paths) its first step's
-    loss within 1e-6 and the parameters after it
-    elementwise within 2 lr_G (Adam's and Lion's sign-sensitive steps on
-    gradients the card may sum in another order); and the path's
-    plain-path steps (no kernel launches) for their time.  Returns the
-    launches of the first run by kernel symbol and a record of the times
-    and peak memory; ``keep`` (a dict) gets the first run's losses and
-    milliseconds at the steps of DP_AT, its parameters after them, the
-    gradients of the first, its half-way checkpoint (``state``, ``weights``)
-    and, for each world size of ``dp_runs`` past 1, the first step's
-    gradients that that many ranks average (``block_mean_grads``, computed
-    after the path's launches were read), which phase train dp holds its
-    runs against."""
+    (``lastest_EMA.pth`` where the task keeps an EMA).  Then the eager
+    side: the run resumed from the captured run's half-way checkpoint (the
+    same YAML with ``path.resume_state``, ``train(..., capture=False)``),
+    its steps against the captured run's, bit-equal for the paths of
+    TRAIN_BIT_EQUAL (losses, final parameters, optimizer state and EMA),
+    else (the pixel, bokeh and stereo paths) its first step's loss within
+    1e-6 and the parameters after it elementwise within 2 lr_G (Adam's and
+    Lion's sign-sensitive steps on gradients the card may sum in another
+    order; on TRAIN_TWIN a second eager run from the same checkpoint prints
+    how far two eager steps differ); on every path the generator's state
+    after the last step equal.  On the compressor, ``grad_accum_runs``.
+    Then the path's plain-path steps (no kernel launches) for their time.
+    Returns the launches of the captured run by kernel symbol and a record
+    of the captured and eager ms and host ms a step, the capture's seconds
+    and pool, and the peak memory; ``keep`` (a dict) gets the eager run's
+    losses and milliseconds at the steps of DP_AT, its parameters after
+    them, the gradients of the first, the half-way checkpoint (``state``,
+    ``weights``) and, for each world size of ``dp_runs`` past 1, the first
+    step's gradients that that many ranks average (``block_mean_grads``,
+    computed after the path's launches were read), which phase train dp
+    holds its runs (eager, resumed from the same checkpoint) against."""
     import torch
 
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    cudnn_tf32, deterministic = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
     torch.backends.cudnn.allow_tf32 = True  # torch's default
+    torch.backends.cudnn.deterministic = label in TRAIN_DETERMINISTIC
     try:
         return train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep)
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = cudnn_tf32, deterministic
+
+
+def final_state(state, label) -> dict:
+    """What a train run ends with, on the host: its step count and
+    parameters and, on the paths held bit for bit (TRAIN_BIT_EQUAL), the
+    optimizer's counts and state (``state_tensors``) and the EMA's count
+    and parameters."""
+    out = {"step": state.step, "params": [p.detach().cpu() for p in state.net.parameters()]}
+    if label in TRAIN_BIT_EQUAL:
+        opt = state.optimizer
+        out.update(counts=(opt.updates, opt.mini_step), opt=[t.cpu() for t in opt.state_tensors()])
+        if state.ema is not None:
+            out.update(ema_step=state.ema.step, ema=[t.cpu() for t in state.ema.params.values()])
+    return out
+
+
+def final_differs(a: dict, b: dict) -> list:
+    """The parts in which two runs' ``final_state`` differ (none: bit-equal)."""
+    import torch
+
+    def same(x, y):
+        if isinstance(x, list):
+            return len(x) == len(y) and all(u.shape == v.shape and torch.equal(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return sorted(k for k in a.keys() | b.keys() if k not in a or k not in b or not same(a[k], b[k]))
 
 
 def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
@@ -2924,7 +3011,6 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     import torch
 
     from image_restoration_sde_tpu_torch import train
-    from image_restoration_sde_tpu_torch.ops import KERNELS
     from image_restoration_sde_tpu_torch.utils import options
 
     _, kind, steps, save, plain_steps, val_images = TRAIN_PATHS[label]
@@ -2932,36 +3018,24 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     root = os.path.join(workdir, label)
     os.makedirs(root, exist_ok=True)
     batch, crop = opt["datasets"]["train"]["batch_size"], opt["datasets"]["train"]["GT_size"]
+    lr = float(opt["train"]["lr_G"])
     yml = write_train_yaml(os.path.join(root, "run.yml"), label, opt, root, data, steps, save, steps,
                            pretrain_l=pretrain_l)
     exp = options.parse(yml)["path"]["experiments_root"]
     want = train_counts(label)
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with recorded_steps(snapshot_at=(*DP_AT, save + 1) if keep is not None else (save + 1,),
-                        grads_at=DP_AT[:1] if keep is not None else (),
-                        control_at=DP_AT[0] if keep is not None else None) as rec, \
-            fresh_nets(f"train {label}", dev) as inits:
+    with recorded_steps(snapshot_at=(save + 1,)) as rec, fresh_nets(f"train {label}", dev) as inits:
         t0 = time.perf_counter()
-        state = train.train(yml, dev)
+        state = train.train(yml, dev)  # captured: the entry point's default on the card
         seconds = time.perf_counter() - t0
     check(len(inits) == (2 if label in LATENT_TRAIN else 1), f"train {label}: {len(inits)} fresh nets")  # + compressor
-    if keep is not None:
-        window = rec["steps"][DP_AT[0] - 1:DP_AT[1]]
-        keep.update(losses=[r[2] for r in window], ms=[r[1] for r in window],
-                    params={at: rec["snapshots"][at] for at in DP_AT}, grads=rec["grads"][DP_AT[0]],
-                    lr=float(opt["train"]["lr_G"]), state=os.path.join(exp, "training_state", f"{save}.state"),
-                    weights=os.path.join(exp, "models", f"{save}_G.pth"))
     peak = torch.cuda.max_memory_allocated()
-    launches = {k.symbol: k.launches for k in KERNELS}
+    launches = request_counts()
     keeps_ema = state.ema is not None
-    final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
-    if keep is not None:  # after the path's launches were read: its control's do not count
-        keep["block_grads"] = {n: block_mean_grads(rec["control"], state, n) for _, n, _ in dp_runs() if n and n > 1}
-        del rec["control"]
+    final = final_state(state, label)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2970,6 +3044,8 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     for i, (grew, _, loss) in enumerate(rec["steps"]):
         check(grew == want, f"train {label} step {i + 1}: launches {grew}, expected {want}")
         check(np.isfinite(loss), f"train {label} step {i + 1}: loss {loss}")
+    cap = rec["capture"]
+    check(cap is not None and cap["graphs"] == 1, f"train {label}: captured graphs {cap}")
     check(len(rec["vals"]) == 1, f"train {label}: {len(rec['vals'])} validations")
     per_image = val_counts(label, val_steps(opt))
     for grew, vm in rec["vals"]:
@@ -2978,62 +3054,163 @@ def train_main_path(dev, label, opt, workdir, smi, pretrain_l, keep):
     saved = sorted(os.listdir(os.path.join(exp, "models")))
     check(saved == sorted([f"{save}_G.pth", f"{steps}_G.pth"] + (["lastest_EMA.pth"] if keeps_ema else [])),
           f"train {label}: models {saved}")
-    ms = [r[1] for r in rec["steps"][2:]]
     losses = [r[2] for r in rec["steps"]]
 
+    # the eager side: the captured run's half-way checkpoint resumed with
+    # every step eager (no validation, no checkpoint written)
     state_file = os.path.join(exp, "training_state", f"{save}.state")
     yml_resume = write_train_yaml(os.path.join(root, "resume.yml"), label, opt, root, data, steps, save,
-                                  steps * 10, resume=state_file, pretrain_l=pretrain_l)  # no validation
-    with recorded_steps(snapshot_at=(save + 1,)) as rec_resume, no_checkpoints():
-        state = train.train(yml_resume, dev)
-    resumed_final = {k: v.detach().cpu() for k, v in state.net.named_parameters()}
+                                  steps * 10, resume=state_file, pretrain_l=pretrain_l)
+
+    def eager_run(snapshot_at, grads_at=(), control_at=None, niter=None):
+        yml_ = yml_resume if niter is None else write_train_yaml(
+            os.path.join(root, "resume_twin.yml"), label, opt, root, data, niter, save, steps * 10, resume=state_file,
+            pretrain_l=pretrain_l)
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_steps(snapshot_at, grads_at, control_at) as rec_, no_checkpoints():
+            state_ = train.train(yml_, dev, capture=False)
+        return rec_, state_, torch.cuda.max_memory_allocated()
+
+    rec_eager, state, eager_peak = eager_run(
+        (save + 1, *(DP_AT if keep is not None else ())), DP_AT[:1] if keep is not None else (),
+        DP_AT[0] if keep is not None else None)
+    eager_final = final_state(state, label)
+    if keep is not None:  # phase train dp's one-process reference: these eager steps, resumed as its runs are
+        window = rec_eager["steps"][DP_AT[0] - save - 1:DP_AT[1] - save]
+        keep.update(losses=[r[2] for r in window], ms=[r[1] for r in window],
+                    params={at: rec_eager["snapshots"][at] for at in DP_AT}, grads=rec_eager["grads"][DP_AT[0]],
+                    lr=lr, state=state_file, weights=os.path.join(exp, "models", f"{save}_G.pth"))
+        keep["block_grads"] = {n: block_mean_grads(rec_eager["control"], state, n) for _, n, _ in dp_runs()
+                               if n and n > 1}
+        del rec_eager["control"]
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    check(len(rec_resume["steps"]) == steps - save and not rec_resume["vals"],
-          f"train {label} resumed: {len(rec_resume['steps'])} steps, {len(rec_resume['vals'])} validations")
-    check(all(grew == want for grew, _, _ in rec_resume["steps"]), f"train {label} resumed steps: launches")
-    first_loss, first_want = rec_resume["steps"][0][2], rec["steps"][save][2]
-    loss_rel = abs(first_loss - first_want) / abs(first_want)
-    lr = float(opt["train"]["lr_G"])
-    snapshot, resumed = rec["snapshots"][save + 1], rec_resume["snapshots"][save + 1]
-    dparam = max((resumed[k] - v).abs().max().item() for k, v in snapshot.items())
-    equal_losses = [a[2] for a in rec_resume["steps"]] == losses[save:]
-    equal_final = all(torch.equal(resumed_final[k], v) for k, v in final.items())
-    print(f"[train-main] {label}: resumed from step {save}: step {save + 1} loss {first_loss:.8g} against "
-          f"{first_want:.8g} uninterrupted (rel {loss_rel:.3g}); parameters after it max|d| {dparam:.3g} "
-          f"(2 lr_G = {2 * lr:.3g}); steps {save + 1}..{steps} losses bit-equal: {equal_losses}, final parameters "
-          f"bit-equal: {equal_final}")
+    check(len(rec_eager["steps"]) == steps - save and not rec_eager["vals"],
+          f"train {label} eager: {len(rec_eager['steps'])} steps, {len(rec_eager['vals'])} validations")
+    check(all(grew == want for grew, _, _ in rec_eager["steps"]), f"train {label} eager steps: launches")
+    check(rec_eager["capture"] is None, f"train {label} eager: a graph was captured")
+
+    def step_diff(loss, snapshot):
+        """Step save + 1's ``loss`` and the parameters after it against the
+        eager run's: loss rel, parameters max|d|."""
+        want = rec_eager["steps"][0][2]
+        return abs(loss - want) / abs(want), max((snapshot[k] - v).abs().max().item()
+                                                 for k, v in rec_eager["snapshots"][save + 1].items())
+
+    if label == TRAIN_TWIN:  # two eager runs from the same checkpoint: how far the card's own order moves a step
+        rec_twin, state, _ = eager_run((save + 1,), niter=save + 1)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        twin_rel, twin_dparam = step_diff(rec_twin["steps"][0][2], rec_twin["snapshots"][save + 1])
+        print(f"[train-main] {label}: two eager runs resumed from step {save}: step {save + 1} loss rel "
+              f"{twin_rel:.3g}, parameters after it max|d| {twin_dparam:.3g} (2 lr_G = {2 * lr:.3g})")
+    loss_rel, dparam = step_diff(rec["steps"][save][2], rec["snapshots"][save + 1])
+    equal_losses = [a[2] for a in rec_eager["steps"]] == losses[save:]
+    differs = final_differs(final, eager_final)
+    equal_gens = torch.equal(rec["gens"][-1], rec_eager["gens"][-1])
+    held = "parameters, optimizer state and EMA" if label in TRAIN_BIT_EQUAL else "parameters"
+    print(f"[train-main] {label}: captured run against its step-{save} checkpoint resumed eagerly (the checkpoint "
+          f"written captured, read eager): step {save + 1} loss {losses[save]:.8g} captured, "
+          f"{rec_eager['steps'][0][2]:.8g} eager (rel {loss_rel:.3g}); parameters after it max|d| {dparam:.3g} "
+          f"(2 lr_G = {2 * lr:.3g}); steps {save + 1}..{steps} losses bit-equal: {equal_losses}, final {held} "
+          f"bit-equal: {not differs}{f' (differ: {differs})' if differs else ''}; generator states equal after step "
+          f"{steps}: {equal_gens}")
     if label in TRAIN_BIT_EQUAL:
-        check(equal_losses and equal_final and dparam == 0, f"train {label}: the resumed run is not bit-equal")
+        check(equal_losses and not differs and dparam == 0, f"train {label}: captured and eager runs differ")
     else:
-        check(loss_rel <= 1e-6 and dparam <= 2 * lr, f"train {label}: the resumed step differs")
-    del snapshot, resumed, final, resumed_final, rec
+        check(loss_rel <= 1e-6 and dparam <= 2 * lr, f"train {label}: the captured and eager steps differ")
+    check(equal_gens, f"train {label}: the generators' states differ")
+    del final, eager_final
+    if label == "compressor":
+        grad_accum_runs(dev, label, opt, root, data, smi)
 
     p_ms = None
     if plain_steps:
         yml_plain = write_train_yaml(os.path.join(root, "plain.yml"), label, opt, root, data, plain_steps,
                                      steps * 10, steps * 10, plain=True, name=f"{opt['name']}_plain",
                                      pretrain_l=pretrain_l)
-        before = sum(k.launches for k in KERNELS)
+        before = sum(request_counts().values())
         with recorded_steps() as rec_plain, no_checkpoints():
-            train.train(yml_plain, dev)
+            train.train(yml_plain, dev, capture=False)  # eager: a capture would cost more than its few steps
         gc.collect()
         torch.cuda.empty_cache()
-        check(sum(k.launches for k in KERNELS) == before, f"train {label}: the plain path launched a kernel")
+        check(sum(request_counts().values()) == before, f"train {label}: the plain path launched a kernel")
         p_ms = stats_.median([r[1] for r in rec_plain["steps"][2:]])
-    k_ms = stats_.median(ms)
+    k_ms, k_host = stats_.median([r[1] for r in rec["steps"][2:]]), stats_.median(rec["host_ms"][2:])
+    later = slice(1, None) if len(rec_eager["steps"]) > 1 else slice(None)  # past the eager run's first step
+    e_ms = stats_.median([r[1] for r in rec_eager["steps"][later]])
+    e_host = stats_.median(rec_eager["host_ms"][later])
+    capture_s = sum(cap["warm_s"]) + sum(cap["capture_s"])
     print(f"[train-main] {label}: {steps} steps, batch {batch} at {crop}px, float32 (cuDNN TF32 on), {seconds:.1f} s "
           f"with {steps // save + 1} saves and one validation of {val_images} image(s); loss {losses[0]:.4g} -> "
-          f"{losses[-1]:.4g}; launches per step {want}; peak memory {peak / 2**30:.2f} GiB")
-    plain_text = (f"plain path {p_ms:.3f} ({batch * 1e3 / p_ms:.3f} img/s) over {plain_steps - 2} steps" if p_ms
-                  else "plain path not run (TRAIN_PATHS)")
-    print(f"[train-main] {label}: ms/step (median of steps 3..) kernel path {k_ms:.3f} ({batch * 1e3 / k_ms:.3f} "
-          f"img/s), {plain_text}; card: {smi}")
-    record = {"ms_per_step": k_ms, "img_per_s": batch * 1e3 / k_ms, "plain_ms_per_step": p_ms,
-              "plain_img_per_s": batch * 1e3 / p_ms if p_ms else None, "peak_memory_gib": peak / 2**30,
+          f"{losses[-1]:.4g}; launches per step {want}; peak memory captured {peak / 2**30:.2f} GiB, eager "
+          f"{eager_peak / 2**30:.2f} GiB")
+    plain_text = (f"plain path (eager) {p_ms:.3f} ({batch * 1e3 / p_ms:.3f} img/s) over {plain_steps - 2} steps"
+                  if p_ms else "plain path not run (TRAIN_PATHS)")
+    print(f"[train-main] {label}: ms/step captured {k_ms:.3f} ({batch * 1e3 / k_ms:.3f} img/s; median of steps 3..), "
+          f"eager {e_ms:.3f} ({batch * 1e3 / e_ms:.3f} img/s); host ms/step captured {k_host:.3f}, eager "
+          f"{e_host:.3f}; capture {capture_s:.2f} s (warm-up {sum(cap['warm_s']):.2f}, capture "
+          f"{sum(cap['capture_s']):.2f}), graph pool {cap['pool_mib']:.1f} MiB; {plain_text}; card: {smi}")
+    record = {"ms_per_step": k_ms, "img_per_s": batch * 1e3 / k_ms, "host_ms_per_step": k_host,
+              "eager_ms_per_step": e_ms, "eager_img_per_s": batch * 1e3 / e_ms, "eager_host_ms_per_step": e_host,
+              "capture_s": capture_s, "warm_s": sum(cap["warm_s"]), "pool_mib": cap["pool_mib"],
+              "plain_ms_per_step": p_ms, "plain_img_per_s": batch * 1e3 / p_ms if p_ms else None,
+              "peak_memory_gib": peak / 2**30, "eager_peak_memory_gib": eager_peak / 2**30,
               "batch": batch, "crop": crop, "launches_per_step": want, "init": inits, "card": smi}
     return launches, record, os.path.join(exp, "models", f"{steps}_G.pth")
+
+
+def grad_accum_runs(dev, label, opt, root, data, smi):
+    """``train.grad_accum: 2`` on the path ``label`` (the compressor's),
+    GRAD_ACCUM_STEPS calls (half as many updates): eager, writing a
+    checkpoint half-way and at the end; captured from the start (one graph
+    a cycle position); and captured from the eager run's half-way
+    checkpoint (the checkpoint written eager, read captured).  Both
+    captured runs bit-equal to the eager one (losses, final parameters,
+    optimizer state, generator), exact launches a call."""
+    import gc
+
+    import torch
+
+    from image_restoration_sde_tpu_torch import train
+    from image_restoration_sde_tpu_torch.utils import options
+
+    n, half = GRAD_ACCUM_STEPS, GRAD_ACCUM_STEPS // 2
+    want, runs = train_counts(label), {}
+    yml = write_train_yaml(os.path.join(root, "accum.yml"), label, opt, root, data, n, half, n * 10,
+                           name=f"{opt['name']}_accum", train={"grad_accum": 2})
+    exp = options.parse(yml)["path"]["experiments_root"]
+    captured = write_train_yaml(os.path.join(root, "accum_captured.yml"), label, opt, root, data, n, n * 10,
+                                n * 10, name=f"{opt['name']}_accum_captured", train={"grad_accum": 2})
+    resume = write_train_yaml(os.path.join(root, "accum_resume.yml"), label, opt, root, data, n, half, n * 10,
+                              name=f"{opt['name']}_accum", train={"grad_accum": 2},
+                              resume=os.path.join(exp, "training_state", f"{half}.state"))
+    for form, path, capture in (("eager", yml, False), ("captured", captured, True),
+                                ("resumed captured", resume, True)):
+        with recorded_steps() as rec, contextlib.ExitStack() as stack:
+            if form != "eager":
+                stack.enter_context(no_checkpoints())
+            state = train.train(path, dev, capture=capture)
+        runs[form] = (rec, final_state(state, label), state.optimizer.updates)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(all(grew == want for grew, _, _ in rec["steps"]), f"train {label} grad_accum {form}: launches")
+    (eager, e_final, e_updates) = runs["eager"]
+    for form in ("captured", "resumed captured"):
+        rec, final, updates = runs[form]
+        at = half if form.startswith("resumed") else 0
+        graphs = (rec["capture"] or {}).get("graphs")
+        differs = final_differs(final, e_final)
+        same = ([r[2] for r in rec["steps"]] == [r[2] for r in eager["steps"][at:]] and not differs
+                and torch.equal(rec["gens"][-1], eager["gens"][-1]) and updates == e_updates == n // 2)
+        print(f"[train-main] {label} grad_accum 2, {form}{f' from the eager step-{half} checkpoint' if at else ''}: "
+              f"{len(rec['steps'])} calls, {updates} updates, {graphs} graphs (one a cycle position), against "
+              f"eager: losses, final parameters, optimizer state and generator bit-equal: {same}"
+              f"{f' (differ: {differs})' if differs else ''} (card: {smi})")
+        check(same and graphs == 2, f"train {label} grad_accum {form}: differs from eager")
 
 
 # ---------------------------------------------------------------- the train initialisation
@@ -3362,11 +3539,13 @@ EVAL_PATHS = {
 # the Gaussian denoising nets' reverse ODE steps: get_optimal_timestep of
 # sigma on the cosine T 1000, max_sigma 70 schedule (the JAX package's
 # integers, tests/test_torch_denoising.py)
-DENOISE_STEPS = {50: DENOISE_T0, 25: 230, 15: 158}
-# the Gaussian denoising test YAMLs' noise cut to sigma 15 (158 ODE steps;
-# ir-sde.yml's 50 takes 414, and a capture of them ~9 s more):
-# the main path and the denoising artifact run 414
-EVAL_DENOISE_SIGMA = 15
+DENOISE_STEPS = {50: DENOISE_T0, 8: 100, 5: 71}
+# the Gaussian denoising test YAMLs' noise cut to sigma 5 (71 ODE steps;
+# ir-sde.yml's 50 takes 414, and a capture of them ~9 s more), to the time
+# limit: the main path and the denoising artifact run 414; the inference
+# entry point's sigma (100 steps)
+EVAL_DENOISE_SIGMA = 5
+INFERENCE_SIGMA = 8
 # TLSC (CNAFNetLocal: deraining/test/refusion.yml's net with windows of a
 # 256 px train crop, 1.5 x 256 / 8 = 48 at the 28-block level): a 224x240
 # set, whose padded 224x240 map (28x30 at that level) the window covers, so
@@ -3382,10 +3561,10 @@ EVAL_TILE = (256, 32, 4)
 # TF32 off (with TF32 on, a float32 difference in a conv's input can flip
 # its TF32 rounding), the saved PNGs within EVAL_PLAIN_LEVELS of 255; a
 # small image: the plain K2's softmax over the tokens takes 90 s for 414
-# steps at 256x320; sigma 15 (158 ODE steps; 50, the YAML's, takes 414),
-# a cut of ~9 s that pays for the native, tools and NAFNet tensor-parallel
-# phases
-EVAL_PLAIN_HW, EVAL_PLAIN_LEVELS, EVAL_PLAIN_SIGMA = (60, 90), 1, 15
+# steps at 256x320; sigma 5 (71 ODE steps; 50, the YAML's, takes 414), a
+# cut that pays for the native, tools, NAFNet tensor-parallel and captured
+# train phases
+EVAL_PLAIN_HW, EVAL_PLAIN_LEVELS, EVAL_PLAIN_SIGMA = (60, 90), 1, 5
 # LPIPS and FID on the card against the same modules on the CPU (TF32 off):
 # LPIPS within 1e-4 of each distance, pool3 features within 1e-4 of max|f|
 LPIPS_FID_IMAGES, LPIPS_FID_BOUND = 3, 1e-4
@@ -3638,7 +3817,7 @@ def phase_eval(dev, workdir, smi, trained, stats, children):
     torch's default TF32 settings (cuDNN TF32 on), as a user's run gets
     them: EVAL_PATHS' test sets and weights, exactly ``eval_counts``
     launches per image, the PNGs and finite metrics; then the TLSC run, the
-    tiled run, an inference run (``--sigma 25``), the restore CLI in its own
+    tiled run, an inference run (``--sigma`` INFERENCE_SIGMA), the restore CLI in its own
     process, an LPIPS and FID run (seeded weights, held against the CPU),
     and Gaussian denoising's kernel path against its plain path.  Every K1,
     K2 and K3 launch of these runs records its site (shape and dtype), and
@@ -3739,15 +3918,15 @@ def eval_tiled(dev, root, smi, trained):
 
 def eval_inference(dev, root, smi):
     """``python -m image_restoration_sde_tpu_torch.inference`` (its
-    ``infer``) on denoising/test/ir-sde.yml with ``--sigma 25``: GT plus
-    noise of sigma 25, the reverse ODE from its optimal timestep; one PNG
+    ``infer``) on denoising/test/ir-sde.yml with ``--sigma`` INFERENCE_SIGMA:
+    GT plus noise of that sigma, the reverse ODE from its optimal timestep; one PNG
     and exactly those steps' launches an image."""
     import copy
 
     from image_restoration_sde_tpu_torch import inference
     from image_restoration_sde_tpu_torch.ops import KERNELS
 
-    parts, sigma, n = ("denoising", "ir-sde.yml"), 25, 1  # one image: a depth cut to the time limit
+    parts, sigma, n = ("denoising", "ir-sde.yml"), INFERENCE_SIGMA, 1  # one image: a depth cut to the time limit
     opt = eval_yaml(parts)
     root = os.path.join(root, "inference")
     data = write_eval_data(os.path.join(root, "data"), "gt", n, (500, 500), SEED + 86)
@@ -4781,7 +4960,7 @@ def phase_train_tp(dev, opts, workdir, smi, pretrain_l, children, dp_pending=Non
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with recorded_steps(grads_at=(1,)) as rec, no_checkpoints():
-            train.train(one_yml, dev)
+            train.train(one_yml, dev, capture=False)  # eager, as the split ranks' steps
         refs[label] = {"losses": [st[2] for st in rec["steps"]], "ms": [st[1] for st in rec["steps"]],
                        "grads": rec["grads"][1], "peak": torch.cuda.max_memory_allocated()}
         del rec
@@ -5222,11 +5401,13 @@ def bench_launches(before):
 def phase_bench_train(dev, smi):
     """``bench_train`` (what ``python -m image_restoration_sde_tpu_torch.
     bench_train`` runs) on each workload of BENCH_TRAIN at full width,
-    BENCH_TRAIN_STEPS timed steps, torch's default TF32 settings: its line
-    printed and checked (img/s/GPU, an MFU against the card's bf16 peak,
-    the card's name), exactly the forward's launches on every step (the
-    first, the timed ones and the FLOP-counting one), none in the
-    backward.  Returns the launches and the lines."""
+    BENCH_TRAIN_STEPS timed steps, torch's default TF32 settings, captured
+    then eager: its line printed and checked (the captured form's img/s/GPU
+    and MFU against the card's bf16 peak, the eager form's beside them, the
+    card's name), exactly the forward's launches on every step of both
+    forms (the first, the timed ones and the eager FLOP-counting one; the
+    captured form's warm-up apart), none in the backward.  Returns the
+    launches and the lines."""
     import torch
 
     from image_restoration_sde_tpu_torch import bench_train
@@ -5241,9 +5422,10 @@ def phase_bench_train(dev, smi):
             before = request_counts()
             line = bench_train.run(dev, arch, pipe, batch, size, BENCH_TRAIN_STEPS)
             grew = bench_launches(before)
-            want = {sym: n * (BENCH_TRAIN_STEPS + 2) for sym, n in per_step[arch].items()}
+            want = {sym: n * (2 * BENCH_TRAIN_STEPS + 3) for sym, n in per_step[arch].items()}
             check(grew == want, f"bench train {arch}: launches {grew}, expected {want}")
-            check(line["unit"] == "img/s/GPU" and line["value"] > 0 and 0 < line["mfu"] < 1
+            check(line["unit"] == "img/s/GPU" and line["form"] == "captured" and line["value"] > 0
+                  and 0 < line["mfu"] < 1 and line["eager"]["value"] > 0 and 0 < line["eager"]["mfu"] < 1
                   and line["device"] == torch.cuda.get_device_name(0), f"bench train {arch}: line {line}")
             for sym, n in grew.items():
                 launches[sym] += n

@@ -93,8 +93,9 @@ def train_step(device: torch.device, global_batch: int, state_dict=None, model_p
     lq, gt = make_batch(global_batch)
     rows = dist.rows(global_batch)
     before = {k.symbol: k.launches for k in KERNELS}
-    state, metrics = make_train_step(make_sde(device))(state, lq[rows].to(device), gt[rows].to(device),
-                                                       step_generator(device))
+    # eager in one process too: the ranks' steps are (their collectives are not captured)
+    state, metrics = make_train_step(make_sde(device), capture=False)(state, lq[rows].to(device),
+                                                                      gt[rows].to(device), step_generator(device))
     launches = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
     moments = state.optimizer.inner.state
     kept = all(p.shape == split[k] and all(v.shape == p.shape for v in moments[p].values() if v.dim())

@@ -11,7 +11,10 @@ Every C entry point launches on the stream it is given and returns
 the launches that went through.  Under a CUDA graph capture
 (:func:`recording`, ``sde/captured.py``) a call records a node and launches
 nothing: the :class:`Recording` counts it, and each replay of the graph adds
-those counts to the kernels' ``launches`` (:meth:`Recording.replayed`).
+those counts to the kernels' ``launches`` (:meth:`Recording.replayed`).  A
+call that another thread makes on the stream of a warm-up or capture under
+way (the autograd engine's, running a train step's backward) counts as
+that warm-up's or capture's (:func:`on_stream`).
 
 Each public op of ``../ops`` is one operator of the ``irsde`` library
 (:func:`define_op`): a CUDA implementation that launches the kernels, a CPU
@@ -161,7 +164,7 @@ class Kernel:
         return fn
 
     def __call__(self, *args) -> None:
-        rec = _THREAD.recording
+        rec, warming = _state()
         with _LAUNCH_LOCK:
             err = self._fn(*args)
             if err == 0:
@@ -169,7 +172,7 @@ class Kernel:
                     rec.tally[self] = rec.tally.get(self, 0) + 1
                 else:
                     self.launches += 1
-                    self.warmups += _THREAD.warming
+                    self.warmups += warming
         if err != 0:
             msg = load_library().irsde_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
@@ -184,6 +187,33 @@ class _Thread(threading.local):
 
 
 _THREAD = _Thread()
+# CUDA stream -> (Recording or None, warming) of a warm-up or capture under
+# way on it (:func:`on_stream`)
+_ON_STREAM = {}
+
+
+def _state() -> tuple:
+    """(the Recording, whether warming up) that a launch from this thread
+    counts under: its own, else that of a warm-up or capture on the stream
+    it launches on (the autograd engine runs a captured step's backward,
+    and any forward recomputed there, on threads of its own)."""
+    rec, warming = _THREAD.recording, _THREAD.warming
+    if rec is None and not warming and _ON_STREAM:
+        rec, warming = _ON_STREAM.get(torch.cuda.current_stream().cuda_stream, (None, False))
+    return rec, warming
+
+
+@contextlib.contextmanager
+def on_stream(stream):
+    """The block runs this thread's warm-up or capture (:func:`warming_up`,
+    :func:`recording`) on ``stream``: launches other threads put on that
+    stream meanwhile count as this thread's."""
+    key = stream.cuda_stream
+    _ON_STREAM[key] = (_THREAD.recording, _THREAD.warming)
+    try:
+        yield
+    finally:
+        _ON_STREAM.pop(key, None)
 
 
 class Recording:
@@ -227,15 +257,17 @@ def warming_up():
 
 
 def capturing() -> bool:
-    """Whether this thread is capturing a graph (inside :func:`recording`)."""
-    return _THREAD.recording is not None
+    """Whether this thread is capturing a graph (inside :func:`recording`,
+    or on the stream of one, :func:`on_stream`)."""
+    return _state()[0] is not None
 
 
 def hold(*tensors) -> None:
     """Make the graph this thread captures own ``tensors``, which its
     nodes read by address: nothing while no capture is under way."""
-    if _THREAD.recording is not None:
-        _THREAD.recording.held.extend(tensors)
+    rec = _state()[0]
+    if rec is not None:
+        rec.held.extend(tensors)
 
 
 def ptr(t) -> ctypes.c_void_p:

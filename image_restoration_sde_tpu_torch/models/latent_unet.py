@@ -95,6 +95,13 @@ class UNet(nn.Module):
             x = down(x)
         return self.latent_conv(x).permute(0, 2, 3, 1), hs
 
+    def latent_shape(self, shape: Sequence[int]) -> tuple:
+        """The NHWC shape of :meth:`encode`'s latent for an NHWC input of
+        ``shape``: padded to a multiple of 2^depth, at 1/2^(depth-1)."""
+        B, H, W = shape[:3]
+        m = 2**self.depth
+        return (B, -(-H // m) * 2, -(-W // m) * 2, self.latent_conv.out_channels)
+
     def decode(self, latent: torch.Tensor, hs: List[torch.Tensor],
                hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """NHWC latent and the skips -> NHWC float32 image, cropped to ``hw``

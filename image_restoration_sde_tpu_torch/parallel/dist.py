@@ -202,12 +202,13 @@ def _rank_main(local: int, fn: Callable, world: int, port: int, device: str, bac
         shutdown()
 
 
-def spawn(fn: Callable, world: int, *args, device: str = "cpu", backend: Optional[str] = None) -> list:
+def spawn(fn: Callable, world: int, *args, device: str = "cuda", backend: Optional[str] = None) -> list:
     """Run ``fn(rank_device, *args)`` in ``world`` fresh processes that
     join one process group (as ``torchrun`` would start them, on this host)
-    and return their results in rank order.  ``fn`` and ``args`` are
-    pickled (``fn`` by its import path); a rank that raises makes this
-    raise."""
+    and return their results in rank order.  ``device``: the ranks' device,
+    the card unless ``"cpu"`` is asked for (``init`` places each rank).
+    ``fn`` and ``args`` are pickled (``fn`` by its import path); a rank
+    that raises makes this raise."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="irsde_ranks_") as out_dir:

@@ -24,6 +24,11 @@ and ``maybe_load_pretrained(state)``; the samplers that restore tiles also
 ``sample_batch(tiles, gens)``, the ``sample_fn`` of
 ``tiling.tiled_restore`` and ``tiled_restore_device``.
 
+On the card, in one process, each task's train step replays one captured
+CUDA graph a step signature (``training/captured.py``), as each JAX task
+jits its step with the state donated; ``build_task(..., capture=False)``
+keeps them eager.  Validation samples eagerly (``_captures``).
+
 The net's initial weights are the JAX package's initialisation (flax's
 ``lecun_normal`` kernels, zero biases, flax's constants), drawn from the
 run's seed; so are a latent task's compressor's, unless
@@ -90,20 +95,22 @@ def effective_distortion(opt) -> str:
     return opt["distortion"] or "paired"
 
 
-def build_task(opt, seed: int, device, mesh=None):
+def build_task(opt, seed: int, device, mesh=None, capture=True):
     """The YAML's task on ``device``; ``mesh`` (``parallel.mesh.make_mesh``'s)
-    splits its net over the model axis where that is longer than 1."""
+    splits its net over the model axis where that is longer than 1.
+    ``capture``: whether its train steps replay captured graphs on the card
+    (``training/captured.py``; one process only); False, eager."""
     model_type = opt["model"]
     if model_type == "denoising" and effective_distortion(opt) == "denoising":
-        return GaussianDenoisingTask(opt, seed, device, mesh)
+        return GaussianDenoisingTask(opt, seed, device, mesh, capture)
     if model_type in ("denoising", "sde"):
-        return PixelDiffusionTask(opt, seed, device, mesh)
+        return PixelDiffusionTask(opt, seed, device, mesh, capture)
     if model_type == "latent":
-        return CompressorTask(opt, seed, device, mesh)
+        return CompressorTask(opt, seed, device, mesh, capture)
     if model_type == "latent_denoising":
         if _dataset_mode(opt).startswith("Bokeh"):
-            return BokehLatentDiffusionTask(opt, seed, device, mesh)
-        return LatentDiffusionTask(opt, seed, device, mesh)
+            return BokehLatentDiffusionTask(opt, seed, device, mesh, capture)
+        return LatentDiffusionTask(opt, seed, device, mesh, capture)
     raise NotImplementedError(f"model type {model_type!r}")
 
 
@@ -149,8 +156,8 @@ def _captures(opt) -> bool:
 class _Base:
     keeps_ema = True  # whether the train state keeps an EMA of the net
 
-    def __init__(self, opt, seed: int, device, which: str, setting: dict, mesh=None):
-        self.opt, self.device = opt, torch.device(device)
+    def __init__(self, opt, seed: int, device, which: str, setting: dict, mesh=None, capture=True):
+        self.opt, self.device, self.capture = opt, torch.device(device), capture
         self.deg_rng = np.random.default_rng(seed + 77)
         # test-time configs carry no train: section; a zero-lr placeholder
         # keeps train-state construction uniform
@@ -179,6 +186,10 @@ class _Base:
             weight=float(t["weight"] or 1.0),
             remat=bool(t.get("remat")),
         )
+
+    def _step_kwargs(self):
+        """The train step maker's arguments: the loss's and ``capture``."""
+        return {**self._loss_kwargs(), "capture": self.capture}
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.net.parameters())
@@ -262,15 +273,15 @@ class _Base:
 class PixelDiffusionTask(_Base):
     """IR-SDE on pixels (ref DenoisingModel, denoising_model.py:25-199)."""
 
-    def __init__(self, opt, seed: int, device, mesh=None):
+    def __init__(self, opt, seed: int, device, mesh=None, capture=True):
         which, setting = options.network_setting(opt)
         if _dataset_mode(opt).startswith("Ste") and which == "ConditionalNAFNet":
             # the stereo-sr task dir ships its own ConditionalNAFNet with
             # SCAM fusion under the same class name (SURVEY §2.2)
             which = "StereoConditionalNAFNet"
-        super().__init__(opt, seed, device, which, setting, mesh)
+        super().__init__(opt, seed, device, which, setting, mesh, capture)
         self.sde = _make_irsde(opt["sde"], self.device)
-        self._train_step = make_train_step(self.sde, **self._loss_kwargs())
+        self._train_step = make_train_step(self.sde, **self._step_kwargs())
         self.sampler = make_restoration_sampler(self.sde, self.net, **_sampler_options(opt["sde"]),
                                                 capture=_captures(opt))
 
@@ -309,13 +320,13 @@ class GaussianDenoisingTask(_Base):
     noisy state is the input; sigma^2-weighted loss; validation is the
     reverse ODE from the optimal timestep for the degradation sigma."""
 
-    def __init__(self, opt, seed: int, device, mesh=None):
+    def __init__(self, opt, seed: int, device, mesh=None, capture=True):
         which, setting = options.network_setting(opt)
-        super().__init__(opt, seed, device, which, {**setting, "conditional": False}, mesh)
+        super().__init__(opt, seed, device, which, {**setting, "conditional": False}, mesh, capture)
         sde_opt = opt["sde"]
         self.sde = DenoisingSDE.create(max_sigma=sde_opt["max_sigma"], T=int(sde_opt["T"]),
                                        schedule=sde_opt["schedule"], device=self.device)
-        kwargs = self._loss_kwargs()
+        kwargs = self._step_kwargs()
         if self.train_opt["is_weighted"] is None:
             kwargs["is_weighted"] = True
         self._train_step = make_denoising_train_step(self.sde, **kwargs)
@@ -344,12 +355,12 @@ class CompressorTask(_Base):
 
     keeps_ema = False
 
-    def __init__(self, opt, seed: int, device, mesh=None):
+    def __init__(self, opt, seed: int, device, mesh=None, capture=True):
         which, setting = options.network_setting(opt, "network_L" if opt["network_L"] else "network_G")
-        super().__init__(opt, seed, device, which, setting, mesh)
+        super().__init__(opt, seed, device, which, setting, mesh, capture)
         t = self.train_opt
         self._train_step = make_compressor_train_step(loss_type=t["loss_type"] or "l1",
-                                                      weight=float(t["weight"] or 1.0))
+                                                      weight=float(t["weight"] or 1.0), capture=capture)
 
     def maybe_load_pretrained(self, state) -> None:
         """On resume, the resumed iteration's ``{iter}_G.pth``, to which
@@ -386,13 +397,13 @@ class LatentDiffusionTask(_Base):
     ``network_L`` (ref latent_denoising_model.py:26-236); validation through
     the latent sampler."""
 
-    def __init__(self, opt, seed: int, device, mesh=None):
+    def __init__(self, opt, seed: int, device, mesh=None, capture=True):
         which, setting = self._score_network(opt)
-        super().__init__(opt, seed, device, which, setting, mesh)
+        super().__init__(opt, seed, device, which, setting, mesh, capture)
         which_l, setting_l = options.network_setting(opt, "network_L")
         self.compressor = _seeded_network(which_l, setting_l, seed + 1).to(self.device)
         self.sde = _make_irsde(opt["sde"], self.device)
-        self._train_step = make_latent_train_step(self.sde, self.compressor, **self._loss_kwargs())
+        self._train_step = make_latent_train_step(self.sde, self.compressor, **self._step_kwargs())
         self.sampler = make_latent_sampler(self.sde, self.net, self.compressor, **_sampler_options(opt["sde"]),
                                            capture=_captures(opt))
 

@@ -84,7 +84,7 @@ class CudaGraphs:
         current = torch.cuda.current_stream(device)
         side = _stream(device, "warm")
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), kernels.on_stream(side):
             fn()
         current.wait_stream(side)
 
@@ -93,7 +93,8 @@ class CudaGraphs:
         stream = _stream(device, "capture")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, stream=stream,
-                                                         capture_error_mode="thread_local"):
+                                                         capture_error_mode="thread_local"), \
+                kernels.on_stream(stream):
             out = fn()
         return graph, out
 

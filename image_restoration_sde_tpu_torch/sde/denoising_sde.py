@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .rng import draw_rows
+from .rng import draw_states
 from .schedules import ScheduleTables, tables_for
 
 
@@ -139,13 +139,20 @@ class DenoisingSDE:
         """sigma_t^2 loss weights."""
         return self.sigma(t) ** 2
 
+    def draw_states(self, gen: torch.Generator, x0: torch.Tensor, shard: Optional[tuple] = None) -> tuple:
+        """``(timesteps, noises)`` of a train step on ``x0`` (``rng.draw_states``)."""
+        return draw_states(gen, self.T, x0, shard)
+
+    def compose_states(self, x0: torch.Tensor, timesteps: torch.Tensor,
+                       noises: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(timesteps, x_t = x0 + sigma_bar_t * noise)`` of :meth:`draw_states`' draws."""
+        return timesteps, noises * self.sigma_bar(timesteps) + x0
+
     def generate_random_states(self, gen: torch.Generator, x0: torch.Tensor,
                                shard: Optional[tuple] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-example t ~ U{1..T} and x_t = x0 + sigma_bar_t * noise;
-        ``shard`` as in :meth:`IRSDE.generate_random_states`.
+        """Per-example t ~ U{1..T} and x_t = x0 + sigma_bar_t * noise
+        (:meth:`compose_states` of :meth:`draw_states`); ``shard`` as in
+        :meth:`IRSDE.generate_random_states`.
 
         Returns ``(timesteps (B,1,1,1) int64, noisy_states NHWC f32)``."""
-        rows, batch = draw_rows(x0.shape[0], shard)
-        timesteps = torch.randint(1, self.T + 1, (batch, 1, 1, 1), generator=gen, device=x0.device)[rows]
-        noises = torch.randn((batch, *x0.shape[1:]), generator=gen, dtype=torch.float32, device=x0.device)[rows]
-        return timesteps, noises * self.sigma_bar(timesteps) + x0
+        return self.compose_states(x0, *self.draw_states(gen, x0, shard))

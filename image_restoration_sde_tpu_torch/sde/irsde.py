@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .rng import GeneratorLike, draw_rows, normal_like
+from .rng import GeneratorLike, draw_states, normal_like
 from .schedules import ScheduleTables, build_tables
 
 
@@ -145,10 +145,22 @@ class IRSDE:
     def weights(self, t):
         return torch.exp(-self.theta_cumsum(t) * self.dt)
 
+    def draw_states(self, gen: torch.Generator, x0: torch.Tensor, shard: Optional[tuple] = None) -> tuple:
+        """``(timesteps, noises)`` of a train step on ``x0`` (``rng.draw_states``)."""
+        return draw_states(gen, self.T, x0, shard)
+
+    def compose_states(self, x0: torch.Tensor, mu: torch.Tensor, timesteps: torch.Tensor,
+                       noises: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(timesteps, x_t)``: the noisy states of :meth:`draw_states`' draws."""
+        state_mean = self.mu_bar(x0, mu, timesteps)
+        noisy_states = noises * self.sigma_bar(timesteps) + state_mean
+        return timesteps, noisy_states.float()
+
     def generate_random_states(
         self, gen: torch.Generator, x0: torch.Tensor, mu: torch.Tensor, shard: Optional[tuple] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Sample per-example t ~ U{1..T} and the matching noisy state x_t.
+        """Sample per-example t ~ U{1..T} and the matching noisy state x_t:
+        :meth:`compose_states` of :meth:`draw_states`.
 
         ``shard = (rank, world)``: ``x0`` and ``mu`` are rank's rows of a
         global batch of ``world`` times as many; the draws are the global
@@ -156,16 +168,7 @@ class IRSDE:
 
         Returns ``(timesteps (B,1,1,1) int64, noisy_states NHWC f32)``.
         """
-        rows, batch = draw_rows(x0.shape[0], shard)
-        timesteps = torch.randint(
-            1, self.T + 1, (batch, 1, 1, 1), generator=gen, device=x0.device
-        )[rows]
-        state_mean = self.mu_bar(x0, mu, timesteps)
-        noises = torch.randn(
-            (batch, *state_mean.shape[1:]), generator=gen, dtype=torch.float32, device=x0.device
-        )[rows]
-        noisy_states = noises * self.sigma_bar(timesteps) + state_mean
-        return timesteps, noisy_states.float()
+        return self.compose_states(x0, mu, *self.draw_states(gen, x0, shard))
 
     def noise_state(self, gen: GeneratorLike, x: torch.Tensor) -> torch.Tensor:
         """Test-time init: x + max_sigma * eps (per sample with a generator

@@ -64,6 +64,20 @@ def draw_rows(local: int, shard=None) -> tuple:
     return slice(rank * local, (rank + 1) * local), world * local
 
 
+def draw_states(gen: torch.Generator, T: int, x0: torch.Tensor, shard=None) -> tuple:
+    """A train step's draws for the batch ``x0`` (its shape and device), in
+    this order from ``gen``: per-example timesteps t ~ U{1..T}, ``(B, 1, 1,
+    1)`` int64, then N(0, 1) noise of ``x0``'s shape, float32; with
+    ``shard`` the global batch's (:func:`draw_rows`), this rank's rows
+    kept.  The SDEs compose the noisy states from them
+    (``compose_states``): a captured train step reads the draws from
+    buffers filled before each replay."""
+    rows, batch = draw_rows(x0.shape[0], shard)
+    timesteps = torch.randint(1, T + 1, (batch, 1, 1, 1), generator=gen, device=x0.device)[rows]
+    noises = torch.randn((batch, *x0.shape[1:]), generator=gen, dtype=torch.float32, device=x0.device)[rows]
+    return timesteps, noises
+
+
 def generators_for_seeds(seeds: Sequence[int], device="cuda") -> list:
     """One seeded generator per sample."""
     return [generator(s, device) for s in seeds]

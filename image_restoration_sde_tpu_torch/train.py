@@ -11,7 +11,10 @@ latent_denoising``, whose frozen compressor loads from
 ``path.pretrain_model_L``, e.g. a compressor run's ``{iter}_G.pth``).
 
 It runs on the card unless ``--device cpu`` is given; without a card it
-raises.  Data parallelism: under
+raises.  On the card, in one process, each train step replays one captured
+CUDA graph of its forward, backward and update a step signature
+(``training/captured.py``), bit-equal to the eager step; ``train(...,
+capture=False)`` trains eagerly.  Data parallelism: under
 
     torchrun --nproc_per_node N -m image_restoration_sde_tpu_torch.train -opt=<yml> [--device cuda|cpu]
 
@@ -57,23 +60,24 @@ from .utils import options
 from .utils.logging_utils import TensorboardWriter, mkdir_and_rename, mkdirs, setup_logger
 
 
-def train(opt_path: str, device="cuda", backend: Optional[str] = None):
+def train(opt_path: str, device="cuda", backend: Optional[str] = None, capture=True):
     """Run the YAML's training to ``train.niter`` iterations; returns the
     final ``TrainState``.  Started by ``torchrun``, the process joins its
     process group (``backend``: ``parallel.dist.init``'s default by
-    device) and leaves it at the end."""
+    device) and leaves it at the end.  ``capture=False``: every step eager
+    (``runners.build_task``)."""
     device = resolve_device(str(device))
     joined = not dist.is_initialized() and dist.launched()
     device = dist.init(device, backend)
     try:
-        return _train(opt_path, device)
+        return _train(opt_path, device, capture)
     finally:
         dist.use_mesh(None)
         if joined:
             dist.shutdown()
 
 
-def _train(opt_path: str, device: torch.device):
+def _train(opt_path: str, device: torch.device, capture=True):
     primary = dist.process_is_primary()
     opt = options.parse(opt_path, is_train=True)
     resume_state_path = opt["path"].get("resume_state")
@@ -105,7 +109,7 @@ def _train(opt_path: str, device: torch.device):
 
     # ---------------------------------------------------------------- task
     mesh = make_mesh(options.model_parallel(opt))
-    task = build_task(opt, seed, device, mesh)
+    task = build_task(opt, seed, device, mesh, capture)
     logger.info(f"Task {type(task).__name__}: {task.n_params():,d} parameters")
     state = task.state
     if state.layout is not None:

@@ -14,6 +14,8 @@ Counterpart of ``image_restoration_sde_tpu/training/latent.py``:
 - :func:`make_latent_train_step`: the latent dehazing / bokeh objective
   (ref latent_denoising_model.py:154-176): LQ and GT encoded by the FROZEN
   compressor in one 2B batch, then the pixel IR-SDE step on the latents.
+  On the card the encode runs inside the step's captured graph
+  (``training/captured.py``), as it runs inside the JAX latent step's jit.
 - :func:`make_latent_sampler`: encode the LQ image with the frozen
   compressor, noise the latent, reverse the IR-SDE in latent space with the
   score net, decode with the LQ skips and crop to the input size; the bokeh
@@ -35,27 +37,36 @@ from ..sampling import CapturedNet, capture_graphs, captures, check_mode, chunke
 from ..sde import IRSDE, samplers
 from ..sde.captured import generator_layout
 from ..sde.rng import GeneratorLike
+from .captured import replays, step_graphs
 from .losses import matching_loss
-from .trainer import TrainState, _apply_update, make_train_step, step_metrics
+from .trainer import TrainState, eager_step, irsde_loss, replayed_step
 
 
-def make_compressor_train_step(loss_type: str = "l1", weight: float = 1.0, reg_weight: float = 0.001) -> Callable:
+def make_compressor_train_step(loss_type: str = "l1", weight: float = 1.0, reg_weight: float = 0.001,
+                               capture=True) -> Callable:
     """The compressor's train step, ``(state, lq, gt, gen) -> (state,
     metrics)``: ``state.net`` is the compressor :class:`UNet`, ``lq`` and
     ``gt`` NHWC float32 at a multiple of its padding (``gen`` is not drawn
     from: the objective has no noise).  Metrics: ``loss``, ``loss_rec``,
-    ``loss_rep``, ``loss_reg``."""
+    ``loss_rep``, ``loss_reg``.  ``capture`` as in
+    ``trainer.make_train_step``."""
+    graphs = step_graphs(capture)
 
-    def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen=None):
+    def loss(state, lq, gt):
         rec, rep, l_lq = (state.ddp if state.ddp is not None else CrossDecode(state.net))(lq, gt)
         loss_rec = matching_loss(rec, lq, loss_type)
         loss_rep = matching_loss(rep, gt, loss_type)
         loss_reg = ((l_lq.mean() - lq.mean()).abs()
                     + (l_lq.std(correction=0) - lq.std(correction=0) * 0.5).abs())
-        loss = weight * (loss_rec + loss_rep + reg_weight * loss_reg)
-        metrics = {"loss": loss, "loss_rec": loss_rec, "loss_rep": loss_rep, "loss_reg": loss_reg}
-        return _apply_update(state, loss), step_metrics(state, metrics)
+        total = weight * (loss_rec + loss_rep + reg_weight * loss_reg)
+        return {"loss": total, "loss_rec": loss_rec, "loss_rep": loss_rep, "loss_reg": loss_reg}
 
+    def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen=None):
+        if not replays(graphs, state, lq):
+            return eager_step(state, loss(state, lq, gt))
+        return replayed_step(state, graphs, ("compressor",), lambda lq, gt: loss(state, lq, gt), (lq, gt))
+
+    train_step.graphs = graphs
     return train_step
 
 
@@ -77,25 +88,43 @@ class CrossDecode(nn.Module):
 
 
 def make_latent_train_step(sde: IRSDE, compressor: UNet, loss_type: str = "l1", is_weighted: bool = False,
-                           weight: float = 1.0, remat: bool = False) -> Callable:
+                           weight: float = 1.0, remat: bool = False, capture=True) -> Callable:
     """The latent IR-SDE train step, ``(state, lq, gt, gen[, cond]) ->
     (state, metrics)``: ``compressor`` (frozen here: no grad, eval mode)
     encodes the concatenated LQ and GT batch under ``torch.no_grad()``, and
-    :func:`~.trainer.make_train_step`'s step runs on the two latents, its
+    ``trainer.make_train_step``'s objective runs on the two latents, its
     states drawn from ``gen``; ``cond`` (the bokeh lens values) goes to the
     score net as its fourth argument.  The EMA moves where the state keeps
     one.  ``remat`` wraps the score net in ``torch.utils.checkpoint`` (the
-    JAX runners never pass it to their latent tasks)."""
+    JAX runners never pass it to their latent tasks).  ``capture`` as in
+    ``make_train_step``: a replayed step encodes inside its graph, its
+    draws shaped by ``compressor.latent_shape``."""
     compressor.requires_grad_(False).eval()
-    step = make_train_step(sde, loss_type=loss_type, is_weighted=is_weighted, weight=weight, remat=remat)
+    kw = dict(loss_type=loss_type, is_weighted=is_weighted, weight=weight, remat=remat)
+    graphs = step_graphs(capture)
+
+    def latents(lq, gt):
+        with torch.no_grad():
+            latent, _ = compressor.encode(torch.cat([lq, gt], dim=0))
+        return latent.chunk(2, dim=0)
 
     def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen: torch.Generator,
                    cond: Optional[Tuple] = None):
-        with torch.no_grad():
-            latent, _ = compressor.encode(torch.cat([lq, gt], dim=0))
-        latent_lq, latent_gt = latent.chunk(2, dim=0)
-        return step(state, latent_lq, latent_gt, gen, cond)
+        if not replays(graphs, state, lq):
+            latent_lq, latent_gt = latents(lq, gt)
+            states = sde.generate_random_states(gen, latent_gt, latent_lq, state.shard)
+            return eager_step(state, irsde_loss(sde, state, latent_lq, latent_gt, states, cond, **kw))
 
+        def loss_fn(lq, gt, timesteps, noises, *cond):
+            latent_lq, latent_gt = latents(lq, gt)
+            states = sde.compose_states(latent_gt, latent_lq, timesteps, noises)
+            return irsde_loss(sde, state, latent_lq, latent_gt, states, cond or None, **kw)
+
+        draws = sde.draw_states(gen, lq.new_empty(compressor.latent_shape(lq.shape)), state.shard)
+        return replayed_step(state, graphs, ("latent", remat), loss_fn, (lq, gt, *draws, *(cond or ())),
+                             also=(compressor,))
+
+    train_step.graphs = graphs
     return train_step
 
 

@@ -19,6 +19,15 @@ Draws come from the run's ``torch.Generator`` through
 ``sde.generate_random_states``, in sequence; the generator's state is part
 of a checkpoint, so a resumed run draws what an uninterrupted one would.
 
+On the card, in one process, a step replays one captured CUDA graph of its
+forward, backward and update a step signature (``training/captured.py``),
+as the JAX package jits its step: the draws come from the same generator
+in the same order (``sde.draw_states``) into the graph's inputs, which
+composes them (``sde.compose_states``), so a replayed step is the eager
+step bit for bit and leaves the generator where it does.  The CPU,
+data- and tensor-parallel steps and a step maker given ``capture=False``
+run eagerly.
+
 Data parallelism (:func:`data_parallel`): the step's forward runs through a
 ``DistributedDataParallel`` wrapper of the net, which averages the
 gradients over the ranks; every rank draws the global batch's timesteps and
@@ -45,6 +54,7 @@ from torch import nn
 
 from ..parallel import dist
 from ..parallel.tensor import parallelize
+from .captured import replays, step_graphs
 from .ema import EMA
 from .losses import matching_loss
 from .optimizers import ScheduledOptimizer
@@ -79,7 +89,9 @@ class Remat(nn.Module):
         self.net = net
 
     def forward(self, *args):
-        return torch.utils.checkpoint.checkpoint(self.net, *args, use_reentrant=False)
+        # the nets draw nothing in their forward, so the recompute needs no
+        # saved generator state (which a graph capture cannot read)
+        return torch.utils.checkpoint.checkpoint(self.net, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def data_parallel(state: TrainState, module: Optional[nn.Module] = None) -> TrainState:
@@ -144,6 +156,11 @@ def _apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     if state.layout is not None:  # the whole parameters' replicas step on one gradient
         state.layout.average_replicated_grads(state.net)
     state.optimizer.step()
+    return _after_update(state)
+
+
+def _after_update(state: TrainState) -> TrainState:
+    """What follows the update on the host: the EMA and the step count."""
     if state.ema is not None:
         state.ema.update(dict(state.net.named_parameters()))
     state.step += 1
@@ -157,32 +174,65 @@ def step_metrics(state: TrainState, metrics: dict) -> dict:
     return {k: mean(v.detach()) for k, v in metrics.items()}
 
 
+def eager_step(state: TrainState, metrics: dict):
+    """``(state, metrics)`` after the backward of ``metrics["loss"]``, the
+    update, the EMA and the step count, run eagerly."""
+    return _apply_update(state, metrics["loss"]), step_metrics(state, metrics)
+
+
+def replayed_step(state: TrainState, graphs, key, loss_fn: Callable, inputs, also=()):
+    """``(state, metrics)`` of the step ``loss_fn(*inputs)`` replayed from
+    ``graphs`` (``captured.StepGraphs.step``), then the EMA and the step
+    count."""
+    metrics = graphs.step(state, key, loss_fn, inputs, also)
+    return _after_update(state), metrics
+
+
+def irsde_loss(sde, state: TrainState, lq, gt, states, cond=None, loss_type: str = "l1", is_weighted: bool = False,
+               weight: float = 1.0, remat: bool = False) -> dict:
+    """``{"loss": ...}`` of the IR-SDE objective on ``states = (timesteps,
+    x_t)`` (``lq`` the mean, ``gt`` x_0)."""
+    timesteps, xt = states
+    tvec = timesteps.reshape(-1)
+    noise = _score_net(state, remat)(xt, lq, tvec, *(() if cond is None else (cond,)))
+    score = sde.score_from_noise(noise, timesteps)
+    pred = sde.reverse_sde_step_mean(xt, lq, score, timesteps)
+    target = sde.reverse_optimum_step(xt, gt, lq, timesteps)
+    w = sde.weights(tvec) if is_weighted else None
+    return {"loss": weight * matching_loss(pred, target, loss_type, w)}
+
+
 def make_train_step(
     sde,
     loss_type: str = "l1",
     is_weighted: bool = False,
     weight: float = 1.0,
     remat: bool = False,
+    capture=True,
 ) -> Callable:
     """The IR-SDE train step, ``(state, lq, gt, gen[, cond]) -> (state,
     metrics)`` with NHWC float32 ``lq``/``gt`` on the net's device and the
     run's generator; ``state.net(x_t, lq, t)`` predicts the noise, or
     ``state.net(x_t, lq, t, cond)`` where a ``cond`` is given (the bokeh
     net's lens values).  ``remat=True`` recomputes the score net's forward
-    in the backward pass."""
+    in the backward pass.  ``capture`` (``captured.step_graphs``): on the
+    card each step signature is one graph, ``train_step.graphs``."""
+    kw = dict(loss_type=loss_type, is_weighted=is_weighted, weight=weight, remat=remat)
+    graphs = step_graphs(capture)
 
     def train_step(state: TrainState, lq: torch.Tensor, gt: torch.Tensor, gen: torch.Generator,
                    cond: Optional[Tuple] = None):
-        timesteps, xt = sde.generate_random_states(gen, gt, lq, state.shard)
-        tvec = timesteps.reshape(-1)
-        noise = _score_net(state, remat)(xt, lq, tvec, *(() if cond is None else (cond,)))
-        score = sde.score_from_noise(noise, timesteps)
-        pred = sde.reverse_sde_step_mean(xt, lq, score, timesteps)
-        target = sde.reverse_optimum_step(xt, gt, lq, timesteps)
-        w = sde.weights(tvec) if is_weighted else None
-        loss = weight * matching_loss(pred, target, loss_type, w)
-        return _apply_update(state, loss), step_metrics(state, {"loss": loss})
+        if not replays(graphs, state, lq):
+            states = sde.generate_random_states(gen, gt, lq, state.shard)
+            return eager_step(state, irsde_loss(sde, state, lq, gt, states, cond, **kw))
 
+        def loss_fn(lq, gt, timesteps, noises, *cond):
+            return irsde_loss(sde, state, lq, gt, sde.compose_states(gt, lq, timesteps, noises), cond or None, **kw)
+
+        draws = sde.draw_states(gen, gt, state.shard)
+        return replayed_step(state, graphs, ("irsde", remat), loss_fn, (lq, gt, *draws, *(cond or ())))
+
+    train_step.graphs = graphs
     return train_step
 
 
@@ -192,21 +242,31 @@ def make_denoising_train_step(
     is_weighted: bool = True,
     weight: float = 1.0,
     remat: bool = False,
+    capture=True,
 ) -> Callable:
     """The unconditional denoising-SDE train step, ``(state, gt, gen) ->
     (state, metrics)``: the net sees the noisy state alone,
     ``state.net(x_t, None, t)``, and the loss is sigma^2-weighted by default.
+    ``capture`` as in :func:`make_train_step`.
     Parity: ref config/denoising-sde/models/denoising_model.py:136-160."""
+    graphs = step_graphs(capture)
 
-    def train_step(state: TrainState, gt: torch.Tensor, gen: torch.Generator):
-        timesteps, xt = sde.generate_random_states(gen, gt, state.shard)
+    def loss(state, gt, states):
+        timesteps, xt = states
         tvec = timesteps.reshape(-1)
         noise = _score_net(state, remat)(xt, None, tvec)
         score = sde.score_from_noise(noise, timesteps)
         pred = sde.reverse_sde_step_mean(xt, score, timesteps)
         target = sde.reverse_optimum_step(xt, gt, timesteps)
         w = sde.weights(tvec) if is_weighted else None
-        loss = weight * matching_loss(pred, target, loss_type, w)
-        return _apply_update(state, loss), step_metrics(state, {"loss": loss})
+        return {"loss": weight * matching_loss(pred, target, loss_type, w)}
 
+    def train_step(state: TrainState, gt: torch.Tensor, gen: torch.Generator):
+        if not replays(graphs, state, gt):
+            return eager_step(state, loss(state, gt, sde.generate_random_states(gen, gt, state.shard)))
+        draws = sde.draw_states(gen, gt, state.shard)
+        return replayed_step(state, graphs, ("denoising", remat),
+                             lambda gt, *d: loss(state, gt, sde.compose_states(gt, *d)), (gt, *draws))
+
+    train_step.graphs = graphs
     return train_step

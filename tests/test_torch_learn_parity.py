@@ -17,7 +17,20 @@ images, batch 8): the figures ``PERF.md`` quotes for the compressor; with
 stage1.yml``) on ``gen_synth bokeh``'s src and tgt, and beside each
 run's PSNR how much its decode depends on the latent (the PSNR of the
 decode of a zero latent against that of the GT's, both with the LQ skips:
-the higher, the less the latent matters)."""
+the higher, the less the latent matters).
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_learn_parity.py spread 1000 7 jax
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_learn_parity.py spread 1000 7 port
+
+run the Refusion demo's compressor YAML as shipped (batch 8 of 256 px
+crops, its schedule over its 1500 iterations) on ``gen_synth dehaze``'s
+bytes through one package's train entry point on the CPU, with
+``train.manual_seed`` the given seed, up to the given iteration, and print
+each validation's PSNR as a JSON line: ``jax`` is ``tools/train.py``;
+``port`` starts from the weights the JAX package's task draws for that
+seed (flax's init under ``PRNGKey(seed)``), so the two differ in their
+data order and arithmetic only.  Three seeds of each give the JAX
+package's own spread between draws beside the port's (``PERF.md``)."""
 
 from __future__ import annotations
 
@@ -139,7 +152,58 @@ def test_compressor_learns_as_jax_from_the_same_weights(tmp_path):
     assert records[-1]["loss"][0] < records[0]["loss"][0]
 
 
+def spread(work, iters, seed, package):
+    """One ``spread`` run (see the module's docstring) under ``work``: yields
+    ``(iteration, val PSNR)`` of each validation up to ``iters``, then
+    stops the entry point."""
+    import subprocess
+
+    from chip_learn import DEMOS, VAL_LINE, dump_yaml, load_yaml, stage_opt, write_data
+
+    data = os.path.join(work, "data")
+    if not os.path.isdir(data):
+        write_data("dehaze", data)
+    shipped = load_yaml(DEMOS["refusion"][1][0][1])
+    opt = stage_opt(shipped, "dehaze", data, os.path.join(work, f"{package}_{seed}"), {})
+    opt["train"]["manual_seed"] = seed
+    opt["name"] = f"spread_{package}_{seed}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo, "JAX_PLATFORMS": "cpu", "IRSDE_PLATFORM": "cpu"}
+    if package == "jax":
+        cmd = [sys.executable, os.path.join(repo, "tools", "train.py")]
+    else:  # from the JAX task's initial weights (runners._init_params at the train crop)
+        setting = opt["network_G"]["setting"]
+        comp = {**setting, "ch_mult": tuple(setting["ch_mult"])}
+        crop = opt["datasets"]["train"]["GT_size"]
+        params = jax.jit(FlaxCompressor(**comp).init)(jax.random.PRNGKey(seed), jnp.zeros((1, crop, crop, 3)))
+        pth = os.path.join(work, f"jax_init_{seed}.pth")
+        torch.save(state_dict_from_flax(flatten(params), keys=latent_unet_flax_keys(len(comp["ch_mult"]))), pth)
+        opt["path"]["pretrain_model_G"] = pth
+        cmd = [sys.executable, "-m", "image_restoration_sde_tpu_torch.train", "--device", "cpu"]
+    yml = dump_yaml(opt, os.path.join(work, f"{package}_{seed}.yml"))
+    with subprocess.Popen([*cmd, f"-opt={yml}"], cwd=repo, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, bufsize=1) as proc:
+        try:
+            for line in proc.stdout:
+                m = VAL_LINE.search(line)
+                if m:
+                    at = int(m.group(1).replace(",", ""))
+                    yield at, float(m.group(2))
+                    if at >= iters:
+                        break
+        finally:
+            proc.terminate()
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["spread"]:
+        import json
+
+        iters, seed, package = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+        work = os.path.join(os.environ.get("TMPDIR", "/tmp"), "learn_spread")
+        for at, psnr in spread(work, iters, seed, package):
+            print(json.dumps({"package": package, "seed": seed, "iter": at, "val_psnr": psnr}), flush=True)
+        sys.exit(0)
     bokeh = sys.argv[2:3] == ["bokeh"]
     root = os.path.join(os.environ.get("TMPDIR", "/tmp"), "learn_parity_" + ("bokeh" if bokeh else "dehaze"))
     for rec in run(root, int(sys.argv[1]), comp=BOKEH if bokeh else COMP, bokeh=bokeh):

@@ -93,7 +93,7 @@ def test_tp2_split_layers_train_steps_and_checkpoints_against_one_process(tmp_pa
     root = str(tmp_path)
     one = ranks.save_then_step(root, "one")
     want = {"dit": ranks.one_step("dit"), "unet": ranks.one_step("unet")}
-    got = dist.spawn(ranks.tp2_ranks, 2, root)
+    got = dist.spawn(ranks.tp2_ranks, 2, root, device="cpu")
     for r, out in enumerate(got):
         assert out["refused"] == "2 process(es) not divisible by model_parallel=3", r
         for kind in ("dit", "unet", "resumed"):

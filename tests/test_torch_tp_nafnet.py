@@ -122,7 +122,7 @@ def family(tmp_path_factory):
                "compressor": _seeded("compressor"), "latent": _seeded("latent"), "tlsc": nafnet}
     batches = {kind: _batches(kind, 2 if kind == "nafnet" else 1) for kind in ranks.FAMILY}
     one = ranks.family_save_then_step(root, "one", nafnet, batches["nafnet"])
-    got = dist.spawn(ranks.family_ranks, 2, root, weights, batches)
+    got = dist.spawn(ranks.family_ranks, 2, root, weights, batches, device="cpu")
     want = {kind: ranks.family_one_step(kind, weights[kind], batches[kind][0]) for kind in ranks.FAMILY}
     return {"root": root, "one": one, "got": got, "want": want, "weights": weights, "batches": batches,
             "flax": flax_weights}
